@@ -1,0 +1,47 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel library exposes a plain C interface (loaded with ctypes):
+// pointers and the CUDA stream arrive as void*, the dtype as an int code,
+// and each launcher returns cudaGetLastError() so the Python wrapper can
+// raise on a refused launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define REPRO_DTYPE_F32 0
+#define REPRO_DTYPE_BF16 1
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T v);
+
+template <>
+__device__ __forceinline__ float to_f32<float>(float v) { return v; }
+
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+
+// round-to-nearest-even, the rounding of torch's .to(torch.bfloat16)
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+extern "C" const char* repro_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

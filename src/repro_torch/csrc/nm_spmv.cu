@@ -1,0 +1,139 @@
+// nm_spmv: decode-shaped Y[B, O] = X[B, K] . W_sp^T on the compressed N:M
+// stream (values [O, K/M*N] + int8 in-block indices).
+//
+// Replaces src/repro/kernels/nm_spmv.py::nm_spmv_kernel (gather body).
+// Bound on the H100: device-memory bytes.  Each weight row is read once
+// (values + indices, 3/4 of a dense bf16 row at 2:4); the FLOPs are N/M of a
+// dense GEMV and sit far below the FMA rate.  Design: the TPU kept a (B, bk)
+// x slice resident in VMEM across the O sweep; here each CTA stages a
+// K-chunk of x for up to 8 batch rows in shared memory, in x's own dtype
+// (32 KB), with 16-byte loads that are all issued before the first store.
+// Each warp owns one output row and streams its values and indices with
+// lane-interleaved, coalesced loads, unrolled 8 deep so each lane keeps 16
+// loads in flight (a decode step is latency-bound on the weight stream
+// otherwise); neighbouring lanes read neighbouring slots, so their gathers
+// x[b, block*M + idx] hit different banks.  Accumulation is f32 in
+// registers, reduced with warp shuffles.  Batches above 8 take more CTAs
+// along grid.y.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kWarps = 8;             // warps per CTA
+constexpr int kRows = 1;              // output rows per warp
+constexpr int kBGroup = 8;            // batch rows per CTA
+constexpr int kStageBytes = 32768;    // x chunk: 8 * kc * sizeof(T)
+
+// xs[b][k] = x[b0 + b][k0 + k] for k < klen, b < nb.  vec: K and the chunk
+// are multiples of 16/sizeof(T) and x is 16-byte aligned, so each thread
+// moves 16-byte runs, one per batch row, all loads in flight together.
+template <typename T>
+__device__ __forceinline__ void stage_x(T* xs, const T* x, int K, int k0,
+                                        int klen, int kc, int b0, int nb,
+                                        bool vec) {
+  constexpr int VK = 16 / sizeof(T);
+  if (vec) {
+    for (int v = threadIdx.x; v < klen / VK; v += blockDim.x) {
+      uint4 run[kBGroup];
+#pragma unroll
+      for (int b = 0; b < kBGroup; ++b)
+        if (b < nb)
+          run[b] = *reinterpret_cast<const uint4*>(
+              x + (size_t)(b0 + b) * K + k0 + v * VK);
+#pragma unroll
+      for (int b = 0; b < kBGroup; ++b)
+        if (b < nb) *reinterpret_cast<uint4*>(xs + b * kc + v * VK) = run[b];
+    }
+  } else {
+    for (int b = 0; b < nb; ++b)
+      for (int k = threadIdx.x; k < klen; k += blockDim.x)
+        xs[b * kc + k] = x[(size_t)(b0 + b) * K + k0 + k];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32, 4)
+nm_spmv_kernel(const T* __restrict__ x, const T* __restrict__ vals,
+               const int8_t* __restrict__ idx, T* __restrict__ y, int B,
+               int O, int K, int n, int m, int kc, int nshift, bool vec) {
+  __shared__ __align__(16) unsigned char stage[kStageBytes];
+  T* xs = reinterpret_cast<T*>(stage);  // [8][kc]
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row0 = (blockIdx.x * kWarps + warp) * kRows;
+  const int b0 = blockIdx.y * kBGroup;
+  const int nb = min(kBGroup, B - b0);
+  const int nnz = K / m * n;
+
+  float acc[kRows][kBGroup];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int b = 0; b < kBGroup; ++b) acc[r][b] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kc) {
+    const int klen = min(kc, K - k0);
+    __syncthreads();  // every warp is done with the previous chunk
+    stage_x(xs, x, K, k0, klen, kc, b0, nb, vec);
+    __syncthreads();
+    const int e0 = k0 / m * n;  // first slot of this chunk
+    const int ecount = klen / m * n;
+#pragma unroll 8
+    for (int e = lane; e < ecount; e += 32) {
+      const int blk = nshift >= 0 ? (e >> nshift) : (e / n);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int o = row0 + r;
+        if (o >= O) continue;
+        const size_t at = (size_t)o * nnz + e0 + e;
+        const float w = to_f32(vals[at]);
+        const T* col = xs + blk * m + idx[at];
+#pragma unroll
+        for (int b = 0; b < kBGroup; ++b)
+          if (b < nb) acc[r][b] = fmaf(w, to_f32(col[b * kc]), acc[r][b]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int o = row0 + r;
+#pragma unroll
+    for (int b = 0; b < kBGroup; ++b) {
+      const float s = warp_sum(acc[r][b]);
+      if (lane == 0 && o < O && b < nb) y[(size_t)(b0 + b) * O + o] = from_f32<T>(s);
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* x, const void* vals, const void* idx, void* y, int B,
+           int O, int K, int n, int m, cudaStream_t s) {
+  constexpr int VK = 16 / sizeof(T);
+  // chunk: fills the stage, a multiple of M and of the 16-byte run
+  const int kmax = kStageBytes / (kBGroup * (int)sizeof(T));
+  int unit = m;
+  while (unit % VK) unit += m;
+  const int kc = kmax - kmax % unit;
+  if (kc <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = K % VK == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int nshift = (n & (n - 1)) == 0 ? __builtin_ctz(n) : -1;
+  const dim3 grid((O + kWarps * kRows - 1) / (kWarps * kRows),
+                  (B + kBGroup - 1) / kBGroup);
+  nm_spmv_kernel<T><<<grid, kWarps * 32, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(vals),
+      static_cast<const int8_t*>(idx), static_cast<T*>(y), B, O, K, n, m, kc,
+      nshift, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int nm_spmv_launch(const void* x, const void* vals, const void* idx,
+                              void* y, int B, int O, int K, int n, int m,
+                              int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == REPRO_DTYPE_F32) return launch<float>(x, vals, idx, y, B, O, K, n, m, s);
+  if (dtype == REPRO_DTYPE_BF16)
+    return launch<__nv_bfloat16>(x, vals, idx, y, B, O, K, n, m, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

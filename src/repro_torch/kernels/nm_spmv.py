@@ -1,0 +1,74 @@
+"""Decode-shaped N:M sparse linear: Y[B, O] = X[B, K] . W_sp^T.
+
+Kernel: ``csrc/nm_spmv.cu`` (CUDA C++, sm_90a).  It replaces the TPU kernel
+``repro/kernels/nm_spmv.py::nm_spmv_kernel`` (gather body, wrapper
+``repro/kernels/ops.py::nm_spmv``).  On the H100 it is bound by device-memory
+bytes: each compressed weight row (values + int8 indices) is read once per
+call, and the N/M-sparse MACs are far below the FMA rate.  The design keeps
+the TPU's resident-activation idea — a K-chunk of x for up to 8 batch rows
+is staged in shared memory with 16-byte loads — and streams two weight rows
+per warp with coalesced loads, f32 accumulation and a warp-shuffle
+reduction.  Any batch B >= 1 is taken as it is (no pad-to-8); batches
+above 8 use more CTAs.
+
+``nm_spmv_plain`` is the same function in plain torch: the CPU path, and
+what the kernel is held against on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import (DTYPE_CODES, CudaKernel,
+                                       check_cuda_operand)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+KERNEL = CudaKernel("nm_spmv", "nm_spmv_launch",
+                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I])
+
+
+def nm_spmv_plain(x: torch.Tensor, values: torch.Tensor,
+                  indices: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """x [B, K] -> [B, O] in x.dtype; f32 gather-MAC, one in-block slot at a
+    time (bounds the [B, O, K/M] temporaries)."""
+    o, nnz = values.shape
+    nb = nnz // n
+    base = (torch.arange(nb, device=x.device) * m).unsqueeze(0)   # [1, nb]
+    xf = x.float()
+    vals3 = values.reshape(o, nb, n).float()
+    idx3 = indices.reshape(o, nb, n).long()
+    acc = torch.zeros(x.shape[0], o, dtype=torch.float32, device=x.device)
+    for s in range(n):
+        g = xf[:, base + idx3[:, :, s]]                              # [B, o, nb]
+        acc += torch.einsum("bon,on->bo", g, vals3[:, :, s])
+    return acc.to(x.dtype)
+
+
+def nm_spmv(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
+            n: int, m: int) -> torch.Tensor:
+    """Y = X @ W_sp.T for a decode-shaped X [..., K]; W compressed
+    [O, K/M*N].  A CUDA tensor launches the kernel (or raises); a CPU tensor
+    takes ``nm_spmv_plain``."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    o, nnz = values.shape
+    if nnz != k // m * n or k % m:
+        raise ValueError(f"values {tuple(values.shape)} do not match K={k} "
+                         f"at {n}:{m}")
+    xf = x.reshape(-1, k)
+    if not x.is_cuda:
+        return nm_spmv_plain(xf, values, indices, n, m).reshape(*lead, o)
+    if x.dtype not in DTYPE_CODES:
+        raise ValueError(f"nm_spmv kernel takes float32/bfloat16, got {x.dtype}")
+    if not 0 < n < m <= 127:
+        raise ValueError(f"nm_spmv kernel needs 0 < n < m <= 127, got {n}:{m}")
+    check_cuda_operand("x", xf, x.device)
+    check_cuda_operand("values", values, x.device, x.dtype)
+    check_cuda_operand("indices", indices, x.device, torch.int8)
+    bsz = xf.shape[0]
+    y = torch.empty(bsz, o, dtype=x.dtype, device=x.device)
+    if bsz and o:
+        KERNEL.launch(xf.data_ptr(), values.data_ptr(), indices.data_ptr(),
+                      y.data_ptr(), bsz, o, k, n, m, DTYPE_CODES[x.dtype])
+    return y.reshape(*lead, o)

@@ -1,0 +1,135 @@
+"""Common model building blocks (counterpart of ``repro.models.common``).
+
+Weight convention follows ``core.layers``: linear weights are [out, in] and
+the contraction axis (in) is the N:M-sparse axis.  Norm scales are float32,
+as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core.layers import SparseLinear
+from repro_torch.core.sparse_matmul import SparsityConfig
+
+
+def linear_weight_bytes(p: SparseLinear, cfg: SparsityConfig
+                        ) -> Tuple[int, int]:
+    """(dense_bytes, stream_bytes) one decode step streams for this linear.
+
+    Converted leaves stream ``w_vals`` (N/M of the dense values) plus the
+    packed ceil(log2 M)-bit column indices — the paper's storage format;
+    dense leaves stream ``w``.  Biases are excluded on both sides."""
+    if p.compressed:
+        v = p.w_vals
+        nvals = v.numel()
+        bits = max(1, (cfg.m - 1).bit_length())       # ceil(log2 M)
+        stream = nvals * v.element_size() + -(-nvals * bits // 8)
+        dense = nvals * cfg.m // cfg.n * v.element_size()
+        return dense, stream
+    nbytes = p.w.numel() * p.w.element_size()
+    return nbytes, nbytes
+
+
+# ---------------------------------------------------------------------- norms
+
+class RMSNorm(nn.Module):
+    def __init__(self, scale: torch.Tensor):
+        super().__init__()
+        self.register_buffer("scale", scale)
+
+
+def rms_norm_init(d: int, device="cuda") -> RMSNorm:
+    return RMSNorm(torch.ones(d, dtype=torch.float32, device=device))
+
+
+def rms_norm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Normalize in float32, scale, cast back to x.dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p.scale.float()).to(x.dtype)
+
+
+# ------------------------------------------------------------------ embedding
+
+class Embedding(nn.Module):
+    """Token table [vocab, d]; the LM head reads the same table (tied)."""
+
+    def __init__(self, emb: torch.Tensor):
+        super().__init__()
+        self.register_buffer("emb", emb)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               dtype=torch.bfloat16, device="cuda") -> Embedding:
+    emb = torch.randn((vocab, d), generator=gen, device=device,
+                      dtype=torch.float32) * d ** -0.5
+    return Embedding(emb.to(dtype))
+
+
+def embed_apply(p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
+    return p.emb[tokens]
+
+
+def lm_head_apply(p: Embedding, x: torch.Tensor,
+                  softcap: Optional[float] = None) -> torch.Tensor:
+    """logits = x @ emb.T with f32 accumulation and a **float32 output**:
+    greedy argmax reads these, and rounding them to bf16 can flip tokens.
+    On the card a bf16 table is read as it is (mm with an f32 output),
+    never cast to f32 per call."""
+    emb = p.emb
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.dtype == torch.float32 and emb.dtype == torch.float32:
+        logits = x2 @ emb.t()
+    elif x2.is_cuda:
+        logits = torch.mm(x2, emb.t(), out_dtype=torch.float32)
+    else:
+        logits = x2.float() @ emb.float().t()
+    logits = logits.reshape(*lead, emb.shape[0])
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    return logits
+
+
+# ----------------------------------------------------------------------- rope
+
+def rope_angles(positions: torch.Tensor, dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions [...] -> (cos, sin) [..., dim/2] in f32."""
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                        device=positions.device) / dim))
+    ang = positions.float().unsqueeze(-1) * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """Half-split rotation.  x [..., S, H, D]; cos/sin [..., S, D/2]
+    broadcast over heads.  A bf16 x times f32 cos/sin computes in f32 and
+    casts back to x.dtype once, at the same point as the reference."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    c = cos.unsqueeze(-2)
+    s = sin.unsqueeze(-2)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+ACTIVATIONS = {"silu": F.silu}     # gelu arrives with the families using it
+
+
+def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
+    """argmax over the vocab (first maximal index on ties, as the
+    reference)."""
+    return logits.argmax(-1).to(torch.int32)

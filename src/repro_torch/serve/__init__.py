@@ -1,0 +1,13 @@
+"""Serving subsystem of the port: requests, slot scheduler, paged KV pool
+and the continuous-batching engine."""
+
+from repro_torch.serve.cache import seed_decode_caches
+from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.paged import BlockPool, TRASH_BLOCK, default_buckets
+from repro_torch.serve.request import (Request, RequestResult,
+                                       synthetic_request, synthetic_trace)
+from repro_torch.serve.scheduler import SlotScheduler
+
+__all__ = ["seed_decode_caches", "ServeEngine", "BlockPool", "TRASH_BLOCK",
+           "default_buckets", "Request", "RequestResult", "synthetic_request",
+           "synthetic_trace", "SlotScheduler"]

@@ -51,6 +51,12 @@ def subprocess_runner():
     return run_child
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (torch.cuda); skipped with a "
+                   "reason where none is present")
+
+
 # ---------------------------------------------------------------------------
 # hypothesis fallbacks (imported via ``from conftest import given, ...`` in
 # the except-ImportError branch of property-test modules)
