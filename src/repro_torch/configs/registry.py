@@ -11,6 +11,7 @@ from repro_torch.models.config import ArchConfig
 
 _MODULES: Dict[str, str] = {
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
 }
 
 ALL_ARCHS: List[str] = list(_MODULES)

@@ -3,7 +3,9 @@
 
 A ``SparseLinear`` holds either a dense weight ``w`` [out, in] or the
 compressed pair ``w_vals`` / ``w_idx`` [out, in/M*N], plus an optional bias
-``b``.  ``linear_apply`` runs it under a ``SparsityConfig``:
+``b``.  A ``StackedLinear`` is the same for a stack of experts, [E, out,
+in] / [E, out, in/M*N]; the MoE layer reads it through ``dense_view``.
+``linear_apply`` runs a ``SparseLinear`` under a ``SparsityConfig``:
 
   dense       plain dense product
   srste       dense weight, N:M magnitude mask applied in the forward (the
@@ -12,7 +14,8 @@ compressed pair ``w_vals`` / ``w_idx`` [out, in/M*N], plus an optional bias
   compressed  values + indices through ``nm_matmul`` (impl chosen by
               ``select_impl``); dense leaves not yet converted get the mask
 
-``convert_to_compressed`` is the offline prune-and-pack step.
+``convert_to_compressed`` is the offline prune-and-pack step (stacks
+compress along their last axis unchanged).
 """
 
 from __future__ import annotations
@@ -22,10 +25,10 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.core.sparse_matmul import (SparsityConfig, masked_matmul,
+from repro_torch.core.sparse_matmul import (SparsityConfig, dense_forward_view,
                                             matmul_f32acc, nm_matmul,
                                             select_impl)
-from repro_torch.core.sparsity import NMSparse, compress, nm_mask
+from repro_torch.core.sparsity import NMSparse, compress, decompress_parts
 
 
 class SparseLinear(nn.Module):
@@ -50,6 +53,24 @@ class SparseLinear(nn.Module):
 
     def has(self, name: str) -> bool:
         return name in self._buffers
+
+
+class StackedLinear(SparseLinear):
+    """Stacked expert weights [E, out, in] (or the compressed [E, out,
+    in/M*N] pair), sparse along ``in`` like every other projection.  Not
+    applied through ``linear_apply``: the MoE layer multiplies its
+    ``dense_view`` in one batched product per stack."""
+
+
+def dense_view(p: SparseLinear, cfg: SparsityConfig) -> torch.Tensor:
+    """Dense [..., out, in] view of a (stacked) linear's weight, consistent
+    with what ``linear_apply`` multiplies by: compressed leaves decompress
+    (the reference's slot-loop order), dense ones take
+    ``dense_forward_view``."""
+    if p.compressed:
+        k = p.w_vals.shape[-1] * cfg.m // cfg.n
+        return decompress_parts(p.w_vals, p.w_idx, cfg.n, cfg.m, k)
+    return dense_forward_view(p.w, cfg)
 
 
 def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
@@ -77,14 +98,10 @@ def linear_apply(p: SparseLinear, x: torch.Tensor, cfg: SparsityConfig,
     if p.compressed:   # serving path: impl chosen by the shape/device policy
         out_dim = p.w_vals.shape[0]
         sp = NMSparse(p.w_vals, p.w_idx, cfg.n, cfg.m, (out_dim, in_dim))
-        y = nm_matmul(x, sp, impl=select_impl(cfg, x))
+        # the kernels read x as dense rows (an MLA latent slice is strided)
+        y = nm_matmul(x.contiguous(), sp, impl=select_impl(cfg, x))
     else:
-        w = p.w
-        if cfg.applies(in_dim, w.shape[0]) and cfg.mode in ("srste",
-                                                            "compressed"):
-            y = masked_matmul(x, w, nm_mask(w, cfg.n, cfg.m))
-        else:
-            y = matmul_f32acc(x, w)
+        y = matmul_f32acc(x, dense_forward_view(p.w, cfg))
     if p.has("b"):
         y = y + p.b
     return y
@@ -92,13 +109,14 @@ def linear_apply(p: SparseLinear, x: torch.Tensor, cfg: SparsityConfig,
 
 def convert_to_compressed(p: SparseLinear, cfg: SparsityConfig
                           ) -> SparseLinear:
-    """Dense layer -> compressed serving format (offline packing step).
-    Returns ``p`` itself when already compressed or skipped by the policy."""
+    """Dense layer -> compressed serving format (offline packing step); a
+    ``StackedLinear`` stays one.  Returns ``p`` itself when already
+    compressed or skipped by the policy."""
     if p.compressed:
         return p
-    out_dim, in_dim = p.w.shape
+    out_dim, in_dim = p.w.shape[-2:]
     if not cfg.applies(in_dim, out_dim):
         return p
     sp = compress(p.w, cfg.n, cfg.m)
-    return SparseLinear(w_vals=sp.values, w_idx=sp.indices,
-                        b=p.b if p.has("b") else None)
+    return type(p)(w_vals=sp.values, w_idx=sp.indices,
+                   b=p.b if p.has("b") else None)

@@ -13,8 +13,11 @@ One entry point, ``nm_matmul``, with these implementations:
 
 Under ``impl="auto"`` ``select_impl`` routes by device and shape: a CUDA
 tensor goes to the kernels (decode-shaped -> spmv, other shapes -> xwt), a
-CPU tensor to ``plain``.  The TP ring, SR-STE training (``ste_sparsify``) and
-``nm_rerank`` are not ported yet.
+CPU tensor to ``plain``.  ``dense_forward_view`` is the dense weights'
+forward semantics, shared by ``linear_apply``, the MoE expert stacks and
+the MLA absorbed decode.  The TP ring, SR-STE training (``ste_sparsify``),
+``nm_rerank`` and the fixed-mask mode (``masked_matmul``) are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.sparsity import NMSparse, decompress_parts
+from repro_torch.core.sparsity import NMSparse, decompress_parts, nm_mask
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
@@ -62,6 +65,17 @@ def matmul_f32acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.is_cuda:                   # cuBLAS accumulates bf16 products in f32
         return F.linear(x, w.to(x.dtype))
     return (x.float() @ w.float().t()).to(x.dtype)
+
+
+def bmm_f32acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Batched x [E, C, K] @ w[E, O, K]^T with f32 accumulation, result in
+    x.dtype (the reference's stacked-expert ``einsum(...,
+    preferred_element_type=float32)``)."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return torch.bmm(x, w.transpose(1, 2))
+    if x.is_cuda:                   # cuBLAS accumulates bf16 products in f32
+        return torch.bmm(x, w.to(x.dtype).transpose(1, 2))
+    return torch.bmm(x.float(), w.float().transpose(1, 2)).to(x.dtype)
 
 
 def _xwt_plain(x, values, indices, n, m):
@@ -110,7 +124,16 @@ def nm_matmul(x: torch.Tensor, sp: NMSparse, impl: Impl = "auto"
                      f"xwt, spmv; 'ring' comes with tensor-parallel serving)")
 
 
-def masked_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor
-                  ) -> torch.Tensor:
-    """Fixed-mask product: x @ (w * mask).T with f32 accumulation."""
-    return matmul_f32acc(x, w * mask.to(w.dtype))
+def dense_forward_view(w: torch.Tensor, sp: SparsityConfig) -> torch.Tensor:
+    """Dense view [..., out, in] of a dense-stored weight with the forward
+    semantics ``linear_apply`` uses: under 'srste' and under a not yet
+    converted 'compressed' policy the magnitude N:M mask applies (never
+    silently unmasked).  Shared by the MoE stacked products and the MLA
+    absorbed decode, so those paths cannot diverge from the per-linear one.
+    (The reference's srste branch carries straight-through gradients; the
+    port serves and computes the same forward.)"""
+    if not sp.applies(w.shape[-1], w.shape[-2]):
+        return w
+    if sp.mode in ("srste", "compressed"):
+        return w * nm_mask(w, sp.n, sp.m).to(w.dtype)
+    return w

@@ -24,7 +24,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("nm_spmv", "nm_xwt", "paged_gqa_decode")
+SOURCES = ("nm_spmv", "nm_xwt", "paged_gqa_decode", "paged_mla_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -4,9 +4,11 @@
       --scheduler continuous --weights compressed --kv paged --attn fused
 
 runs the continuous-batching engine on the card (``--device cuda``, the
-default; ``--device cpu`` runs the plain path).  Weights are random, from
-``--seed``.  Flags of features not ported yet are accepted and raise
-``NotImplementedError`` naming the slice that brings them.
+default; ``--device cpu`` runs the plain path); ``--arch
+deepseek-v2-lite-16b`` serves the MoE family with MLA attention.  Weights
+are random, from ``--seed``.  Flags of features not ported yet are
+accepted and raise ``NotImplementedError`` naming the slice that brings
+them.
 """
 
 from __future__ import annotations

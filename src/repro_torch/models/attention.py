@@ -1,17 +1,21 @@
-"""GQA attention and its paged KV cache (counterpart of the GQA half of
-``repro.models.attention``).
+"""GQA and MLA attention and their paged KV caches (counterpart of the GQA
+and MLA parts of ``repro.models.attention``).
 
 Prefill runs ``chunked_attention``, a plain-torch online-softmax attention
 over (q_chunk, kv_chunk) tiles.  Decode is one token per slot against the
-paged block pool, read either by the fused ``paged_gqa_decode`` kernel
-(``cfg.attn_impl == "fused"``) or by gathering each slot's blocks back into
-position order first (``"gather"``, the oracle).
+paged block pool, read either by a fused kernel (``cfg.attn_impl ==
+"fused"``: ``paged_gqa_decode`` / ``paged_mla_decode``) or by gathering each
+slot's blocks back into position order first (``"gather"``, the oracle).
 
-Query head ``h`` uses kv head ``h // G`` (G = n_heads // n_kv) in prefill
-and decode alike.  Decode writes the new token's K/V into the pool **in
-place** (``_paged_write``); the reference returned a new pool instead.
-MLA, cross-attention, the slotted (ring-buffer) decode cache and the
-speculative verify spans are not ported yet.
+GQA: query head ``h`` uses kv head ``h // G`` (G = n_heads // n_kv) in
+prefill and decode alike.  MLA caches the latent ``ckv`` [kv_lora] and the
+roped ``kpe`` [qk_rope_dim] per token; prefill up-projects them to per-head
+K/V, decode runs absorbed in the latent space (``wuk`` folded into the
+query, ``wuv`` applied to the latent context).  Decode writes the new
+token's cache entries into the pool **in place** (``_paged_write``); the
+reference returned a new pool instead.  Cross-attention, the slotted
+(ring-buffer) decode cache and the speculative verify spans are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -21,8 +25,10 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from repro_torch.core.layers import SparseLinear, linear_apply, linear_init
-from repro_torch.kernels.flash_attention import paged_gqa_decode
+from repro_torch.core.layers import (SparseLinear, dense_view, linear_apply,
+                                     linear_init)
+from repro_torch.kernels.flash_attention import (paged_gqa_decode,
+                                                 paged_mla_decode)
 from repro_torch.models.common import apply_rope, rope_angles, softcap
 from repro_torch.models.config import ArchConfig
 
@@ -217,4 +223,130 @@ def gqa_apply(p: GQA, x: torch.Tensor, cfg: ArchConfig, *,
                          f"{cfg.attn_impl!r}")
 
     y = linear_apply(p.wo, o.reshape(b, s, h * hd), sp)
+    return y, new_kv
+
+
+# ------------------------------------------------------------------------ MLA
+
+class MLA(nn.Module):
+    def __init__(self, wq: SparseLinear, wdkv: SparseLinear,
+                 wuk: SparseLinear, wuv: SparseLinear, wo: SparseLinear):
+        super().__init__()
+        self.wq, self.wdkv, self.wuk, self.wuv, self.wo = wq, wdkv, wuk, wuv, wo
+
+
+def mla_init(gen: torch.Generator, cfg: ArchConfig, dtype,
+             device="cuda") -> MLA:
+    d, h, sp = cfg.d_model, cfg.n_heads, cfg.sparsity
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return MLA(linear_init(gen, d, h * qk, sp, dtype, device),
+               linear_init(gen, d, cfg.kv_lora + cfg.qk_rope_dim, sp, dtype,
+                           device),
+               linear_init(gen, cfg.kv_lora, h * cfg.qk_nope_dim, sp, dtype,
+                           device),
+               linear_init(gen, cfg.kv_lora, h * cfg.v_head_dim, sp, dtype,
+                           device),
+               linear_init(gen, h * cfg.v_head_dim, d, sp, dtype, device))
+
+
+def mla_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype,
+                   device="cuda") -> Dict[str, torch.Tensor]:
+    """Plain latent cache leaves: ckv [batch, max_len, kv_lora], kpe
+    [batch, max_len, qk_rope_dim]."""
+    return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora), dtype=dtype,
+                               device=device),
+            "kpe": torch.zeros((batch, max_len, cfg.qk_rope_dim),
+                               dtype=dtype, device=device)}
+
+
+def _mla_qkv(p: MLA, x, cfg: ArchConfig, positions):
+    b, s, _ = x.shape
+    h, nd, rd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    sp = cfg.sparsity
+    q = linear_apply(p.wq, x, sp).reshape(b, s, h, nd + rd)
+    qn, qpe = q[..., :nd], q[..., nd:]
+    dkv = linear_apply(p.wdkv, x, sp)
+    ckv, kpe = dkv[..., :cfg.kv_lora], dkv[..., cfg.kv_lora:]
+    cos, sin = rope_angles(positions, rd, cfg.rope_theta)
+    qpe = apply_rope(qpe, cos, sin)
+    kpe = apply_rope(kpe[..., None, :], cos, sin)[..., 0, :]   # one kv head
+    return qn, qpe, ckv, kpe
+
+
+def _dense_weight(p: SparseLinear, cfg: ArchConfig) -> torch.Tensor:
+    """Dense view of a (possibly compressed or masked) linear weight,
+    consistent with what ``linear_apply`` multiplies by."""
+    return dense_view(p, cfg.sparsity)
+
+
+def mla_apply(p: MLA, x: torch.Tensor, cfg: ArchConfig, *,
+              positions: torch.Tensor,
+              cache: Optional[Dict[str, torch.Tensor]] = None,
+              cache_pos: Optional[torch.Tensor] = None,
+              block_table: Optional[torch.Tensor] = None,
+              return_kv: bool = False):
+    """x [B, S, d].  Prefill when ``cache`` is None (``return_kv`` returns
+    this call's latent cache entries {"ckv", "kpe"}); single-token paged
+    decode when ``cache`` (one layer's pool leaves) and ``block_table`` are
+    given, with ``cache_pos`` the per-slot [B] position vector.  Returns
+    (y, new_kv)."""
+    b, s, _ = x.shape
+    h, nd, rd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    vd, r = cfg.v_head_dim, cfg.kv_lora
+    sp = cfg.sparsity
+    if positions.dim() == 1:
+        positions = positions[:, None] + torch.arange(s, device=x.device)
+    qn, qpe, ckv, kpe = _mla_qkv(p, x, cfg, positions)
+    scale = (nd + rd) ** -0.5
+
+    if cache is None:
+        # up-project and run standard chunked attention (dq nd+rd != dv vd)
+        kn = linear_apply(p.wuk, ckv, sp).reshape(b, s, h, nd)
+        vv = linear_apply(p.wuv, ckv, sp).reshape(b, s, h, vd)
+        q = torch.cat([qn, qpe], dim=-1)
+        k = torch.cat([kn, kpe[:, :, None, :].expand(b, s, h, rd)], dim=-1)
+        o = chunked_attention(q, k, vv, causal=True, scale=scale,
+                              q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+        new_kv = {"ckv": ckv, "kpe": kpe} if return_kv else None
+    elif block_table is None or s != 1:
+        raise NotImplementedError(
+            "slotted decode caches and multi-token verify spans come with "
+            "later slices of the port; decode here is paged, one token")
+    else:
+        # absorbed decode in the latent space: the cache stays [kv_lora +
+        # rope] per token (MLA's memory win)
+        wuk3 = _dense_weight(p.wuk, cfg).reshape(h, nd, r)
+        wuv3 = _dense_weight(p.wuv, cfg).reshape(h, vd, r)
+        # the kernel reads dense rows; for B > 1 this einsum returns a
+        # permuted [h, b, r] product
+        qlat = torch.einsum("bhd,hdr->bhr", qn[:, 0].float(),
+                            wuk3.float()).contiguous()
+        qp = qpe[:, 0].float()
+        upd = {"ckv": ckv[:, 0], "kpe": kpe[:, 0]}
+        if cfg.attn_impl == "fused":
+            # write through the table, then the kernel walks it: scores,
+            # softmax and the latent context never leave the kernel
+            new_kv = _paged_write(cache, upd, block_table, cache_pos)
+            ov = paged_mla_decode(qlat, qp, new_kv["ckv"], new_kv["kpe"],
+                                  block_table, _paged_kv_len(cache_pos),
+                                  scale=scale)
+        elif cfg.attn_impl == "gather":
+            new_kv, reads, length = _paged_update(cache, upd, block_table,
+                                                  cache_pos)
+            cc = reads["ckv"].float()
+            sc = (torch.einsum("bhr,blr->bhl", qlat, cc)
+                  + torch.einsum("bhd,bld->bhl", qp, reads["kpe"].float()))
+            sc = sc * scale
+            idx = torch.arange(length, device=x.device)[None, :]
+            posb = cache_pos.reshape(-1, 1).long()
+            sc = torch.where((idx <= posb)[:, None, :], sc,
+                             torch.full_like(sc, _NEG))
+            ov = torch.einsum("bhl,blr->bhr", torch.softmax(sc, dim=-1), cc)
+        else:
+            raise ValueError(f"attn_impl must be 'gather' or 'fused', got "
+                             f"{cfg.attn_impl!r}")
+        o = torch.einsum("bhr,hdr->bhd", ov, wuv3.float())
+        o = o.reshape(b, 1, h, vd).to(x.dtype)
+
+    y = linear_apply(p.wo, o.reshape(b, s, h * vd), sp)
     return y, new_kv

@@ -1,9 +1,9 @@
 """Architecture configuration schema (counterpart of ``repro.models.config``).
 
-This slice of the port covers the dense GQA family, so the schema carries
-the fields that family reads; the MoE / SSM / MLA / enc-dec fields arrive
-with their families.  ``reduced()`` derives the CPU smoke-test variant
-exactly as the reference does.
+The port covers the dense GQA family and the MoE family with MLA attention
+(deepseek-v2-lite), so the schema carries the fields those read; the SSM /
+enc-dec fields arrive with their families.  ``reduced()`` derives the CPU
+smoke-test variant exactly as the reference does.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from repro_torch.core.sparse_matmul import SparsityConfig
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense (this slice)
+    family: str                      # dense | moe
     n_layers: int
     d_model: int
     n_heads: int
@@ -36,10 +36,23 @@ class ArchConfig:
     local_global_period: Optional[int] = None
     softcap_attn: Optional[float] = None
     softcap_final: Optional[float] = None
+    mla: bool = False
     # paged-decode attention read: 'gather' copies each slot's blocks back
     # into position order before the math (the oracle); 'fused' walks the
-    # block table inside the paged_gqa_decode kernel
+    # block table inside the paged_gqa_decode / paged_mla_decode kernel
     attn_impl: str = "gather"
+    kv_lora: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    moe_dff: Optional[int] = None            # expert hidden (ds-v2: 1408)
+    dense_residual: bool = False             # arctic: dense MLP in parallel
+    first_dense_layers: int = 0              # ds-v2: layer 0 dense
+    capacity_factor: float = 1.25
     input_mode: str = "tokens"               # tokens (this slice)
     sparsity: SparsityConfig = dataclasses.field(default_factory=SparsityConfig)
     dtype: str = "bfloat16"
@@ -71,6 +84,12 @@ class ArchConfig:
             q_chunk=64, kv_chunk=64,
             sparsity=dataclasses.replace(self.sparsity, min_dim=64),
         )
+        if self.n_experts:
+            kw.update(n_experts=8, top_k=min(self.top_k, 2),
+                      moe_dff=128 if self.moe_dff else None,
+                      first_dense_layers=min(self.first_dense_layers, 1))
+        if self.mla:
+            kw.update(kv_lora=64, qk_nope_dim=32, qk_rope_dim=16, v_head_dim=32)
         if self.window:
             kw.update(window=32)
         if self.local_global_period:
@@ -78,15 +97,38 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
-def param_count(cfg: ArchConfig) -> int:
-    """Parameters of a dense-family model (embeddings counted twice unless
-    tied)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"param_count for family {cfg.family!r} "
-                                  f"comes with that family's port")
+def param_count(cfg: ArchConfig, active_only: bool = False) -> int:
+    """Parameters of a dense- or MoE-family model (embeddings counted twice
+    unless tied).  ``active_only`` counts the experts one token runs
+    (top_k routed + shared) instead of all of them."""
     d, dff, L = cfg.d_model, cfg.d_ff, cfg.n_layers
     hd, H, KV = cfg.hd(), cfg.n_heads, cfg.n_kv
     total = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
-    attn = d * hd * (H + 2 * KV) + H * hd * d
-    mlp = 3 * d * dff if cfg.act == "silu" else 2 * d * dff
-    return int(total + L * (attn + mlp))
+
+    def attn_params() -> int:
+        if cfg.mla:
+            qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+            return (d * H * qk                       # wq
+                    + d * (cfg.kv_lora + cfg.qk_rope_dim)
+                    + cfg.kv_lora * H * (cfg.qk_nope_dim + cfg.v_head_dim)
+                    + H * cfg.v_head_dim * d)
+        return d * hd * (H + 2 * KV) + H * hd * d
+
+    def mlp_params(hidden: int) -> int:
+        return 3 * d * hidden if cfg.act == "silu" else 2 * d * hidden
+
+    if cfg.family == "dense":
+        return int(total + L * (attn_params() + mlp_params(dff)))
+    if cfg.family != "moe":
+        raise NotImplementedError(f"param_count for family {cfg.family!r} "
+                                  f"comes with that family's port")
+    moe_dff = cfg.moe_dff or dff
+    e_count = (cfg.top_k + cfg.n_shared_experts) if active_only else \
+        (cfg.n_experts + cfg.n_shared_experts)
+    per_layer = attn_params() + e_count * mlp_params(moe_dff) \
+        + d * cfg.n_experts                          # router
+    if cfg.dense_residual:
+        per_layer += mlp_params(dff)
+    nd = cfg.first_dense_layers
+    total += nd * (attn_params() + mlp_params(dff)) + (L - nd) * per_layer
+    return int(total)

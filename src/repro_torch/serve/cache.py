@@ -5,9 +5,10 @@
 length-clips to ``min(src, dst)`` keeping the *last* positions, so a prompt
 longer than the buffer degrades to a truncated context instead of a shape
 error.  The function is pure: it returns new tensors and leaves ``caches``
-untouched, so a zero template can be re-seeded for every request.  Dense
-family only in this slice; the slotted ``scatter_slot`` comes with the
-slotted layout.
+untouched, so a zero template can be re-seeded for every request.  The
+dense and MoE families are ported (the MoE prefill returns its dense and
+MoE stacks apart, and they are concatenated along the layer axis here); the
+slotted ``scatter_slot`` comes with the slotted layout.
 """
 
 from __future__ import annotations
@@ -37,7 +38,10 @@ def seed_decode_caches(cfg, caches: Dict[str, torch.Tensor],
                        ) -> Dict[str, torch.Tensor]:
     """Prefill caches ``pf`` -> decode buffers shaped like ``caches``
     (from ``init_caches``); returns a new dict."""
-    if cfg.family != "dense":
+    if cfg.family == "moe":
+        parts = ([pf["dense"]] if cfg.first_dense_layers else []) + [pf["moe"]]
+        pf = {f: torch.cat([part[f] for part in parts]) for f in parts[0]}
+    elif cfg.family != "dense":
         raise NotImplementedError(f"cache seeding for family {cfg.family!r} "
                                   f"comes with that family's port")
     return {f: _seed_leaf(caches[f], pf[f], src_len) for f in caches}

@@ -14,8 +14,11 @@ interleaves two operations:
   right padding and reads its logits at ``prompt_len - 1``.
 * **batched decode** — one ``decode_step`` per tick over every slot with
   the per-slot position vector; decode reads K/V through the block table
-  (``attn="fused"``: the ``paged_gqa_decode`` kernel walks it in-kernel;
-  ``"gather"``: the oracle read).  Idle rows carry position 0, token 0 and
+  (``attn="fused"``: the ``paged_gqa_decode`` / ``paged_mla_decode`` kernel
+  walks it in-kernel; ``"gather"``: the oracle read).  The dense (GQA) and
+  MoE (MLA) families are served; in the MoE family idle rows and prompt
+  padding are tokens like any other and compete for expert capacity, as in
+  the reference.  Idle rows carry position 0, token 0 and
   an all-trash table row, so they write the trash block and their logits
   are never read.
 

@@ -1,8 +1,11 @@
 """Paged KV-cache pool: block-table indirection for the serve engine
 (counterpart of ``repro.serve.paged``).
 
-Every attention-cache leaf is a pool of fixed-size blocks
-``[L, n_blocks, block_size, kv, hd]`` (torch tensors on the device) and each
+Every attention-cache leaf is a pool of fixed-size blocks, GQA's
+``{"k", "v"} [L, n_blocks, block_size, kv, hd]`` or MLA's latent
+``{"ckv", "kpe"} [L, n_blocks, block_size, kv_lora | qk_rope_dim]`` (torch
+tensors on the device; the leaves are found by probing ``init_caches``, so
+any family's layout is taken as it is) and each
 slot owns an int32 block table (host numpy) mapping logical position ``p``
 to physical block ``table[slot, p // block_size]``.  Block 0 is the reserved
 *trash* block: idle batch rows keep writing there, and a freed slot's table

@@ -119,7 +119,12 @@ def test_cpu_wrappers_launch_nothing():
     (_, _, _), (xt, vt, it) = _operands(41, 2, 32, 64, 2, 4, "float32")
     tops.nm_spmv(xt, vt, it, 2, 4)
     tops.nm_xwt(xt, vt, it, 2, 4)
-    assert [k.launches for k in tkernels.all_kernels()] == [0, 0, 0]
+    tfa.paged_mla_decode(torch.zeros(1, 2, 8), torch.zeros(1, 2, 4),
+                         torch.zeros(2, 4, 8), torch.zeros(2, 4, 4),
+                         torch.ones(1, 1, dtype=torch.int32),
+                         torch.ones(1, dtype=torch.int32), scale=0.5)
+    counts = [k.launches for k in tkernels.all_kernels()]
+    assert len(counts) == 4 and counts == [0] * 4
 
 
 # ------------------------------------------------------------- the policy
