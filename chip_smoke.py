@@ -5,9 +5,11 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. Build: compile the four Hopper kernels of the serving paths from
+1. Build: compile the Hopper kernels of the serving paths from
    ``src/repro_torch/csrc`` with nvcc (sm_90a, one nvcc per source, in
-   parallel); print the card's name and power limit from nvidia-smi.
+   parallel): nm_spmv, nm_xwt, and one paged attention kernel per family,
+   which its decode (span S = 1) and verify wrappers share; print the
+   card's name and power limit from nvidia-smi.
 2. Kernel vs plain: hold each kernel against its plain torch version on the
    card, in float32 and bfloat16, at the shapes the two serving paths give
    it, and time it beside its bound, the plain version and one PyTorch call
@@ -15,13 +17,18 @@ Phases (any failure exits non-zero and prints no result line):
    it): nm_spmv / nm_xwt at one llama3.2-1b layer's and one
    deepseek-v2-lite MoE layer's linears (plus the dense first layer's and
    the latent up-projections' shapes, checked), paged_gqa_decode at the
-   llama serving shape, paged_mla_decode at the deepseek one.
+   llama serving shape, paged_mla_decode at the deepseek one.  The
+   speculative path's operands: nm_spmv / nm_xwt at 1:4 (the rerank
+   draft's format) at the llama layer shapes, nm_xwt at the 32 rows of a
+   verify span (8 slots x 4), and paged_gqa_verify / paged_mla_verify at
+   8 slots x S 4, each also against S launches of its decode wrapper.
 3. Serve llama3.2-1b: full width (16 layers, d 2048, 32/8 heads, d_ff
    8192, vocab 128256, bf16, 2:4 compressed; random weights from a seed)
    through ``ServeEngine(kv="paged", attn="fused", compressed=True)``: 8
    slots, 16 requests of 128 prompt tokens, generation mix 16/32, block
-   size 16.  Each kernel of the path must have launched during the run.
-   Then the same prefills and first decode steps run through the kernel
+   size 16.  Each kernel of the path must have launched during the run,
+   and a second engine over the same trace must emit the same tokens and
+   counters (as in phases 4-6).  Then the same prefills and first decode steps run through the kernel
    route and through the reference route (``impl="ref"``,
    ``attn="gather"``) and the logits are compared.
 4. Serve deepseek-v2-lite-16b: full width (27 layers = 1 dense + 26 MoE,
@@ -33,7 +40,21 @@ Phases (any failure exits non-zero and prints no result line):
    at full width and reduced depth (1 dense + 3 MoE layers) in float32,
    where no bf16 near-tie can flip a router between the routes, and also
    reports how many router top-k sets agree.
-5. Summary: a ``{"kernels": [...]}`` line, then the device line last.
+5. Speculative llama3.2-1b (run after phase 3, on its model): the same
+   trace through ``ServeEngine(spec=SpecConfig(k=3, draft="rerank"))``,
+   fused.  paged_gqa_verify must launch once per layer per verify pass
+   (the passes are counted by wrapping the engine's ``verify_step``).  The
+   tokens are compared with phase 3's (bf16 decode and verify sum in other
+   orders, so a near-tie may flip; the first divergence of each request is
+   printed with the plain model's top-2 logit margin there).  Hard check:
+   full width, 4 layers, float32, 2 slots: the speculative tokens equal
+   the plain engine's exactly.
+6. Speculative deepseek-v2-lite-16b (after phase 4, on its model):
+   ``SpecConfig(k=3, draft="skip", stride=2)``; paged_mla_verify once per
+   layer per verify pass; the same comparisons, and the same float32 hard
+   check (1 dense + 3 MoE layers, 2 slots: a verify batch of 8 tokens stays
+   under the expert-capacity floor of 8, so no route drops).
+7. Summary: a ``{"kernels": [...]}`` line, then the device line last.
 """
 
 from __future__ import annotations
@@ -79,6 +100,9 @@ LOGIT_ATOL = 0.25
 LOGIT_ATOL_F32 = 1e-3
 LLAMA_PATH = ("nm_spmv", "nm_xwt", "paged_gqa_decode")
 DEEPSEEK_PATH = ("nm_spmv", "nm_xwt", "paged_mla_decode")
+LLAMA_SPEC_PATH = LLAMA_PATH + ("paged_gqa_verify",)
+DEEPSEEK_SPEC_PATH = DEEPSEEK_PATH + ("paged_mla_verify",)
+SPAN = 4                         # k + 1 of SpecConfig(k=3)
 
 
 def log(msg: str) -> None:
@@ -143,21 +167,21 @@ def phase_build(torch):
 
 # ------------------------------------------------------------------ phase 2
 
-def _compressed(torch, o, k, dtype, gen):
+def _compressed(torch, o, k, dtype, gen, n=N):
     """A weight drawn as ``linear_init`` draws it (scale k^-0.5), so the
     products are O(1) as in the model; unscaled, an f32 sum over 8192
     terms of size ~64 carries ~1e-3 of rounding noise in either order."""
     from repro_torch.core.sparsity import compress
     w = (torch.randn(o, k, generator=gen, device="cuda") * k ** -0.5).to(dtype)
-    return compress(w, N, M)
+    return compress(w, n, M)
 
 
 def phase_matmuls(torch, F, model: str, check_shapes, spmv_layer,
-                  xwt_layer, seed: int):
+                  xwt_layer, seed: int, n: int = N):
     """nm_spmv (decode) and nm_xwt (prefill) against their plain versions
     at ``check_shapes``; timings over one layer's linears in bf16
-    (``spmv_layer`` at B 8, ``xwt_layer`` at S 128).  A layer's compressed
-    weights are tens of MB, near or above the 50 MB L2."""
+    (``spmv_layer`` at B 8, ``xwt_layer`` at S 128), at ``n``:4.  A layer's
+    compressed weights are tens of MB, near or above the 50 MB L2."""
     from repro_torch.core.sparsity import decompress
     from repro_torch.kernels import nm_spmm, nm_spmv
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -167,30 +191,30 @@ def phase_matmuls(torch, F, model: str, check_shapes, spmv_layer,
                          ("bfloat16", torch.bfloat16)):
         rtol, atol = TOL[dname]
         for o, k in check_shapes:
-            sp = _compressed(torch, o, k, dtype, gen)
+            sp = _compressed(torch, o, k, dtype, gen, n)
             for b in (1, 8):
                 x = torch.randn(b, k, generator=gen, device="cuda").to(dtype)
-                e, good = max_err(torch, nm_spmv.nm_spmv(x, sp.values, sp.indices, N, M),
-                                  nm_spmv.nm_spmv_plain(x, sp.values, sp.indices, N, M),
+                e, good = max_err(torch, nm_spmv.nm_spmv(x, sp.values, sp.indices, n, M),
+                                  nm_spmv.nm_spmv_plain(x, sp.values, sp.indices, n, M),
                                   rtol, atol)
                 errs["nm_spmv"] = max(errs["nm_spmv"], e)
                 ok &= good
-                log(f"[check] nm_spmv {dname} B={b} (O,K)=({o},{k}) "
+                log(f"[check] nm_spmv {n}:{M} {dname} B={b} (O,K)=({o},{k}) "
                     f"max_abs_err {e:.3e} tol {atol}+{rtol}|ref| "
                     f"{'ok' if good else 'FAIL'}")
             for s in (4, 128):
                 x = torch.randn(s, k, generator=gen, device="cuda").to(dtype)
-                e, good = max_err(torch, nm_spmm.nm_xwt(x, sp.values, sp.indices, N, M),
-                                  nm_spmm.nm_xwt_plain(x, sp.values, sp.indices, N, M),
+                e, good = max_err(torch, nm_spmm.nm_xwt(x, sp.values, sp.indices, n, M),
+                                  nm_spmm.nm_xwt_plain(x, sp.values, sp.indices, n, M),
                                   rtol, atol)
                 errs["nm_xwt"] = max(errs["nm_xwt"], e)
                 ok &= good
-                log(f"[check] nm_xwt  {dname} S={s} (O,K)=({o},{k}) "
+                log(f"[check] nm_xwt  {n}:{M} {dname} S={s} (O,K)=({o},{k}) "
                     f"max_abs_err {e:.3e} tol {atol}+{rtol}|ref| "
                     f"{'ok' if good else 'FAIL'}")
     if not ok:
         raise SystemExit(f"phase 2: a matmul kernel disagrees with its plain "
-                         f"version at {model} shapes")
+                         f"version at {model} shapes ({n}:{M})")
 
     rows = {}
     for name, fn, plain, b, shapes in (
@@ -198,7 +222,7 @@ def phase_matmuls(torch, F, model: str, check_shapes, spmv_layer,
              spmv_layer),
             ("nm_xwt", nm_spmm.nm_xwt, nm_spmm.nm_xwt_plain, 128,
              xwt_layer)):
-        layer = [_compressed(torch, o, k, torch.bfloat16, gen)
+        layer = [_compressed(torch, o, k, torch.bfloat16, gen, n)
                  for o, k in shapes]
         dense = [decompress(sp) for sp in layer]
         xs = {k: torch.randn(b, k, generator=gen, device="cuda").to(
@@ -206,7 +230,7 @@ def phase_matmuls(torch, F, model: str, check_shapes, spmv_layer,
 
         def run(f):
             return lambda: [f(xs[sp.dense_shape[1]], sp.values, sp.indices,
-                              N, M) for sp in layer]
+                              n, M) for sp in layer]
 
         nbytes = sum(b * sp.dense_shape[1] * 2 + sp.values.numel() * 3
                      + b * sp.dense_shape[0] * 2 for sp in layer)
@@ -219,13 +243,38 @@ def phase_matmuls(torch, F, model: str, check_shapes, spmv_layer,
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                           bound_by=by, library_ms=lib_ms,
                           max_abs_err=errs[name])
-        log(f"[time] {name} one {model} layer ({len(shapes)} linears, bf16, "
+        log(f"[time] {name} one {model} layer ({len(shapes)} linears, "
+            f"{n}:{M}, bf16, "
             f"{'B' if name == 'nm_spmv' else 'S'}={b}): kernel {ms:.4f} ms, "
             f"bound {bnd:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, "
             f"{flops / 1e9:.2f} GFLOP), plain {plain_ms:.4f} ms, "
             f"F.linear on the decompressed weight {lib_ms:.4f} ms")
         del layer, dense
     return rows
+
+
+def time_verify_linears(torch):
+    """What the verify span costs in the linears: a [8, 4, d] span is not
+    decode-shaped, so the engine's policy runs one llama layer's seven
+    linears through nm_xwt at 32 rows, where a decode tick runs nm_spmv at
+    8 rows (2:4, bf16)."""
+    from repro_torch.kernels import nm_spmm, nm_spmv
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    layer = [_compressed(torch, o, k, torch.bfloat16, gen)
+             for o, k in LAYER_SHAPES]
+    xs = {rows: {k: torch.randn(rows, k, generator=gen, device="cuda").to(
+        torch.bfloat16) for _, k in LAYER_SHAPES} for rows in (8, 32)}
+
+    def run(f, rows):
+        return lambda: [f(xs[rows][sp.dense_shape[1]], sp.values, sp.indices,
+                          N, M) for sp in layer]
+    xwt32 = time_ms(torch, run(nm_spmm.nm_xwt, 32))
+    spmv8 = time_ms(torch, run(nm_spmv.nm_spmv, 8))
+    log(f"[time] verify linears: one llama layer through nm_xwt at 32 rows "
+        f"(8 slots x span {SPAN}) {xwt32:.4f} ms, against nm_spmv at 8 rows "
+        f"(one decode tick) {spmv8:.4f} ms; {SPAN} decode ticks "
+        f"{SPAN * spmv8:.4f} ms")
+    return dict(xwt_32_rows_ms=xwt32, spmv_8_rows_ms=spmv8)
 
 
 def _paged_table(torch, gen, lens, bs):
@@ -373,12 +422,184 @@ def phase_mla_attention(torch, F):
                 library_ms=lib_ms, max_abs_err=worst)
 
 
+def _span_table(torch, gen, lens, s, bs):
+    """A shuffled table backing each slot's whole verify span (kv_len + s - 1
+    positions); row 0 is a masked row (all trash), as the engine's."""
+    tbl, nb = _paged_table(torch, gen, [n + s - 1 for n in lens], bs)
+    tbl[0] = 0
+    return tbl, nb
+
+
+def _span_mask(torch, kv_len, s, length):
+    """[B, 1, S, length] offset-causal mask: offset i sees kv_len + i."""
+    lens = kv_len.long()[:, None] + torch.arange(s, device="cuda")
+    return (torch.arange(length, device="cuda")[None, None, :]
+            < lens[:, :, None])[:, None]
+
+
+def _against_decode(torch, verify, decode, name, dname, case, tol):
+    """(max |verify - S decode launches|, within tol, bitwise equal)."""
+    e, good = max_err(torch, verify, decode, tol, tol)
+    same = bool(torch.equal(verify, decode))
+    log(f"[check] {name} {dname} {case or 'plain mask'} vs {SPAN} decode "
+        f"launches at kv_len + i: max_abs_err {e:.3e} tol {tol}+{tol}|ref| "
+        f"{'bitwise equal' if same else 'not bitwise'} "
+        f"{'ok' if good else 'FAIL'}")
+    return e, good, same
+
+
+def phase_verify_attention(torch, F):
+    """paged_gqa_verify at the llama speculative shape: 8 slots x span 4,
+    KVH 8, G 4, d 64, block 16, kv_len 1..160 (spans crossing block
+    boundaries; row 0 a masked trash row), against its plain version and
+    against S decode launches."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    lens, s, bs, kvh, g, d = SERVE_LENS, SPAN, 16, 8, 4, 64
+    b = len(lens)
+    worst, worst_dec, ok, bitwise = 0.0, 0.0, True, True
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        tbl, nb = _span_table(torch, gen, lens, s, bs)
+        kp = torch.randn(nb, bs, kvh, d, generator=gen, device="cuda").to(dtype)
+        vp = torch.randn(nb, bs, kvh, d, generator=gen, device="cuda").to(dtype)
+        kp[0] = 1e4             # hot trash block: the mask must zero it
+        vp[0] = 1e4
+        q = torch.randn(b, s, kvh, g, d, generator=gen, device="cuda").to(dtype)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        for case in (dict(), dict(window=48, cap=30.0)):
+            out = fa.paged_gqa_verify(q, kp, vp, tbl, kv_len, scale=0.125,
+                                      **case)
+            e, good = max_err(torch, out, fa.paged_gqa_verify_plain(
+                q, kp, vp, tbl, kv_len, scale=0.125, **case),
+                ATTN_TOL, ATTN_TOL)
+            log(f"[check] paged_gqa_verify {dname} {case or 'plain mask'} "
+                f"max_abs_err {e:.3e} tol {ATTN_TOL}+{ATTN_TOL}|ref| "
+                f"{'ok' if good else 'FAIL'}")
+            dec = torch.stack([fa.paged_gqa_decode(
+                q[:, i].contiguous(), kp, vp, tbl, kv_len + i, scale=0.125,
+                **case) for i in range(s)], 1)
+            ed, goodd, same = _against_decode(torch, out, dec,
+                                              "paged_gqa_verify", dname, case,
+                                              ATTN_TOL)
+            worst, worst_dec = max(worst, e), max(worst_dec, ed)
+            ok, bitwise = ok and good and goodd, bitwise and same
+    if not ok:
+        raise SystemExit("phase 2: paged_gqa_verify disagrees with its plain "
+                         "version or with the decode kernel")
+    length = tbl.shape[1] * bs
+    ms = time_ms(torch, lambda: fa.paged_gqa_verify(
+        q, kp, vp, tbl, kv_len, scale=0.125), iters=50)
+    dec_ms = time_ms(torch, lambda: [fa.paged_gqa_decode(
+        q[:, i].contiguous(), kp, vp, tbl, kv_len + i, scale=0.125)
+        for i in range(s)], iters=50)
+    plain_ms = time_ms(torch, lambda: fa.paged_gqa_verify_plain(
+        q, kp, vp, tbl, kv_len, scale=0.125), iters=20)
+    # yardstick: SDPA over the K/V gathered into position order (gather and
+    # head expansion outside the timed call), offset-causal mask
+    kr = kp[tbl.long()].reshape(b, length, kvh, d).repeat_interleave(g, 2)
+    vr = vp[tbl.long()].reshape(b, length, kvh, d).repeat_interleave(g, 2)
+    kr, vr = kr.transpose(1, 2).contiguous(), vr.transpose(1, 2).contiguous()
+    qq = q.permute(0, 2, 3, 1, 4).reshape(b, kvh * g, s, d)
+    mask = _span_mask(torch, kv_len, s, length)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qq, kr, vr, attn_mask=mask, scale=0.125), iters=50)
+    pos = sum(n + s - 1 for n in lens)        # each slot's span, read once
+    seen = sum(n + i for n in lens for i in range(s))
+    nbytes = (q.numel() * 2 + pos * kvh * 2 * d * 2 + tbl.numel() * 4
+              + b * 4 + b * s * kvh * g * d * 4)
+    flops = 2.0 * seen * kvh * g * 2 * d
+    bnd, by = bound_ms(nbytes, flops, "bfloat16")
+    log(f"[time] paged_gqa_verify one launch (bf16, 8 slots x span {s}, "
+        f"kv_len {lens}): kernel {ms:.4f} ms, bound {bnd:.5f} ms ({by}, "
+        f"{nbytes / 1e6:.2f} MB), {s} paged_gqa_decode launches {dec_ms:.4f}"
+        f" ms, plain {plain_ms:.4f} ms, SDPA on gathered K/V with the "
+        f"offset-causal mask {lib_ms:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                library_ms=lib_ms, max_abs_err=worst,
+                decode_launches_ms=dec_ms, max_abs_err_vs_decode=worst_dec,
+                bitwise_vs_decode=bitwise)
+
+
+def phase_mla_verify_attention(torch, F):
+    """paged_mla_verify at the deepseek speculative shape: 8 slots x span
+    4, 16 heads, kv_lora 512, rope 64, block 16, f32 queries against f32 or
+    bf16 pools, against its plain version and S decode launches."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    lens, s, bs, h, r, rd = SERVE_LENS, SPAN, 16, 16, 512, 64
+    b = len(lens)
+    scale = (128 + 64) ** -0.5          # (qk_nope + qk_rope) ** -0.5
+    worst, worst_dec, ok, bitwise = 0.0, 0.0, True, True
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        tbl, nb = _span_table(torch, gen, lens, s, bs)
+        cp = torch.randn(nb, bs, r, generator=gen, device="cuda").to(dtype)
+        pp = torch.randn(nb, bs, rd, generator=gen, device="cuda").to(dtype)
+        cp[0] = 1e4
+        pp[0] = 1e4
+        ql = torch.randn(b, s, h, r, generator=gen, device="cuda")
+        qp = torch.randn(b, s, h, rd, generator=gen, device="cuda")
+        kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        out = fa.paged_mla_verify(ql, qp, cp, pp, tbl, kv_len, scale=scale)
+        e, good = max_err(torch, out, fa.paged_mla_verify_plain(
+            ql, qp, cp, pp, tbl, kv_len, scale=scale), ATTN_TOL, ATTN_TOL)
+        log(f"[check] paged_mla_verify {dname} pools max_abs_err {e:.3e} "
+            f"tol {ATTN_TOL}+{ATTN_TOL}|ref| {'ok' if good else 'FAIL'}")
+        dec = torch.stack([fa.paged_mla_decode(
+            ql[:, i].contiguous(), qp[:, i].contiguous(), cp, pp, tbl,
+            kv_len + i, scale=scale) for i in range(s)], 1)
+        ed, goodd, same = _against_decode(torch, out, dec, "paged_mla_verify",
+                                          dname, {}, ATTN_TOL)
+        worst, worst_dec = max(worst, e), max(worst_dec, ed)
+        ok, bitwise = ok and good and goodd, bitwise and same
+    if not ok:
+        raise SystemExit("phase 2: paged_mla_verify disagrees with its plain "
+                         "version or with the decode kernel")
+    length = tbl.shape[1] * bs
+    ms = time_ms(torch, lambda: fa.paged_mla_verify(
+        ql, qp, cp, pp, tbl, kv_len, scale=scale), iters=50)
+    qls = [ql[:, i].contiguous() for i in range(s)]
+    qps = [qp[:, i].contiguous() for i in range(s)]
+    dec_ms = time_ms(torch, lambda: [fa.paged_mla_decode(
+        qls[i], qps[i], cp, pp, tbl, kv_len + i, scale=scale)
+        for i in range(s)], iters=50)
+    plain_ms = time_ms(torch, lambda: fa.paged_mla_verify_plain(
+        ql, qp, cp, pp, tbl, kv_len, scale=scale), iters=20)
+    # yardstick: SDPA on the latent gathered into position order (outside
+    # the timed call), q = [q_lat | q_pe], k = [ckv | kpe], v = ckv
+    ck = cp[tbl.long()].reshape(b, 1, length, r)
+    kk = torch.cat([ck, pp[tbl.long()].reshape(b, 1, length, rd)], -1)
+    kk = kk.expand(b, h, length, r + rd)
+    vv = ck.expand(b, h, length, r)
+    qq = torch.cat([ql, qp], -1).to(torch.bfloat16).transpose(1, 2)
+    mask = _span_mask(torch, kv_len, s, length)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask, scale=scale), iters=50)
+    pos = sum(n + s - 1 for n in lens)
+    seen = sum(n + i for n in lens for i in range(s))
+    nbytes = (ql.numel() * 4 + qp.numel() * 4 + pos * (r + rd) * 2
+              + tbl.numel() * 4 + b * 4 + b * s * h * r * 4)
+    flops = 2.0 * seen * h * (r + rd + r)
+    bnd, by = bound_ms(nbytes, flops, "float32")
+    log(f"[time] paged_mla_verify one launch (bf16 pools, 8 slots x span "
+        f"{s}, 16 heads, kv_len {lens}): kernel {ms:.4f} ms, bound "
+        f"{bnd:.5f} ms ({by}, {nbytes / 1e6:.2f} MB), {s} paged_mla_decode "
+        f"launches {dec_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on the "
+        f"gathered latent with the offset-causal mask {lib_ms:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                library_ms=lib_ms, max_abs_err=worst,
+                decode_launches_ms=dec_ms, max_abs_err_vs_decode=worst_dec,
+                bitwise_vs_decode=bitwise)
+
+
 # ------------------------------------------------------------ phases 3 and 4
 
-def serve_run(torch, model, cfg, path, kw, phase: str):
+def serve_run(torch, model, cfg, path, kw, phase: str, before_run=None):
     """The measured engine run: 16 requests of 128 prompt tokens, gen mix
-    16/32, with every launch count zeroed just before and read just after.
-    Returns (engine, requests, launches, wall seconds)."""
+    16/32, with every launch count zeroed just before (``before_run``, if
+    given, is called there too) and read just after.  Returns (engine,
+    requests, launches, wall seconds)."""
     from repro_torch import kernels
     from repro_torch.serve import ServeEngine, synthetic_trace
     # warm-up (first-call library set-up), not counted
@@ -388,6 +609,8 @@ def serve_run(torch, model, cfg, path, kw, phase: str):
                            gen_lens=[16, 32], seed=0)
     eng = ServeEngine(model, cfg, **kw)
     kernels.reset_launch_counts()
+    if before_run is not None:
+        before_run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = eng.run(reqs)
@@ -414,6 +637,36 @@ def serve_run(torch, model, cfg, path, kw, phase: str):
     return eng, reqs, launches, wall
 
 
+REPEAT_KEYS = ("tokens", "decode_steps", "prefill_calls", "preemptions",
+               "draft_steps", "spec_proposed", "spec_accepted",
+               "spec_steps_saved")
+
+
+def check_repeat(model, cfg, kw, reqs, eng, phase: str) -> None:
+    """Serving is deterministic: a second engine over the same trace emits
+    the same tokens and the same counters.  (In the MoE family the masked
+    rows of a forward, which all write the trash block, compete with the
+    live rows for expert capacity, so a race between their writes would
+    show here.)"""
+    import numpy as np
+    from repro_torch.serve import ServeEngine
+    again = ServeEngine(model, cfg, **kw)
+    again.run(reqs)
+    a, b = eng.stats(), again.stats()
+    keys = [k for k in REPEAT_KEYS if k in a]
+    moved = {k: (a[k], b[k]) for k in keys if a[k] != b[k]}
+    same = sum(bool(np.array_equal(eng.results[r.rid].tokens,
+                                   again.results[r.rid].tokens))
+               for r in reqs)
+    log(f"[repeat] {phase} {cfg.name}: a second run gives {same}/{len(reqs)} "
+        f"requests identical, counters "
+        f"{'equal' if not moved else f'differ {moved}'}")
+    if same != len(reqs) or moved:
+        raise SystemExit(f"{phase}: serving is not deterministic: a second "
+                         f"run differs ({same}/{len(reqs)} requests "
+                         f"identical, counters {moved})")
+
+
 def phase_serve(torch):
     from repro_torch.configs import get_config
     from repro_torch.models import init_model
@@ -426,12 +679,132 @@ def phase_serve(torch):
         f"{cfg.dtype} in {time.perf_counter() - t0:.1f}s")
     kw = dict(n_slots=8, max_len=128 + 32, compressed=True,
               kv="paged", attn="fused", block_size=16, device="cuda")
-    eng, reqs, launches, _ = serve_run(torch, model, cfg, LLAMA_PATH, kw,
-                                       "phase 3")
+    eng, reqs, launches, wall = serve_run(torch, model, cfg, LLAMA_PATH, kw,
+                                          "phase 3")
+    check_repeat(model, cfg, kw, reqs, eng, "phase 3")
     check_reference_route(torch, eng.model, eng.cfg, reqs[:8], LOGIT_ATOL,
                           "phase 3")
     profile_breakdown(torch, model, cfg, kw)
+    from repro_torch.serve import SpecConfig
+    spec = SpecConfig(k=SPAN - 1, draft="rerank")
+    spec_launches = phase_spec(torch, eng.model, eng.cfg, kw, spec,
+                               LLAMA_SPEC_PATH, "paged_gqa_verify", eng, wall,
+                               "phase 5")
+    del eng, model
+    torch.cuda.empty_cache()
+    check_spec_exact(torch, "llama3.2-1b", spec, "paged_gqa_verify",
+                     "phase 5")
+    return {"llama3.2-1b": launches, "llama3.2-1b spec": spec_launches}
+
+
+def phase_spec(torch, model, cfg, kw, spec, path, verify_kernel, base,
+               base_wall, phase):
+    """The phase-3/4 trace through the speculative engine.  Verify passes
+    are counted by wrapping the engine module's ``verify_step``; the verify
+    kernel must launch once per layer per pass.  Tokens are compared with
+    the plain run ``base``, and the device busy share read from a traced
+    run."""
+    from repro_torch.serve import engine
+    passes = []
+    orig = engine.verify_step
+
+    def counted(*a, **k):
+        passes.append(1)
+        return orig(*a, **k)
+    engine.verify_step = counted
+    try:
+        eng, reqs, launches, wall = serve_run(
+            torch, model, cfg, path, dict(kw, spec=spec), phase,
+            before_run=passes.clear)
+    finally:
+        engine.verify_step = orig
+    check_repeat(model, cfg, dict(kw, spec=spec), reqs, eng, phase)
+    want = len(passes) * cfg.n_layers
+    if launches[verify_kernel] != want:
+        raise SystemExit(f"{phase}: {verify_kernel} launched "
+                         f"{launches[verify_kernel]} times, expected "
+                         f"{len(passes)} verify passes x {cfg.n_layers} "
+                         f"layers")
+    st = eng.stats()
+    base_tps = base.stats()["tokens"] / base_wall
+    log(f"[spec] {cfg.name} draft={spec.draft} k={spec.k}: "
+        f"{st['tokens'] / wall:.1f} tokens/s against {base_tps:.1f} without "
+        f"speculation; {int(st['decode_steps'])} target passes ("
+        f"{len(passes)} verify, plain run {int(base.decode_steps)}), "
+        f"{int(st['draft_steps'])} draft steps, proposed "
+        f"{int(st['spec_proposed'])}, accepted {int(st['spec_accepted'])} "
+        f"(acceptance {st['spec_acceptance']:.3f}), steps saved "
+        f"{int(st['spec_steps_saved'])}, draft stream "
+        f"{st['draft_stream_bytes'] / st['weight_stream_bytes']:.3f}x target")
+    compare_tokens(torch, eng, reqs, base.results, f"{phase} {cfg.name}")
+    profile_breakdown(torch, model, cfg, dict(kw, spec=spec))
     return launches
+
+
+def compare_tokens(torch, eng, reqs, base, what) -> int:
+    """Agreement of ``eng``'s token streams with ``base``; at each request's
+    first divergence, the plain model's top-2 logit margin there (from a
+    teacher-forced prefill of the prompt and the plain tokens before it).
+    Returns the number of requests that differ."""
+    import numpy as np
+    from repro_torch.models import prefill
+    same_tok = total = same_req = 0
+    for r in reqs:
+        a, b = base[r.rid].tokens, eng.results[r.rid].tokens
+        eq = a == b
+        same_tok, total = same_tok + int(eq.sum()), total + len(a)
+        if eq.all():
+            same_req += 1
+            continue
+        i = int(np.argmin(eq))
+        ctx = np.concatenate([np.asarray(r.inputs["tokens"]), a[:i]])
+        logits, _ = prefill(eng.model, eng.cfg, {"tokens": torch.tensor(
+            ctx[None], dtype=torch.long, device="cuda")})
+        top = torch.topk(logits[0].float(), 2).values
+        log(f"[spec]   rid {r.rid}: first divergence at token {i} ({a[i]} "
+            f"without, {b[i]} with speculation); plain model's top-2 logit "
+            f"margin there {float(top[0] - top[1]):.4g} (teacher-forced "
+            f"prefill)")
+    log(f"[spec] {what} token agreement with the plain run: {same_tok}/"
+        f"{total} tokens, {same_req}/{len(reqs)} requests identical")
+    return len(reqs) - same_req
+
+
+def check_spec_exact(torch, arch, spec, verify_kernel, phase):
+    """Hard check at full width, 4 layers, float32, 2 slots: the speculative
+    engine's tokens equal the plain engine's exactly (prompts of 37 bucket
+    down to 32, so prompt catch-up rides the verify span)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.serve import ServeEngine, synthetic_trace
+    cfg = get_config(arch)
+    cfg = cfg.replace(n_layers=4, dtype="float32", sparsity=dataclasses.replace(
+        cfg.sparsity, mode="compressed"))
+    model = init_model(cfg, seed=1, device="cuda")
+    reqs = synthetic_trace(cfg, n_requests=4, prompt_len=37,
+                           gen_lens=[12, 9], seed=11)
+    kw = dict(n_slots=2, max_len=37 + 12, compressed=True, kv="paged",
+              attn="fused", block_size=16, device="cuda")
+    plain = ServeEngine(model, cfg, **kw)
+    want = plain.run(reqs)
+    kernels.reset_launch_counts()
+    eng = ServeEngine(model, cfg, spec=spec, **kw)
+    eng.run(reqs)
+    launched = {k.name: k.launches for k in kernels.all_kernels()}
+    st = eng.stats()
+    log(f"[spec] {arch} exact check (4 layers, float32, 2 slots, draft="
+        f"{spec.draft}): {int(st['decode_steps'])} target passes against "
+        f"{plain.decode_steps}, accepted {int(st['spec_accepted'])}/"
+        f"{int(st['spec_proposed'])}, {verify_kernel} launches "
+        f"{launched[verify_kernel]}")
+    differ = compare_tokens(torch, eng, reqs, want, f"{phase} exact check")
+    if differ or launched[verify_kernel] <= 0:
+        raise SystemExit(f"{phase}: float32 speculative tokens differ from "
+                         f"the plain engine's in {differ} requests (or "
+                         f"{verify_kernel} never launched)")
+    del eng, plain, model
+    torch.cuda.empty_cache()
 
 
 def phase_serve_deepseek(torch):
@@ -463,6 +836,7 @@ def phase_serve_deepseek(torch):
     torch.cuda.reset_peak_memory_stats()
     eng, reqs, launches, wall = serve_run(torch, model, cfg, DEEPSEEK_PATH,
                                           kw, "phase 4")
+    check_repeat(model, cfg, kw, reqs, eng, "phase 4")
     log(f"[serve] {cfg.name} peak device memory in the run "
         f"{gib(torch.cuda.max_memory_allocated())}")
     want = eng.decode_steps * cfg.n_layers
@@ -472,10 +846,18 @@ def phase_serve_deepseek(torch):
                          f"{eng.decode_steps} ticks x {cfg.n_layers} layers")
     decompress_share(torch, model, cfg, eng, wall)
     profile_breakdown(torch, model, cfg, kw, time_calls=True)
+    from repro_torch.serve import SpecConfig
+    spec = SpecConfig(k=SPAN - 1, draft="skip", stride=2)
+    spec_launches = phase_spec(torch, model, cfg, kw, spec,
+                               DEEPSEEK_SPEC_PATH, "paged_mla_verify", eng,
+                               wall, "phase 6")
     del eng, model
     torch.cuda.empty_cache()
     check_deepseek_reference_route(torch)
-    return launches
+    check_spec_exact(torch, "deepseek-v2-lite-16b", spec, "paged_mla_verify",
+                     "phase 6")
+    return {"deepseek-v2-lite-16b": launches,
+            "deepseek-v2-lite-16b spec": spec_launches}
 
 
 def decompress_share(torch, model, cfg, eng, wall):
@@ -616,6 +998,13 @@ def check_reference_route(torch, model, cfg, reqs, tol, phase,
                          f"route beyond tolerance")
 
 
+# device kernel symbol -> label; each family's one attention kernel runs
+# its decode (S = 1) and verify (S = k + 1) launches
+PROFILE_LABELS = (("nm_spmv", "nm_spmv"), ("nm_xwt", "nm_xwt"),
+                  ("paged_gqa_verify", "paged GQA attention (decode+verify)"),
+                  ("paged_mla_verify", "paged MLA attention (decode+verify)"))
+
+
 def profile_breakdown(torch, model, cfg, kw, time_calls: bool = False):
     """Where the time goes: device time by kernel over a traced engine run
     (8 requests, 128 prompt tokens, 16 generated), against its wall time.
@@ -644,8 +1033,7 @@ def profile_breakdown(torch, model, cfg, kw, time_calls: bool = False):
             continue
         name = ev.key
         low = name.lower()
-        label = next((k for k in ("nm_spmv", "nm_xwt", "paged_gqa_decode",
-                                  "paged_mla_decode") if k in name), None)
+        label = next((v for k, v in PROFILE_LABELS if k in name), None)
         if label is None:   # cuBLAS on Hopper names its gemms nvjet_*
             if any(s in low for s in ("gemm", "cutlass", "nvjet")):
                 label = "cuBLAS gemm"
@@ -700,10 +1088,14 @@ KERNEL_META = {
                 "src/repro/kernels/nm_spmv.py:67"),
     "nm_xwt": ("src/repro_torch/csrc/nm_xwt.cu",
                "src/repro/kernels/nm_spmm.py:160"),
-    "paged_gqa_decode": ("src/repro_torch/csrc/paged_gqa_decode.cu",
+    "paged_gqa_decode": ("src/repro_torch/csrc/paged_gqa_verify.cu",
                          "src/repro/kernels/flash_attention.py:199"),
-    "paged_mla_decode": ("src/repro_torch/csrc/paged_mla_decode.cu",
+    "paged_mla_decode": ("src/repro_torch/csrc/paged_mla_verify.cu",
                          "src/repro/kernels/flash_attention.py:291"),
+    "paged_gqa_verify": ("src/repro_torch/csrc/paged_gqa_verify.cu",
+                         "src/repro/kernels/flash_attention.py:338"),
+    "paged_mla_verify": ("src/repro_torch/csrc/paged_mla_verify.cu",
+                         "src/repro/kernels/flash_attention.py:362"),
 }
 
 
@@ -728,10 +1120,20 @@ def main() -> int:
         rows[name]["at_deepseek_layer"] = {
             k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")}
+    draft_rows = phase_matmuls(torch, F, "llama3.2-1b", CHECK_SHAPES,
+                               LAYER_SHAPES, LAYER_SHAPES, seed=7, n=1)
+    for name, row in draft_rows.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        row["max_abs_err"])
+        rows[name]["at_1of4_llama_layer"] = {
+            k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")}
+    rows["nm_xwt"]["at_verify_span"] = time_verify_linears(torch)
     rows["paged_gqa_decode"] = phase_attention(torch, F)
     rows["paged_mla_decode"] = phase_mla_attention(torch, F)
-    by_path = {"llama3.2-1b": phase_serve(torch),
-               "deepseek-v2-lite-16b": phase_serve_deepseek(torch)}
+    rows["paged_gqa_verify"] = phase_verify_attention(torch, F)
+    rows["paged_mla_verify"] = phase_mla_verify_attention(torch, F)
+    by_path = {**phase_serve(torch), **phase_serve_deepseek(torch)}
     kernels_line = []
     for name, (src, rep) in KERNEL_META.items():
         per_path = {p: counts[name] for p, counts in by_path.items()

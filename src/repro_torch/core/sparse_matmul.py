@@ -15,9 +15,10 @@ Under ``impl="auto"`` ``select_impl`` routes by device and shape: a CUDA
 tensor goes to the kernels (decode-shaped -> spmv, other shapes -> xwt), a
 CPU tensor to ``plain``.  ``dense_forward_view`` is the dense weights'
 forward semantics, shared by ``linear_apply``, the MoE expert stacks and
-the MLA absorbed decode.  The TP ring, SR-STE training (``ste_sparsify``),
-``nm_rerank`` and the fixed-mask mode (``masked_matmul``) are not ported
-yet.
+the MLA absorbed decode.  ``nm_rerank`` re-ranks stored n:m operands down
+to keep:m (the speculative draft's sparsity ladder).  The TP ring, SR-STE
+training (``ste_sparsify``) and the fixed-mask mode (``masked_matmul``) are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -81,6 +82,34 @@ def bmm_f32acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _xwt_plain(x, values, indices, n, m):
     w = decompress_parts(values, indices, n, m, x.shape[-1])
     return matmul_f32acc(x, w)
+
+
+def nm_rerank(values: torch.Tensor, indices: torch.Tensor, n: int, m: int,
+              keep: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Re-rank an n:m compressed tensor down to keep:m on its stored
+    operands (the dense weight is never built): within each m-block the
+    ``keep`` largest-magnitude of the n stored entries survive, in
+    ascending in-block column order.  values / indices [..., rows, nnz]
+    (stacked expert leaves included) -> the same layout with nnz // n * keep.
+
+    Ties go to the lowest stored slot, as ``jax.lax.top_k`` in the
+    reference: ``torch.topk`` promises no tie order, so a stable descending
+    sort ranks the slots instead."""
+    if not 0 < keep < n:
+        raise ValueError(f"need 0 < keep < n, got keep={keep} n={n}")
+    nnz = values.shape[-1]
+    if nnz % n:
+        raise ValueError(f"nnz {nnz} not divisible by n={n}")
+    g = nnz // n
+    v = values.reshape(values.shape[:-1] + (g, n))
+    i = indices.reshape(indices.shape[:-1] + (g, n))
+    sel = torch.sort(v.float().abs(), dim=-1, descending=True,
+                     stable=True).indices[..., :keep]
+    vs, ix = v.gather(-1, sel), i.gather(-1, sel)
+    order = torch.sort(ix, dim=-1, stable=True).indices
+    out = values.shape[:-1] + (g * keep,)
+    return (vs.gather(-1, order).reshape(out),
+            ix.gather(-1, order).reshape(out))
 
 
 def is_decode_shape(x_shape: Tuple[int, ...], batch_max: int = 8) -> bool:

@@ -17,14 +17,14 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("nm_spmv", "nm_xwt", "paged_gqa_decode", "paged_mla_decode")
+SOURCES = ("nm_spmv", "nm_xwt", "paged_gqa_verify", "paged_mla_verify")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -97,19 +97,23 @@ class CudaKernel:
     """One launcher symbol of a kernel library, with its launch count.
 
     ``launches`` is incremented where the kernel is launched and nowhere
-    else, so a run can prove the main path went through the kernel.  The C
-    launcher takes every pointer and the stream as ``void*`` and returns
+    else, so a run can prove the main path went through the kernel.  The
+    library is ``csrc/<lib>.cu`` (``lib`` defaults to ``name``; two wrappers
+    of one kernel keep two counters over one library).  The C launcher takes
+    every pointer and the stream as ``void*`` and returns
     ``cudaGetLastError()``; a non-zero code raises."""
 
-    def __init__(self, name: str, symbol: str, argtypes: Sequence):
+    def __init__(self, name: str, symbol: str, argtypes: Sequence,
+                 lib: Optional[str] = None):
         self.name = name
         self.symbol = symbol
+        self.lib = lib or name
         self.argtypes = list(argtypes) + [ctypes.c_void_p]   # + stream
         self.launches = 0
         self._fn = None
 
     def _bind(self):
-        lib = load(self.name)
+        lib = load(self.lib)
         fn = getattr(lib, self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int

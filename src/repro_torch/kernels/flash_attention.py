@@ -1,32 +1,42 @@
-"""Fused paged decode attention (flash-decoding over the block pool): GQA
-and MLA.
+"""Fused paged decode and verify attention (flash-decoding over the block
+pool): GQA and MLA.
 
-GQA kernel: ``csrc/paged_gqa_decode.cu`` (CUDA C++, sm_90a).  It replaces
-the TPU kernel ``repro/kernels/flash_attention.py::paged_gqa_decode``
-(``_paged_gqa_body``).  On the H100 it is bound by device-memory bytes: each
-K/V position a slot owns is read once, against 2*(d+dv) FLOPs per query
-row.  Design: one CTA per (slot, kv head) keeps the G query rows of that kv
-head in shared memory and walks the slot's block table itself, stopping at
-``ceil(kv_len / block_size)`` (the TPU's trailing table entries are fully
-masked, so stopping there gives its result).  Each step loads one physical
-K/V block into shared memory; the m/l/acc online-softmax state stays in
-f32; the kv_len mask, the sliding window and the softcap are applied
-exactly as the reference body applies them.  Output is float32.
+Each family has one kernel, which scores a span of S >= 1 consecutive
+queries per slot (offset i sees ``kv_len + i`` positions); the one-token
+decode is the span S = 1.  ``paged_*_decode`` and ``paged_*_verify`` both
+launch it, each with its own launch counter (``KERNEL`` / ``MLA_KERNEL``
+and ``GQA_VERIFY_KERNEL`` / ``MLA_VERIFY_KERNEL``).
 
-MLA kernel: ``csrc/paged_mla_decode.cu`` (CUDA C++, sm_90a).  It replaces
-``repro/kernels/flash_attention.py::paged_mla_decode`` (``_paged_mla_body``):
-absorbed MLA decode in the latent space, scores ``(q_lat . ckv + q_pe . kpe)
-* scale`` and the latent cache itself as the value.  Also bound by bytes
-(576 bf16 values per position at deepseek-v2-lite width).  One CTA per
+GQA kernel: ``csrc/paged_gqa_verify.cu`` (CUDA C++, sm_90a).  It replaces
+the TPU kernels ``repro/kernels/flash_attention.py::paged_gqa_decode``
+(``_paged_gqa_body``) and ``::paged_gqa_verify`` (one decode launch per
+span offset).  On the H100 it is bound by device-memory bytes: each K/V
+position a slot owns is read once, against 2*(d+dv) FLOPs per query row.
+Design: one CTA per (slot, kv head) keeps the S*G query rows of that kv
+head in shared memory and walks the slot's block table itself, once for
+the whole span, stopping at ``ceil((kv_len + S - 1) / block_size)`` (the
+TPU's trailing table entries are fully masked, so stopping there gives its
+result).  Each step loads one physical K/V block into shared memory; the
+m/l/acc online-softmax state stays in f32; each row applies its own kv_len
+mask, the sliding window and the softcap exactly as the reference body
+does.  Output is float32.
+
+MLA kernel: ``csrc/paged_mla_verify.cu`` (CUDA C++, sm_90a).  It replaces
+``paged_mla_decode`` (``_paged_mla_body``) and ``paged_mla_verify`` of the
+reference: absorbed MLA in the latent space, scores ``(q_lat . ckv + q_pe .
+kpe) * scale`` and the latent cache itself as the value.  Also bound by
+bytes (576 bf16 values per position at deepseek-v2-lite width).  One CTA per
 (slot, head): a slot's 16 x 512 f32 accumulator does not fit one CTA's
 registers, so heads split across CTAs and each re-reads the slot's blocks
 (from L2 after the first head).
 
-``paged_gqa_decode_plain`` / ``paged_mla_decode_plain`` are the same
-functions in plain torch (gather the table, masked softmax): the CPU path,
-and what the kernels are held against on the card.  The flash-attention
-prefill kernel and the speculative verify spans are not on the ported
-paths and are not ported yet.
+Each span row reduces in an order that does not depend on the other rows,
+so verify offset i equals a decode launch at ``kv_len + i`` bit for bit.
+
+``*_plain`` are the same functions in plain torch (gather the table, masked
+softmax): the CPU path, and what the kernels are held against on the card.
+The flash-attention prefill kernel is not on the ported paths and is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -40,15 +50,22 @@ from repro_torch.kernels.build import (DTYPE_CODES, CudaKernel,
                                        check_cuda_operand)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-KERNEL = CudaKernel("paged_gqa_decode", "paged_gqa_decode_launch",
-                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                     _F, _I, _F, _I])
-MLA_KERNEL = CudaKernel("paged_mla_decode", "paged_mla_decode_launch",
-                        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _F, _I])
+_GQA_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+             _F, _I]
+_MLA_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I]
+# one kernel per family; the decode and verify wrappers count separately
+KERNEL = CudaKernel("paged_gqa_decode", "paged_gqa_verify_launch", _GQA_ARGS,
+                    lib="paged_gqa_verify")
+MLA_KERNEL = CudaKernel("paged_mla_decode", "paged_mla_verify_launch",
+                        _MLA_ARGS, lib="paged_mla_verify")
+GQA_VERIFY_KERNEL = CudaKernel("paged_gqa_verify", "paged_gqa_verify_launch",
+                               _GQA_ARGS)
+MLA_VERIFY_KERNEL = CudaKernel("paged_mla_verify", "paged_mla_verify_launch",
+                               _MLA_ARGS)
 _NEG = -1e30
-_THREADS, _MAX_PAIRS, _SMEM_LIMIT = 128, 8, 48 * 1024
-_MLA_SMEM_LIMIT = 227 * 1024        # opt-in dynamic shared memory per CTA
+_THREADS, _MAX_PAIRS = 128, 8
+_OPTIN_SMEM_LIMIT = 227 * 1024      # opt-in dynamic shared memory per CTA
+_MLA_VERIFY_ROWS = 4                # span rows per CTA of paged_mla_verify
 
 
 def paged_gqa_decode_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -85,50 +102,14 @@ def paged_gqa_decode(q: torch.Tensor, k_pool: torch.Tensor,
     """q [B, KVH, G, d] (one token per slot, grouped by kv head), k_pool /
     v_pool [n_blocks, bs, KVH, d|dv], block_table int32 [B, T], kv_len int32
     [B] (valid positions, current token included) -> [B, KVH, G, dv] f32.
-    A CUDA tensor launches the kernel (or raises); a CPU tensor takes
-    ``paged_gqa_decode_plain``."""
-    b, kvh, g, d = q.shape
-    nb, bs = k_pool.shape[:2]
-    dv = v_pool.shape[-1]
-    scale = scale if scale is not None else d ** -0.5
+    A CUDA tensor launches the kernel as a span of S = 1 (or raises); a CPU
+    tensor takes ``paged_gqa_decode_plain``."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
     if not q.is_cuda:
         return paged_gqa_decode_plain(q, k_pool, v_pool, block_table, kv_len,
                                       scale=scale, window=window, cap=cap)
-    if q.dtype not in DTYPE_CODES:
-        raise ValueError(f"paged_gqa_decode takes float32/bfloat16, got "
-                         f"{q.dtype}")
-    if k_pool.shape != (nb, bs, kvh, d) or v_pool.shape[:3] != (nb, bs, kvh):
-        raise ValueError(f"pool shapes {tuple(k_pool.shape)} / "
-                         f"{tuple(v_pool.shape)} do not match q "
-                         f"{tuple(q.shape)}")
-    if block_table.shape[0] != b or kv_len.shape != (b,):
-        raise ValueError(f"block_table {tuple(block_table.shape)} / kv_len "
-                         f"{tuple(kv_len.shape)} do not match batch {b}")
-    if cap is not None and cap <= 0:
-        raise ValueError(f"softcap must be positive, got {cap}")
-    if g * dv > _THREADS * _MAX_PAIRS:
-        raise ValueError(f"G*dv = {g * dv} exceeds the kernel's "
-                         f"{_THREADS * _MAX_PAIRS} accumulators per CTA")
-    smem = (g * d + bs * d + bs * dv + g * bs + 3 * g) * 4
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"paged_gqa_decode needs {smem} B of shared memory "
-                         f"per CTA (block_size {bs}, d {d}, dv {dv}); the "
-                         f"kernel takes at most {_SMEM_LIMIT}")
-    check_cuda_operand("q", q, q.device)
-    check_cuda_operand("k_pool", k_pool, q.device, q.dtype)
-    check_cuda_operand("v_pool", v_pool, q.device, q.dtype)
-    check_cuda_operand("block_table", block_table, q.device, torch.int32)
-    check_cuda_operand("kv_len", kv_len, q.device, torch.int32)
-    out = torch.empty(b, kvh, g, dv, dtype=torch.float32, device=q.device)
-    if b and kvh:
-        KERNEL.launch(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                      block_table.data_ptr(), kv_len.data_ptr(),
-                      out.data_ptr(), b, kvh, g, d, dv, bs,
-                      block_table.shape[1], float(scale),
-                      -1 if window is None else int(window),
-                      0.0 if cap is None else float(cap),
-                      DTYPE_CODES[q.dtype])
-    return out
+    return _gqa_launch(KERNEL, q, k_pool, v_pool, block_table, kv_len,
+                       scale, window, cap)
 
 
 def paged_mla_decode_plain(q_lat: torch.Tensor, q_pe: torch.Tensor,
@@ -161,18 +142,163 @@ def paged_mla_decode(q_lat: torch.Tensor, q_pe: torch.Tensor,
     [n_blocks, bs, r], kpe_pool [n_blocks, bs, rd] (float32 or bfloat16,
     one dtype), block_table int32 [B, T], kv_len int32 [B] -> latent context
     [B, H, r] float32 (the caller up-projects through wuv).  A CUDA tensor
-    launches the kernel (or raises); a CPU tensor takes
+    launches the kernel as a span of S = 1 (or raises); a CPU tensor takes
     ``paged_mla_decode_plain``."""
-    b, h, r = q_lat.shape
-    rd = q_pe.shape[-1]
-    nb, bs = ckv_pool.shape[:2]
     if not q_lat.is_cuda:
         return paged_mla_decode_plain(q_lat, q_pe, ckv_pool, kpe_pool,
                                       block_table, kv_len, scale=scale)
+    return _mla_launch(MLA_KERNEL, q_lat, q_pe, ckv_pool, kpe_pool,
+                       block_table, kv_len, scale)
+
+
+def _span_lens(kv_len: torch.Tensor, s: int) -> torch.Tensor:
+    """[B, S] valid positions of each span offset: kv_len + i."""
+    return kv_len.long()[:, None] + torch.arange(s, device=kv_len.device)
+
+
+def paged_gqa_verify_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_table: torch.Tensor,
+                           kv_len: torch.Tensor, *, scale: float,
+                           window: Optional[int] = None,
+                           cap: Optional[float] = None) -> torch.Tensor:
+    """Gather each slot's table back into position order, then a masked f32
+    softmax per span offset: q [B, S, KVH, G, d] -> [B, S, KVH, G, dv]
+    float32, offset i masked to its ``kv_len + i`` positions."""
+    b, s, kvh, g, d = q.shape
+    length = block_table.shape[1] * k_pool.shape[1]
+    tbl = block_table.long()
+    kr = k_pool[tbl].reshape(b, length, kvh, -1).float()
+    vr = v_pool[tbl].reshape(b, length, kvh, -1).float()
+    sc = torch.einsum("bshgd,blhd->bshgl", q.float(), kr) * scale
+    if cap is not None:
+        sc = cap * torch.tanh(sc / cap)
+    kpos = torch.arange(length, device=q.device)[None, None, :]
+    lens = _span_lens(kv_len, s)[:, :, None]
+    valid = kpos < lens
+    if window is not None:
+        valid &= kpos > lens - 1 - window
+    sc = torch.where(valid[:, :, None, None, :], sc, torch.full_like(sc, _NEG))
+    return torch.einsum("bshgl,blhd->bshgd", torch.softmax(sc, dim=-1), vr)
+
+
+def paged_gqa_verify(q: torch.Tensor, k_pool: torch.Tensor,
+                     v_pool: torch.Tensor, block_table: torch.Tensor,
+                     kv_len: torch.Tensor, *, scale: Optional[float] = None,
+                     window: Optional[int] = None,
+                     cap: Optional[float] = None) -> torch.Tensor:
+    """Fused paged GQA over a span of S consecutive queries per slot: q
+    [B, S, KVH, G, d], pools and table as ``paged_gqa_decode``, kv_len int32
+    [B] valid positions for span offset 0 (offset i sees ``kv_len + i``) ->
+    [B, S, KVH, G, dv] float32.  A CUDA tensor launches the kernel (or
+    raises); a CPU tensor takes ``paged_gqa_verify_plain``."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if not q.is_cuda:
+        return paged_gqa_verify_plain(q, k_pool, v_pool, block_table, kv_len,
+                                      scale=scale, window=window, cap=cap)
+    return _gqa_launch(GQA_VERIFY_KERNEL, q, k_pool, v_pool, block_table,
+                       kv_len, scale, window, cap)
+
+
+def _gqa_launch(kernel: CudaKernel, q, k_pool, v_pool, block_table, kv_len,
+                scale, window, cap) -> torch.Tensor:
+    """Check a span's operands (q [B, S, KVH, G, d], or [B, KVH, G, d] for
+    S = 1, on the card) and launch the GQA kernel through ``kernel``'s
+    counter -> f32 of q's shape with dv last."""
+    b, (kvh, g, d) = q.shape[0], q.shape[-3:]
+    s = q.shape[1] if q.dim() == 5 else 1
+    nb, bs = k_pool.shape[:2]
+    dv = v_pool.shape[-1]
+    fn = kernel.name
+    if q.dtype not in DTYPE_CODES:
+        raise ValueError(f"{fn} takes float32/bfloat16, got {q.dtype}")
+    if k_pool.shape != (nb, bs, kvh, d) or v_pool.shape[:3] != (nb, bs, kvh):
+        raise ValueError(f"pool shapes {tuple(k_pool.shape)} / "
+                         f"{tuple(v_pool.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if block_table.shape[0] != b or kv_len.shape != (b,):
+        raise ValueError(f"block_table {tuple(block_table.shape)} / kv_len "
+                         f"{tuple(kv_len.shape)} do not match batch {b}")
+    if cap is not None and cap <= 0:
+        raise ValueError(f"softcap must be positive, got {cap}")
+    if dv > _THREADS * _MAX_PAIRS:
+        raise ValueError(f"dv = {dv} exceeds the kernel's "
+                         f"{_THREADS * _MAX_PAIRS} accumulators per CTA")
+    rows = min(s * g, _THREADS * _MAX_PAIRS // dv)     # span rows per CTA
+    smem = (rows * d + bs * d + bs * dv + rows * bs + 5 * rows) * 4
+    if smem > _OPTIN_SMEM_LIMIT:
+        raise ValueError(f"{fn} needs {smem} B of shared memory per CTA "
+                         f"(block_size {bs}, d {d}, dv {dv}); the kernel "
+                         f"takes at most {_OPTIN_SMEM_LIMIT}")
+    check_cuda_operand("q", q, q.device)
+    check_cuda_operand("k_pool", k_pool, q.device, q.dtype)
+    check_cuda_operand("v_pool", v_pool, q.device, q.dtype)
+    check_cuda_operand("block_table", block_table, q.device, torch.int32)
+    check_cuda_operand("kv_len", kv_len, q.device, torch.int32)
+    out = torch.empty(q.shape[:-1] + (dv,), dtype=torch.float32,
+                      device=q.device)
+    if out.numel():
+        kernel.launch(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b, s,
+            kvh, g, d, dv, bs, block_table.shape[1], float(scale),
+            -1 if window is None else int(window),
+            0.0 if cap is None else float(cap), DTYPE_CODES[q.dtype])
+    return out
+
+
+def paged_mla_verify_plain(q_lat: torch.Tensor, q_pe: torch.Tensor,
+                           ckv_pool: torch.Tensor, kpe_pool: torch.Tensor,
+                           block_table: torch.Tensor, kv_len: torch.Tensor, *,
+                           scale: float) -> torch.Tensor:
+    """Gather each slot's table back into position order, then a masked f32
+    softmax in the latent space per span offset: q_lat [B, S, H, r], q_pe
+    [B, S, H, rd] -> [B, S, H, r] float32, offset i masked to its
+    ``kv_len + i`` positions."""
+    b, s = q_lat.shape[:2]
+    length = block_table.shape[1] * ckv_pool.shape[1]
+    tbl = block_table.long()
+    cr = ckv_pool[tbl].reshape(b, length, -1).float()
+    pr = kpe_pool[tbl].reshape(b, length, -1).float()
+    sc = (torch.einsum("bshr,blr->bshl", q_lat.float(), cr)
+          + torch.einsum("bshd,bld->bshl", q_pe.float(), pr)) * scale
+    valid = (torch.arange(length, device=q_lat.device)[None, None, :]
+             < _span_lens(kv_len, s)[:, :, None])
+    sc = torch.where(valid[:, :, None, :], sc, torch.full_like(sc, _NEG))
+    return torch.einsum("bshl,blr->bshr", torch.softmax(sc, dim=-1), cr)
+
+
+def paged_mla_verify(q_lat: torch.Tensor, q_pe: torch.Tensor,
+                     ckv_pool: torch.Tensor, kpe_pool: torch.Tensor,
+                     block_table: torch.Tensor, kv_len: torch.Tensor, *,
+                     scale: float) -> torch.Tensor:
+    """Fused paged MLA (absorbed) over a span of S consecutive queries per
+    slot: q_lat [B, S, H, r] and q_pe [B, S, H, rd] float32, pools and
+    table as ``paged_mla_decode``, kv_len int32 [B] valid positions for span
+    offset 0 (offset i sees ``kv_len + i``) -> latent context [B, S, H, r]
+    float32.  A CUDA tensor launches the kernel (or raises); a CPU tensor
+    takes ``paged_mla_verify_plain``."""
+    if not q_lat.is_cuda:
+        return paged_mla_verify_plain(q_lat, q_pe, ckv_pool, kpe_pool,
+                                      block_table, kv_len, scale=scale)
+    return _mla_launch(MLA_VERIFY_KERNEL, q_lat, q_pe, ckv_pool, kpe_pool,
+                       block_table, kv_len, scale)
+
+
+def _mla_launch(kernel: CudaKernel, q_lat, q_pe, ckv_pool, kpe_pool,
+                block_table, kv_len, scale) -> torch.Tensor:
+    """Check a span's operands (q_lat [B, S, H, r], or [B, H, r] for S = 1,
+    on the card) and launch the MLA kernel through ``kernel``'s counter ->
+    f32 of q_lat's shape."""
+    b, (h, r) = q_lat.shape[0], q_lat.shape[-2:]
+    s = q_lat.shape[1] if q_lat.dim() == 4 else 1
+    rd = q_pe.shape[-1]
+    nb, bs = ckv_pool.shape[:2]
+    fn = kernel.name
     if ckv_pool.dtype not in DTYPE_CODES:
-        raise ValueError(f"paged_mla_decode takes float32/bfloat16 pools, got "
+        raise ValueError(f"{fn} takes float32/bfloat16 pools, got "
                          f"{ckv_pool.dtype}")
-    if (q_pe.shape != (b, h, rd) or ckv_pool.shape != (nb, bs, r)
+    if (q_pe.shape != q_lat.shape[:-1] + (rd,)
+            or ckv_pool.shape != (nb, bs, r)
             or kpe_pool.shape != (nb, bs, rd)):
         raise ValueError(f"shapes q_lat {tuple(q_lat.shape)}, q_pe "
                          f"{tuple(q_pe.shape)}, ckv_pool "
@@ -184,25 +310,25 @@ def paged_mla_decode(q_lat: torch.Tensor, q_pe: torch.Tensor,
     if r > _THREADS * _MAX_PAIRS:
         raise ValueError(f"kv_lora {r} exceeds the kernel's "
                          f"{_THREADS * _MAX_PAIRS} accumulators per CTA")
-    smem = ((r + rd) * (bs + 1) + bs) * 4
-    if smem > _MLA_SMEM_LIMIT:
-        raise ValueError(f"paged_mla_decode needs {smem} B of shared memory "
-                         f"per CTA (block_size {bs}, r {r}, rd {rd}); the "
-                         f"kernel takes at most {_MLA_SMEM_LIMIT}")
+    rows = min(s, _MLA_VERIFY_ROWS)
+    smem = ((r + rd) * (rows + bs) + rows * bs) * 4
+    if smem > _OPTIN_SMEM_LIMIT:
+        raise ValueError(f"{fn} needs {smem} B of shared memory per CTA "
+                         f"(block_size {bs}, r {r}, rd {rd}); the kernel "
+                         f"takes at most {_OPTIN_SMEM_LIMIT}")
     check_cuda_operand("q_lat", q_lat, q_lat.device, torch.float32)
     check_cuda_operand("q_pe", q_pe, q_lat.device, torch.float32)
     check_cuda_operand("ckv_pool", ckv_pool, q_lat.device)
     check_cuda_operand("kpe_pool", kpe_pool, q_lat.device, ckv_pool.dtype)
     check_cuda_operand("block_table", block_table, q_lat.device, torch.int32)
     check_cuda_operand("kv_len", kv_len, q_lat.device, torch.int32)
-    out = torch.empty(b, h, r, dtype=torch.float32, device=q_lat.device)
-    if b and h:
-        MLA_KERNEL.launch(q_lat.data_ptr(), q_pe.data_ptr(),
-                          ckv_pool.data_ptr(), kpe_pool.data_ptr(),
-                          block_table.data_ptr(), kv_len.data_ptr(),
-                          out.data_ptr(), b, h, r, rd, bs,
-                          block_table.shape[1], float(scale),
-                          DTYPE_CODES[ckv_pool.dtype])
+    out = torch.empty(q_lat.shape, dtype=torch.float32, device=q_lat.device)
+    if out.numel():
+        kernel.launch(
+            q_lat.data_ptr(), q_pe.data_ptr(), ckv_pool.data_ptr(),
+            kpe_pool.data_ptr(), block_table.data_ptr(), kv_len.data_ptr(),
+            out.data_ptr(), b, s, h, r, rd, bs, block_table.shape[1],
+            float(scale), DTYPE_CODES[ckv_pool.dtype])
     return out
 
 

@@ -5,10 +5,11 @@
 
 runs the continuous-batching engine on the card (``--device cuda``, the
 default; ``--device cpu`` runs the plain path); ``--arch
-deepseek-v2-lite-16b`` serves the MoE family with MLA attention.  Weights
-are random, from ``--seed``.  Flags of features not ported yet are
-accepted and raise ``NotImplementedError`` naming the slice that brings
-them.
+deepseek-v2-lite-16b`` serves the MoE family with MLA attention; ``--spec``
+adds self-speculative decoding (``--spec-k`` drafts per verify, ``--draft
+rerank|skip``).  Weights are random, from ``--seed``.  Flags of features
+not ported yet are accepted and raise ``NotImplementedError`` naming the
+slice that brings them.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models import init_model
-from repro_torch.serve import ServeEngine, synthetic_trace
+from repro_torch.serve import ServeEngine, SpecConfig, synthetic_trace
 from repro_torch.serve.engine import not_ported
 
 
@@ -53,7 +54,18 @@ def main(argv=None) -> None:
     ap.add_argument("--preempt", default="replay",
                     choices=["replay", "suspend"])
     ap.add_argument("--prefix-cache", action="store_true")
-    ap.add_argument("--spec", action="store_true")
+    ap.add_argument("--spec", action="store_true",
+                    help="self-speculative decoding: a cheap draft view of "
+                         "the served model proposes --spec-k tokens per slot "
+                         "per tick, the target verifies them in one forward, "
+                         "and greedy acceptance keeps the non-speculative "
+                         "token stream")
+    ap.add_argument("--spec-k", type=int, default=3,
+                    help="with --spec: draft tokens proposed per verify")
+    ap.add_argument("--draft", default="rerank", choices=["rerank", "skip"],
+                    help="with --spec: 'rerank' re-ranks the compressed N:M "
+                         "weights to 1:M (needs --weights compressed), "
+                         "'skip' keeps every other layer")
     ap.add_argument("--tp", type=int, default=0)
     ap.add_argument("--prewarm", action="store_true")
     ap.add_argument("--device", default="cuda")
@@ -64,8 +76,9 @@ def main(argv=None) -> None:
         raise not_ported("--scheduler sequential", "slotted-cache/sequential-oracle")
     if args.prefix_cache:
         raise not_ported("--prefix-cache", "serve-features")
-    if args.spec:
-        raise not_ported("--spec", "serve-features")
+    if args.spec and args.draft == "rerank" and args.weights != "compressed":
+        raise SystemExit("--draft rerank re-ranks the compressed pool: use "
+                         "--weights compressed (or --draft skip)")
     if args.tp:
         raise not_ported("--tp", "distribution")
 
@@ -86,6 +99,8 @@ def main(argv=None) -> None:
                       block_size=args.block_size,
                       n_blocks=args.blocks or None, attn=args.attn,
                       preempt=args.preempt, prewarm=args.prewarm,
+                      spec=(SpecConfig(k=args.spec_k, draft=args.draft)
+                            if args.spec else None),
                       device=args.device)
     t0 = time.perf_counter()
     results = eng.run(reqs)
@@ -101,6 +116,14 @@ def main(argv=None) -> None:
           f"({int(st['weight_stream_bytes'])} B/step), "
           f"{int(st['preemptions'])} preemptions, "
           f"{int(st['prefill_calls'])} prefills")
+    if args.spec:
+        print(f"speculative[{args.draft},k={args.spec_k}]: acceptance "
+              f"{st['spec_acceptance']:.2f} ({int(st['spec_accepted'])}/"
+              f"{int(st['spec_proposed'])} drafts), "
+              f"{int(st['spec_steps_saved'])} target steps saved over "
+              f"{int(st['draft_steps'])} draft steps, draft stream "
+              f"{st['draft_stream_bytes'] / st['weight_stream_bytes']:.2f}x "
+              f"target")
     rid0 = min(results)
     print("sample:", results[rid0].tokens[:12].tolist())
 

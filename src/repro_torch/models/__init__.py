@@ -5,10 +5,10 @@ from repro_torch.models.config import ArchConfig, param_count
 from repro_torch.models.transformer import (DenseLM, MoELM,
                                             convert_to_compressed,
                                             decode_step, init_caches,
-                                            init_model, prefill,
-                                            weight_stream_bytes)
+                                            init_model, make_draft, prefill,
+                                            verify_step, weight_stream_bytes)
 
 __all__ = ["ArchConfig", "param_count", "DenseLM", "MoELM",
            "convert_to_compressed",
-           "decode_step", "init_caches", "init_model", "prefill",
-           "weight_stream_bytes"]
+           "decode_step", "init_caches", "init_model", "make_draft",
+           "prefill", "verify_step", "weight_stream_bytes"]

@@ -6,15 +6,19 @@ over (q_chunk, kv_chunk) tiles.  Decode is one token per slot against the
 paged block pool, read either by a fused kernel (``cfg.attn_impl ==
 "fused"``: ``paged_gqa_decode`` / ``paged_mla_decode``) or by gathering each
 slot's blocks back into position order first (``"gather"``, the oracle).
+A span of S > 1 tokens per slot (the speculative verify step) writes all S
+positions, then scores offset i against the ``pos + i + 1`` positions up to
+its own (``paged_gqa_verify`` / ``paged_mla_verify``, or the gather read
+with a per-offset causal mask).
 
 GQA: query head ``h`` uses kv head ``h // G`` (G = n_heads // n_kv) in
 prefill and decode alike.  MLA caches the latent ``ckv`` [kv_lora] and the
 roped ``kpe`` [qk_rope_dim] per token; prefill up-projects them to per-head
 K/V, decode runs absorbed in the latent space (``wuk`` folded into the
 query, ``wuv`` applied to the latent context).  Decode writes the new
-token's cache entries into the pool **in place** (``_paged_write``); the
-reference returned a new pool instead.  Cross-attention, the slotted
-(ring-buffer) decode cache and the speculative verify spans are not ported
+token's cache entries into the pool **in place** (``_paged_write_span``);
+the reference returned a new pool instead.
+Cross-attention and the slotted (ring-buffer) decode cache are not ported
 yet.
 """
 
@@ -28,7 +32,9 @@ from torch import nn
 from repro_torch.core.layers import (SparseLinear, dense_view, linear_apply,
                                      linear_init)
 from repro_torch.kernels.flash_attention import (paged_gqa_decode,
-                                                 paged_mla_decode)
+                                                 paged_gqa_verify,
+                                                 paged_mla_decode,
+                                                 paged_mla_verify)
 from repro_torch.models.common import apply_rope, rope_angles, softcap
 from repro_torch.models.config import ArchConfig
 
@@ -121,37 +127,66 @@ def gqa_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype,
     return {"k": z, "v": z.clone()}
 
 
-def _paged_write(cache, updates, block_table, cache_pos):
-    """Write one new token per batch row through the block table, in place.
+def _paged_write_span(cache, updates, block_table, cache_pos):
+    """Write S consecutive tokens per batch row through the block table,
+    in place: ``updates[name]`` is [B, S, ...] and row r's offset i lands
+    at logical position ``cache_pos[r] + i``, in physical block
+    ``block_table[r, p // block_size]`` at offset ``p % block_size``.  The
+    engine backs every block the span touches before the call
+    (``BlockPool.check_invariants`` with a span-wide write window proves
+    it).
 
-    Cache leaves are block pools [n_blocks, block_size, ...]; row r's token
-    at position p lives at physical block ``block_table[r, p // block_size]``,
-    offset ``p % block_size``.  Idle rows (table row all trash, position 0)
-    all write trash block 0; duplicate writes there are harmless because no
-    live slot's table names block 0 (``BlockPool.check_invariants``)."""
+    Masked rows (table row all trash) all write trash block 0, so several
+    rows may name one cell.  No live slot's table names block 0, but the
+    masked rows read it back, and in the MoE family their outputs compete
+    with the live rows for expert capacity, so what the cell holds must not
+    depend on which parallel write lands last.  Each cell therefore takes
+    the value of its last writer in (row, offset) order, as a sequential
+    write leaves it: every write to the cell carries that value."""
     bsz = next(iter(cache.values())).shape[1]
     posv = cache_pos.reshape(-1).long()
-    rows = torch.arange(posv.shape[0], device=posv.device)
-    blk = block_table[rows, posv // bsz].long()
-    off = posv % bsz
+    span = next(iter(updates.values())).shape[1]
+    dev = posv.device
+    posm = (posv[:, None] + torch.arange(span, device=dev)).reshape(-1)
+    rows = torch.arange(posv.shape[0], device=dev).repeat_interleave(span)
+    cell = block_table[rows, posm // bsz].long() * bsz + posm % bsz  # [B*S]
+    order = torch.arange(cell.shape[0], device=dev)
+    last = ((cell[:, None] == cell[None, :]) * order).amax(1)
     for name, val in updates.items():
-        cache[name][blk, off] = val.to(cache[name].dtype)
+        val = val.reshape((-1,) + tuple(val.shape[2:]))[last]
+        cache[name].view((-1,) + tuple(cache[name].shape[2:]))[cell] = \
+            val.to(cache[name].dtype)
     return cache
 
 
-def _paged_update(cache, updates, block_table, cache_pos):
-    """``_paged_write`` + gather each row's stream back in logical order:
-    returns ``(cache, reads, length)`` with ``reads[name]`` in the plain
-    layout [B, table_width * block_size, ...] — the gather read path, the
-    oracle the fused kernel is held against."""
+def _paged_update_span(cache, updates, block_table, cache_pos):
+    """``_paged_write_span`` + gather each row's stream back in logical
+    order: returns ``(cache, reads, length)`` with ``reads[name]`` in the
+    plain layout [B, table_width * block_size, ...] — the gather read path,
+    the oracle the fused kernels are held against."""
     bsz = next(iter(cache.values())).shape[1]
     b = cache_pos.reshape(-1).shape[0]
     length = block_table.shape[1] * bsz
-    cache = _paged_write(cache, updates, block_table, cache_pos)
+    cache = _paged_write_span(cache, updates, block_table, cache_pos)
     tbl = block_table.long()
     reads = {name: c[tbl].reshape((b, length) + tuple(c.shape[2:]))
              for name, c in cache.items()}
     return cache, reads, length
+
+
+def _span_valid(cache_pos: torch.Tensor, s: int, length: int,
+                window: Optional[int] = None) -> torch.Tensor:
+    """[B, S, length] read mask of a span: offset i at position
+    ``pos + i`` sees positions ``idx <= pos + i`` (and, with a window, only
+    the last ``window`` of them)."""
+    dev = cache_pos.device
+    idx = torch.arange(length, device=dev)[None, None, :]
+    posq = (cache_pos.reshape(-1, 1).long()
+            + torch.arange(s, device=dev)[None, :])[:, :, None]
+    valid = idx <= posq
+    if window is not None:
+        valid &= idx > posq - window
+    return valid
 
 
 def _paged_kv_len(cache_pos: torch.Tensor) -> torch.Tensor:
@@ -166,9 +201,11 @@ def gqa_apply(p: GQA, x: torch.Tensor, cfg: ArchConfig, *,
               block_table: Optional[torch.Tensor] = None,
               return_kv: bool = False):
     """x [B, S, d].  Prefill when ``cache`` is None (``return_kv`` returns
-    this call's K/V); single-token paged decode when ``cache`` (one layer's
-    pool leaves) and ``block_table`` are given, with ``cache_pos`` the
-    per-slot [B] position vector.  Returns (y, new_kv)."""
+    this call's K/V); paged decode when ``cache`` (one layer's pool leaves)
+    and ``block_table`` are given, with ``cache_pos`` the per-slot [B]
+    position vector: one token per slot (S == 1), or a verify span of S
+    tokens at positions ``cache_pos .. cache_pos + S - 1``.  Returns (y,
+    new_kv)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd()
     sp = cfg.sparsity
@@ -187,37 +224,39 @@ def gqa_apply(p: GQA, x: torch.Tensor, cfg: ArchConfig, *,
                               cap=cfg.softcap_attn, q_chunk=cfg.q_chunk,
                               kv_chunk=cfg.kv_chunk)
         new_kv = {"k": k, "v": v} if return_kv else None
-    elif block_table is None or s != 1:
+    elif block_table is None:
         raise NotImplementedError(
-            "slotted decode caches and multi-token verify spans come with "
-            "later slices of the port; decode here is paged, one token")
+            "slotted decode caches come with a later slice of the port; "
+            "decode here is paged")
     elif cfg.attn_impl == "fused":
-        # fused paged decode: write through the table, then the kernel walks
-        # the table itself — the pool is never copied into position order
-        new_kv = _paged_write(cache, {"k": k[:, 0], "v": v[:, 0]},
-                              block_table, cache_pos)
-        o = paged_gqa_decode(q.reshape(b, kv, h // kv, hd), new_kv["k"],
-                             new_kv["v"], block_table,
-                             _paged_kv_len(cache_pos), scale=hd ** -0.5,
-                             window=window, cap=cfg.softcap_attn)
-        o = o.reshape(b, 1, h, hd).to(x.dtype)
+        # write through the table, then the kernel walks the table itself —
+        # the pool is never copied into position order.  A verify span
+        # (S > 1) is one launch scoring offset i against kv_len + i
+        new_kv = _paged_write_span(cache, {"k": k, "v": v}, block_table,
+                                   cache_pos)
+        kw = dict(scale=hd ** -0.5, window=window, cap=cfg.softcap_attn)
+        if s == 1:
+            o = paged_gqa_decode(q.reshape(b, kv, h // kv, hd), new_kv["k"],
+                                 new_kv["v"], block_table,
+                                 _paged_kv_len(cache_pos), **kw)
+        else:
+            o = paged_gqa_verify(q.reshape(b, s, kv, h // kv, hd),
+                                 new_kv["k"], new_kv["v"], block_table,
+                                 _paged_kv_len(cache_pos), **kw)
+        o = o.reshape(b, s, h, hd).to(x.dtype)
     elif cfg.attn_impl == "gather":
-        new_kv, reads, length = _paged_update(
-            cache, {"k": k[:, 0], "v": v[:, 0]}, block_table, cache_pos)
-        qg = q.reshape(b, kv, h // kv, hd)
-        sc = torch.einsum("bhgd,blhd->bhgl", qg.float(),
+        new_kv, reads, length = _paged_update_span(
+            cache, {"k": k, "v": v}, block_table, cache_pos)
+        qg = q.reshape(b, s, kv, h // kv, hd)
+        sc = torch.einsum("bshgd,blhd->bshgl", qg.float(),
                           reads["k"].float()) * hd ** -0.5
         sc = softcap(sc, cfg.softcap_attn)
-        idx = torch.arange(length, device=x.device)[None, :]
-        posb = cache_pos.reshape(-1, 1).long()
-        abs_pos = posb - torch.remainder(posb - idx, length)
-        valid = abs_pos >= 0
-        if window is not None:
-            valid &= abs_pos > posb - window
-        sc = torch.where(valid[:, None, None, :], sc, torch.full_like(sc, _NEG))
+        valid = _span_valid(cache_pos, s, length, window)
+        sc = torch.where(valid[:, :, None, None, :], sc,
+                         torch.full_like(sc, _NEG))
         pr = torch.softmax(sc, dim=-1)
-        o = torch.einsum("bhgl,blhd->bhgd", pr, reads["v"].float())
-        o = o.reshape(b, 1, h, hd).to(x.dtype)
+        o = torch.einsum("bshgl,blhd->bshgd", pr, reads["v"].float())
+        o = o.reshape(b, s, h, hd).to(x.dtype)
     else:
         raise ValueError(f"attn_impl must be 'gather' or 'fused', got "
                          f"{cfg.attn_impl!r}")
@@ -286,10 +325,11 @@ def mla_apply(p: MLA, x: torch.Tensor, cfg: ArchConfig, *,
               block_table: Optional[torch.Tensor] = None,
               return_kv: bool = False):
     """x [B, S, d].  Prefill when ``cache`` is None (``return_kv`` returns
-    this call's latent cache entries {"ckv", "kpe"}); single-token paged
-    decode when ``cache`` (one layer's pool leaves) and ``block_table`` are
-    given, with ``cache_pos`` the per-slot [B] position vector.  Returns
-    (y, new_kv)."""
+    this call's latent cache entries {"ckv", "kpe"}); paged decode when
+    ``cache`` (one layer's pool leaves) and ``block_table`` are given, with
+    ``cache_pos`` the per-slot [B] position vector: one token per slot
+    (S == 1), or a verify span of S tokens at positions ``cache_pos ..
+    cache_pos + S - 1``.  Returns (y, new_kv)."""
     b, s, _ = x.shape
     h, nd, rd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     vd, r = cfg.v_head_dim, cfg.kv_lora
@@ -308,45 +348,48 @@ def mla_apply(p: MLA, x: torch.Tensor, cfg: ArchConfig, *,
         o = chunked_attention(q, k, vv, causal=True, scale=scale,
                               q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
         new_kv = {"ckv": ckv, "kpe": kpe} if return_kv else None
-    elif block_table is None or s != 1:
+    elif block_table is None:
         raise NotImplementedError(
-            "slotted decode caches and multi-token verify spans come with "
-            "later slices of the port; decode here is paged, one token")
+            "slotted decode caches come with a later slice of the port; "
+            "decode here is paged")
     else:
         # absorbed decode in the latent space: the cache stays [kv_lora +
-        # rope] per token (MLA's memory win)
+        # rope] per token (MLA's memory win).  S == 1 is one token per
+        # slot; S > 1 a verify span whose offset i masks to idx <= pos + i
         wuk3 = _dense_weight(p.wuk, cfg).reshape(h, nd, r)
         wuv3 = _dense_weight(p.wuv, cfg).reshape(h, vd, r)
-        # the kernel reads dense rows; for B > 1 this einsum returns a
-        # permuted [h, b, r] product
-        qlat = torch.einsum("bhd,hdr->bhr", qn[:, 0].float(),
+        # the kernels read dense rows; this einsum returns a permuted
+        # [h, b, s, r] product
+        qlat = torch.einsum("bshd,hdr->bshr", qn.float(),
                             wuk3.float()).contiguous()
-        qp = qpe[:, 0].float()
-        upd = {"ckv": ckv[:, 0], "kpe": kpe[:, 0]}
+        qp = qpe.float().contiguous()
+        upd = {"ckv": ckv, "kpe": kpe}
         if cfg.attn_impl == "fused":
             # write through the table, then the kernel walks it: scores,
             # softmax and the latent context never leave the kernel
-            new_kv = _paged_write(cache, upd, block_table, cache_pos)
-            ov = paged_mla_decode(qlat, qp, new_kv["ckv"], new_kv["kpe"],
-                                  block_table, _paged_kv_len(cache_pos),
-                                  scale=scale)
+            new_kv = _paged_write_span(cache, upd, block_table, cache_pos)
+            kv_len = _paged_kv_len(cache_pos)
+            if s == 1:
+                ov = paged_mla_decode(qlat[:, 0], qp[:, 0], new_kv["ckv"],
+                                      new_kv["kpe"], block_table, kv_len,
+                                      scale=scale)[:, None]
+            else:
+                ov = paged_mla_verify(qlat, qp, new_kv["ckv"], new_kv["kpe"],
+                                      block_table, kv_len, scale=scale)
         elif cfg.attn_impl == "gather":
-            new_kv, reads, length = _paged_update(cache, upd, block_table,
-                                                  cache_pos)
+            new_kv, reads, length = _paged_update_span(cache, upd,
+                                                       block_table, cache_pos)
             cc = reads["ckv"].float()
-            sc = (torch.einsum("bhr,blr->bhl", qlat, cc)
-                  + torch.einsum("bhd,bld->bhl", qp, reads["kpe"].float()))
+            sc = (torch.einsum("bshr,blr->bshl", qlat, cc)
+                  + torch.einsum("bshd,bld->bshl", qp, reads["kpe"].float()))
             sc = sc * scale
-            idx = torch.arange(length, device=x.device)[None, :]
-            posb = cache_pos.reshape(-1, 1).long()
-            sc = torch.where((idx <= posb)[:, None, :], sc,
-                             torch.full_like(sc, _NEG))
-            ov = torch.einsum("bhl,blr->bhr", torch.softmax(sc, dim=-1), cc)
+            sc = torch.where(_span_valid(cache_pos, s, length)[:, :, None, :],
+                             sc, torch.full_like(sc, _NEG))
+            ov = torch.einsum("bshl,blr->bshr", torch.softmax(sc, dim=-1), cc)
         else:
             raise ValueError(f"attn_impl must be 'gather' or 'fused', got "
                              f"{cfg.attn_impl!r}")
-        o = torch.einsum("bhr,hdr->bhd", ov, wuv3.float())
-        o = o.reshape(b, 1, h, vd).to(x.dtype)
+        o = torch.einsum("bshr,hdr->bshd", ov, wuv3.float()).to(x.dtype)
 
     y = linear_apply(p.wo, o.reshape(b, s, h * vd), sp)
     return y, new_kv

@@ -14,8 +14,11 @@ Public API (family-dispatched):
   init_model(cfg, seed, device)                  -> DenseLM | MoELM
   init_caches(cfg, batch, max_len, device)       -> {"k", "v"} | {"ckv", "kpe"}
   prefill(model, cfg, batch, logit_pos)          -> (logits [B, V], caches)
-  decode_step(model, cfg, caches, tokens, pos, block_table, attn_impl)
-                                                 -> (logits [B, V], caches)
+  decode_step(model, cfg, caches, tokens, pos, block_table, attn_impl,
+              layers)                            -> (logits [B, V], caches)
+  verify_step(model, cfg, caches, tokens, pos, block_table, attn_impl)
+                                                 -> (logits [B, S, V], caches)
+  make_draft(model, cfg, kind, stride)           -> (draft, draft_cfg, cache_idx)
   convert_to_compressed(model, cfg)              -> the same model class
   weight_stream_bytes(model, cfg)                -> dict
 """
@@ -23,14 +26,17 @@ Public API (family-dispatched):
 from __future__ import annotations
 
 import copy
-from typing import Dict, List, Optional, Union
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.core import layers as sparse_layers
 from repro_torch.core.layers import SparseLinear
+from repro_torch.core.sparse_matmul import nm_rerank
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.common import (Embedding, RMSNorm, embed_apply,
@@ -241,7 +247,8 @@ def prefill(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
 def decode_step(p: LM, cfg: ArchConfig, caches: Dict[str, torch.Tensor],
                 tokens: torch.Tensor, pos: torch.Tensor,
                 block_table: Optional[torch.Tensor] = None,
-                attn_impl: Optional[str] = None):
+                attn_impl: Optional[str] = None,
+                layers: Optional[Sequence[int]] = None):
     """One token per slot: tokens [B], pos int32 [B] per-slot positions,
     block_table int32 [B, max_blocks] over the paged pools ({"k", "v"} or
     {"ckv", "kpe"}, [L, n_blocks, block_size, ...]) -> (logits [B, V] f32,
@@ -249,21 +256,54 @@ def decode_step(p: LM, cfg: ArchConfig, caches: Dict[str, torch.Tensor],
 
     The pools are updated **in place** (the returned ``caches`` is the
     argument).  ``attn_impl`` ('gather' | 'fused') overrides
-    ``cfg.attn_impl`` for the paged read."""
+    ``cfg.attn_impl`` for the paged read.  ``layers`` maps block i to pool
+    layer ``layers[i]`` (a skip draft's ``cache_idx``); by default block i
+    uses pool layer i."""
     _check_family(cfg)
     if block_table is None:
         raise NotImplementedError("slotted decode caches come with a later "
                                   "slice of the port; pass a block_table")
+    logits = _paged_forward(p, cfg, caches, tokens[:, None], pos,
+                            block_table, attn_impl, layers)
+    return logits[:, 0], caches
+
+
+def verify_step(p: LM, cfg: ArchConfig, caches: Dict[str, torch.Tensor],
+                tokens: torch.Tensor, pos: torch.Tensor,
+                block_table: Optional[torch.Tensor] = None,
+                attn_impl: Optional[str] = None):
+    """Speculative verify: score a span of S tokens per slot in one forward.
+
+    tokens [B, S] occupy positions ``pos .. pos + S - 1`` (pos the int32
+    [B] per-slot vector) -> (logits [B, S, V] f32, caches).  Row r's logits
+    at offset i are the next-token distribution after ``tokens[r, :i + 1]``,
+    what S sequential ``decode_step`` calls would give: the span's K/V are
+    written first (in place) and query offset i reads positions <= pos + i
+    only.  Needs the paged pool (``block_table``)."""
+    _check_family(cfg)
+    if block_table is None:
+        raise ValueError("verify_step requires a block_table (the span "
+                         "write/read is paged-only)")
+    logits = _paged_forward(p, cfg, caches, tokens, pos, block_table,
+                            attn_impl)
+    return logits, caches
+
+
+def _paged_forward(p: LM, cfg: ArchConfig, caches, tokens, pos, block_table,
+                   attn_impl, layers=None):
+    """Every block over tokens [B, S] at per-slot positions ``pos`` against
+    the paged pools (updated in place; block i on pool layer ``layers[i]``,
+    or i) -> f32 logits [B, S, V]."""
     if attn_impl is not None and attn_impl != cfg.attn_impl:
         cfg = cfg.replace(attn_impl=attn_impl)
-    x = embed_apply(p.embed, tokens[:, None])
+    x = embed_apply(p.embed, tokens)
     for i, lp in enumerate(p.blocks()):
-        layer_cache = {name: leaf[i] for name, leaf in caches.items()}
+        li = i if layers is None else int(layers[i])
+        layer_cache = {name: leaf[li] for name, leaf in caches.items()}
         x, _ = _block_apply(lp, x, cfg, positions=pos, cache=layer_cache,
                             cache_pos=pos, block_table=block_table)
     x = _norm(p.lnf, x, cfg)
-    logits = lm_head_apply(p.embed, x, cfg.softcap_final)[:, 0]
-    return logits, caches
+    return lm_head_apply(p.embed, x, cfg.softcap_final)
 
 
 # ------------------------------------------------- compressed serving weights
@@ -292,6 +332,59 @@ def convert_to_compressed(p: LM, cfg: ArchConfig) -> LM:
     the embedding are shared with ``p``, which is left unchanged."""
     sp = cfg.sparsity
     return _map_linears(p, lambda q: sparse_layers.convert_to_compressed(q, sp))
+
+
+def make_draft(p: LM, cfg: ArchConfig, kind: str = "rerank",
+               stride: int = 2):
+    """A cheaper *draft view* of the served model for self-speculative
+    decoding -> ``(draft, draft_cfg, cache_idx)``.
+
+    ``kind="rerank"``: every compressed n:m linear (expert stacks included)
+    is re-ranked to 1:m by ``nm_rerank`` on its stored operands, and
+    ``draft_cfg`` has ``n=1``; the draft streams 1/n of the linears' bytes
+    through the same decode kernels.  Embedding, norms, router and
+    uncompressed leaves are the target's own tensors.  ``cache_idx`` is
+    None: the draft has every layer.  Needs a compressed model (n > 1).
+
+    ``kind="skip"``: keeps every ``stride``-th block of the dense or MoE
+    stack (the ``first_dense_layers`` always); its blocks are the target's
+    own modules.  ``cache_idx`` (int32) names the target cache layers the
+    draft's layers read and write.
+
+    Neither view copies a shared tensor."""
+    if kind == "rerank":
+        sp = cfg.sparsity
+        if sp.mode != "compressed" or sp.n <= 1:
+            raise ValueError(
+                f"rerank draft needs a converted compressed model with "
+                f"n > 1, got mode={sp.mode!r} n={sp.n} (run "
+                f"convert_to_compressed first)")
+
+        def rerank(lin: SparseLinear) -> SparseLinear:
+            if not lin.compressed:
+                return lin
+            v, i = nm_rerank(lin.w_vals, lin.w_idx, sp.n, sp.m, 1)
+            return type(lin)(w_vals=v, w_idx=i,
+                             b=lin.b if lin.has("b") else None)
+
+        dcfg = cfg.replace(sparsity=dataclasses.replace(sp, n=1))
+        return _map_linears(p, rerank), dcfg, None
+    if kind == "skip":
+        if cfg.family not in ("dense", "moe") or cfg.local_global_period:
+            raise ValueError(
+                f"skip draft needs a plain stacked 'layers' family "
+                f"(dense/MoE); {cfg.family!r} does not qualify")
+        if stride < 2:
+            raise ValueError(f"need stride >= 2, got {stride}")
+        nd = cfg.first_dense_layers
+        midx = list(range(0, cfg.n_layers - nd, stride))
+        draft = copy.copy(p)
+        draft._modules = dict(p._modules)
+        draft._modules["layers"] = nn.ModuleList([p.layers[i] for i in midx])
+        cache_idx = np.asarray(list(range(nd)) + [nd + i for i in midx],
+                               np.int32)
+        return draft, cfg.replace(n_layers=nd + len(midx)), cache_idx
+    raise ValueError(f"draft kind must be 'rerank' or 'skip', got {kind!r}")
 
 
 def weight_stream_bytes(p: LM, cfg: ArchConfig) -> Dict[str, float]:

@@ -7,7 +7,10 @@ from repro_torch.serve.paged import BlockPool, TRASH_BLOCK, default_buckets
 from repro_torch.serve.request import (Request, RequestResult,
                                        synthetic_request, synthetic_trace)
 from repro_torch.serve.scheduler import SlotScheduler
+from repro_torch.serve.speculative import (SpecConfig, accept_greedy,
+                                           draft_propose_k)
 
 __all__ = ["seed_decode_caches", "ServeEngine", "BlockPool", "TRASH_BLOCK",
            "default_buckets", "Request", "RequestResult", "synthetic_request",
-           "synthetic_trace", "SlotScheduler"]
+           "synthetic_trace", "SlotScheduler", "SpecConfig", "accept_greedy",
+           "draft_propose_k"]

@@ -27,9 +27,18 @@ the pool runs dry the newest-admitted request is preempted back to the
 queue front and later replays from prefill (greedy decode makes the replay
 deterministic).
 
+``spec=SpecConfig(k, draft, stride)`` turns on self-speculative decoding
+(``serve.speculative``): each tick runs a plain decode forward for the
+slots that do not speculate, then for the others k draft steps and one
+k+1-wide ``verify_step``, each forward over the full pool width with the
+other group's rows masked to the trash block.  Slots replaying prompt
+tokens ride the verify span with those tokens as forced drafts.  Greedy
+acceptance keeps the token stream of the non-speculative engine; the table
+rolls back past the committed position (``BlockPool.rollback``).
+
 Not ported yet (the constructor raises ``NotImplementedError``): the
-slotted layout, prefix caching, suspend-to-host preemption, speculative
-decoding, tensor-parallel meshes and executable prewarming.
+slotted layout, prefix caching, suspend-to-host preemption, tensor-parallel
+meshes and executable prewarming.
 """
 
 from __future__ import annotations
@@ -41,11 +50,14 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import (convert_to_compressed, decode_step, prefill,
+from repro_torch.models import (convert_to_compressed, decode_step,
+                                make_draft, prefill, verify_step,
                                 weight_stream_bytes)
-from repro_torch.serve.paged import BlockPool, default_buckets
+from repro_torch.serve.paged import TRASH_BLOCK, BlockPool, default_buckets
 from repro_torch.serve.request import Request, RequestResult
 from repro_torch.serve.scheduler import SlotScheduler
+from repro_torch.serve.speculative import (SpecConfig, accept_greedy,
+                                           draft_propose_k)
 
 
 @dataclasses.dataclass
@@ -71,9 +83,10 @@ class ServeEngine:
     format at init (``models.convert_to_compressed``) and serves from it.
     ``block_size`` / ``n_blocks`` / ``prefill_buckets`` configure the paged
     pool; ``attn`` picks the paged read ('fused' kernel or 'gather'
-    oracle); ``debug_invariants=True`` cross-checks the block tables before
-    every decode tick.  ``device`` defaults to ``cuda`` and raises when no
-    card is present."""
+    oracle); ``spec`` turns on self-speculative decoding;
+    ``debug_invariants=True`` cross-checks the block tables before every
+    decode tick.  ``device`` defaults to ``cuda`` and raises when no card is
+    present."""
 
     def __init__(self, model, cfg, n_slots: int, max_len: int,
                  compressed: bool = False, kv: str = "paged",
@@ -81,8 +94,8 @@ class ServeEngine:
                  prefill_buckets: Optional[Sequence[int]] = None,
                  attn: str = "gather", prefix_cache: bool = False,
                  preempt: str = "replay", debug_invariants: bool = False,
-                 mesh=None, spec=None, prewarm: bool = False,
-                 device="cuda"):
+                 mesh=None, spec: Optional[SpecConfig] = None,
+                 prewarm: bool = False, device="cuda"):
         if kv == "slotted":
             raise not_ported("kv='slotted'", "slotted-cache/sequential-oracle")
         if kv != "paged":
@@ -95,12 +108,15 @@ class ServeEngine:
             raise ValueError(f"preempt must be 'replay', got {preempt!r}")
         if prefix_cache:
             raise not_ported("prefix_cache=True", "serve-features")
-        if spec is not None:
-            raise not_ported("spec= (speculative decoding)", "serve-features")
         if mesh is not None:
             raise not_ported("mesh= (tensor-parallel serving)", "distribution")
         if prewarm:
             raise not_ported("prewarm=True", "cold-start")
+        if (spec is not None and spec.draft == "rerank" and not compressed
+                and cfg.sparsity.mode != "compressed"):
+            raise ValueError("spec.draft='rerank' re-ranks the compressed "
+                             "N:M pool — serve with compressed=True (or a "
+                             "model already in compressed mode)")
         self.device = resolve_device(device)
         model = model.to(self.device)
         if compressed:
@@ -128,6 +144,18 @@ class ServeEngine:
         self.rejected = 0
         self.prefill_lengths = set()
         self._slots: Dict[int, _SlotState] = {}
+        self._spec = spec
+        self.spec_proposed = 0               # draft tokens offered to verify
+        self.spec_accepted = 0               # draft tokens the target kept
+        self.steps_saved = 0                 # target passes avoided
+        self.draft_steps = 0                 # draft decode steps run
+        if spec is not None:
+            # the draft is a view of the served model: shared embedding,
+            # norms and router, re-ranked or strided linears
+            self._draft, self._draft_cfg, self._cache_idx = make_draft(
+                model, cfg, kind=spec.draft, stride=spec.stride)
+            self.draft_stream = weight_stream_bytes(self._draft,
+                                                    self._draft_cfg)
         self.pool = BlockPool(cfg, n_slots, max_len, block_size, n_blocks,
                               device=self.device)
         # max_len always rides in the bucket set so every admissible prompt
@@ -238,15 +266,24 @@ class ServeEngine:
         self.tok[slot] = 0
         self.preemptions += 1
 
-    def _prepare_slots(self) -> None:
-        """Back every active slot's next write position, oldest admission
-        first; when the pool runs dry, preempt the newest-admitted request
-        (the oldest is never preempted, so progress is guaranteed)."""
+    def _prepare_slots(self, spec_set: Optional[set] = None) -> None:
+        """Back every active slot's write span, oldest admission first: its
+        next position, or the whole k+1 span for a slot in ``spec_set``.
+        When the pool runs dry, first demote the slot from speculation (a
+        1-wide span needs fewer blocks), then preempt the newest-admitted
+        request (the oldest is never preempted, so progress is
+        guaranteed)."""
+        k = self._spec.k if self._spec is not None else 0
         for slot in sorted(self._slots,
                            key=lambda s: (self._slots[s].admitted_at, s)):
             while slot in self._slots:
-                if self.pool.ensure(slot, int(self.pos[slot])):
+                spec = spec_set is not None and slot in spec_set
+                if self.pool.ensure(slot, int(self.pos[slot]) + (k if spec
+                                                                 else 0)):
                     break
+                if spec:                     # cheapen before evicting anyone
+                    spec_set.discard(slot)
+                    continue
                 victim = max(self._slots,
                              key=lambda s: (self._slots[s].admitted_at, s))
                 self._preempt(victim)
@@ -255,6 +292,9 @@ class ServeEngine:
 
     def step(self, now: int) -> None:
         """One batched decode tick over the pool (per-slot positions)."""
+        if self._spec is not None:
+            self._spec_step(now)
+            return
         self._prepare_slots()
         if not self._slots:
             return                           # everything was preempted
@@ -263,14 +303,22 @@ class ServeEngine:
             self.pool.check_invariants(
                 active_pos={s: int(self.pos[s]) for s in self._slots})
         dev = self.device
-        logits, self.pool.caches = decode_step(
-            self.model, self.cfg, self.pool.caches,
+        self._decode_tick(
+            list(self._slots),
             torch.tensor(self.tok, dtype=torch.long, device=dev),
             torch.tensor(self.pos, device=dev), self.pool.device_table(),
+            now)
+
+    def _decode_tick(self, slots, tok, pos, tbl, now: int) -> None:
+        """One decode forward over the device args, then advance ``slots``
+        (in the order given) by the token it emitted or their next prompt
+        token."""
+        logits, self.pool.caches = decode_step(
+            self.model, self.cfg, self.pool.caches, tok, pos, tbl,
             attn_impl=self.attn)
         nxt = logits.argmax(-1).to(torch.int32).cpu().numpy()
         self.decode_steps += 1
-        for slot in list(self._slots):
+        for slot in slots:
             st = self._slots[slot]
             self.pos[slot] += 1
             if st.pending:                   # still consuming the prompt
@@ -279,6 +327,120 @@ class ServeEngine:
             st.tokens.append(int(nxt[slot]))
             self.tok[slot] = nxt[slot]
             if len(st.tokens) >= st.req.max_new_tokens:
+                self._retire(slot, now)
+
+    # -------------------------------------------------- speculative decoding
+
+    def _masked(self, participants):
+        """(tok, pos, table) device args with every non-participant row
+        pointed at the trash block at position 0 — the disguise idle slots
+        already wear — so a forward over them touches only the
+        participants' blocks (the others' writes land in trash and their
+        logits are never read)."""
+        out = np.array([s not in participants for s in range(self.n_slots)])
+        tbl = self.pool.table.copy()
+        pos = self.pos.copy()
+        tok = self.tok.copy()
+        tbl[out] = TRASH_BLOCK
+        pos[out] = 0
+        tok[out] = 0
+        dev = self.device
+        return (torch.tensor(tok, dtype=torch.long, device=dev),
+                torch.tensor(pos, device=dev), torch.tensor(tbl, device=dev))
+
+    def _spec_step(self, now: int) -> None:
+        """One speculative tick: a plain decode forward for the slots that
+        do not speculate, then one draft-propose + target-verify round for
+        the others.
+
+        A slot joins the verify span when its request opts in
+        (``Request.spec`` over ``SpecConfig.default_on``), its k+1 span fits
+        the table, and it is either replaying prompt tokens (``pending``:
+        they ride the span as forced drafts, accepted by construction, up to
+        k+1 positions per pass) or generating with at least 2 tokens of
+        budget left.  A generating slot commits the longest draft prefix the
+        target agrees with plus the target's token after it.  Either way
+        the table then rolls back to the consumed position."""
+        k = self._spec.k
+        cap = self.pool.table_width * self.pool.block_size
+        draft_set, forced_set = set(), set()
+        for slot, st in self._slots.items():
+            on = (st.req.spec if st.req.spec is not None
+                  else self._spec.default_on)
+            if not on or int(self.pos[slot]) + k >= cap:
+                continue
+            if st.pending:
+                forced_set.add(slot)
+            elif st.req.max_new_tokens - len(st.tokens) >= 2:
+                draft_set.add(slot)
+        spec_set = draft_set | forced_set
+        self._prepare_slots(spec_set)
+        if not self._slots:
+            return                           # everything was preempted
+        spec_set &= set(self._slots)
+        draft_set &= spec_set
+        forced_set &= spec_set
+        plain = set(self._slots) - spec_set
+        if self.debug_invariants:
+            self.pool.check_invariants(active_pos={
+                s: (int(self.pos[s]), int(self.pos[s]) + k) if s in spec_set
+                else int(self.pos[s]) for s in self._slots})
+        if plain:
+            self.scheduler.record_occupancy()
+            self._decode_tick(sorted(plain), *self._masked(plain), now)
+        if not spec_set:
+            return
+        span = np.zeros((self.n_slots, k + 1), np.int32)
+        span[:, 0] = self.tok
+        if draft_set:
+            tok, pos, tbl = self._masked(draft_set)
+            drafts, self.pool.caches = draft_propose_k(
+                self._draft, self._draft_cfg, self.pool.caches, tok, pos, tbl,
+                k=k, attn_impl=self.attn, cache_idx=self._cache_idx)
+            span[:, 1:] = drafts.cpu().numpy()
+            self.draft_steps += k
+        # forced rows: the next prompt tokens ride the span in place of
+        # drafts; the oracle consumes them verbatim
+        for slot in forced_set:
+            pend = self._slots[slot].pending
+            f = min(k, len(pend))
+            span[slot, 1:] = 0
+            span[slot, 1:1 + f] = pend[:f]
+        _, pos, tbl = self._masked(spec_set)
+        vlogits, self.pool.caches = verify_step(
+            self.model, self.cfg, self.pool.caches,
+            torch.tensor(span, dtype=torch.long, device=self.device), pos,
+            tbl, attn_impl=self.attn)
+        va = vlogits.argmax(-1).to(torch.int32).cpu().numpy()   # [B, k+1]
+        self.decode_steps += 1
+        self.scheduler.record_occupancy()
+        acc = accept_greedy(span[:, 1:], va)
+        for slot in sorted(spec_set):
+            st = self._slots[slot]
+            if slot in forced_set:
+                f = min(k, len(st.pending))
+                del st.pending[:f]
+                self.pos[slot] += f + 1
+                if st.pending:               # prompt not done: no emission
+                    self.tok[slot] = st.pending.pop(0)
+                else:                        # first post-prompt emission
+                    st.tokens.append(int(va[slot, f]))
+                    self.tok[slot] = int(va[slot, f])
+                self.steps_saved += f
+            else:
+                budget = st.req.max_new_tokens - len(st.tokens)
+                n_commit = min(int(acc[slot]) + 1, budget)
+                commit = [int(t) for t in va[slot, :n_commit]]
+                st.tokens.extend(commit)
+                self.pos[slot] += n_commit
+                self.tok[slot] = commit[-1]
+                self.spec_proposed += k
+                self.spec_accepted += int(acc[slot])
+                self.steps_saved += n_commit - 1
+            # rewind: keep the blocks backing the consumed positions, free
+            # the span tail (exclusively owned: refcounts are 1 here)
+            self.pool.rollback(slot, int(self.pos[slot]))
+            if st.tokens and len(st.tokens) >= st.req.max_new_tokens:
                 self._retire(slot, now)
 
     # -------------------------------------------------------------- main loop
@@ -308,7 +470,7 @@ class ServeEngine:
     def stats(self) -> Dict[str, float]:
         toks = sum(len(r.tokens) for r in self.results.values())
         ws = self.weight_stream
-        return {
+        out = {
             "tokens": float(toks),
             "decode_steps": float(self.decode_steps),
             "ticks": float(self.ticks),
@@ -327,3 +489,19 @@ class ServeEngine:
             "kv_bytes_capacity": float(self.pool.usable_blocks
                                        * self.pool.bytes_per_block),
         }
+        if self._spec is not None:
+            # acceptance = share of drafted tokens the target kept;
+            # steps_saved = target passes the non-speculative engine would
+            # have needed beyond those run
+            out.update({
+                "spec_proposed": float(self.spec_proposed),
+                "spec_accepted": float(self.spec_accepted),
+                "spec_acceptance": (self.spec_accepted
+                                    / max(self.spec_proposed, 1)),
+                "spec_steps_saved": float(self.steps_saved),
+                "draft_steps": float(self.draft_steps),
+                # per-draft-step weight-stream bytes of the draft view
+                # (shared storage; the modeled read share, not extra bytes)
+                "draft_stream_bytes": float(
+                    self.draft_stream["stream_bytes"])})
+        return out

@@ -18,15 +18,16 @@ Invariants (``check_invariants``):
     table naming a freed or trash block would be a read-after-free;
   * freed blocks are reused lowest id first (the free list is a min-heap).
 
-Refcounted sharing, copy-on-write, swap-to-host and speculative rollback
-are not ported yet (they arrive with prefix caching and suspend/spec
-serving).
+``rollback`` rewinds a slot's table after a speculative verify (the
+rejected tail's blocks return to the free heap).  Refcounted sharing,
+copy-on-write and swap-to-host are not ported yet (they arrive with prefix
+caching and suspend serving), so every owned block has refcount 1.
 """
 
 from __future__ import annotations
 
 import heapq
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -149,19 +150,38 @@ class BlockPool:
         self._owned[slot] = []
         self.table[slot, :] = TRASH_BLOCK
 
-    def write_block(self, slot: int, pos: int) -> int:
-        """The physical block a decode write at ``pos`` would land in."""
-        return int(self.table[slot, pos // self.block_size])
+    def rollback(self, slot: int, n_positions: int) -> None:
+        """Rewind ``slot``'s table so only positions [0, n_positions) stay
+        backed — the speculative reject path.  Blocks past the kept
+        boundary return to the free heap; the boundary block stays (its
+        stale tail is masked by position until the next write).  Every
+        block to free must be exclusively owned (refcount 1); otherwise it
+        raises before it changes anything."""
+        owned = self._owned[slot]
+        tail = owned[self.blocks_for(n_positions):]
+        for pid in tail:
+            if self.ref[pid] != 1:
+                raise ValueError(
+                    f"rollback: slot {slot} block {pid} has refcount "
+                    f"{int(self.ref[pid])} — speculative spans must be "
+                    f"exclusively owned")
+        for pid in reversed(tail):
+            owned.pop()
+            self.table[slot, len(owned)] = TRASH_BLOCK
+            self.ref[pid] = 0
+            heapq.heappush(self._free, pid)
 
-    def check_invariants(self, active_pos: Optional[Dict[int, int]] = None
-                         ) -> None:
+    def check_invariants(
+            self, active_pos: Optional[Dict[int, Union[int, Tuple[int, int]]]]
+            = None) -> None:
         """Raise if the pool bookkeeping is inconsistent (test/debug hook).
 
         Always checked: every block is free XOR referenced once by a table;
         each table row is its owner's blocks followed by trash; no owned
-        entry is free or trash.  ``active_pos`` (slot -> decode position)
-        also proves each active slot's read window [0, pos] is backed and
-        its write block exclusive."""
+        entry is free or trash.  ``active_pos`` maps a slot to its decode
+        position ``pos``, or to the write window ``(pos, last)`` of a
+        speculative span; it also proves each active slot's read window
+        [0, last] is backed and every block of its write window exclusive."""
         free = set(self._free)
         assert len(free) == len(self._free), "free heap holds duplicates"
         assert TRASH_BLOCK not in free, "trash block leaked into free heap"
@@ -189,16 +209,20 @@ class BlockPool:
                 assert ref == counts.get(pid, 0), (
                     f"block {pid} refcount {ref} != {counts.get(pid, 0)} "
                     f"table references")
-        for s, pos in (active_pos or {}).items():
-            need = self.blocks_for(pos + 1)
+        for s, window in (active_pos or {}).items():
+            pos, last = window if isinstance(window, tuple) else (window,
+                                                                  window)
+            need = self.blocks_for(last + 1)
             assert need <= len(self._owned[s]), (
-                f"slot {s} decoding at pos {pos} needs {need} blocks but "
+                f"slot {s} decoding at pos {last} needs {need} blocks but "
                 f"owns {len(self._owned[s])} — the kernel would walk into "
                 f"trash")
-            wb = self.write_block(s, pos)
-            assert int(self.ref[wb]) == 1, (
-                f"slot {s} is about to write position {pos} into block {wb} "
-                f"with refcount {int(self.ref[wb])}")
+            bs = self.block_size
+            for i in range(pos // bs, last // bs + 1):
+                wb = int(self.table[s, i])
+                assert int(self.ref[wb]) == 1, (
+                    f"slot {s} is about to write positions [{pos}, {last}] "
+                    f"into block {wb} with refcount {int(self.ref[wb])}")
 
     # --------------------------------------------------------------- seeding
 

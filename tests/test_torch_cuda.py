@@ -1,6 +1,8 @@
 """Card-only: each CUDA kernel of the port against its plain version, on
-the device, in float32 and bfloat16, plus the fused engines (llama GQA,
-deepseek MLA + MoE) against the gather oracle.  Marked ``cuda``; each test
+the device, in float32 and bfloat16 (the verify kernels also against
+decode launches, bit for bit), plus the fused engines (llama GQA,
+deepseek MLA + MoE) against the gather oracle and the speculative engines
+against the plain ones.  Marked ``cuda``; each test
 skips (with a reason) where torch sees no card.  Run on the card with
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -210,6 +212,107 @@ def test_paged_gqa_decode_kernel_matches_plain(dtype, bs, case):
                                rtol=2e-4, atol=2e-4)
 
 
+def _span_table(gen, lens, s, bs):
+    """Slot r owns ceil((lens[r] + s - 1) / bs) shuffled blocks (its whole
+    verify span); the rest of its row names trash block 0."""
+    return _paged_table(gen, [ln + s - 1 for ln in lens], bs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("s", [1, 4, 7])
+@pytest.mark.parametrize("case", [dict(), dict(window=9, cap=20.0)])
+def test_paged_gqa_verify_kernel_matches_plain_and_decode(dtype, bs, s, case):
+    """Llama width (KVH 8, G 4, d 64); S 7 splits the span rows over two
+    CTAs.  Against the plain version (2e-4), and offset i against a decode
+    launch at kv_len + i bit for bit (decode is the same kernel at S = 1,
+    and a row's operations do not depend on the other rows)."""
+    from repro_torch.kernels import flash_attention as mod
+    lens = [1, 7, 8, 9, 16, 31, 32, 150]
+    b, kvh, g, d = len(lens), 8, 4, 64
+    gen = torch.Generator(device="cuda").manual_seed(bs + s)
+    tbl, nb = _span_table(gen, lens, s, bs)
+    kp = torch.randn(nb, bs, kvh, d, generator=gen, device="cuda").to(dtype)
+    vp = torch.randn(nb, bs, kvh, d, generator=gen, device="cuda").to(dtype)
+    kp[0] = 1e4
+    vp[0] = 1e4
+    q = torch.randn(b, s, kvh, g, d, generator=gen, device="cuda").to(dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = mod.GQA_VERIFY_KERNEL.launches
+    out = mod.paged_gqa_verify(q, kp, vp, tbl, kv_len, scale=d ** -0.5,
+                               **case)
+    torch.cuda.synchronize()
+    assert mod.GQA_VERIFY_KERNEL.launches == before + 1
+    want = mod.paged_gqa_verify_plain(q, kp, vp, tbl, kv_len,
+                                      scale=d ** -0.5, **case)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+    for i in range(s):
+        one = mod.paged_gqa_decode(q[:, i].contiguous(), kp, vp, tbl,
+                                   kv_len + i, scale=d ** -0.5, **case)
+        assert torch.equal(out[:, i], one), f"offset {i}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,h,r,rd", [(16, 16, 512, 64), (8, 3, 32, 16),
+                                       (4, 2, 36, 10)])
+@pytest.mark.parametrize("s", [1, 4, 6])
+def test_paged_mla_verify_kernel_matches_plain_and_decode(dtype, bs, h, r, rd,
+                                                          s):
+    """Deepseek width and small odd shapes (element-load staging); S 6
+    splits the span over two CTAs per head.  Against the plain version and,
+    bit for bit, against decode launches at kv_len + i (the kernel's
+    one-row instance)."""
+    from repro_torch.kernels import flash_attention as mod
+    lens = [1, 7, 8, 9, 16, 31, 33, 150]
+    gen = torch.Generator(device="cuda").manual_seed(bs + h + s)
+    tbl, nb = _span_table(gen, lens, s, bs)
+    cp = torch.randn(nb, bs, r, generator=gen, device="cuda").to(dtype)
+    pp = torch.randn(nb, bs, rd, generator=gen, device="cuda").to(dtype)
+    cp[0] = 1e4
+    pp[0] = 1e4
+    ql = torch.randn(len(lens), s, h, r, generator=gen, device="cuda")
+    qp = torch.randn(len(lens), s, h, rd, generator=gen, device="cuda")
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    scale = (r + rd) ** -0.5
+    before = mod.MLA_VERIFY_KERNEL.launches
+    out = mod.paged_mla_verify(ql, qp, cp, pp, tbl, kv_len, scale=scale)
+    torch.cuda.synchronize()
+    assert mod.MLA_VERIFY_KERNEL.launches == before + 1
+    want = mod.paged_mla_verify_plain(ql, qp, cp, pp, tbl, kv_len,
+                                      scale=scale)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+    for i in range(s):
+        one = mod.paged_mla_decode(ql[:, i].contiguous(),
+                                   qp[:, i].contiguous(), cp, pp, tbl,
+                                   kv_len + i, scale=scale)
+        assert torch.equal(out[:, i], one), f"offset {i}"
+
+
+def test_span_write_duplicate_cells_take_the_last_writer_on_the_card():
+    """Masked rows all write the trash block; on the card the cell takes
+    its last writer's value in (row, offset) order on every call (the
+    deepseek-v2-lite verify shape, bf16)."""
+    from repro_torch.models.attention import _paged_write_span
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, s, bs, width = 8, 4, 16, 576
+    pool = torch.zeros(5, bs, width, dtype=torch.bfloat16, device="cuda")
+    tbl = torch.zeros(b, 2, dtype=torch.int32, device="cuda")
+    tbl[0, 0], tbl[0, 1], tbl[1, 0], tbl[1, 1] = 1, 2, 3, 4
+    pos = torch.tensor([5, 20] + [0] * (b - 2), dtype=torch.int32,
+                       device="cuda")
+    upd = torch.randn(b, s, width, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    want = _paged_write_span({"ckv": pool.cpu()}, {"ckv": upd.cpu()},
+                             tbl.cpu(), pos.cpu())["ckv"]
+    assert torch.equal(want[0, :s], upd[-1].cpu())
+    for _ in range(50):
+        got = _paged_write_span({"ckv": pool.clone()}, {"ckv": upd}, tbl,
+                                pos)["ckv"]
+        assert torch.equal(got.cpu(), want)
+
+
 def _engine_vs_oracle(arch, attn_kernel):
     """Smoke-size f32 engine on the card: the kernel route (spmv, xwt and
     the fused attention kernel of the family) emits the same tokens as the
@@ -249,3 +352,33 @@ def test_fused_engine_matches_gather_oracle_on_the_card():
 
 def test_fused_mla_moe_engine_matches_gather_oracle_on_the_card():
     _engine_vs_oracle("deepseek-v2-lite-16b", "MLA_KERNEL")
+
+
+@pytest.mark.parametrize("arch,draft,attn_kernel", [
+    ("llama3.2-1b", "rerank", "GQA_VERIFY_KERNEL"),
+    ("deepseek-v2-lite-16b", "skip", "MLA_VERIFY_KERNEL")])
+def test_spec_engine_matches_plain_engine_on_the_card(arch, draft,
+                                                      attn_kernel):
+    """Smoke-size f32 speculative engine on the card (2 slots, k 3, prompt
+    catch-up through the span): the same tokens as the plain fused engine,
+    through the family's verify kernel."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import init_model
+    from repro_torch.serve import ServeEngine, SpecConfig, synthetic_trace
+    cfg = get_config(arch, smoke=True)
+    model = init_model(cfg, seed=0, device="cuda")
+    reqs = synthetic_trace(cfg, n_requests=4, prompt_len=11,
+                           gen_lens=[6, 9], seed=2)
+    kw = dict(n_slots=2, max_len=24, compressed=True, block_size=4,
+              attn="fused", device="cuda")
+    want = ServeEngine(model, cfg, **kw).run(reqs)
+    kernels.reset_launch_counts()
+    eng = ServeEngine(model, cfg, spec=SpecConfig(k=3, draft=draft),
+                      debug_invariants=True, **kw)
+    got = eng.run(reqs)
+    assert getattr(flash_attention, attn_kernel).launches > 0
+    assert eng.stats()["spec_steps_saved"] > 0
+    for r in reqs:
+        np.testing.assert_array_equal(got[r.rid].tokens, want[r.rid].tokens)

@@ -123,8 +123,16 @@ def test_cpu_wrappers_launch_nothing():
                          torch.zeros(2, 4, 8), torch.zeros(2, 4, 4),
                          torch.ones(1, 1, dtype=torch.int32),
                          torch.ones(1, dtype=torch.int32), scale=0.5)
+    tfa.paged_mla_verify(torch.zeros(1, 3, 2, 8), torch.zeros(1, 3, 2, 4),
+                         torch.zeros(2, 4, 8), torch.zeros(2, 4, 4),
+                         torch.ones(1, 1, dtype=torch.int32),
+                         torch.ones(1, dtype=torch.int32), scale=0.5)
+    tfa.paged_gqa_verify(torch.zeros(1, 3, 2, 2, 8), torch.zeros(2, 4, 2, 8),
+                         torch.zeros(2, 4, 2, 8),
+                         torch.ones(1, 1, dtype=torch.int32),
+                         torch.ones(1, dtype=torch.int32))
     counts = [k.launches for k in tkernels.all_kernels()]
-    assert len(counts) == 4 and counts == [0] * 4
+    assert len(counts) == 6 and counts == [0] * 6
 
 
 # ------------------------------------------------------------- the policy

@@ -41,7 +41,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.launch import serve as tlaunch  # noqa: E402
 from repro_torch.models import (MoELM, convert_to_compressed,  # noqa: E402
                                 decode_step, init_caches, init_model,
-                                param_count, prefill, weight_stream_bytes)
+                                param_count, prefill, verify_step,
+                                weight_stream_bytes)
 from repro_torch.models import ffn as tffn  # noqa: E402
 from repro_torch.serve import (BlockPool, ServeEngine,  # noqa: E402
                                seed_decode_caches, synthetic_trace)
@@ -245,9 +246,10 @@ def test_decode_steps_match(compressed, attn):
 
 def test_kernel_operands_are_dense_rows(monkeypatch):
     """The card's wrappers take only contiguous operands.  On the CPU, pin
-    the linears to the kernel wrappers (xwt in prefill, spmv in decode) and
-    check every operand each wrapper and the fused MLA read receive, as the
-    C launchers would, through a prefill and a fused decode step."""
+    the linears to the kernel wrappers (xwt in prefill and verify, spmv in
+    decode) and check every operand each wrapper and the fused MLA reads
+    receive, as the C launchers would, through a prefill, a fused decode
+    step and a fused verify span."""
     from repro_torch.core import sparse_matmul
     from repro_torch.kernels import flash_attention
     from repro_torch.models import attention
@@ -267,6 +269,8 @@ def test_kernel_operands_are_dense_rows(monkeypatch):
                             checked(getattr(sparse_matmul.kops, name)))
     monkeypatch.setattr(attention, "paged_mla_decode",
                         checked(flash_attention.paged_mla_decode))
+    monkeypatch.setattr(attention, "paged_mla_verify",
+                        checked(flash_attention.paged_mla_verify))
     _, _, tc, model = _pair(True)
 
     def pinned(impl):
@@ -282,6 +286,11 @@ def test_kernel_operands_are_dense_rows(monkeypatch):
                 torch.tensor([8, 8], dtype=torch.int32), pool.device_table(),
                 attn_impl="fused")
     assert {"nm_xwt", "nm_spmv", "paged_mla_decode"} <= set(seen)
+    seen.clear()
+    verify_step(model, pinned("xwt"), pool.caches, toks[:, :3],
+                torch.tensor([9, 9], dtype=torch.int32), pool.device_table(),
+                attn_impl="fused")
+    assert {"nm_xwt", "paged_mla_verify"} <= set(seen)
 
 
 # ------------------------------------------------------ compressed weights

@@ -22,8 +22,8 @@ from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.convert import from_reference_params  # noqa: E402
 from repro_torch.launch import serve as tlaunch  # noqa: E402
 from repro_torch.models import decode_step, prefill  # noqa: E402
-from repro_torch.serve import (BlockPool, ServeEngine, TRASH_BLOCK,  # noqa: E402
-                               default_buckets, synthetic_trace)
+from repro_torch.serve import (BlockPool, ServeEngine, SpecConfig,  # noqa: E402
+                               TRASH_BLOCK, default_buckets, synthetic_trace)
 
 _MODEL = {}
 
@@ -180,7 +180,7 @@ def test_idle_rows_write_only_the_trash_block():
     (dict(kv="slotted"), "slotted"),
     (dict(prefix_cache=True), "prefix_cache"),
     (dict(preempt="suspend"), "suspend"),
-    (dict(spec=object()), "spec"),
+    (dict(spec=SpecConfig(draft="skip"), mesh=object()), "mesh"),
     (dict(mesh=object()), "mesh"),
     (dict(prewarm=True), "prewarm"),
 ])
