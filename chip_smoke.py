@@ -5,32 +5,45 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. Build: compile the Hopper kernels of the serving paths from
-   ``src/repro_torch/csrc`` with nvcc (sm_90a, one nvcc per source, in
-   parallel): nm_spmv, nm_xwt, and one paged attention kernel per family,
-   which its decode (span S = 1) and verify wrappers share; print the
-   card's name and power limit from nvidia-smi.
+1. Build: compile the Hopper kernels from ``src/repro_torch/csrc`` with
+   nvcc (sm_90a, one nvcc per source, in parallel): nm_spmv.cu (gather
+   and onehot bodies), nm_xwt.cu (nm_xwt with int8 or bit-packed indices,
+   and nm_spmm), one paged attention kernel per family, which its decode
+   (span S = 1) and verify wrappers share, and flash_attention.cu; print
+   the card's name and power limit from nvidia-smi.
 2. Kernel vs plain: hold each kernel against its plain torch version on the
-   card, in float32 and bfloat16, at the shapes the two serving paths give
-   it, and time it beside its bound, the plain version and one PyTorch call
-   that computes the same function (the yardstick; the port never calls
-   it): nm_spmv / nm_xwt at one llama3.2-1b layer's and one
-   deepseek-v2-lite MoE layer's linears (plus the dense first layer's and
-   the latent up-projections' shapes, checked), paged_gqa_decode at the
-   llama serving shape, paged_mla_decode at the deepseek one.  The
-   speculative path's operands: nm_spmv / nm_xwt at 1:4 (the rerank
-   draft's format) at the llama layer shapes, nm_xwt at the 32 rows of a
-   verify span (8 slots x 4), and paged_gqa_verify / paged_mla_verify at
-   8 slots x S 4, each also against S launches of its decode wrapper.
+   card, in float32 and bfloat16, at the shapes the paths give it, and time
+   it beside its bound, the plain version and one PyTorch call that
+   computes the same function (the yardstick; the port never calls it):
+   nm_spmv / nm_xwt at one llama3.2-1b layer's and one deepseek-v2-lite
+   MoE layer's linears (plus the dense first layer's and the latent
+   up-projections' shapes, checked), paged_gqa_decode at the llama serving
+   shape, paged_mla_decode at the deepseek one.  The speculative path's
+   operands: nm_spmv / nm_xwt at 1:4 (the rerank draft's format) at the
+   llama layer shapes, nm_xwt at the 32 rows of a verify span (8 slots x
+   4), and paged_gqa_verify / paged_mla_verify at 8 slots x S 4, each also
+   against S launches of its decode wrapper.  The variants: packed nm_xwt
+   bit-equal to int8 nm_xwt at the llama layer, onehot nm_spmv against its
+   plain version; nm_spmm over 1:4 / 2:4 / 2:8 at the reference's ragged
+   (130, 96, 520) and CNN GEMMs; flash_attention against its plain version
+   and chunked_attention at llama prefill (BH 8 x 32, S 128, d 64), a
+   gemma2-9b local layer (d 256, window 4096, softcap 50, S 8192, BH 2),
+   deepseek's MLA prefill (d 192, dv 128) and a q_off slice, then one
+   launch per case through the entry point with the counts zeroed.
 3. Serve llama3.2-1b: full width (16 layers, d 2048, 32/8 heads, d_ff
    8192, vocab 128256, bf16, 2:4 compressed; random weights from a seed)
    through ``ServeEngine(kv="paged", attn="fused", compressed=True)``: 8
    slots, 16 requests of 128 prompt tokens, generation mix 16/32, block
    size 16.  Each kernel of the path must have launched during the run,
    and a second engine over the same trace must emit the same tokens and
-   counters (as in phases 4-6).  Then the same prefills and first decode steps run through the kernel
-   route and through the reference route (``impl="ref"``,
-   ``attn="gather"``) and the logits are compared.
+   counters (as in phases 4-6).  Then the same prefills and first decode
+   steps run through the kernel route and through the reference route
+   (``impl="ref"``, ``attn="gather"``) and the logits are compared.
+   Phase 3b: the same trace under ``SparsityConfig(spmv_mode="onehot")``:
+   the onehot launcher must serve every decode linear (decode steps x 16
+   layers x 7) and the gather one none; tokens compared with phase 3's;
+   hard check: full width, 4 layers, float32, 2 slots: onehot tokens
+   exactly equal to gather tokens.
 4. Serve deepseek-v2-lite-16b: full width (27 layers = 1 dense + 26 MoE,
    d 2048, 16 heads, MLA kv_lora 512 / rope 64 / v 128, 64 routed experts
    top-6 + 2 shared of hidden 1408, dense d_ff 10944, vocab 102400, bf16,
@@ -54,12 +67,23 @@ Phases (any failure exits non-zero and prints no result line):
    layer per verify pass; the same comparisons, and the same float32 hard
    check (1 dense + 3 MoE layers, 2 slots: a verify batch of 8 tokens stays
    under the expert-capacity floor of 8, so no route drops).
-7. Summary: a ``{"kernels": [...]}`` line, then the device line last.
+7. CNN, the paper's domain, at full published shapes: the 15 layers of
+   ``CNN_LAYER_CONVS`` (ResNet50, DenseNet121, InceptionV3) as real
+   convolutions, f32, at 1:4 and 2:4, batch 1 and 32, through
+   ``conv2d_sparse`` (nm_xwt), the paper's orientation ``ops.nm_spmm(W,
+   cols^T)`` and dense F.conv2d (TF32 off); both sparse routes within
+   1e-4 of F.conv2d, packed nm_xwt bit-equal to int8 where the reference
+   accepts the packing; per-layer and per-net times (the card's Fig 11
+   analogue); nm_xwt and nm_spmm must have launched; then
+   ``repro_torch.launch.cnn`` on the card.
+8. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
+   device line last.  The total time is printed on the ``[done]`` line.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -253,15 +277,17 @@ def phase_matmuls(torch, F, model: str, check_shapes, spmv_layer,
     return rows
 
 
-def time_verify_linears(torch):
+def time_verify_linears(torch, F):
     """What the verify span costs in the linears: a [8, 4, d] span is not
     decode-shaped, so the engine's policy runs one llama layer's seven
     linears through nm_xwt at 32 rows, where a decode tick runs nm_spmv at
-    8 rows (2:4, bf16)."""
+    8 rows (2:4, bf16); with nm_xwt's bound and F.linear at 32 rows."""
+    from repro_torch.core.sparsity import decompress
     from repro_torch.kernels import nm_spmm, nm_spmv
     gen = torch.Generator(device="cuda").manual_seed(6)
     layer = [_compressed(torch, o, k, torch.bfloat16, gen)
              for o, k in LAYER_SHAPES]
+    dense = [decompress(sp) for sp in layer]
     xs = {rows: {k: torch.randn(rows, k, generator=gen, device="cuda").to(
         torch.bfloat16) for _, k in LAYER_SHAPES} for rows in (8, 32)}
 
@@ -270,11 +296,258 @@ def time_verify_linears(torch):
                           N, M) for sp in layer]
     xwt32 = time_ms(torch, run(nm_spmm.nm_xwt, 32))
     spmv8 = time_ms(torch, run(nm_spmv.nm_spmv, 8))
+    lib32 = time_ms(torch, lambda: [F.linear(xs[32][w.shape[1]], w)
+                                    for w in dense])
+    nbytes = sum(32 * sp.dense_shape[1] * 2 + sp.values.numel() * 3
+                 + 32 * sp.dense_shape[0] * 2 for sp in layer)
+    bnd, by = bound_ms(nbytes, sum(2.0 * 32 * sp.values.numel()
+                                   for sp in layer), "bfloat16")
     log(f"[time] verify linears: one llama layer through nm_xwt at 32 rows "
-        f"(8 slots x span {SPAN}) {xwt32:.4f} ms, against nm_spmv at 8 rows "
-        f"(one decode tick) {spmv8:.4f} ms; {SPAN} decode ticks "
-        f"{SPAN * spmv8:.4f} ms")
-    return dict(xwt_32_rows_ms=xwt32, spmv_8_rows_ms=spmv8)
+        f"(8 slots x span {SPAN}) {xwt32:.4f} ms (bound {bnd:.4f} ms, {by}; "
+        f"F.linear on the decompressed weights {lib32:.4f} ms), against "
+        f"nm_spmv at 8 rows (one decode tick) {spmv8:.4f} ms; {SPAN} decode "
+        f"ticks {SPAN * spmv8:.4f} ms")
+    return dict(xwt_32_rows_ms=xwt32, spmv_8_rows_ms=spmv8,
+                xwt_32_rows_bound_ms=bnd, xwt_32_rows_library_ms=lib32)
+
+
+def _row(ms, plain_ms, bnd, by, lib_ms, err):
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                library_ms=lib_ms, max_abs_err=err)
+
+
+def phase_packed_and_onehot(torch, F):
+    """The two variants of the serving kernels at one llama3.2-1b layer
+    (2:4): nm_xwt with the bit-packed index stream, bit-equal to the int8
+    kernel (f32 and bf16, S 4 and 128) and timed at S 128 in bf16 from
+    pre-packed words; the onehot nm_spmv body against its plain version
+    (B 1 and 8) and timed at B 8 in bf16."""
+    from repro_torch.core.sparsity import decompress
+    from repro_torch.kernels import nm_spmm, nm_spmv, ops
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    ok, e_pk, e_oh = True, 0.0, 0.0
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        rtol, atol = TOL[dname]
+        for o, k in LAYER_SHAPES:
+            sp = _compressed(torch, o, k, dtype, gen)
+            for s in (4, 128):
+                x = torch.randn(s, k, generator=gen, device="cuda").to(dtype)
+                y = ops.nm_xwt(x, sp.values, sp.indices, N, M, packed=True)
+                same = bool(torch.equal(y, nm_spmm.nm_xwt(
+                    x, sp.values, sp.indices, N, M)))
+                e, good = max_err(torch, y, nm_spmm.nm_xwt_plain(
+                    x, sp.values, sp.indices, N, M), rtol, atol)
+                e_pk, ok = max(e_pk, e), ok and good and same
+                log(f"[check] nm_xwt_packed {N}:{M} {dname} S={s} (O,K)=({o},"
+                    f"{k}) {'bit-equal' if same else 'NOT bit-equal'} to int8 "
+                    f"nm_xwt, max_abs_err {e:.3e} {'ok' if good and same else 'FAIL'}")
+            for b in (1, 8):
+                x = torch.randn(b, k, generator=gen, device="cuda").to(dtype)
+                e, good = max_err(torch, nm_spmv.nm_spmv(
+                    x, sp.values, sp.indices, N, M, mode="onehot"),
+                    nm_spmv.nm_spmv_onehot_plain(x, sp.values, sp.indices, N,
+                                                 M), rtol, atol)
+                e_oh, ok = max(e_oh, e), ok and good
+                log(f"[check] nm_spmv_onehot {N}:{M} {dname} B={b} (O,K)=({o},"
+                    f"{k}) max_abs_err {e:.3e} tol {atol}+{rtol}|ref| "
+                    f"{'ok' if good else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 2: packed nm_xwt or onehot nm_spmv disagrees")
+    layer = [_compressed(torch, o, k, torch.bfloat16, gen)
+             for o, k in LAYER_SHAPES]
+    # the packed kernel is timed from words packed once, as stored
+    words = [ops.pack_block_indices(sp.indices, N, M, (128, 128, 512))
+             for sp in layer]
+    dense = [decompress(sp) for sp in layer]
+    onehot = functools.partial(nm_spmv.nm_spmv, mode="onehot")
+    rows = {}
+    for name, b, fn, plain, idx in (
+            ("nm_xwt_packed", 128, nm_spmm.nm_xwt_packed,
+             nm_spmm.nm_xwt_packed_plain, words),
+            ("nm_spmv_onehot", 8, onehot, nm_spmv.nm_spmv_onehot_plain,
+             [sp.indices for sp in layer])):
+        xs = {k: torch.randn(b, k, generator=gen, device="cuda").to(
+            torch.bfloat16) for k in {k for _, k in LAYER_SHAPES}}
+
+        def run(f):
+            return lambda: [f(xs[sp.dense_shape[1]], sp.values, i, N, M)
+                            for sp, i in zip(layer, idx)]
+        if name == "nm_xwt_packed":
+            flops = sum(2.0 * b * sp.values.numel() for sp in layer)
+            peak, err = "bfloat16", e_pk
+        else:   # the onehot body does the dense MACs, in f32 FMAs
+            flops = sum(2.0 * b * sp.dense_shape[0] * sp.dense_shape[1]
+                        for sp in layer)
+            peak, err = "float32", e_oh
+        nbytes = sum(b * sp.dense_shape[1] * 2 + sp.values.numel() * 2
+                     + b * sp.dense_shape[0] * 2 + i.numel() * i.element_size()
+                     for sp, i in zip(layer, idx))
+        bnd, by = bound_ms(nbytes, flops, peak)
+        ms = time_ms(torch, run(fn))
+        plain_ms = time_ms(torch, run(plain), iters=5)
+        lib_ms = time_ms(torch, lambda: [F.linear(xs[w.shape[1]], w)
+                                         for w in dense])
+        rows[name] = _row(ms, plain_ms, bnd, by, lib_ms, err)
+        log(f"[time] {name} one llama3.2-1b layer (7 linears, {N}:{M}, bf16, "
+            f"{'S' if name == 'nm_xwt_packed' else 'B'}={b}): kernel "
+            f"{ms:.4f} ms, bound {bnd:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP at the {peak} rate), plain "
+            f"{plain_ms:.4f} ms, F.linear on the decompressed weight "
+            f"{lib_ms:.4f} ms")
+    return rows
+
+
+def phase_spmm_check(torch):
+    """nm_spmm against nm_spmm_plain over 1:4 / 2:4 / 2:8 in f32 and bf16 at
+    the reference's ragged (130, 96, 520) and two CNN GEMMs (R, C, K)."""
+    from repro_torch.core.sparsity import compress
+    from repro_torch.kernels import nm_spmm
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    worst, ok = 0.0, True
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        rtol, atol = TOL[dname]
+        for n, m in ((1, 4), (2, 4), (2, 8)):
+            for r, c, k in ((130, 96, 520), (64, 12544, 152), (512, 49, 4608)):
+                w = (torch.randn(r, k, generator=gen, device="cuda")
+                     * k ** -0.5).to(dtype)
+                sp = compress(w, n, m)
+                b = torch.randn(k, c, generator=gen, device="cuda").to(dtype)
+                e, good = max_err(torch, nm_spmm.nm_spmm(
+                    sp.values, sp.indices, b, n, m), nm_spmm.nm_spmm_plain(
+                    sp.values, sp.indices, b, n, m), rtol, atol)
+                worst, ok = max(worst, e), ok and good
+                log(f"[check] nm_spmm {n}:{m} {dname} (R,C,K)=({r},{c},{k}) "
+                    f"max_abs_err {e:.3e} tol {atol}+{rtol}|ref| "
+                    f"{'ok' if good else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 2: nm_spmm disagrees with its plain version")
+    return worst
+
+
+def _live_pairs(torch, sq, sk, causal, window, q_off):
+    """(query, key) pairs the mask keeps: the work this input needs."""
+    qpos = q_off + torch.arange(sq, device="cuda")[:, None]
+    kpos = torch.arange(sk, device="cuda")[None, :]
+    live = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
+    if causal:
+        live &= qpos >= kpos
+    if window is not None:
+        live &= qpos - kpos < window
+    return int(live.sum())
+
+
+# (label, BH, Sq, Sk, d, dv, kwargs): llama prefill (8 sequences x 32 heads),
+# gemma2-9b's local layer (d 256, window 4096, softcap 50) at S 8192 with
+# BH kept small, deepseek's MLA prefill (8 x 16 heads, d 192, dv 128), and
+# a q_off slice (queries 512..639 of 1024 keys)
+FLASH_CASES = [
+    ("llama prefill", 8 * 32, 128, 128, 64, 64, dict()),
+    ("gemma2 local", 2, 8192, 8192, 256, 256, dict(window=4096, cap=50.0)),
+    ("mla prefill", 8 * 16, 128, 128, 192, 128, dict()),
+    ("q_off slice", 32, 128, 1024, 64, 64, dict(q_off=512)),
+]
+
+
+def phase_flash(torch, F):
+    """flash_attention_kernel against flash_attention_plain and the port's
+    chunked_attention (the suffix cases; the q_off slice against the rows
+    of a full run), f32 and bf16, then timed in bf16 beside its bound, the
+    plain version and SDPA (where one SDPA call computes the same function:
+    not with a softcap).  Then the entry-point run: counts zeroed, each case
+    launched once through ``flash_attention_kernel``, counts read."""
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import chunked_attention
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    worst, ok, cases = 0.0, True, {}
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        tol = 3e-2 if dtype == torch.bfloat16 else ATTN_TOL
+        for label, bh, sq, sk, d, dv, kw in FLASH_CASES:
+            if label == "gemma2 local" and dtype == torch.float32:
+                bh = 1                 # the f32 plain scores are 256 MB/head
+            off = kw.get("q_off", sk - sq)
+            q_all = torch.randn(bh, sk, d, generator=gen,
+                                device="cuda").to(dtype)
+            q = q_all[:, off:off + sq].contiguous()
+            k = torch.randn(bh, sk, d, generator=gen, device="cuda").to(dtype)
+            v = torch.randn(bh, sk, dv, generator=gen, device="cuda").to(dtype)
+            out = fa.flash_attention_kernel(q, k, v, **kw)
+            e, good = max_err(torch, out, fa.flash_attention_plain(
+                q, k, v, **kw), tol, tol)
+            if "q_off" in kw:
+                other = fa.flash_attention_plain(q_all, k, v)[:, off:off + sq]
+                what = "rows of a full plain run"
+            else:
+                other = chunked_attention(
+                    q[:, :, None, :], k[:, :, None, :], v[:, :, None, :],
+                    causal=kw.get("causal", True), window=kw.get("window"),
+                    cap=kw.get("cap"))[:, :, 0, :]
+                what = "chunked_attention"
+            e2, good2 = max_err(torch, out, other, tol, tol)
+            worst, ok = max(worst, e, e2), ok and good and good2
+            log(f"[check] flash_attention {label} {dname} BH={bh} Sq={sq} "
+                f"Sk={sk} d={d} dv={dv} {kw or ''}: max_abs_err {e:.3e} vs "
+                f"plain, {e2:.3e} vs {what}, tol {tol}+{tol}|ref| "
+                f"{'ok' if good and good2 else 'FAIL'}")
+            if dtype == torch.bfloat16:
+                cases[label] = (q, k, v, kw)
+    if not ok:
+        raise SystemExit("phase 2: flash_attention disagrees with its plain "
+                         "version or chunked_attention")
+    timings = {}
+    for label, bh, sq, sk, d, dv, kw in FLASH_CASES:
+        q, k, v, kw = cases[label]
+        q_off = kw.get("q_off", sk - sq)
+        pairs = bh * _live_pairs(torch, sq, sk, kw.get("causal", True),
+                                 kw.get("window"), q_off)
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + bh * sq * dv)
+        bnd, by = bound_ms(nbytes, 2.0 * pairs * (d + dv), "bfloat16")
+        iters = 3 if sq >= 4096 else 20
+        ms = time_ms(torch, lambda: fa.flash_attention_kernel(q, k, v, **kw),
+                     iters=iters, warmup=1)
+        plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, **kw), iters=iters, warmup=1)
+        lib_ms = None
+        if "cap" not in kw:
+            qpos = q_off + torch.arange(sq, device="cuda")[:, None]
+            kpos = torch.arange(sk, device="cuda")[None, :]
+            mask = qpos >= kpos
+            if kw.get("window") is not None:
+                mask &= qpos - kpos < kw["window"]
+            qq, kk, vv = q[:, None], k[:, None], v[:, None]
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mask), iters=iters, warmup=1)
+        chunk_ms = time_ms(torch, lambda: chunked_attention(
+            q[:, :, None, :], k[:, :, None, :], v[:, :, None, :],
+            **{a: kw[a] for a in ("window", "cap") if a in kw}),
+            iters=iters, warmup=1) if "q_off" not in kw else None
+        timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                              bound_by=by, library_ms=lib_ms,
+                              chunked_attention_ms=chunk_ms)
+        log(f"[time] flash_attention {label} (bf16, BH {bh}, Sq {sq}, Sk "
+            f"{sk}, d {d}, dv {dv}{', ' + str(kw) if kw else ''}): kernel "
+            f"{ms:.4f} ms, bound {bnd:.4f} ms ({by}, {pairs / 1e6:.1f} M live"
+            f" pairs, {nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms, SDPA "
+            f"{'n/a (no softcap in SDPA)' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+            f", chunked_attention "
+            f"{'n/a' if chunk_ms is None else f'{chunk_ms:.4f} ms'}")
+    kernels.reset_launch_counts()
+    for label in cases:
+        q, k, v, kw = cases[label]
+        fa.flash_attention_kernel(q, k, v, **kw)
+    torch.cuda.synchronize()
+    launches = {kk.name: kk.launches for kk in kernels.all_kernels()}
+    if launches["flash_attention"] != len(cases):
+        raise SystemExit(f"phase 2: flash_attention entry point launched "
+                         f"{launches['flash_attention']} times for "
+                         f"{len(cases)} calls")
+    log(f"[flash] entry-point run: {len(cases)} calls, launches {launches}")
+    row = dict(timings["llama prefill"], max_abs_err=worst,
+               at_cases={k: v for k, v in timings.items()})
+    return row, {"flash entry point": launches}
 
 
 def _paged_table(torch, gen, lens, bs):
@@ -593,7 +866,163 @@ def phase_mla_verify_attention(torch, F):
                 bitwise_vs_decode=bitwise)
 
 
+# ------------------------------------------------------------------ phase 7
+
+CNN_TOL = 1e-4                   # f32 routes against dense F.conv2d (TF32 off)
+
+
+def phase_cnn(torch, F):
+    """The paper's domain at full published shapes: every layer of
+    ``CNN_LAYER_CONVS`` (ResNet50, DenseNet121, InceptionV3) as a real
+    convolution in f32 at 1:4 and 2:4, batch 1 and 32, through
+    ``conv2d_sparse`` (the nm_xwt kernel), the paper's orientation
+    ``ops.nm_spmm(W, cols^T)``, and dense F.conv2d on the decompressed
+    weights (TF32 off: the check and the yardstick).  The packed nm_xwt
+    runs where the reference accepts the layer's packing and must equal
+    the int8 kernel bit for bit.  Counts are zeroed before and read after;
+    nm_xwt and nm_spmm must have launched.  Timings: the entry point
+    (im2col + kernel), each kernel alone on the layer's patches, its plain
+    version, and the library calls (F.conv2d; torch.mm on the dense
+    weights for the GEMM), per layer and per net, the card's Fig 11
+    analogue."""
+    from repro_torch import kernels
+    from repro_torch.core.sparsity import decompress
+    from repro_torch.kernels import nm_spmm, ops
+    from repro_torch.models.cnn import (CNN_LAYER_CONVS, conv2d_dense,
+                                        conv2d_sparse, im2col,
+                                        sparse_conv_init)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def counts():
+        return {k.name: k.launches for k in kernels.all_kernels()}
+    # the phase's path launches: the three routes of every layer run, not
+    # the timing loops
+    kernels.reset_launch_counts()
+    launches = counts()
+    worst, ok, packed_ok, packed_rejected = 0.0, True, 0, 0
+    totals, bound_by = {}, {}
+    for n in (1, 2):
+        for batch in (1, 32):
+            for net, convs in CNN_LAYER_CONVS.items():
+                tot = totals.setdefault((n, batch, net), dict(
+                    conv=0.0, xwt=0.0, spmm=0.0, dense=0.0, mm=0.0,
+                    xwt_plain=0.0, spmm_plain=0.0, bound=0.0))
+                for name, c_in, c_out, kh, kw, stride, h in convs:
+                    w = sparse_conv_init(gen, c_in, c_out, kh, kw, n, M)
+                    wd = decompress(w)
+                    x = torch.randn(batch, h, h, c_in, generator=gen,
+                                    device="cuda")
+                    before = counts()
+                    y1 = conv2d_sparse(x, w, kh, kw, stride)
+                    y3 = conv2d_dense(x, wd, c_in, kh, kw, stride)
+                    cols, (ho, wo) = im2col(x, kh, kw, stride)
+                    ckp = w.dense_shape[1]
+                    cols = F.pad(cols, (0, ckp - cols.shape[1]))
+                    colst = cols.t().contiguous()
+                    y2 = ops.nm_spmm(w.values, w.indices, colst, n, M)
+                    e1, g1 = max_err(torch, y1, y3, CNN_TOL, CNN_TOL)
+                    e2, g2 = max_err(torch, y2.t().reshape(y3.shape), y3,
+                                     CNN_TOL, CNN_TOL)
+                    worst, ok = max(worst, e1, e2), ok and g1 and g2
+                    try:
+                        yp = ops.nm_xwt(cols, w.values, w.indices, n, M,
+                                        packed=True)
+                        same = bool(torch.equal(yp, y1.reshape(yp.shape)))
+                        packed_ok += same
+                        ok = ok and same
+                        pk = "packed bit-equal" if same else "packed DIFFERS"
+                    except ValueError:
+                        packed_rejected += 1
+                        pk = "packed rejected (as the reference)"
+                    for key, val in counts().items():
+                        launches[key] += val - before[key]
+                    ms = dict(
+                        conv=time_ms(torch, lambda: conv2d_sparse(
+                            x, w, kh, kw, stride), iters=5, warmup=1),
+                        xwt=time_ms(torch, lambda: nm_spmm.nm_xwt(
+                            cols, w.values, w.indices, n, M), iters=5,
+                            warmup=1),
+                        spmm=time_ms(torch, lambda: nm_spmm.nm_spmm(
+                            w.values, w.indices, colst, n, M), iters=5,
+                            warmup=1),
+                        dense=time_ms(torch, lambda: conv2d_dense(
+                            x, wd, c_in, kh, kw, stride), iters=5, warmup=1),
+                        mm=time_ms(torch, lambda: torch.mm(wd, colst),
+                                   iters=5, warmup=1),
+                        xwt_plain=time_ms(torch, lambda: nm_spmm.nm_xwt_plain(
+                            cols, w.values, w.indices, n, M), iters=3,
+                            warmup=1),
+                        spmm_plain=time_ms(torch, lambda: nm_spmm.nm_spmm_plain(
+                            w.values, w.indices, colst, n, M), iters=3,
+                            warmup=1))
+                    rows_, k_ = cols.shape
+                    # bytes: patches, values + int8 indices, output (f32);
+                    # operations: the N/M nonzero MACs at the f32 rate
+                    nbytes = 4 * (rows_ * k_ + rows_ * c_out) \
+                        + w.values.numel() * 5
+                    flops = 2.0 * rows_ * w.values.numel()
+                    bnd, by = bound_ms(nbytes, flops, "float32")
+                    ms["bound"] = bnd
+                    for key, val in ms.items():
+                        tot[key] += val
+                    bound_by[(n, batch, by)] = bound_by.get(
+                        (n, batch, by), 0.0) + bnd
+                    log(f"[cnn] {n}:{M} B={batch} {net} {name} (C_in {c_in} "
+                        f"-> C_out {c_out}, {kh}x{kw}/{stride} on {h}^2; GEMM "
+                        f"R {c_out} K {ckp} C {rows_}): conv2d_sparse "
+                        f"{ms['conv']:.4f} ms, nm_xwt {ms['xwt']:.4f}, "
+                        f"nm_spmm {ms['spmm']:.4f}, F.conv2d {ms['dense']:.4f}"
+                        f", torch.mm dense {ms['mm']:.4f}; bound "
+                        f"{bnd:.4f} ({by}); plain xwt {ms['xwt_plain']:.4f}, "
+                        f"spmm {ms['spmm_plain']:.4f}; max_abs_err vs "
+                        f"F.conv2d {e1:.2e} / {e2:.2e} (tol {CNN_TOL}+"
+                        f"{CNN_TOL}|ref|) {'ok' if g1 and g2 else 'FAIL'}; "
+                        f"{pk}")
+                    del cols, colst, y1, y2, y3, x
+                log(f"[cnn] {n}:{M} B={batch} {net} total over "
+                    f"{len(convs)} layers: conv2d_sparse {tot['conv']:.4f} "
+                    f"ms, nm_xwt {tot['xwt']:.4f}, nm_spmm {tot['spmm']:.4f}"
+                    f", F.conv2d {tot['dense']:.4f}, torch.mm "
+                    f"{tot['mm']:.4f}, bound {tot['bound']:.4f}; dense / "
+                    f"sparse: conv {tot['dense'] / tot['conv']:.3f}x, GEMM "
+                    f"{tot['mm'] / tot['spmm']:.3f}x (nm_spmm) "
+                    f"{tot['mm'] / tot['xwt']:.3f}x (nm_xwt)")
+    torch.cuda.synchronize()
+    log(f"[cnn] kernel launches of the routes: {launches}; packed nm_xwt "
+        f"bit-equal on {packed_ok} layer runs, rejected on {packed_rejected} "
+        f"(bk/M*N not a whole number of words, as the reference)")
+    if not ok:
+        raise SystemExit(f"phase 7: a CNN route disagrees with F.conv2d "
+                         f"beyond {CNN_TOL} (max {worst:.3e}) or packed "
+                         f"nm_xwt differs from int8")
+    if min(launches["nm_xwt"], launches["nm_spmm"]) <= 0:
+        raise SystemExit(f"phase 7: nm_xwt or nm_spmm never launched: "
+                         f"{launches}")
+    from repro_torch.launch import cnn as cnn_cli
+    log("[cnn] python -m repro_torch.launch.cnn (on the card):")
+    cnn_cli.main([])
+    agg = {key: sum(t[key] for (n, b, _), t in totals.items()
+                    if n == N and b == 32)
+           for key in ("conv", "xwt", "spmm", "dense", "mm", "xwt_plain",
+                       "spmm_plain", "bound")}
+    # what bounds most of the summed bound time
+    by = max(("bytes", "operations"),
+             key=lambda b: bound_by.get((N, 32, b), 0.0))
+    rows = {
+        "nm_spmm": dict(_row(agg["spmm"], agg["spmm_plain"], agg["bound"], by,
+                             agg["mm"], worst),
+                        at="15 CNN layers, 2:4, f32, batch 32 (sum)"),
+        "nm_xwt": dict(ms=agg["xwt"], plain_ms=agg["xwt_plain"],
+                       bound_ms=agg["bound"], library_ms=agg["dense"],
+                       conv2d_sparse_ms=agg["conv"],
+                       at="15 CNN layers, 2:4, f32, batch 32 (sum; library "
+                          "F.conv2d)"),
+    }
+    return rows, {"cnn": launches}
+
+
 # ------------------------------------------------------------ phases 3 and 4
+
 
 def serve_run(torch, model, cfg, path, kw, phase: str, before_run=None):
     """The measured engine run: 16 requests of 128 prompt tokens, gen mix
@@ -685,6 +1114,7 @@ def phase_serve(torch):
     check_reference_route(torch, eng.model, eng.cfg, reqs[:8], LOGIT_ATOL,
                           "phase 3")
     profile_breakdown(torch, model, cfg, kw)
+    onehot_launches = phase_onehot_serve(torch, eng, kw, wall)
     from repro_torch.serve import SpecConfig
     spec = SpecConfig(k=SPAN - 1, draft="rerank")
     spec_launches = phase_spec(torch, eng.model, eng.cfg, kw, spec,
@@ -694,7 +1124,75 @@ def phase_serve(torch):
     torch.cuda.empty_cache()
     check_spec_exact(torch, "llama3.2-1b", spec, "paged_gqa_verify",
                      "phase 5")
-    return {"llama3.2-1b": launches, "llama3.2-1b spec": spec_launches}
+    check_onehot_exact(torch)
+    return {"llama3.2-1b": launches, "llama3.2-1b onehot": onehot_launches,
+            "llama3.2-1b spec": spec_launches}
+
+
+LINEARS_PER_LAYER = 7            # llama: wq, wk, wv, wo, wg, wu, wd
+
+
+def _onehot(cfg):
+    return cfg.replace(sparsity=dataclasses.replace(cfg.sparsity,
+                                                    spmv_mode="onehot"))
+
+
+def phase_onehot_serve(torch, base, kw, base_wall):
+    """Phase 3b: the phase-3 trace again under ``SparsityConfig(spmv_mode=
+    "onehot")`` on the same compressed model.  The onehot launcher must
+    have served every decode linear (decode steps x layers x 7) and the
+    gather one none; the tokens are compared with phase 3's."""
+    cfg = _onehot(base.cfg)
+    eng, reqs, launches, wall = serve_run(
+        torch, base.model, cfg, ("nm_spmv_onehot", "nm_xwt",
+                                 "paged_gqa_decode"), kw, "phase 3b")
+    check_repeat(base.model, cfg, kw, reqs, eng, "phase 3b")
+    want = eng.decode_steps * cfg.n_layers * LINEARS_PER_LAYER
+    log(f"[onehot] {cfg.name} spmv_mode=onehot: "
+        f"{eng.stats()['tokens'] / wall:.1f} tokens/s against "
+        f"{base.stats()['tokens'] / base_wall:.1f} with the gather body; "
+        f"nm_spmv_onehot {launches['nm_spmv_onehot']} launches (decode "
+        f"linears {want}), nm_spmv {launches['nm_spmv']}")
+    if launches["nm_spmv_onehot"] != want or launches["nm_spmv"] != 0:
+        raise SystemExit(f"phase 3b: the onehot launcher did not serve every "
+                         f"decode linear ({launches['nm_spmv_onehot']} of "
+                         f"{want}; gather {launches['nm_spmv']})")
+    compare_tokens(torch, eng, reqs, base.results, f"phase 3b {cfg.name}",
+                   "onehot", "gather")
+    return launches
+
+
+def check_onehot_exact(torch):
+    """Hard check at full width, 4 layers, float32, 2 slots: the onehot
+    decode body's tokens equal the gather body's exactly."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.serve import ServeEngine, synthetic_trace
+    cfg = get_config("llama3.2-1b")
+    cfg = cfg.replace(n_layers=4, dtype="float32", sparsity=dataclasses.replace(
+        cfg.sparsity, mode="compressed"))
+    model = init_model(cfg, seed=1, device="cuda")
+    reqs = synthetic_trace(cfg, n_requests=4, prompt_len=37,
+                           gen_lens=[12, 9], seed=11)
+    kw = dict(n_slots=2, max_len=37 + 12, compressed=True, kv="paged",
+              attn="fused", block_size=16, device="cuda")
+    want = ServeEngine(model, cfg, **kw).run(reqs)
+    kernels.reset_launch_counts()
+    eng = ServeEngine(model, _onehot(cfg), **kw)
+    eng.run(reqs)
+    launched = {k.name: k.launches for k in kernels.all_kernels()}
+    log(f"[onehot] llama3.2-1b exact check (4 layers, float32, 2 slots): "
+        f"nm_spmv_onehot {launched['nm_spmv_onehot']} launches, nm_spmv "
+        f"{launched['nm_spmv']}")
+    differ = compare_tokens(torch, eng, reqs, want, "phase 3b exact check",
+                            "onehot", "gather")
+    if differ or launched["nm_spmv_onehot"] <= 0 or launched["nm_spmv"]:
+        raise SystemExit(f"phase 3b: float32 onehot tokens differ from the "
+                         f"gather body's in {differ} requests (or the wrong "
+                         f"body served)")
+    del eng, model
+    torch.cuda.empty_cache()
 
 
 def phase_spec(torch, model, cfg, kw, spec, path, verify_kernel, base,
@@ -741,7 +1239,8 @@ def phase_spec(torch, model, cfg, kw, spec, path, verify_kernel, base,
     return launches
 
 
-def compare_tokens(torch, eng, reqs, base, what) -> int:
+def compare_tokens(torch, eng, reqs, base, what, label="with speculation",
+                   base_label="plain") -> int:
     """Agreement of ``eng``'s token streams with ``base``; at each request's
     first divergence, the plain model's top-2 logit margin there (from a
     teacher-forced prefill of the prompt and the plain tokens before it).
@@ -762,11 +1261,12 @@ def compare_tokens(torch, eng, reqs, base, what) -> int:
             ctx[None], dtype=torch.long, device="cuda")})
         top = torch.topk(logits[0].float(), 2).values
         log(f"[spec]   rid {r.rid}: first divergence at token {i} ({a[i]} "
-            f"without, {b[i]} with speculation); plain model's top-2 logit "
+            f"{base_label}, {b[i]} {label}); plain model's top-2 logit "
             f"margin there {float(top[0] - top[1]):.4g} (teacher-forced "
             f"prefill)")
-    log(f"[spec] {what} token agreement with the plain run: {same_tok}/"
-        f"{total} tokens, {same_req}/{len(reqs)} requests identical")
+    log(f"[spec] {what} token agreement with the {base_label} run: "
+        f"{same_tok}/{total} tokens, {same_req}/{len(reqs)} requests "
+        f"identical")
     return len(reqs) - same_req
 
 
@@ -998,9 +1498,15 @@ def check_reference_route(torch, model, cfg, reqs, tol, phase,
                          f"route beyond tolerance")
 
 
-# device kernel symbol -> label; each family's one attention kernel runs
-# its decode (S = 1) and verify (S = k + 1) launches
-PROFILE_LABELS = (("nm_spmv", "nm_spmv"), ("nm_xwt", "nm_xwt"),
+# device kernel symbol -> label (first match wins); each family's one
+# attention kernel runs its decode (S = 1) and verify (S = k + 1)
+# launches; nm_xwt.cu's kernels are templated on the orientation (false:
+# nm_xwt, int8 or packed; true: nm_spmm)
+PROFILE_LABELS = (("nm_spmv_onehot", "nm_spmv onehot"), ("nm_spmv", "nm_spmv"),
+                  ("nm_bf16_kernel<false", "nm_xwt"),
+                  ("nm_f32_kernel<false", "nm_xwt"),
+                  ("nm_bf16_kernel<true", "nm_spmm"),
+                  ("nm_f32_kernel<true", "nm_spmm"),
                   ("paged_gqa_verify", "paged GQA attention (decode+verify)"),
                   ("paged_mla_verify", "paged MLA attention (decode+verify)"))
 
@@ -1086,8 +1592,14 @@ def profile_breakdown(torch, model, cfg, kw, time_calls: bool = False):
 KERNEL_META = {
     "nm_spmv": ("src/repro_torch/csrc/nm_spmv.cu",
                 "src/repro/kernels/nm_spmv.py:67"),
+    "nm_spmv_onehot": ("src/repro_torch/csrc/nm_spmv.cu",
+                       "src/repro/kernels/nm_spmv.py:43"),
     "nm_xwt": ("src/repro_torch/csrc/nm_xwt.cu",
                "src/repro/kernels/nm_spmm.py:160"),
+    "nm_xwt_packed": ("src/repro_torch/csrc/nm_xwt.cu",
+                      "src/repro/kernels/nm_spmm.py:36"),
+    "nm_spmm": ("src/repro_torch/csrc/nm_xwt.cu",
+                "src/repro/kernels/nm_spmm.py:128"),
     "paged_gqa_decode": ("src/repro_torch/csrc/paged_gqa_verify.cu",
                          "src/repro/kernels/flash_attention.py:199"),
     "paged_mla_decode": ("src/repro_torch/csrc/paged_mla_verify.cu",
@@ -1096,7 +1608,10 @@ KERNEL_META = {
                          "src/repro/kernels/flash_attention.py:338"),
     "paged_mla_verify": ("src/repro_torch/csrc/paged_mla_verify.cu",
                          "src/repro/kernels/flash_attention.py:362"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:94"),
 }
+TIMING_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def main() -> int:
@@ -1117,23 +1632,34 @@ def main() -> int:
     for name, row in ds_rows.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
                                         row["max_abs_err"])
-        rows[name]["at_deepseek_layer"] = {
-            k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms")}
+        rows[name]["at_deepseek_layer"] = {k: row[k] for k in TIMING_KEYS}
     draft_rows = phase_matmuls(torch, F, "llama3.2-1b", CHECK_SHAPES,
                                LAYER_SHAPES, LAYER_SHAPES, seed=7, n=1)
     for name, row in draft_rows.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
                                         row["max_abs_err"])
-        rows[name]["at_1of4_llama_layer"] = {
-            k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms")}
-    rows["nm_xwt"]["at_verify_span"] = time_verify_linears(torch)
+        rows[name]["at_1of4_llama_layer"] = {k: row[k] for k in TIMING_KEYS}
+    rows["nm_xwt"]["at_verify_span"] = time_verify_linears(torch, F)
+    rows.update(phase_packed_and_onehot(torch, F))
+    spmm_err = phase_spmm_check(torch)
     rows["paged_gqa_decode"] = phase_attention(torch, F)
     rows["paged_mla_decode"] = phase_mla_attention(torch, F)
     rows["paged_gqa_verify"] = phase_verify_attention(torch, F)
     rows["paged_mla_verify"] = phase_mla_verify_attention(torch, F)
-    by_path = {**phase_serve(torch), **phase_serve_deepseek(torch)}
+    t0 = time.perf_counter()
+    rows["flash_attention"], flash_path = phase_flash(torch, F)
+    log(f"[time] flash phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    cnn_rows, cnn_path = phase_cnn(torch, F)
+    log(f"[time] CNN phase {time.perf_counter() - t0:.1f}s")
+    rows["nm_spmm"] = cnn_rows["nm_spmm"]
+    rows["nm_spmm"]["max_abs_err"] = max(rows["nm_spmm"]["max_abs_err"],
+                                         spmm_err)
+    rows["nm_xwt"]["at_cnn"] = cnn_rows["nm_xwt"]
+    by_path = {**phase_serve(torch), **phase_serve_deepseek(torch),
+               **flash_path, **cnn_path}
+    # the packed variant serves no path of its own: its launches are those
+    # of the CNN phase, where it runs on every layer the reference can pack
     kernels_line = []
     for name, (src, rep) in KERNEL_META.items():
         per_path = {p: counts[name] for p, counts in by_path.items()

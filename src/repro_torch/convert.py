@@ -9,6 +9,8 @@ dense ``{"w"}`` or compressed ``{"w_vals", "w_idx"}``; the stacked
 ``[L, ...]`` layer leaves are split per layer, an expert stack keeps its
 ``[E, ...]`` axis.  This is how the parity tests feed both packages the
 same weights (their random generators cannot agree).
+``from_reference_nmsparse`` carries one reference ``NMSparse`` (a CNN
+layer's weights, say) the same way.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.layers import SparseLinear, StackedLinear
+from repro_torch.core.sparsity import NMSparse
 from repro_torch.models.attention import GQA, MLA
 from repro_torch.models.common import Embedding, RMSNorm
 from repro_torch.models.config import ArchConfig
@@ -38,6 +41,17 @@ def to_torch(a: np.ndarray, device="cuda") -> torch.Tensor:
     else:
         t = torch.from_numpy(a.copy())
     return t.to(device)
+
+
+def from_reference_nmsparse(sp, device="cuda") -> NMSparse:
+    """The reference's ``NMSparse`` (values, int8 indices, n, m,
+    dense_shape; its arrays are read through ``np.asarray``) -> the port's,
+    bit for bit, on ``device``."""
+    device = resolve_device(device)
+    return NMSparse(values=to_torch(np.asarray(sp.values), device),
+                    indices=to_torch(np.asarray(sp.indices), device),
+                    n=int(sp.n), m=int(sp.m),
+                    dense_shape=tuple(int(d) for d in sp.dense_shape))
 
 
 def _linear(tree: Mapping[str, np.ndarray], device,

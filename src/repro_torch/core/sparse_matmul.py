@@ -2,23 +2,27 @@
 
 One entry point, ``nm_matmul``, with these implementations:
 
-  ref    decompress -> dense f32 product (the oracle, ``kernels/ref.py``);
-         runs on any device — ``impl="ref"`` pinned explicitly is the
-         reference knob, never a fallback
-  plain  slot-loop decompress -> dense product with f32 accumulation: the
-         CPU path (the reference's ``"xla"`` route)
-  xwt    the tiled CUDA kernel (``kernels/nm_spmm.py``; the reference's
-         ``"pallas"``)
-  spmv   the decode CUDA kernel (``kernels/nm_spmv.py``)
+  ref          decompress -> dense f32 product (the oracle,
+               ``kernels/ref.py``); runs on any device — ``impl="ref"``
+               pinned explicitly is the reference knob, never a fallback
+  plain        slot-loop decompress -> dense product with f32
+               accumulation: the CPU path (the reference's ``"xla"``)
+  xwt          the tiled CUDA kernel (``kernels/nm_spmm.py``; the
+               reference's ``"pallas"``)
+  spmv         the decode CUDA kernel, gather body (``kernels/nm_spmv.py``;
+               the reference's ``"spmv"`` / ``"spmv_gather"``)
+  spmv_onehot  the decode CUDA kernel, onehot body (decompress + dense dot;
+               the reference's ``"spmv_onehot"``)
 
-Under ``impl="auto"`` ``select_impl`` routes by device and shape: a CUDA
-tensor goes to the kernels (decode-shaped -> spmv, other shapes -> xwt), a
-CPU tensor to ``plain``.  ``dense_forward_view`` is the dense weights'
-forward semantics, shared by ``linear_apply``, the MoE expert stacks and
-the MLA absorbed decode.  ``nm_rerank`` re-ranks stored n:m operands down
-to keep:m (the speculative draft's sparsity ladder).  The TP ring, SR-STE
-training (``ste_sparsify``) and the fixed-mask mode (``masked_matmul``) are
-not ported yet.
+Under ``impl="auto"`` ``select_impl`` routes by device and shape: a pinned
+``decode_impl`` wins for decode shapes; otherwise a CUDA tensor goes to the
+kernels (decode-shaped -> spmv, or spmv_onehot under
+``spmv_mode="onehot"``; other shapes -> xwt) and a CPU tensor to ``plain``.
+``dense_forward_view`` is the dense weights' forward semantics, shared by
+``linear_apply``, the MoE expert stacks and the MLA absorbed decode.
+``nm_rerank`` re-ranks stored n:m operands down to keep:m (the speculative
+draft's sparsity ladder).  The TP ring, SR-STE training (``ste_sparsify``)
+and the fixed-mask mode (``masked_matmul``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from repro_torch.core.sparsity import NMSparse, decompress_parts, nm_mask
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
-Impl = str  # 'auto' | 'ref' | 'plain' | 'xwt' | 'spmv'
+Impl = str  # 'auto' | 'ref' | 'plain' | 'xwt' | 'spmv' | 'spmv_onehot'
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,14 +47,22 @@ class SparsityConfig:
     ``mode``: 'srste' (dense weight, N:M mask recomputed in the forward),
     'compressed' (values + indices; dense leaves not yet converted get the
     magnitude mask), 'dense'.  ``decode_batch_max`` bounds the rank-2 batch
-    that counts as decode-shaped."""
+    that counts as decode-shaped.
+
+    Decode policy, as the reference's fields: ``decode_impl`` pins the impl
+    of decode-shaped inputs under ``impl='auto'`` ('auto' resolves by
+    device; the reference's 'pallas' is the port's 'xwt', its 'xla' the
+    port's 'plain'); ``spmv_mode`` picks the decode kernel's body on the
+    card, 'gather' (``spmv``) or 'onehot' (``spmv_onehot``)."""
     n: int = 2
     m: int = 4
     enabled: bool = True
     mode: str = "srste"
     impl: Impl = "auto"
     min_dim: int = 128
+    decode_impl: Impl = "auto"
     decode_batch_max: int = 8
+    spmv_mode: str = "gather"
 
     def applies(self, in_dim: int, out_dim: int) -> bool:
         return (self.enabled and self.mode != "dense"
@@ -122,14 +134,20 @@ def is_decode_shape(x_shape: Tuple[int, ...], batch_max: int = 8) -> bool:
 
 def select_impl(cfg: SparsityConfig, x: torch.Tensor) -> Impl:
     """The execution policy for compressed params: a pinned ``cfg.impl``
-    wins; under 'auto' CUDA tensors take the kernels (decode-shaped ->
-    spmv, else xwt) and CPU tensors the plain path."""
+    wins; under 'auto' a pinned ``cfg.decode_impl`` wins for decode
+    shapes; otherwise CUDA tensors take the kernels (decode-shaped -> spmv,
+    or spmv_onehot under ``spmv_mode='onehot'``; else xwt) and CPU tensors
+    the plain path."""
     if cfg.impl != "auto":
         return cfg.impl
+    decode = is_decode_shape(tuple(x.shape), cfg.decode_batch_max)
+    if decode and cfg.decode_impl != "auto":
+        return cfg.decode_impl
     if not x.is_cuda:
         return "plain"
-    return "spmv" if is_decode_shape(tuple(x.shape), cfg.decode_batch_max) \
-        else "xwt"
+    if decode:
+        return "spmv_onehot" if cfg.spmv_mode == "onehot" else "spmv"
+    return "xwt"
 
 
 def nm_matmul(x: torch.Tensor, sp: NMSparse, impl: Impl = "auto"
@@ -147,10 +165,13 @@ def nm_matmul(x: torch.Tensor, sp: NMSparse, impl: Impl = "auto"
         return _xwt_plain(x, sp.values, sp.indices, n, m)
     if impl == "xwt":
         return kops.nm_xwt(x, sp.values, sp.indices, n, m)
-    if impl == "spmv":
-        return kops.nm_spmv(x, sp.values, sp.indices, n, m)
+    if impl in ("spmv", "spmv_onehot"):
+        return kops.nm_spmv(x, sp.values, sp.indices, n, m,
+                            mode="onehot" if impl == "spmv_onehot"
+                            else "gather")
     raise ValueError(f"unknown impl {impl!r} (ported: auto, ref, plain, "
-                     f"xwt, spmv; 'ring' comes with tensor-parallel serving)")
+                     f"xwt, spmv, spmv_onehot; 'ring' comes with "
+                     f"tensor-parallel serving)")
 
 
 def dense_forward_view(w: torch.Tensor, sp: SparsityConfig) -> torch.Tensor:

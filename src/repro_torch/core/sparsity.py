@@ -25,6 +25,7 @@ __all__ = [
     "compress",
     "decompress",
     "pack_indices",
+    "pack_indices_i32",
     "unpack_indices",
     "storage_bytes",
     "validate_nm",
@@ -140,26 +141,40 @@ def decompress(sp: NMSparse) -> torch.Tensor:
 # ceil(log2 M)-bit index packing: the paper's storage accounting.
 # ---------------------------------------------------------------------------
 
-def _bits_per_index(m: int) -> int:
+def index_bits(m: int) -> int:
     return max(1, int(math.ceil(math.log2(m))))
 
 
-def pack_indices(indices: torch.Tensor, m: int) -> torch.Tensor:
-    """int8 in-block indices -> packed uint32 words along the last axis
-    (slot s of a word occupies bits [s*bits, (s+1)*bits))."""
-    bits = _bits_per_index(m)
+def _packed_words(indices: torch.Tensor, m: int) -> torch.Tensor:
+    """The packed words as int64 values in [0, 2**32)."""
+    bits = index_bits(m)
     per_word = 32 // bits
     nnz = indices.shape[-1]
     pad = (-nnz) % per_word
     idx = torch.nn.functional.pad(indices.to(torch.int64), (0, pad))
     idx = idx.reshape(*indices.shape[:-1], -1, per_word)
     shifts = torch.arange(per_word, device=indices.device) * bits
-    return (idx << shifts).sum(-1).to(torch.uint32)
+    return (idx << shifts).sum(-1)
+
+
+def pack_indices(indices: torch.Tensor, m: int) -> torch.Tensor:
+    """int8 in-block indices -> packed uint32 words along the last axis
+    (slot s of a word occupies bits [s*bits, (s+1)*bits))."""
+    return _packed_words(indices, m).to(torch.uint32)
+
+
+def pack_indices_i32(indices: torch.Tensor, m: int) -> torch.Tensor:
+    """``pack_indices``' words as int32 with the same 32 bits (torch's
+    uint32 support is thin; a kernel reads them as raw 32-bit words).
+    ``unpack_indices`` takes either."""
+    w = _packed_words(indices, m)
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
 
 
 def unpack_indices(packed: torch.Tensor, m: int, nnz: int) -> torch.Tensor:
-    """Packed uint32 words -> int8 in-block indices (inverse of pack)."""
-    bits = _bits_per_index(m)
+    """Packed words (uint32, or their int32 bit patterns) -> int8 in-block
+    indices (inverse of pack)."""
+    bits = index_bits(m)
     per_word = 32 // bits
     words = packed.to(torch.int64)
     shifts = torch.arange(per_word, device=packed.device) * bits
@@ -177,7 +192,7 @@ def storage_bytes(sp: NMSparse, packed: bool = True,
     if full_column:
         idx_bytes = nvals * 4
     elif packed:
-        idx_bytes = int(math.ceil(nvals * _bits_per_index(sp.m) / 8))
+        idx_bytes = int(math.ceil(nvals * index_bits(sp.m) / 8))
     else:
         idx_bytes = nvals
     return val_bytes + idx_bytes

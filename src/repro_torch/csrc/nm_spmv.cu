@@ -15,7 +15,15 @@
 // x[b, block*M + idx] hit different banks.  Accumulation is f32 in
 // registers, reduced with warp shuffles.  Batches above 8 take more CTAs
 // along grid.y.
-#include "common.cuh"
+//
+// nm_spmv_onehot_launch is the reference's second body (mode="onehot",
+// nm_spmv.py:43-47): decompress each W tile, then a dense dot.  Same bytes,
+// dense FLOPs on a tiny batch (still far below the FMA rate).  One CTA per
+// 32 output rows and up to 8 batch rows: per K step of 64 it stages the x
+// tile and decompresses the W tile (nm_tile.cuh, shared with nm_xwt) into
+// f32 shared memory, then each of 256 threads accumulates one (row, batch)
+// output over the tile with f32 FMAs.
+#include "nm_tile.cuh"
 
 namespace {
 
@@ -126,6 +134,52 @@ int launch(const void* x, const void* vals, const void* idx, void* y, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ onehot body
+
+constexpr int kOhRows = 32;                  // output rows per CTA
+constexpr int kOhThreads = kOhRows * kBGroup;  // one (row, batch) each
+
+template <typename T>
+__global__ void __launch_bounds__(kOhThreads)
+nm_spmv_onehot_kernel(const T* __restrict__ x, const T* __restrict__ vals,
+                      const int8_t* __restrict__ idx, T* __restrict__ y,
+                      int B, int O, int K, int n, int m) {
+  __shared__ float xs[kBGroup][nm::kBK + 1];
+  __shared__ float ws[kOhRows][nm::kBK + 1];
+  const int tid = threadIdx.x;
+  const int r = tid / kBGroup, b = tid % kBGroup;
+  const int o0 = blockIdx.x * kOhRows;
+  const int b0 = blockIdx.y * kBGroup;
+  const int nb = min(kBGroup, B - b0);
+  const nm::Int8Idx reader{idx, K / m * n};
+  float acc = 0.f;
+  for (int k0 = 0; k0 < K; k0 += nm::kBK) {
+    __syncthreads();  // every thread is done with the previous tiles
+    for (int i = tid; i < kBGroup * nm::kBK; i += kOhThreads) {
+      const int bb = i / nm::kBK, kk = i % nm::kBK;
+      const int k = k0 + kk;
+      xs[bb][kk] = (bb < nb && k < K) ? to_f32(x[(size_t)(b0 + bb) * K + k]) : 0.f;
+    }
+    nm::decompress_tile(vals, reader, kOhRows, o0, k0, O, K, n, m,
+                        [&](int c, int kk, float v) { ws[c][kk] = v; });
+    __syncthreads();
+#pragma unroll 16
+    for (int kk = 0; kk < nm::kBK; ++kk) acc = fmaf(ws[r][kk], xs[b][kk], acc);
+  }
+  if (o0 + r < O && b < nb) y[(size_t)(b0 + b) * O + o0 + r] = from_f32<T>(acc);
+}
+
+template <typename T>
+int launch_onehot(const void* x, const void* vals, const void* idx, void* y,
+                  int B, int O, int K, int n, int m, cudaStream_t s) {
+  if (m <= 0 || nm::kBK % m != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((O + kOhRows - 1) / kOhRows, (B + kBGroup - 1) / kBGroup);
+  nm_spmv_onehot_kernel<T><<<grid, kOhThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(vals),
+      static_cast<const int8_t*>(idx), static_cast<T*>(y), B, O, K, n, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int nm_spmv_launch(const void* x, const void* vals, const void* idx,
@@ -135,5 +189,17 @@ extern "C" int nm_spmv_launch(const void* x, const void* vals, const void* idx,
   if (dtype == REPRO_DTYPE_F32) return launch<float>(x, vals, idx, y, B, O, K, n, m, s);
   if (dtype == REPRO_DTYPE_BF16)
     return launch<__nv_bfloat16>(x, vals, idx, y, B, O, K, n, m, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int nm_spmv_onehot_launch(const void* x, const void* vals,
+                                     const void* idx, void* y, int B, int O,
+                                     int K, int n, int m, int dtype,
+                                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == REPRO_DTYPE_F32)
+    return launch_onehot<float>(x, vals, idx, y, B, O, K, n, m, s);
+  if (dtype == REPRO_DTYPE_BF16)
+    return launch_onehot<__nv_bfloat16>(x, vals, idx, y, B, O, K, n, m, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,63 +1,55 @@
-// nm_xwt: prefill-shaped Y[S, O] = X[S, K] . W_sp^T, W compressed N:M
-// (values [O, K/M*N] + int8 in-block indices).
+// The tiled N:M sparse-dense products: both orientations of the reference's
+// src/repro/kernels/nm_spmm.py, one kernel body each for f32 and bf16.
 //
-// Replaces src/repro/kernels/nm_spmm.py::nm_xwt_kernel (_xwt_body with
-// _decompress_tile, int8 indices).  Bound on the H100: at the serving
-// prefill lengths the compressed weight bytes bound it (the sparse MACs at
-// the bf16 tensor-core rate take less time than reading the weights once).
-// Design: one CTA per output tile loops over K.  Per step it stages the X
-// tile in shared memory and decompresses the W tile into a dense tile in
-// shared memory with the reference's block*M + idx placement; each thread
-// issues all of its global loads (16-byte runs where the shapes allow)
-// before its first shared store, since an unpipelined K loop is bound by
-// load latency.  bf16 tiles (64x64, K step 64) feed mma.sync m16n8k16
-// tensor-core products with f32 accumulators, eight warps of 32x16 each;
-// f32 tiles (32x64) take an f32 FMA loop with 2x4 register micro-tiles.
-// Ragged S, O and K edges are masked in the loads and the store; nothing is
-// padded.  Not yet: TMA, wgmma, a multi-stage pipeline.
-#include "common.cuh"
+//   nm_xwt   Y[S, O] = X[S, K] . W_sp^T  (nm_xwt_kernel / _xwt_body), the
+//            W indices as int8 or as the paper's bit-packed words
+//            (packed=True: _unpack_indices_tile + _decompress_tile)
+//   nm_spmm  C[R, C] = A_sp[R, K] . B[K, C]  (nm_spmm_kernel / _spmm_body),
+//            the paper's orientation
+//
+// Both compute out[rows, cols] = P[rows, K] . Q[cols, K]^T with one operand
+// compressed: in xwt P = X is dense and Q = W sparse; in spmm P = A is
+// sparse and Q^T = B dense.  The template parameter Spmm picks which tile is
+// decompressed and which is staged; the index stream is a template
+// parameter (nm::Int8Idx or nm::PackedIdx), so the packed kernel differs
+// from the int8 one only in its index reads and its output is the same bit
+// for bit.
+//
+// Bound on the H100: at the serving prefill lengths the compressed weight
+// bytes (the sparse MACs at the bf16 tensor-core rate take less time than
+// reading the weights once); at the CNN GEMMs' widths (K up to 4608, tens
+// of thousands of columns) the operations.  Design: one CTA per output tile
+// loops over K.  Per step it stages the dense tile in shared memory and
+// decompresses the sparse tile into a dense tile in shared memory with the
+// reference's block*M + idx placement; each thread issues all of its
+// global loads (16-byte runs where the shapes allow) before its first
+// shared store, since an unpipelined K loop is bound by load latency.  bf16
+// tiles (64x64, K step 64) feed mma.sync m16n8k16 tensor-core products with
+// f32 accumulators, eight warps of 32x16 each; f32 tiles (32x64) take an
+// f32 FMA loop with 2x4 register micro-tiles.  Ragged edges are masked in
+// the loads and the store; nothing is padded.  Not yet: TMA, wgmma, a
+// multi-stage pipeline.
+#include "nm_tile.cuh"
 
 namespace {
 
-constexpr int kBK = 64;  // K per step (a multiple of M)
-
-// Dense [rows, kBK] tile of W rows c0.. at K offset k0, written through
-// put(row_in_tile, col_in_tile, value).
-template <typename T, typename Put>
-__device__ __forceinline__ void decompress_tile(const T* vals,
-                                                const int8_t* idx, int rows,
-                                                int c0, int k0, int O, int K,
-                                                int n, int m, Put put) {
-  const int nblk = kBK / m;
-  const int nnz = K / m * n;
-  for (int i = threadIdx.x; i < rows * nblk; i += blockDim.x) {
-    const int c = i / nblk;
-    const int j = i % nblk;
-    const int row = c0 + c;
-    const int kb = k0 + j * m;  // first column of this M-block
-    const bool live = row < O && kb < K;
-    const size_t e = (size_t)row * nnz + (size_t)(kb / m) * n;
-    for (int p = 0; p < m; ++p) {
-      float v = 0.f;
-      if (live) {
-        for (int s = 0; s < n; ++s)
-          if (idx[e + s] == p) v += to_f32(vals[e + s]);
-      }
-      put(c, j * m + p, v);
-    }
-  }
-}
+using nm::kBK;
+typedef __nv_bfloat16 bf16;
 
 // ------------------------------------------------------------ f32: FMA path
 
 constexpr int kFBM = 32, kFBN = 64, kFThreads = 256;
 
+// P is [rows, K] (xwt: dense X; spmm: compressed A), Q is [cols, K] (xwt:
+// compressed W; spmm: dense B given as [K, cols]).  dense is the dense
+// operand, vals/idx the compressed one.
+template <bool Spmm, class Idx>
 __global__ void __launch_bounds__(kFThreads)
-nm_xwt_f32_kernel(const float* __restrict__ x, const float* __restrict__ vals,
-                  const int8_t* __restrict__ idx, float* __restrict__ y,
-                  int S, int O, int K, int n, int m) {
-  __shared__ float xs[kFBM][kBK + 1];
-  __shared__ float ws[kBK][kFBN + 1];
+nm_f32_kernel(const float* __restrict__ dense, const float* __restrict__ vals,
+              Idx idx, float* __restrict__ y, int rows, int cols, int K,
+              int n, int m) {
+  __shared__ float xs[kFBM][kBK + 1];  // P tile [row][k]
+  __shared__ float ws[kBK][kFBN + 1];  // Q tile [k][col]
   const int tid = threadIdx.x;
   const int tx = tid % 16;  // output columns tx + 16*j
   const int ty = tid / 16;  // output rows ty + 16*i
@@ -66,13 +58,23 @@ nm_xwt_f32_kernel(const float* __restrict__ x, const float* __restrict__ vals,
   float acc[2][4] = {};
   for (int k0 = 0; k0 < K; k0 += kBK) {
     __syncthreads();  // previous step's tiles fully consumed
-    for (int i = tid; i < kFBM * kBK; i += kFThreads) {
-      const int r = i / kBK, kk = i % kBK;
-      const int s = s0 + r, k = k0 + kk;
-      xs[r][kk] = (s < S && k < K) ? x[(size_t)s * K + k] : 0.f;
+    if constexpr (Spmm) {
+      nm::decompress_tile(vals, idx, kFBM, s0, k0, rows, K, n, m,
+                          [&](int r, int kk, float v) { xs[r][kk] = v; });
+      for (int i = tid; i < kBK * kFBN; i += kFThreads) {  // along cols
+        const int kk = i / kFBN, c = i % kFBN;
+        const int k = k0 + kk, col = c0 + c;
+        ws[kk][c] = (k < K && col < cols) ? dense[(size_t)k * cols + col] : 0.f;
+      }
+    } else {
+      for (int i = tid; i < kFBM * kBK; i += kFThreads) {  // along K
+        const int r = i / kBK, kk = i % kBK;
+        const int s = s0 + r, k = k0 + kk;
+        xs[r][kk] = (s < rows && k < K) ? dense[(size_t)s * K + k] : 0.f;
+      }
+      nm::decompress_tile(vals, idx, kFBN, c0, k0, cols, K, n, m,
+                          [&](int c, int kk, float v) { ws[kk][c] = v; });
     }
-    decompress_tile(vals, idx, kFBN, c0, k0, O, K, n, m,
-                    [&](int c, int kk, float v) { ws[kk][c] = v; });
     __syncthreads();
 #pragma unroll 8
     for (int kk = 0; kk < kBK; ++kk) {
@@ -89,11 +91,11 @@ nm_xwt_f32_kernel(const float* __restrict__ x, const float* __restrict__ vals,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int s = s0 + ty + 16 * i;
-    if (s >= S) continue;
+    if (s >= rows) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = c0 + tx + 16 * j;
-      if (c < O) y[(size_t)s * O + c] = acc[i][j];
+      if (c < cols) y[(size_t)s * cols + c] = acc[i][j];
     }
   }
 }
@@ -101,15 +103,14 @@ nm_xwt_f32_kernel(const float* __restrict__ x, const float* __restrict__ vals,
 // --------------------------------------------------- bf16: tensor-core path
 
 constexpr int kMBM = 64, kMBN = 64, kMThreads = 256;
-constexpr int kPad = 8;  // row stride kBK+8 bf16 = 144 B: conflict-free frags
-typedef __nv_bfloat16 bf16;
+constexpr int kStride = kBK + 8;  // 144 B rows: conflict-free fragments
 
 // X tile [kMBM, kBK] -> xs; vec: K % 8 == 0 and x 16-byte aligned, so each
 // 8-column run is wholly inside or outside the matrix and moves as one
 // 16-byte load.
-__device__ __forceinline__ void load_x_tile(bf16 (*xs)[kBK + kPad],
-                                            const bf16* x, int S, int K,
-                                            int s0, int k0, bool vec) {
+__device__ __forceinline__ void load_x_tile(bf16 (*xs)[kStride], const bf16* x,
+                                            int S, int K, int s0, int k0,
+                                            bool vec) {
   if (vec) {
     for (int v = threadIdx.x; v < kMBM * kBK / 8; v += blockDim.x) {
       const int r = v / (kBK / 8), kv = (v % (kBK / 8)) * 8;
@@ -129,37 +130,29 @@ __device__ __forceinline__ void load_x_tile(bf16 (*xs)[kBK + kPad],
   }
 }
 
-// W tile decompress, fast form: each thread takes a run of 8 consecutive
-// slots of one row (one 16-byte value load + one 8-byte index load, issued
-// before any store), which covers 8/n whole M-blocks, and writes their
-// 8*M/n dense columns: zeros, then the n values at block*M + idx.  Needs n
-// to divide 8, nnz % 8 == 0 and aligned operands (checked by the launcher).
-__device__ __forceinline__ void decompress_runs(bf16 (*ws)[kBK + kPad],
-                                                const bf16* vals,
-                                                const int8_t* idx, int O,
-                                                int K, int n, int m, int c0,
-                                                int k0) {
-  const int nnz = K / m * n;
-  const int runs = kBK / m * n / 8;  // 8-slot runs per row per K step
+// B tile [kBK, kMBN] of B [K, C] -> transposed bt[col][k], read along C;
+// vec: C % 8 == 0 and b 16-byte aligned (8-column runs, one 16-byte load).
+__device__ __forceinline__ void load_bt_tile(bf16 (*bt)[kStride], const bf16* b,
+                                             int K, int C, int k0, int c0,
+                                             bool vec) {
   const bf16 zero = __float2bfloat16(0.f);
-  for (int v = threadIdx.x; v < kMBN * runs; v += blockDim.x) {
-    const int c = v / runs, q = v % runs;
-    const int row = c0 + c;
-    const int slot = k0 / m * n + q * 8;  // first slot of the run
-    const int col0 = q * 8 / n * m;       // its first dense column
-    const bool live = row < O && slot < nnz;
-    bf16 vv[8];
-    int8_t ii[8];
-    if (live) {
-      const uint4 rv = *reinterpret_cast<const uint4*>(vals + (size_t)row * nnz + slot);
-      const uint2 ri = *reinterpret_cast<const uint2*>(idx + (size_t)row * nnz + slot);
-      memcpy(vv, &rv, 16);
-      memcpy(ii, &ri, 8);
-    }
-    for (int p = 0; p < 8 / n * m; ++p) ws[c][col0 + p] = zero;
-    if (live) {
+  if (vec) {
+    for (int v = threadIdx.x; v < kBK * kMBN / 8; v += blockDim.x) {
+      const int kk = v / (kMBN / 8), cv = (v % (kMBN / 8)) * 8;
+      const int k = k0 + kk, c = c0 + cv;
+      uint4 run = make_uint4(0, 0, 0, 0);
+      if (k < K && c < C)
+        run = *reinterpret_cast<const uint4*>(b + (size_t)k * C + c);
+      bf16 e[8];
+      memcpy(e, &run, 16);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) ws[c][col0 + e / n * m + ii[e]] = vv[e];
+      for (int q = 0; q < 8; ++q) bt[cv + q][kk] = e[q];
+    }
+  } else {
+    for (int i = threadIdx.x; i < kBK * kMBN; i += blockDim.x) {
+      const int kk = i / kMBN, c = i % kMBN;
+      const int k = k0 + kk, col = c0 + c;
+      bt[c][kk] = (k < K && col < C) ? b[(size_t)k * C + col] : zero;
     }
   }
 }
@@ -173,18 +166,19 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// vec_dense: the dense operand's 16-byte loads (see load_x_tile /
+// load_bt_tile); runs: the sparse tile through decompress_runs.
+template <bool Spmm, class Idx>
 __global__ void __launch_bounds__(kMThreads)
-nm_xwt_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ vals,
-                   const int8_t* __restrict__ idx,
-                   __nv_bfloat16* __restrict__ y, int S, int O, int K, int n,
-                   int m, bool vec_x, bool runs_w) {
-  __shared__ __align__(16) bf16 xs[kMBM][kBK + kPad];  // [s][k]
-  __shared__ __align__(16) bf16 ws[kMBN][kBK + kPad];  // [o][k]
+nm_bf16_kernel(const bf16* __restrict__ dense, const bf16* __restrict__ vals,
+               Idx idx, bf16* __restrict__ y, int rows, int cols, int K, int n,
+               int m, bool vec_dense, bool runs) {
+  __shared__ __align__(16) bf16 xs[kMBM][kStride];  // P tile [row][k]
+  __shared__ __align__(16) bf16 ws[kMBN][kStride];  // Q tile [col][k]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / 4, wn = warp % 4;  // warp tile: 32 rows x 16 cols
   const int g = lane / 4, t = lane % 4;    // mma fragment coordinates
@@ -194,14 +188,21 @@ nm_xwt_bf16_kernel(const __nv_bfloat16* __restrict__ x,
 
   for (int k0 = 0; k0 < K; k0 += kBK) {
     __syncthreads();
-    load_x_tile(xs, x, S, K, s0, k0, vec_x);
-    if (runs_w) {
-      decompress_runs(ws, vals, idx, O, K, n, m, c0, k0);
+    // the sparse tile: rows r0.. of the compressed operand into sp
+    bf16 (*sp)[kStride] = Spmm ? xs : ws;
+    const int r0 = Spmm ? s0 : c0;
+    const int nrows = Spmm ? rows : cols;
+    if constexpr (Spmm)
+      load_bt_tile(ws, dense, K, cols, k0, c0, vec_dense);
+    else
+      load_x_tile(xs, dense, rows, K, s0, k0, vec_dense);
+    if (runs) {
+      nm::decompress_runs<kMBN>(sp, vals, idx, nrows, K, n, m, r0, k0);
     } else {
-      decompress_tile(vals, idx, kMBN, c0, k0, O, K, n, m,
-                      [&](int c, int kk, float v) {
-                        ws[c][kk] = __float2bfloat16(v);  // exact: one value
-                      });
+      nm::decompress_tile(vals, idx, kMBN, r0, k0, nrows, K, n, m,
+                          [&](int c, int kk, float v) {
+                            sp[c][kk] = __float2bfloat16(v);  // exact: one value
+                          });
     }
     __syncthreads();
 #pragma unroll
@@ -234,42 +235,81 @@ nm_xwt_bf16_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {  // fragment rows g and g + 8
         const int s = s0 + wm * 32 + mi * 16 + g + 8 * h;
-        if (s >= S) continue;
+        if (s >= rows) continue;
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
           const int c = c0 + wn * 16 + ni * 8 + 2 * t + q;
-          if (c < O) y[(size_t)s * O + c] = __float2bfloat16(acc[mi][ni][2 * h + q]);
+          if (c < cols) y[(size_t)s * cols + c] = __float2bfloat16(acc[mi][ni][2 * h + q]);
         }
       }
 }
 
-}  // namespace
+bool aligned(const void* p, uintptr_t a) {
+  return reinterpret_cast<uintptr_t>(p) % a == 0;
+}
 
-extern "C" int nm_xwt_launch(const void* x, const void* vals, const void* idx,
-                             void* y, int S, int O, int K, int n, int m,
-                             int dtype, void* stream) {
-  if (kBK % m != 0) return static_cast<int>(cudaErrorInvalidValue);
+// out[rows, cols]; dense is X [rows, K] (xwt) or B [K, cols] (spmm)
+template <bool Spmm, class Idx>
+int launch(const void* dense, const void* vals, Idx idx, bool idx_runs_ok,
+           void* y, int rows, int cols, int K, int n, int m, int dtype,
+           void* stream) {
+  if (m <= 0 || kBK % m != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == REPRO_DTYPE_F32) {
-    const dim3 grid((O + kFBN - 1) / kFBN, (S + kFBM - 1) / kFBM);
-    nm_xwt_f32_kernel<<<grid, kFThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(vals),
-        static_cast<const int8_t*>(idx), static_cast<float*>(y), S, O, K, n, m);
+    const dim3 grid((cols + kFBN - 1) / kFBN, (rows + kFBM - 1) / kFBM);
+    nm_f32_kernel<Spmm, Idx><<<grid, kFThreads, 0, st>>>(
+        static_cast<const float*>(dense), static_cast<const float*>(vals), idx,
+        static_cast<float*>(y), rows, cols, K, n, m);
   } else if (dtype == REPRO_DTYPE_BF16) {
-    const dim3 grid((O + kMBN - 1) / kMBN, (S + kMBM - 1) / kMBM);
-    const auto aligned = [](const void* p, uintptr_t a) {
-      return reinterpret_cast<uintptr_t>(p) % a == 0;
-    };
+    const dim3 grid((cols + kMBN - 1) / kMBN, (rows + kMBM - 1) / kMBM);
     const int nnz = K / m * n;
-    const bool vec_x = K % 8 == 0 && aligned(x, 16);
-    const bool runs_w = 8 % n == 0 && nnz % 8 == 0 && (kBK / m * n) % 8 == 0
-                        && aligned(vals, 16) && aligned(idx, 8);
-    nm_xwt_bf16_kernel<<<grid, kMThreads, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(vals),
-        static_cast<const int8_t*>(idx), static_cast<bf16*>(y), S, O, K, n, m,
-        vec_x, runs_w);
+    const int dense_minor = Spmm ? cols : K;
+    const bool vec_dense = dense_minor % 8 == 0 && aligned(dense, 16);
+    const bool runs = 8 % n == 0 && nnz % 8 == 0 && (kBK / m * n) % 8 == 0
+                      && aligned(vals, 16) && idx_runs_ok;
+    nm_bf16_kernel<Spmm, Idx><<<grid, kMThreads, 0, st>>>(
+        static_cast<const bf16*>(dense), static_cast<const bf16*>(vals), idx,
+        static_cast<bf16*>(y), rows, cols, K, n, m, vec_dense, runs);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Y[S, O] = X[S, K] . W^T, W as values [O, K/M*N] + int8 indices.
+extern "C" int nm_xwt_launch(const void* x, const void* vals, const void* idx,
+                             void* y, int S, int O, int K, int n, int m,
+                             int dtype, void* stream) {
+  if (m <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const nm::Int8Idx reader{static_cast<const int8_t*>(idx), K / m * n};
+  return launch<false>(x, vals, reader, aligned(idx, 8), y, S, O, K, n, m,
+                       dtype, stream);
+}
+
+// The same product with W's indices as the packed uint32 words of each row
+// (ceil(nnz / per_word) words per row, passed as raw 32-bit patterns).
+extern "C" int nm_xwt_packed_launch(const void* x, const void* vals,
+                                    const void* words, void* y, int S, int O,
+                                    int K, int n, int m, int dtype,
+                                    void* stream) {
+  if (m <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int bits = nm::index_bits(m);
+  const int per_word = 32 / bits;
+  const int nnz = K / m * n;
+  const nm::PackedIdx reader{static_cast<const uint32_t*>(words),
+                             (nnz + per_word - 1) / per_word, bits, per_word};
+  return launch<false>(x, vals, reader, true, y, S, O, K, n, m, dtype, stream);
+}
+
+// C[R, Ccols] = A_sp[R, K] . B[K, Ccols], A as values [R, K/M*N] + int8
+// indices.
+extern "C" int nm_spmm_launch(const void* vals, const void* idx, const void* b,
+                              void* c, int R, int Ccols, int K, int n, int m,
+                              int dtype, void* stream) {
+  if (m <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const nm::Int8Idx reader{static_cast<const int8_t*>(idx), K / m * n};
+  return launch<true>(b, vals, reader, aligned(idx, 8), c, R, Ccols, K, n, m,
+                      dtype, stream);
 }

@@ -4,9 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` (``sm_90a``) into a shared
 library with a plain C interface, loaded with ``ctypes``.  The build runs at
 first use, all sources at once (one ``nvcc`` per source, started together),
 into ``repro_torch/_build/`` (listed in ``.gitignore``); a library is named
-by the hash of its sources, so an edited source rebuilds and an unchanged
-one is reused.  A missing ``nvcc`` or a failed build raises: the port has no
-CPU fallback for a CUDA tensor.
+by the hash of its source and of every shared ``*.cuh`` header, so an
+edited source rebuilds and an unchanged one is reused.  A missing ``nvcc``
+or a failed build raises: the port has no CPU fallback for a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -24,7 +24,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("nm_spmv", "nm_xwt", "paged_gqa_verify", "paged_mla_verify")
+SOURCES = ("nm_spmv", "nm_xwt", "paged_gqa_verify", "paged_mla_verify",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,7 +48,7 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha1()
-    for f in (CSRC_DIR / f"{name}.cu", CSRC_DIR / "common.cuh"):
+    for f in (CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))):
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"

@@ -1,5 +1,5 @@
-"""Fused paged decode and verify attention (flash-decoding over the block
-pool): GQA and MLA.
+"""Fused attention kernels: paged decode and verify (flash-decoding over the
+block pool, GQA and MLA), and flash attention over dense [BH, S, D].
 
 Each family has one kernel, which scores a span of S >= 1 consecutive
 queries per slot (offset i sees ``kv_len + i`` positions); the one-token
@@ -33,16 +33,28 @@ registers, so heads split across CTAs and each re-reads the slot's blocks
 Each span row reduces in an order that does not depend on the other rows,
 so verify offset i equals a decode launch at ``kv_len + i`` bit for bit.
 
+Flash attention kernel: ``csrc/flash_attention.cu`` (CUDA C++, sm_90a),
+launched by ``flash_attention_kernel`` (counter ``FLASH_KERNEL``).  It
+replaces ``repro/kernels/flash_attention.py::flash_attention_kernel``
+(``_fa_body``) with its semantics: scale, softcap, then the causal / window
+mask anchored at ``q_off`` (default ``Sk - Sq``), masked scores forced to
+p = 0, f32 online softmax, output ``acc / max(l, 1e-30)`` (a row masked
+everywhere gives 0), no block skipped.  Bound by operations at prefill
+widths.  Design: one CTA per (bh, 32-row q tile) walks 32-key K / V tiles
+staged in f32 shared memory (d, dv <= 256, dv may differ from d); each warp
+owns 4 query rows, lane j scores key j, f32 FMAs.  As in the reference,
+the models prefill with ``chunked_attention``; this kernel is a public
+entry point that no model path calls.
+
 ``*_plain`` are the same functions in plain torch (gather the table, masked
-softmax): the CPU path, and what the kernels are held against on the card.
-The flash-attention prefill kernel is not on the ported paths and is not
-ported yet.
+softmax; for flash, one masked f32 softmax over the whole key axis): the
+CPU path, and what the kernels are held against on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -62,7 +74,12 @@ GQA_VERIFY_KERNEL = CudaKernel("paged_gqa_verify", "paged_gqa_verify_launch",
                                _GQA_ARGS)
 MLA_VERIFY_KERNEL = CudaKernel("paged_mla_verify", "paged_mla_verify_launch",
                                _MLA_ARGS)
+FLASH_KERNEL = CudaKernel("flash_attention", "flash_attention_launch",
+                          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                           _F, _I, _I])
+_FLASH_MAX_D = 256
 _NEG = -1e30
+DEFAULT_BLOCK_FA = (512, 1024)      # (bq, bk) of the reference flash tile
 _THREADS, _MAX_PAIRS = 128, 8
 _OPTIN_SMEM_LIMIT = 227 * 1024      # opt-in dynamic shared memory per CTA
 _MLA_VERIFY_ROWS = 4                # span rows per CTA of paged_mla_verify
@@ -346,3 +363,94 @@ def paged_decode_traffic(b: int, table_width: int, block_size: int,
         * per_pos
     return dict(gather_bytes=gather, fused_bytes=fused,
                 ratio=fused / max(gather, 1))
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          window: Optional[int] = None,
+                          cap: Optional[float] = None,
+                          scale: Optional[float] = None,
+                          q_off: Optional[int] = None) -> torch.Tensor:
+    """q [BH, Sq, D], k [BH, Sk, D], v [BH, Sk, Dv] -> [BH, Sq, Dv] in
+    q.dtype: one masked f32 softmax over the whole key axis with the
+    kernel's semantics (masked p = 0, ``acc / max(l, 1e-30)``)."""
+    sq, sk = q.shape[1], k.shape[1]
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    q_off = sk - sq if q_off is None else q_off
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if cap is not None:
+        s = cap * torch.tanh(s / cap)
+    qpos = q_off + torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    s = torch.where(mask, s, torch.full_like(s, _NEG))
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    out = torch.einsum("bqk,bkd->bqd", p, v.float())
+    return (out / p.sum(-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
+
+
+def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, causal: bool = True,
+                           window: Optional[int] = None,
+                           cap: Optional[float] = None,
+                           scale: Optional[float] = None,
+                           q_off: Optional[int] = None) -> torch.Tensor:
+    """q [BH, Sq, D], k [BH, Sk, D], v [BH, Sk, Dv] -> [BH, Sq, Dv] in
+    q.dtype (any Sq, Sk; D, Dv <= 256).  ``q_off`` anchors the causal /
+    window mask: query row i sits at absolute position ``q_off + i``
+    against keys at [0, Sk); default ``Sk - Sq`` (the queries are the key
+    suffix).  A CUDA tensor launches the kernel (or raises); a CPU tensor
+    takes ``flash_attention_plain``."""
+    bh, sq, d = q.shape
+    sk, dv = v.shape[1], v.shape[2]
+    if k.shape != (bh, sk, d) or v.shape[0] != bh:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
+    scale = scale if scale is not None else d ** -0.5
+    q_off = sk - sq if q_off is None else q_off
+    kw = dict(causal=causal, window=window, cap=cap, scale=scale, q_off=q_off)
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, **kw)
+    if q.dtype not in DTYPE_CODES:
+        raise ValueError(f"flash_attention takes float32/bfloat16, got "
+                         f"{q.dtype}")
+    if d > _FLASH_MAX_D or dv > _FLASH_MAX_D:
+        raise ValueError(f"flash_attention takes d, dv <= {_FLASH_MAX_D}, "
+                         f"got {d}, {dv}")
+    if bh > 65535:
+        raise ValueError(f"flash_attention takes BH <= 65535, got {bh}")
+    if cap is not None and cap <= 0:
+        raise ValueError(f"softcap must be positive, got {cap}")
+    if window is not None and window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    check_cuda_operand("q", q, q.device)
+    check_cuda_operand("k", k, q.device, q.dtype)
+    check_cuda_operand("v", v, q.device, q.dtype)
+    out = torch.empty(bh, sq, dv, dtype=q.dtype, device=q.device)
+    if out.numel():
+        FLASH_KERNEL.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
+            sk, d, dv, float(scale), int(causal),
+            -1 if window is None else int(window),
+            0.0 if cap is None else float(cap), int(q_off),
+            DTYPE_CODES[q.dtype])
+    return out
+
+
+def flash_traffic(bh: int, sq: int, sk: int, d: int, dv: int, *,
+                  dtype_bytes: int = 2,
+                  block: Tuple[int, int] = DEFAULT_BLOCK_FA) -> dict:
+    """The reference's traffic model of its flash kernel: q read once per
+    kv sweep, k/v re-streamed per q block, scores never in device memory."""
+    bq, bk = block
+    q_bytes = bh * sq * d * dtype_bytes
+    kv_bytes = (sq // bq) * bh * sk * (d + dv) * dtype_bytes
+    out_bytes = bh * sq * dv * dtype_bytes
+    flops = 2.0 * bh * sq * sk * (d + dv)
+    return dict(hbm_bytes=q_bytes + kv_bytes + out_bytes, flops=flops,
+                q_bytes=q_bytes, kv_bytes=kv_bytes, out_bytes=out_bytes)

@@ -11,8 +11,17 @@ per warp with coalesced loads, f32 accumulation and a warp-shuffle
 reduction.  Any batch B >= 1 is taken as it is (no pad-to-8); batches
 above 8 use more CTAs.
 
-``nm_spmv_plain`` is the same function in plain torch: the CPU path, and
-what the kernel is held against on the card.
+``mode="onehot"`` runs the reference's other body (``nm_spmv.py:43-47``):
+decompress each W tile, then a dense dot.  Its kernel
+(``nm_spmv_onehot_launch`` in the same file) decompresses each [32, 64] W
+tile with the shared ``csrc/nm_tile.cuh`` code into f32 shared memory beside
+the staged x tile, and each thread accumulates one (row, batch) output with
+f32 FMAs: the same bytes, dense FLOPs.  It has its own launch counter
+(``ONEHOT_KERNEL``), so a run can prove which body served it.
+
+``nm_spmv_plain`` and ``nm_spmv_onehot_plain`` are the same functions in
+plain torch: the CPU path, and what the kernels are held against on the
+card.
 """
 
 from __future__ import annotations
@@ -23,10 +32,14 @@ import torch
 
 from repro_torch.kernels.build import (DTYPE_CODES, CudaKernel,
                                        check_cuda_operand)
+from repro_torch.kernels.nm_spmm import BK, nm_xwt_plain
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNEL = CudaKernel("nm_spmv", "nm_spmv_launch",
-                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I])
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
+KERNEL = CudaKernel("nm_spmv", "nm_spmv_launch", _ARGS)
+ONEHOT_KERNEL = CudaKernel("nm_spmv_onehot", "nm_spmv_onehot_launch", _ARGS,
+                           lib="nm_spmv")
+MODES = ("gather", "onehot")
 
 
 def nm_spmv_plain(x: torch.Tensor, values: torch.Tensor,
@@ -46,11 +59,21 @@ def nm_spmv_plain(x: torch.Tensor, values: torch.Tensor,
     return acc.to(x.dtype)
 
 
+# x [B, K] -> [B, O] in x.dtype, the onehot body: decompress W to f32, then
+# a dense f32 dot, which is the tile path's plain version
+nm_spmv_onehot_plain = nm_xwt_plain
+
+
 def nm_spmv(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
-            n: int, m: int) -> torch.Tensor:
+            n: int, m: int, mode: str = "gather") -> torch.Tensor:
     """Y = X @ W_sp.T for a decode-shaped X [..., K]; W compressed
-    [O, K/M*N].  A CUDA tensor launches the kernel (or raises); a CPU tensor
-    takes ``nm_spmv_plain``."""
+    [O, K/M*N].  ``mode`` picks the body: ``"gather"`` (N/M of the MACs,
+    indexed reads of x) or ``"onehot"`` (decompress, dense dot).  A CUDA
+    tensor launches that body's kernel (or raises); a CPU tensor takes
+    ``nm_spmv_plain`` / ``nm_spmv_onehot_plain``."""
+    if mode not in MODES:
+        raise ValueError(f"unknown spmv mode {mode!r} (one of {MODES})")
+    onehot = mode == "onehot"
     lead, k = x.shape[:-1], x.shape[-1]
     o, nnz = values.shape
     if nnz != k // m * n or k % m:
@@ -58,17 +81,22 @@ def nm_spmv(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
                          f"at {n}:{m}")
     xf = x.reshape(-1, k)
     if not x.is_cuda:
-        return nm_spmv_plain(xf, values, indices, n, m).reshape(*lead, o)
+        plain = nm_spmv_onehot_plain if onehot else nm_spmv_plain
+        return plain(xf, values, indices, n, m).reshape(*lead, o)
     if x.dtype not in DTYPE_CODES:
         raise ValueError(f"nm_spmv kernel takes float32/bfloat16, got {x.dtype}")
     if not 0 < n < m <= 127:
         raise ValueError(f"nm_spmv kernel needs 0 < n < m <= 127, got {n}:{m}")
+    if onehot and BK % m:      # the onehot body steps K by the tile's BK
+        raise ValueError(f"nm_spmv onehot kernel needs m dividing "
+                         f"{BK}, got {n}:{m}")
     check_cuda_operand("x", xf, x.device)
     check_cuda_operand("values", values, x.device, x.dtype)
     check_cuda_operand("indices", indices, x.device, torch.int8)
     bsz = xf.shape[0]
     y = torch.empty(bsz, o, dtype=x.dtype, device=x.device)
     if bsz and o:
-        KERNEL.launch(xf.data_ptr(), values.data_ptr(), indices.data_ptr(),
-                      y.data_ptr(), bsz, o, k, n, m, DTYPE_CODES[x.dtype])
+        (ONEHOT_KERNEL if onehot else KERNEL).launch(
+            xf.data_ptr(), values.data_ptr(), indices.data_ptr(),
+            y.data_ptr(), bsz, o, k, n, m, DTYPE_CODES[x.dtype])
     return y.reshape(*lead, o)

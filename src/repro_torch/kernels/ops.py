@@ -1,10 +1,13 @@
 """Public N:M kernel entry points and the analytic traffic model
 (counterpart of ``repro.kernels.ops``).
 
-``nm_xwt`` and ``nm_spmv`` are the wrappers of the CUDA kernels (they take
+``nm_xwt``, ``nm_spmm`` and ``nm_spmv`` front the CUDA kernels (they take
 any leading shape and mask ragged edges in-kernel, so nothing is padded
-here).  The ``traffic_*`` formulas count bytes and FLOPs from shapes alone
-and do not depend on hardware; they keep the reference's tiling
+here).  ``nm_xwt(packed=True)`` packs the int8 indices into the paper's
+ceil(log2 M)-bit words inside the wrapper, as the reference does, and runs
+the packed kernel; it accepts and rejects the same (shape, block) cases as
+the reference.  The ``traffic_*`` formulas count bytes and FLOPs from shapes
+alone and do not depend on hardware; they keep the reference's tiling
 (``pick_block_*``) so the two packages model the same schedule.
 """
 
@@ -14,11 +17,15 @@ from typing import Tuple
 
 import numpy as np
 
-from repro_torch.kernels.nm_spmm import nm_xwt
+import torch
+
+from repro_torch.core.sparsity import index_bits, pack_indices_i32
+from repro_torch.kernels import nm_spmm as _spmm
+from repro_torch.kernels.nm_spmm import nm_spmm
 from repro_torch.kernels.nm_spmv import nm_spmv
 
-__all__ = ["nm_xwt", "nm_spmv", "pick_block_mm", "pick_block_spmv",
-           "traffic_mm", "traffic_spmv"]
+__all__ = ["nm_xwt", "nm_spmm", "nm_spmv", "pack_block_indices",
+           "pick_block_mm", "pick_block_spmv", "traffic_mm", "traffic_spmv"]
 
 DEFAULT_BLOCK = (128, 128, 512)     # (bm, bn, bk) of the reference xwt tile
 DEFAULT_BLOCK_SPMV = (128, 1024)    # (bo, bk) of the reference spmv tile
@@ -43,6 +50,43 @@ def pick_block_spmv(bsz: int, o: int, k: int, n: int, m: int,
     bo = min(want[0], _round_up(o, 128) if o >= 128 else o)
     bk = min(_round_up(want[1], m), _round_up(k, m))
     return bo, bk
+
+
+def pack_block_indices(indices: torch.Tensor, n: int, m: int,
+                       block: Tuple[int, int, int]) -> torch.Tensor:
+    """int8 indices [O, K/M*N] -> the packed kernel's int32 words [O,
+    ceil(nnz / per_word)].  The reference packs per K-block of its ``bk``
+    so every tile starts on a word, and rejects a block whose slot count
+    ``bk/M*N`` is not a whole number of words (``ops.py:72-82``); the same
+    check runs here.  Where it passes, the per-block words are the row's
+    words in order, which is what the port's kernel reads (it addresses
+    entry ``e`` as word ``e // per_word`` and does not rely on tile
+    alignment)."""
+    bk = block[2]
+    if bk % m:
+        raise ValueError(f"bk={bk} must be a multiple of M={m}")
+    per_word = 32 // index_bits(m)
+    bnnz = bk // m * n
+    if bnnz % per_word:
+        raise ValueError(f"bnnz={bnnz} not a multiple of {per_word}")
+    return pack_indices_i32(indices, m)
+
+
+def nm_xwt(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
+           n: int, m: int, *, packed: bool = False,
+           block: Tuple[int, int, int] | None = None) -> torch.Tensor:
+    """Y = X @ W_sp.T for X [..., K]; W compressed [O, K/M*N] with int8
+    indices.  ``packed=True`` packs the indices per ``block`` (default: the
+    reference's ``pick_block_mm``) and runs the packed kernel; ``block``
+    decides only which packed layouts are accepted, as in the reference
+    (the port's kernel tiles on its own)."""
+    if not packed:
+        return _spmm.nm_xwt(x, values, indices, n, m)
+    k = x.shape[-1]
+    rows = x.numel() // max(k, 1)
+    blk = block or pick_block_mm(rows, values.shape[0], k, n, m)
+    words = pack_block_indices(indices, n, m, blk)
+    return _spmm.nm_xwt_packed(x, values, words, n, m)
 
 
 def traffic_mm(bsz: int, o: int, k: int, n: int, m: int, *,

@@ -1,5 +1,6 @@
 """Model substrate of the port: the dense GQA family and the MoE family
-with MLA attention, every projection a SparseLinear."""
+with MLA attention, every projection a SparseLinear; ``models.cnn`` holds
+the sparse CNN layers (convolution as an N:M GEMM)."""
 
 from repro_torch.models.config import ArchConfig, param_count
 from repro_torch.models.transformer import (DenseLM, MoELM,

@@ -382,3 +382,102 @@ def test_spec_engine_matches_plain_engine_on_the_card(arch, draft,
     assert eng.stats()["spec_steps_saved"] > 0
     for r in reqs:
         np.testing.assert_array_equal(got[r.rid].tokens, want[r.rid].tokens)
+
+
+# ------------------------------------------- the kernels off the serving path
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nm", [(1, 4), (2, 4), (2, 8)])
+@pytest.mark.parametrize("r,c,k", [(130, 96, 520), (64, 3136, 576),
+                                   (64, 49, 148), (1024, 196, 256)])
+def test_nm_spmm_kernel_matches_plain(dtype, nm, r, c, k):
+    """The paper's orientation, the reference's ragged (130, 96, 520) and
+    CNN GEMM shapes (ragged C and K, C not a multiple of 8)."""
+    from repro_torch.kernels import nm_spmm as mod
+    n, m = nm
+    k = -(-k // m) * m
+    sp, g = _compressed(r, k, n, m, dtype, seed=r + c)
+    b = torch.randn(k, c, generator=g, device="cuda").to(dtype)
+    before = mod.SPMM_KERNEL.launches
+    y = mod.nm_spmm(sp.values, sp.indices, b, n, m)
+    torch.cuda.synchronize()
+    assert mod.SPMM_KERNEL.launches == before + 1
+    want = mod.nm_spmm_plain(sp.values, sp.indices, b, n, m)
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nm,s,o,k", [((2, 4), 128, 2048, 2048),
+                                      ((1, 4), 37, 200, 512),
+                                      ((1, 2), 16, 192, 512),
+                                      ((2, 8), 16, 64, 160),
+                                      ((2, 4), 3136, 64, 576)])
+def test_packed_nm_xwt_kernel_equals_int8_kernel_bitwise(dtype, nm, s, o, k):
+    """The packed kernel differs from the int8 one only in its index reads:
+    the same output bit for bit, and within tolerance of its plain
+    version."""
+    from repro_torch.kernels import nm_spmm as mod
+    from repro_torch.kernels import ops
+    n, m = nm
+    sp, g = _compressed(o, k, n, m, dtype, seed=s + k)
+    x = torch.randn(s, k, generator=g, device="cuda").to(dtype)
+    block = (8, 64, 80) if m == 8 else None
+    before = mod.PACKED_KERNEL.launches
+    y = ops.nm_xwt(x, sp.values, sp.indices, n, m, packed=True, block=block)
+    torch.cuda.synchronize()
+    assert mod.PACKED_KERNEL.launches == before + 1
+    assert torch.equal(y, mod.nm_xwt(x, sp.values, sp.indices, n, m))
+    words = ops.pack_block_indices(sp.indices, n, m, block or (8, 64, 512))
+    want = mod.nm_xwt_packed_plain(x, sp.values, words, n, m)
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nm", [(2, 4), (1, 4), (2, 8)])
+@pytest.mark.parametrize("b,o,k", [(1, 512, 2048), (8, 2048, 2048),
+                                   (5, 200, 136), (11, 8192, 2048)])
+def test_nm_spmv_onehot_kernel_matches_plain(dtype, nm, b, o, k):
+    from repro_torch.kernels import nm_spmv as mod
+    n, m = nm
+    sp, g = _compressed(o, k, n, m, dtype, seed=b + o)
+    x = torch.randn(b, k, generator=g, device="cuda").to(dtype)
+    before = mod.ONEHOT_KERNEL.launches, mod.KERNEL.launches
+    y = mod.nm_spmv(x, sp.values, sp.indices, n, m, mode="onehot")
+    torch.cuda.synchronize()
+    assert (mod.ONEHOT_KERNEL.launches, mod.KERNEL.launches) == (
+        before[0] + 1, before[1])
+    want = mod.nm_spmv_onehot_plain(x, sp.values, sp.indices, n, m)
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,sk,d,dv,case", [
+    (8, 128, 128, 64, 64, dict()),
+    (4, 100, 130, 64, 64, dict(window=32)),
+    (2, 256, 256, 256, 256, dict(window=64, cap=50.0)),
+    (4, 96, 96, 192, 128, dict()),
+    (3, 32, 128, 64, 64, dict(q_off=32)),
+    (2, 40, 64, 64, 64, dict(q_off=-8)),
+    (2, 64, 64, 64, 32, dict(causal=False))])
+def test_flash_attention_kernel_matches_plain(dtype, bh, sq, sk, d, dv, case):
+    """Causal, window, softcap, d 256 (over 48 KB of shared memory), MLA's
+    d 192 / dv 128, a q_off slice, rows masked everywhere (q_off < 0: they
+    must be 0), non-causal, and ragged Sq / Sk."""
+    from repro_torch.kernels import flash_attention as mod
+    g = torch.Generator(device="cuda").manual_seed(bh * sq + d)
+    q = torch.randn(bh, sq, d, generator=g, device="cuda").to(dtype)
+    k = torch.randn(bh, sk, d, generator=g, device="cuda").to(dtype)
+    v = torch.randn(bh, sk, dv, generator=g, device="cuda").to(dtype)
+    before = mod.FLASH_KERNEL.launches
+    out = mod.flash_attention_kernel(q, k, v, **case)
+    torch.cuda.synchronize()
+    assert mod.FLASH_KERNEL.launches == before + 1
+    want = mod.flash_attention_plain(q, k, v, **case)
+    tol = dict(rtol=3e-2, atol=3e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=2e-4, atol=2e-4)
+    assert bool(torch.isfinite(out).all())
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol)

@@ -131,8 +131,13 @@ def test_cpu_wrappers_launch_nothing():
                          torch.zeros(2, 4, 2, 8),
                          torch.ones(1, 1, dtype=torch.int32),
                          torch.ones(1, dtype=torch.int32))
+    tops.nm_spmv(xt, vt, it, 2, 4, mode="onehot")
+    tops.nm_xwt(xt, vt, it, 2, 4, packed=True)
+    tops.nm_spmm(vt, it, torch.zeros(64, 3), 2, 4)
+    tfa.flash_attention_kernel(torch.zeros(2, 4, 8), torch.zeros(2, 4, 8),
+                               torch.zeros(2, 4, 8))
     counts = [k.launches for k in tkernels.all_kernels()]
-    assert len(counts) == 6 and counts == [0] * 6
+    assert len(counts) == 10 and counts == [0] * 10
 
 
 # ------------------------------------------------------------- the policy
