@@ -14,7 +14,10 @@ Phases (any failure exits non-zero and prints no result line):
 2. Kernel vs plain: hold each kernel against its plain torch version on the
    card, in float32 and bfloat16, at the shapes the paths give it, and time
    it beside its bound, the plain version and one PyTorch call that
-   computes the same function (the yardstick; the port never calls it):
+   computes the same function (the yardstick; the port never calls it);
+   the N:M linears' times are CUDA events around the wrapper calls and
+   also device time (every kernel launched, from torch.profiler), for the
+   kernel and for F.linear:
    nm_spmv / nm_xwt at one llama3.2-1b layer's and one deepseek-v2-lite
    MoE layer's linears (plus the dense first layer's and the latent
    up-projections' shapes, checked), paged_gqa_decode at the llama serving
@@ -24,9 +27,12 @@ Phases (any failure exits non-zero and prints no result line):
    4), and paged_gqa_verify / paged_mla_verify at 8 slots x S 4, each also
    against S launches of its decode wrapper.  The variants: packed nm_xwt
    bit-equal to int8 nm_xwt at the llama layer, onehot nm_spmv against its
-   plain version; nm_spmm over 1:4 / 2:4 / 2:8 at the reference's ragged
-   (130, 96, 520) and CNN GEMMs; flash_attention against its plain version
-   and chunked_attention at llama prefill (BH 8 x 32, S 128, d 64), a
+   plain version, and the tensor-core bodies (onehot B 8, nm_xwt S 32 and
+   128, packed S 128) launched twice on the same inputs at each llama
+   layer shape, bit-equal; nm_spmm over 1:4 / 2:4 / 2:8 at the
+   reference's ragged (130, 96, 520) and CNN GEMMs; flash_attention
+   against its plain version and chunked_attention at llama prefill (BH
+   8 x 32, S 128, d 64), a
    gemma2-9b local layer (d 256, window 4096, softcap 50, S 8192, BH 2),
    deepseek's MLA prefill (d 192, dv 128) and a q_off slice, then one
    launch per case through the entry point with the counts zeroed.
@@ -148,6 +154,36 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, calls: int = 10, match: str = "",
+              names: bool = False):
+    """Device milliseconds per call of ``fn``: the summed time of every
+    kernel it launched whose name holds ``match``, from ``torch.profiler``
+    over ``calls`` calls (at a few microseconds per linear, the events time
+    of ``time_ms`` can read the wrappers' host dispatch rather than the
+    kernels).  With ``names``, also {kernel name: launches in the trace}."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us, seen = 0.0, {}
+    for ev in prof.key_averages():
+        if match not in ev.key or \
+                "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        t = getattr(ev, "self_device_time_total", None) or \
+            getattr(ev, "self_cuda_time_total", 0.0)
+        if t > 0:
+            us += t
+            seen[ev.key] = seen.get(ev.key, 0) + ev.count
+    if us <= 0:
+        raise SystemExit("device_ms: the trace recorded no device time")
+    ms = us / 1e3 / calls
+    return (ms, seen) if names else ms
+
+
 def max_err(torch, got, want, rtol: float, atol: float):
     """(max |got - want|, whether every element is within atol+rtol|want|)."""
     g, w = got.float(), want.float()
@@ -226,7 +262,7 @@ def phase_matmuls(torch, F, model: str, check_shapes, spmv_layer,
                 log(f"[check] nm_spmv {n}:{M} {dname} B={b} (O,K)=({o},{k}) "
                     f"max_abs_err {e:.3e} tol {atol}+{rtol}|ref| "
                     f"{'ok' if good else 'FAIL'}")
-            for s in (4, 128):
+            for s in (4, 32, 128):   # 32: the verify span
                 x = torch.randn(s, k, generator=gen, device="cuda").to(dtype)
                 e, good = max_err(torch, nm_spmm.nm_xwt(x, sp.values, sp.indices, n, M),
                                   nm_spmm.nm_xwt_plain(x, sp.values, sp.indices, n, M),
@@ -261,18 +297,23 @@ def phase_matmuls(torch, F, model: str, check_shapes, spmv_layer,
         flops = sum(2.0 * b * sp.values.numel() for sp in layer)
         bnd, by = bound_ms(nbytes, flops, "bfloat16")
         ms = time_ms(torch, run(fn))
+        dev = device_ms(torch, run(fn))
         plain_ms = time_ms(torch, run(plain), iters=5)
-        lib_ms = time_ms(torch, lambda: [F.linear(xs[w.shape[1]], w)
-                                         for w in dense])
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd,
-                          bound_by=by, library_ms=lib_ms,
-                          max_abs_err=errs[name])
+
+        def lib():
+            return [F.linear(xs[w.shape[1]], w) for w in dense]
+        lib_ms, lib_dev = time_ms(torch, lib), device_ms(torch, lib)
+        rows[name] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms,
+                          bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+                          library_device_ms=lib_dev, max_abs_err=errs[name])
         log(f"[time] {name} one {model} layer ({len(shapes)} linears, "
             f"{n}:{M}, bf16, "
-            f"{'B' if name == 'nm_spmv' else 'S'}={b}): kernel {ms:.4f} ms, "
+            f"{'B' if name == 'nm_spmv' else 'S'}={b}): kernel {ms:.4f} ms "
+            f"(device {dev:.4f} ms), "
             f"bound {bnd:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, "
             f"{flops / 1e9:.2f} GFLOP), plain {plain_ms:.4f} ms, "
-            f"F.linear on the decompressed weight {lib_ms:.4f} ms")
+            f"F.linear on the decompressed weight {lib_ms:.4f} ms (device "
+            f"{lib_dev:.4f} ms)")
         del layer, dense
     return rows
 
@@ -295,20 +336,26 @@ def time_verify_linears(torch, F):
         return lambda: [f(xs[rows][sp.dense_shape[1]], sp.values, sp.indices,
                           N, M) for sp in layer]
     xwt32 = time_ms(torch, run(nm_spmm.nm_xwt, 32))
+    xwt32_dev = device_ms(torch, run(nm_spmm.nm_xwt, 32))
     spmv8 = time_ms(torch, run(nm_spmv.nm_spmv, 8))
-    lib32 = time_ms(torch, lambda: [F.linear(xs[32][w.shape[1]], w)
-                                    for w in dense])
+
+    def lib():
+        return [F.linear(xs[32][w.shape[1]], w) for w in dense]
+    lib32, lib32_dev = time_ms(torch, lib), device_ms(torch, lib)
     nbytes = sum(32 * sp.dense_shape[1] * 2 + sp.values.numel() * 3
                  + 32 * sp.dense_shape[0] * 2 for sp in layer)
     bnd, by = bound_ms(nbytes, sum(2.0 * 32 * sp.values.numel()
                                    for sp in layer), "bfloat16")
     log(f"[time] verify linears: one llama layer through nm_xwt at 32 rows "
-        f"(8 slots x span {SPAN}) {xwt32:.4f} ms (bound {bnd:.4f} ms, {by}; "
-        f"F.linear on the decompressed weights {lib32:.4f} ms), against "
-        f"nm_spmv at 8 rows (one decode tick) {spmv8:.4f} ms; {SPAN} decode "
-        f"ticks {SPAN * spmv8:.4f} ms")
-    return dict(xwt_32_rows_ms=xwt32, spmv_8_rows_ms=spmv8,
-                xwt_32_rows_bound_ms=bnd, xwt_32_rows_library_ms=lib32)
+        f"(8 slots x span {SPAN}) {xwt32:.4f} ms (device {xwt32_dev:.4f} ms; "
+        f"bound {bnd:.4f} ms, {by}; F.linear on the decompressed weights "
+        f"{lib32:.4f} ms, device {lib32_dev:.4f} ms), against nm_spmv at 8 "
+        f"rows (one decode tick) {spmv8:.4f} ms; {SPAN} decode ticks "
+        f"{SPAN * spmv8:.4f} ms")
+    return dict(xwt_32_rows_ms=xwt32, xwt_32_rows_device_ms=xwt32_dev,
+                spmv_8_rows_ms=spmv8, xwt_32_rows_bound_ms=bnd,
+                xwt_32_rows_library_ms=lib32,
+                xwt_32_rows_library_device_ms=lib32_dev)
 
 
 def _row(ms, plain_ms, bnd, by, lib_ms, err):
@@ -319,7 +366,7 @@ def _row(ms, plain_ms, bnd, by, lib_ms, err):
 def phase_packed_and_onehot(torch, F):
     """The two variants of the serving kernels at one llama3.2-1b layer
     (2:4): nm_xwt with the bit-packed index stream, bit-equal to the int8
-    kernel (f32 and bf16, S 4 and 128) and timed at S 128 in bf16 from
+    kernel (f32 and bf16, S 4, 32 and 128) and timed at S 128 in bf16 from
     pre-packed words; the onehot nm_spmv body against its plain version
     (B 1 and 8) and timed at B 8 in bf16."""
     from repro_torch.core.sparsity import decompress
@@ -331,7 +378,7 @@ def phase_packed_and_onehot(torch, F):
         rtol, atol = TOL[dname]
         for o, k in LAYER_SHAPES:
             sp = _compressed(torch, o, k, dtype, gen)
-            for s in (4, 128):
+            for s in (4, 32, 128):
                 x = torch.randn(s, k, generator=gen, device="cuda").to(dtype)
                 y = ops.nm_xwt(x, sp.values, sp.indices, N, M, packed=True)
                 same = bool(torch.equal(y, nm_spmm.nm_xwt(
@@ -375,27 +422,61 @@ def phase_packed_and_onehot(torch, F):
                             for sp, i in zip(layer, idx)]
         if name == "nm_xwt_packed":
             flops = sum(2.0 * b * sp.values.numel() for sp in layer)
-            peak, err = "bfloat16", e_pk
-        else:   # the onehot body does the dense MACs, in f32 FMAs
+            err = e_pk
+        else:   # the onehot body does the dense MACs (bf16 tensor cores)
             flops = sum(2.0 * b * sp.dense_shape[0] * sp.dense_shape[1]
                         for sp in layer)
-            peak, err = "float32", e_oh
+            err = e_oh
+        peak = "bfloat16"
         nbytes = sum(b * sp.dense_shape[1] * 2 + sp.values.numel() * 2
                      + b * sp.dense_shape[0] * 2 + i.numel() * i.element_size()
                      for sp, i in zip(layer, idx))
         bnd, by = bound_ms(nbytes, flops, peak)
-        ms = time_ms(torch, run(fn))
+        ms, dev = time_ms(torch, run(fn)), device_ms(torch, run(fn))
         plain_ms = time_ms(torch, run(plain), iters=5)
-        lib_ms = time_ms(torch, lambda: [F.linear(xs[w.shape[1]], w)
-                                         for w in dense])
-        rows[name] = _row(ms, plain_ms, bnd, by, lib_ms, err)
+
+        def lib():
+            return [F.linear(xs[w.shape[1]], w) for w in dense]
+        lib_ms, lib_dev = time_ms(torch, lib), device_ms(torch, lib)
+        rows[name] = dict(_row(ms, plain_ms, bnd, by, lib_ms, err),
+                          device_ms=dev, library_device_ms=lib_dev)
         log(f"[time] {name} one llama3.2-1b layer (7 linears, {N}:{M}, bf16, "
             f"{'S' if name == 'nm_xwt_packed' else 'B'}={b}): kernel "
-            f"{ms:.4f} ms, bound {bnd:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP at the {peak} rate), plain "
-            f"{plain_ms:.4f} ms, F.linear on the decompressed weight "
-            f"{lib_ms:.4f} ms")
+            f"{ms:.4f} ms (device {dev:.4f} ms), bound {bnd:.4f} ms ({by}, "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at the {peak} "
+            f"rate), plain {plain_ms:.4f} ms, F.linear on the decompressed "
+            f"weight {lib_ms:.4f} ms (device {lib_dev:.4f} ms)")
+    check_same_bits_twice(torch, layer, words, gen)
     return rows
+
+
+def check_same_bits_twice(torch, layer, words, gen) -> None:
+    """The tensor-core bodies' split sums are added in a fixed order: the
+    same inputs give the same bits on a second launch (onehot at B 8,
+    nm_xwt int8 at S 32 and 128, packed at S 128; bf16, one llama
+    layer)."""
+    from repro_torch.kernels import nm_spmm, nm_spmv
+    cases = (("nm_spmv_onehot B=8", 8, lambda x, sp, w: nm_spmv.nm_spmv(
+                 x, sp.values, sp.indices, N, M, mode="onehot")),
+             ("nm_xwt S=32", 32, lambda x, sp, w: nm_spmm.nm_xwt(
+                 x, sp.values, sp.indices, N, M)),
+             ("nm_xwt S=128", 128, lambda x, sp, w: nm_spmm.nm_xwt(
+                 x, sp.values, sp.indices, N, M)),
+             ("nm_xwt_packed S=128", 128, lambda x, sp, w:
+              nm_spmm.nm_xwt_packed(x, sp.values, w, N, M)))
+    ok = True
+    for label, rows, f in cases:
+        same = 0
+        for sp, w in zip(layer, words):
+            x = torch.randn(rows, sp.dense_shape[1], generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            same += bool(torch.equal(f(x, sp, w), f(x, sp, w)))
+        ok &= same == len(layer)
+        log(f"[check] {label}: same inputs twice, {same}/{len(layer)} layer "
+            f"shapes bit-equal {'ok' if same == len(layer) else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 2: a tensor-core body gave other bits on a "
+                         "second launch of the same inputs")
 
 
 def phase_spmm_check(torch):
@@ -1500,9 +1581,11 @@ def check_reference_route(torch, model, cfg, reqs, tol, phase,
 
 # device kernel symbol -> label (first match wins); each family's one
 # attention kernel runs its decode (S = 1) and verify (S = k + 1)
-# launches; nm_xwt.cu's kernels are templated on the orientation (false:
+# launches; nm_xwt.cu's tensor-core body and its split reduction are
+# nm_xwt_*, its first bodies are templated on the orientation (false:
 # nm_xwt, int8 or packed; true: nm_spmm)
 PROFILE_LABELS = (("nm_spmv_onehot", "nm_spmv onehot"), ("nm_spmv", "nm_spmv"),
+                  ("nm_xwt_", "nm_xwt"),
                   ("nm_bf16_kernel<false", "nm_xwt"),
                   ("nm_f32_kernel<false", "nm_xwt"),
                   ("nm_bf16_kernel<true", "nm_spmm"),

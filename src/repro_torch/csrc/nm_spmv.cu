@@ -17,13 +17,22 @@
 // along grid.y.
 //
 // nm_spmv_onehot_launch is the reference's second body (mode="onehot",
-// nm_spmv.py:43-47): decompress each W tile, then a dense dot.  Same bytes,
-// dense FLOPs on a tiny batch (still far below the FMA rate).  One CTA per
-// 32 output rows and up to 8 batch rows: per K step of 64 it stages the x
-// tile and decompresses the W tile (nm_tile.cuh, shared with nm_xwt) into
-// f32 shared memory, then each of 256 threads accumulates one (row, batch)
-// output over the tile with f32 FMAs.
-#include "nm_tile.cuh"
+// nm_spmv.py:43-47): decompress each W tile, then a dense dot.  Same bytes
+// and the same bound (the compressed stream); the dense MACs are 2 * B * O
+// * K, far below the tensor-core rate.  bf16 at N:M in {1:2, 1:4, 2:4, 2:8}
+// takes the tensor-core tile body of nm_mma.cuh (shared with nm_xwt) with
+// the batch on n = 8 (one 8-row n-tile per warp; batches above 8 take more
+// CTAs along grid.y): a cp.async ring of 256-column stages, W
+// decompressed in registers straight into mma.sync A fragments, the four
+// warps of a CTA sharing each stage's supersteps (summed in shared memory
+// in warp order) and K split across CTAs so that every decode shape fills
+// the card (partial sums added in split order by a second kernel; no float
+// atomics).  The plan comes from the wrapper (kernels/nm_spmv.py).  f32,
+// and bf16 at other N:M, keep the first body: one CTA per 32 output rows
+// and 8 batch rows, per K step of 64 the x tile staged and the W tile
+// decompressed (nm_tile.cuh) into f32 shared memory, one f32 FMA dot per
+// (row, batch) thread.
+#include "nm_mma.cuh"
 
 namespace {
 
@@ -180,6 +189,58 @@ int launch_onehot(const void* x, const void* vals, const void* idx, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------- onehot body, bf16 tensor cores
+
+using nm::mma::Int8Stream;
+using nm::mma::TileArgs;
+
+template <int N, int M>
+__global__ void __launch_bounds__(256)
+nm_spmv_onehot_mma_kernel(TileArgs<Int8Stream> a) {
+  nm::mma::tile_body<N, M, 1>(a);
+}
+
+__global__ void nm_spmv_onehot_reduce_kernel(const float* ws, __nv_bfloat16* y,
+                                             int count, int splits) {
+  nm::mma::reduce_splits(ws, y, count, splits);
+}
+
+template <int N, int M>
+int run_onehot_mma(const TileArgs<Int8Stream>& a, cudaStream_t s) {
+  static int smem_set = 48 * 1024;  // per kernel, in this library
+  return nm::mma::launch<N, M, 1>(nm_spmv_onehot_mma_kernel<N, M>,
+                                  nm_spmv_onehot_reduce_kernel, a, s, smem_set);
+}
+
+bool aligned(const void* p, uintptr_t a) {
+  return reinterpret_cast<uintptr_t>(p) % a == 0;
+}
+
+int launch_onehot_mma(const void* x, const void* vals, const void* idx, void* y,
+                      int B, int O, int K, int n, int m,
+                      const nm::mma::Plan& plan, const nm::mma::Layout& ly,
+                      void* ws, cudaStream_t s) {
+  if (plan.nt != 1 || m <= 0 || K % m) return static_cast<int>(cudaErrorInvalidValue);
+  const int nnz = K / m * n;
+  TileArgs<Int8Stream> a{};
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.vals = static_cast<const __nv_bfloat16*>(vals);
+  a.idx = Int8Stream{static_cast<const int8_t*>(idx), nnz,
+                     nnz % 16 == 0 && aligned(idx, 16)};
+  a.y = static_cast<__nv_bfloat16*>(y);
+  a.ws = static_cast<float*>(ws);
+  a.R = B, a.O = O, a.K = K;
+  a.pl = plan;
+  a.ly = ly;
+  a.vvec = nnz % 8 == 0 && aligned(vals, 16);
+  a.xvec = K % 8 == 0 && aligned(x, 16);
+  if (n == 1 && m == 2) return run_onehot_mma<1, 2>(a, s);
+  if (n == 1 && m == 4) return run_onehot_mma<1, 4>(a, s);
+  if (n == 2 && m == 4) return run_onehot_mma<2, 4>(a, s);
+  if (n == 2 && m == 8) return run_onehot_mma<2, 8>(a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" int nm_spmv_launch(const void* x, const void* vals, const void* idx,
@@ -192,11 +253,24 @@ extern "C" int nm_spmv_launch(const void* x, const void* vals, const void* idx,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// plan: the tensor-core body's launch plan (nt, ws, wo, wk, ss, stages,
+// splits, kper) and its stage layout (vstride, istride, xstride, stage)
+// from the wrapper, nt = 0 for the first body; ws: the f32 split workspace
+// [splits, B, O] when splits > 1.
 extern "C" int nm_spmv_onehot_launch(const void* x, const void* vals,
                                      const void* idx, void* y, int B, int O,
-                                     int K, int n, int m, int dtype,
+                                     int K, int n, int m, int dtype, int nt,
+                                     int wrows, int wo, int wk, int ss,
+                                     int stages, int splits, int kper, int vstride,
+                                     int istride, int xstride, int stage, void* ws,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nt != 0) {
+    if (dtype != REPRO_DTYPE_BF16) return static_cast<int>(cudaErrorInvalidValue);
+    const nm::mma::Plan plan{nt, wrows, wo, wk, ss, stages, splits, kper};
+    const nm::mma::Layout ly{vstride, istride, xstride, stage, 0, 0, 0};
+    return launch_onehot_mma(x, vals, idx, y, B, O, K, n, m, plan, ly, ws, s);
+  }
   if (dtype == REPRO_DTYPE_F32)
     return launch_onehot<float>(x, vals, idx, y, B, O, K, n, m, s);
   if (dtype == REPRO_DTYPE_BF16)

@@ -16,20 +16,32 @@
 // for bit.
 //
 // Bound on the H100: at the serving prefill lengths the compressed weight
-// bytes (the sparse MACs at the bf16 tensor-core rate take less time than
-// reading the weights once); at the CNN GEMMs' widths (K up to 4608, tens
-// of thousands of columns) the operations.  Design: one CTA per output tile
-// loops over K.  Per step it stages the dense tile in shared memory and
-// decompresses the sparse tile into a dense tile in shared memory with the
-// reference's block*M + idx placement; each thread issues all of its
-// global loads (16-byte runs where the shapes allow) before its first
-// shared store, since an unpipelined K loop is bound by load latency.  bf16
-// tiles (64x64, K step 64) feed mma.sync m16n8k16 tensor-core products with
-// f32 accumulators, eight warps of 32x16 each; f32 tiles (32x64) take an
-// f32 FMA loop with 2x4 register micro-tiles.  Ragged edges are masked in
-// the loads and the store; nothing is padded.  Not yet: TMA, wgmma, a
-// multi-stage pipeline.
-#include "nm_tile.cuh"
+// bytes (the MACs at the bf16 tensor-core rate take less time than reading
+// the weights once); at the CNN GEMMs' widths (K up to 4608, tens of
+// thousands of columns) the operations.
+//
+// bf16 nm_xwt (int8 and packed) at N:M in {1:2, 1:4, 2:4, 2:8} runs the
+// tensor-core tile body of nm_mma.cuh (shared with the onehot nm_spmv
+// body): one CTA covers every row of a call up to 128, so W is read once;
+// output columns are tiled 32-128 wide and K is split where the card would
+// otherwise be empty (partial sums added in split order, no float atomics);
+// a 2-4 stage cp.async ring feeds values, indices (packed words as 16-byte
+// copies where a row's words are 16-byte aligned) and X; W is decompressed
+// in registers into mma.sync A fragments.  The plan (tile, splits, ring)
+// comes from the wrapper (kernels/nm_spmm.py mma_plan) and does not depend
+// on the index format, so the packed instance sums in the int8 instance's
+// order and equals it bit for bit.
+//
+// The first bodies stay for the rest: one CTA per output tile loops over K;
+// per 64-column step it stages the dense tile and decompresses the sparse
+// tile into shared memory with the reference's block*M + idx placement,
+// each thread issuing all of its global loads (16-byte runs where the
+// shapes allow) before its first shared store.  bf16 tiles (64x64) feed
+// mma.sync m16n8k16 with f32 accumulators, eight warps of 32x16 each: this
+// is nm_spmm's bf16 body and nm_xwt's at other N:M.  f32 tiles (32x64, all
+// three launchers) take an f32 FMA loop with 2x4 register micro-tiles.
+// Ragged edges are masked in the loads and the store; nothing is padded.
+#include "nm_mma.cuh"
 
 namespace {
 
@@ -157,14 +169,7 @@ __device__ __forceinline__ void load_bt_tile(bf16 (*bt)[kStride], const bf16* b,
   }
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using nm::mma::mma_bf16;
 
 __device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -276,14 +281,88 @@ int launch(const void* dense, const void* vals, Idx idx, bool idx_runs_ok,
   return static_cast<int>(cudaGetLastError());
 }
 
+// --------------------------------------- bf16 nm_xwt: the tensor-core body
+
+using nm::mma::Int8Stream;
+using nm::mma::PackedStream;
+using nm::mma::TileArgs;
+
+template <int N, int M, int NT, class Idx>
+__global__ void __launch_bounds__(256) nm_xwt_mma_kernel(TileArgs<Idx> a) {
+  nm::mma::tile_body<N, M, NT>(a);
+}
+
+__global__ void nm_xwt_reduce_kernel(const float* ws, bf16* y, int count,
+                                     int splits) {
+  nm::mma::reduce_splits(ws, y, count, splits);
+}
+
+template <int N, int M, int NT, class Idx>
+int run_nt(const TileArgs<Idx>& a, cudaStream_t s) {
+  static int smem_set = 48 * 1024;  // per kernel, in this library
+  return nm::mma::launch<N, M, NT>(nm_xwt_mma_kernel<N, M, NT, Idx>,
+                                   nm_xwt_reduce_kernel, a, s, smem_set);
+}
+
+template <int N, int M, class Idx>
+int run_mma(const TileArgs<Idx>& a, cudaStream_t s) {
+  switch (a.pl.nt) {
+    case 1: return run_nt<N, M, 1>(a, s);
+    case 4: return run_nt<N, M, 4>(a, s);
+    case 8: return run_nt<N, M, 8>(a, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <class Idx>
+int launch_mma(const void* x, const void* vals, Idx idx, void* y, int S, int O,
+               int K, int n, int m, int dtype, const nm::mma::Plan& plan,
+               const nm::mma::Layout& ly, void* ws, void* stream) {
+  if (dtype != REPRO_DTYPE_BF16 || m <= 0 || K % m)
+    return static_cast<int>(cudaErrorInvalidValue);
+  TileArgs<Idx> a{};
+  a.x = static_cast<const bf16*>(x);
+  a.vals = static_cast<const bf16*>(vals);
+  a.idx = idx;
+  a.y = static_cast<bf16*>(y);
+  a.ws = static_cast<float*>(ws);
+  a.R = S, a.O = O, a.K = K;
+  a.pl = plan;
+  a.ly = ly;
+  a.vvec = (K / m * n) % 8 == 0 && aligned(vals, 16);
+  a.xvec = K % 8 == 0 && aligned(x, 16);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 1 && m == 2) return run_mma<1, 2>(a, s);
+  if (n == 1 && m == 4) return run_mma<1, 4>(a, s);
+  if (n == 2 && m == 4) return run_mma<2, 4>(a, s);
+  if (n == 2 && m == 8) return run_mma<2, 8>(a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// Y[S, O] = X[S, K] . W^T, W as values [O, K/M*N] + int8 indices.
+// Y[S, O] = X[S, K] . W^T, W as values [O, K/M*N] + int8 indices.  plan:
+// the tensor-core body's launch plan (nt, ws, wo, wk, ss, stages, splits,
+// kper) and its stage layout (vstride, istride, xstride, stage) from the
+// wrapper, nt = 0 for the first bodies; ws: the f32 split workspace
+// [splits, S, O] when splits > 1.
 extern "C" int nm_xwt_launch(const void* x, const void* vals, const void* idx,
                              void* y, int S, int O, int K, int n, int m,
-                             int dtype, void* stream) {
+                             int dtype, int nt, int wrows, int wo, int wk,
+                             int ss, int stages, int splits, int kper, int vstride,
+                             int istride, int xstride, int stage, void* ws,
+                             void* stream) {
   if (m <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const nm::Int8Idx reader{static_cast<const int8_t*>(idx), K / m * n};
+  const int nnz = K / m * n;
+  if (nt != 0) {
+    const nm::mma::Plan plan{nt, wrows, wo, wk, ss, stages, splits, kper};
+    const nm::mma::Layout ly{vstride, istride, xstride, stage, 0, 0, 0};
+    const Int8Stream reader{static_cast<const int8_t*>(idx), nnz,
+                            nnz % 16 == 0 && aligned(idx, 16)};
+    return launch_mma(x, vals, reader, y, S, O, K, n, m, dtype, plan, ly, ws,
+                      stream);
+  }
+  const nm::Int8Idx reader{static_cast<const int8_t*>(idx), nnz};
   return launch<false>(x, vals, reader, aligned(idx, 8), y, S, O, K, n, m,
                        dtype, stream);
 }
@@ -292,14 +371,26 @@ extern "C" int nm_xwt_launch(const void* x, const void* vals, const void* idx,
 // (ceil(nnz / per_word) words per row, passed as raw 32-bit patterns).
 extern "C" int nm_xwt_packed_launch(const void* x, const void* vals,
                                     const void* words, void* y, int S, int O,
-                                    int K, int n, int m, int dtype,
+                                    int K, int n, int m, int dtype, int nt,
+                                    int wrows, int wo, int wk, int ss,
+                                    int stages, int splits, int kper, int vstride,
+                                    int istride, int xstride, int stage, void* ws,
                                     void* stream) {
   if (m <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int bits = nm::index_bits(m);
   const int per_word = 32 / bits;
   const int nnz = K / m * n;
-  const nm::PackedIdx reader{static_cast<const uint32_t*>(words),
-                             (nnz + per_word - 1) / per_word, bits, per_word};
+  const int wpr = (nnz + per_word - 1) / per_word;
+  if (nt != 0) {
+    const nm::mma::Plan plan{nt, wrows, wo, wk, ss, stages, splits, kper};
+    const nm::mma::Layout ly{vstride, istride, xstride, stage, 0, 0, 0};
+    const PackedStream reader{static_cast<const uint32_t*>(words), wpr, per_word,
+                              wpr % 4 == 0 && aligned(words, 16)};
+    return launch_mma(x, vals, reader, y, S, O, K, n, m, dtype, plan, ly, ws,
+                      stream);
+  }
+  const nm::PackedIdx reader{static_cast<const uint32_t*>(words), wpr, bits,
+                             per_word};
   return launch<false>(x, vals, reader, true, y, S, O, K, n, m, dtype, stream);
 }
 

@@ -13,10 +13,18 @@ above 8 use more CTAs.
 
 ``mode="onehot"`` runs the reference's other body (``nm_spmv.py:43-47``):
 decompress each W tile, then a dense dot.  Its kernel
-(``nm_spmv_onehot_launch`` in the same file) decompresses each [32, 64] W
-tile with the shared ``csrc/nm_tile.cuh`` code into f32 shared memory beside
-the staged x tile, and each thread accumulates one (row, batch) output with
-f32 FMAs: the same bytes, dense FLOPs.  It has its own launch counter
+(``nm_spmv_onehot_launch`` in the same file) is bound by the same bytes.
+In bf16 at N:M in ``nm_spmm.FAST_NM`` it runs the tensor-core tile body of
+``csrc/nm_mma.cuh`` (shared with ``nm_xwt``) with the batch on n = 8: a
+``cp.async`` ring of 256-column stages of the weight stream, W
+decompressed in registers into ``mma.sync`` fragments, four warps per CTA
+sharing each stage, and K split across CTAs so that every decode shape
+fills the card; the plan (``nm_spmm.mma_plan(..., decode=True)``) is
+computed here, the split workspace allocated here, and the partial sums
+are added in a fixed order (no float atomics: the same bits on every run).
+f32, and bf16 at other N:M, keep the first body: each [32, 64] W tile
+decompressed into f32 shared memory beside the staged x tile, one f32 FMA
+dot per (row, batch) thread.  It has its own launch counter
 (``ONEHOT_KERNEL``), so a run can prove which body served it.
 
 ``nm_spmv_plain`` and ``nm_spmv_onehot_plain`` are the same functions in
@@ -32,13 +40,14 @@ import torch
 
 from repro_torch.kernels.build import (DTYPE_CODES, CudaKernel,
                                        check_cuda_operand)
-from repro_torch.kernels.nm_spmm import BK, nm_xwt_plain
+from repro_torch.kernels.nm_spmm import (_PLAN_ARGS, BK, launch_planned,
+                                         mma_plan, nm_xwt_plain, sm_count)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
 KERNEL = CudaKernel("nm_spmv", "nm_spmv_launch", _ARGS)
-ONEHOT_KERNEL = CudaKernel("nm_spmv_onehot", "nm_spmv_onehot_launch", _ARGS,
-                           lib="nm_spmv")
+ONEHOT_KERNEL = CudaKernel("nm_spmv_onehot", "nm_spmv_onehot_launch",
+                           _PLAN_ARGS, lib="nm_spmv")
 MODES = ("gather", "onehot")
 
 
@@ -94,9 +103,13 @@ def nm_spmv(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     check_cuda_operand("values", values, x.device, x.dtype)
     check_cuda_operand("indices", indices, x.device, torch.int8)
     bsz = xf.shape[0]
+    if onehot:
+        plan = mma_plan(bsz, o, k, n, m, sm_count(x.device), decode=True) \
+            if x.dtype == torch.bfloat16 and bsz and o else None
+        y = launch_planned(ONEHOT_KERNEL, xf, values, indices, n, m, plan)
+        return y.reshape(*lead, o)
     y = torch.empty(bsz, o, dtype=x.dtype, device=x.device)
     if bsz and o:
-        (ONEHOT_KERNEL if onehot else KERNEL).launch(
-            xf.data_ptr(), values.data_ptr(), indices.data_ptr(),
-            y.data_ptr(), bsz, o, k, n, m, DTYPE_CODES[x.dtype])
+        KERNEL.launch(xf.data_ptr(), values.data_ptr(), indices.data_ptr(),
+                      y.data_ptr(), bsz, o, k, n, m, DTYPE_CODES[x.dtype])
     return y.reshape(*lead, o)

@@ -481,3 +481,151 @@ def test_flash_attention_kernel_matches_plain(dtype, bh, sq, sk, d, dv, case):
     assert bool(torch.isfinite(out).all())
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                want.float().cpu().numpy(), **tol)
+
+
+# ------------------------------- the tensor-core tile body (nm_mma.cuh)
+# bf16 nm_xwt (int8 and packed) and the onehot nm_spmv body share it; the
+# launch plan (tile, ring, K splits) comes from nm_spmm.mma_plan.
+
+LLAMA_SHAPES = [(2048, 2048), (512, 2048), (8192, 2048), (2048, 8192)]
+MODEL_SHAPES = sorted(set(LLAMA_SHAPES + DEEPSEEK_SHAPES))
+
+
+def _bf16_case(o, k, n, m, rows, seed):
+    sp, g = _compressed(o, k, n, m, torch.bfloat16, seed)
+    x = torch.randn(rows, k, generator=g, device="cuda").to(torch.bfloat16)
+    return sp, x
+
+
+def _once_and_again(kernel, fn):
+    """fn() twice: the launch counter moves by exactly one per call and
+    the two outputs are the same bits (the split sums' order is fixed)."""
+    before = kernel.launches
+    y = fn()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    y2 = fn()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert torch.equal(y, y2)
+    return y
+
+
+def _close(y, want):
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               **_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("o,k", MODEL_SHAPES)
+def test_onehot_mma_body_at_model_shapes(o, k):
+    """Every llama and deepseek decode shape at B 8, including the split
+    shapes O 512 / 576 and K 8192 / 10944."""
+    from repro_torch.kernels import nm_spmv as mod
+    sp, x = _bf16_case(o, k, 2, 4, 8, seed=o + k)
+    y = _once_and_again(mod.ONEHOT_KERNEL, lambda: mod.nm_spmv(
+        x, sp.values, sp.indices, 2, 4, mode="onehot"))
+    _close(y, mod.nm_spmv_onehot_plain(x, sp.values, sp.indices, 2, 4))
+
+
+@pytest.mark.parametrize("s", [32, 128])
+@pytest.mark.parametrize("o,k", MODEL_SHAPES)
+def test_xwt_mma_body_at_model_shapes(o, k, s):
+    """Prefill (S 128) and the verify span (S 32) at every llama and
+    deepseek shape, including K 512 (wuk / wuv) and 10944."""
+    from repro_torch.kernels import nm_spmm as mod
+    sp, x = _bf16_case(o, k, 2, 4, s, seed=o + k + s)
+    y = _once_and_again(mod.KERNEL, lambda: mod.nm_xwt(
+        x, sp.values, sp.indices, 2, 4))
+    _close(y, mod.nm_xwt_plain(x, sp.values, sp.indices, 2, 4))
+
+
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 127, 128, 129])
+@pytest.mark.parametrize("o,k", [(512, 2048), (2048, 8192)])
+def test_xwt_mma_body_row_counts(s, o, k):
+    """Row counts at and around the plan's row tiles (8 / 32 / 64 / 128)."""
+    from repro_torch.kernels import nm_spmm as mod
+    sp, x = _bf16_case(o, k, 2, 4, s, seed=s + k)
+    y = _once_and_again(mod.KERNEL, lambda: mod.nm_xwt(
+        x, sp.values, sp.indices, 2, 4))
+    _close(y, mod.nm_xwt_plain(x, sp.values, sp.indices, 2, 4))
+
+
+@pytest.mark.parametrize("b", [1, 7, 8, 9, 16])
+@pytest.mark.parametrize("o,k", [(512, 2048), (2048, 10944)])
+def test_onehot_mma_body_batches(b, o, k):
+    """Batches around the 8-row n-tile: above 8, more CTAs along y."""
+    from repro_torch.kernels import nm_spmv as mod
+    sp, x = _bf16_case(o, k, 2, 4, b, seed=b + k)
+    y = _once_and_again(mod.ONEHOT_KERNEL, lambda: mod.nm_spmv(
+        x, sp.values, sp.indices, 2, 4, mode="onehot"))
+    _close(y, mod.nm_spmv_onehot_plain(x, sp.values, sp.indices, 2, 4))
+
+
+@pytest.mark.parametrize("nm", [(2, 4), (1, 4), (1, 2), (2, 8)])
+@pytest.mark.parametrize("k", [2052, 136, 520, 2112])
+def test_mma_bodies_ragged_k(nm, k):
+    """K not a multiple of the 64-column superstep or of the ring stage:
+    the masked tail; K % 8 != 0 also takes the scalar X / value stages."""
+    from repro_torch.kernels import nm_spmm, nm_spmv
+    n, m = nm
+    k = -(-k // m) * m
+    sp, x = _bf16_case(200, k, n, m, 37, seed=k + m)
+    y = _once_and_again(nm_spmm.KERNEL, lambda: nm_spmm.nm_xwt(
+        x, sp.values, sp.indices, n, m))
+    _close(y, nm_spmm.nm_xwt_plain(x, sp.values, sp.indices, n, m))
+    xb = x[:9]
+    y = _once_and_again(nm_spmv.ONEHOT_KERNEL, lambda: nm_spmv.nm_spmv(
+        xb, sp.values, sp.indices, n, m, mode="onehot"))
+    _close(y, nm_spmv.nm_spmv_onehot_plain(xb, sp.values, sp.indices, n, m))
+
+
+@pytest.mark.parametrize("nm,s,o,k", [((2, 4), 128, 512, 2048),
+                                      ((2, 4), 32, 2048, 8192),
+                                      ((2, 4), 128, 2048, 10944),
+                                      ((1, 4), 8, 576, 2048),
+                                      ((1, 2), 33, 512, 2048),
+                                      ((2, 8), 128, 512, 2560),
+                                      ((2, 8), 32, 300, 2080)])
+def test_packed_mma_body_equals_int8_bitwise(nm, s, o, k):
+    """Packed and int8 take one plan and one summation order: the same bits
+    at the split shapes.  M = 8 packs 10 indices per word, so the stages
+    start inside a word (K 2560: 64 words per row, 16-byte copies; K 2080:
+    52 words per row, 4-byte copies)."""
+    from repro_torch.kernels import nm_spmm as mod
+    from repro_torch.kernels import ops
+    n, m = nm
+    sp, x = _bf16_case(o, k, n, m, s, seed=s + k + m)
+    words = ops.pack_block_indices(sp.indices, n, m,
+                                   (8, 64, 160 if m == 8 else 512))
+    y = _once_and_again(mod.PACKED_KERNEL, lambda: mod.nm_xwt_packed(
+        x, sp.values, words, n, m))
+    assert torch.equal(y, mod.nm_xwt(x, sp.values, sp.indices, n, m))
+    _close(y, mod.nm_xwt_packed_plain(x, sp.values, words, n, m))
+
+
+@pytest.mark.parametrize("nm", [(4, 8), (1, 8), (3, 4), (1, 16)])
+@pytest.mark.parametrize("rows,o,k", [(8, 512, 2048), (32, 200, 1040),
+                                      (128, 2048, 2048)])
+def test_first_bf16_bodies_off_the_tensor_core_set(nm, rows, o, k):
+    """bf16 at an N:M outside ``FAST_NM`` has no tensor-core plan and keeps
+    the first bodies: nm_xwt and the onehot body within tolerance of their
+    plain versions, packed nm_xwt bit-equal to int8 (K 1040 leaves a
+    ragged 64-column step)."""
+    from repro_torch.core.sparsity import pack_indices_i32
+    from repro_torch.kernels import nm_spmm, nm_spmv
+    n, m = nm
+    assert nm_spmm.mma_plan(rows, o, k, n, m) is None
+    assert nm_spmm.mma_plan(rows, o, k, n, m, decode=True) is None
+    sp, x = _bf16_case(o, k, n, m, rows, seed=rows + k + 10 * m + n)
+    y = _once_and_again(nm_spmm.KERNEL, lambda: nm_spmm.nm_xwt(
+        x, sp.values, sp.indices, n, m))
+    _close(y, nm_spmm.nm_xwt_plain(x, sp.values, sp.indices, n, m))
+    words = pack_indices_i32(sp.indices, m)
+    yp = _once_and_again(nm_spmm.PACKED_KERNEL, lambda: nm_spmm.nm_xwt_packed(
+        x, sp.values, words, n, m))
+    assert torch.equal(yp, y)
+    xb = x[:9]
+    y = _once_and_again(nm_spmv.ONEHOT_KERNEL, lambda: nm_spmv.nm_spmv(
+        xb, sp.values, sp.indices, n, m, mode="onehot"))
+    _close(y, nm_spmv.nm_spmv_onehot_plain(xb, sp.values, sp.indices, n, m))

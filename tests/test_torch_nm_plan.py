@@ -1,0 +1,191 @@
+"""The launch plans of the tensor-core tile body (``csrc/nm_mma.cuh``):
+``nm_spmm.mma_plan``, a pure function of the shape and the SM count, which
+the bf16 ``nm_xwt`` (int8 and packed) and onehot ``nm_spmv`` wrappers pass
+to their launchers.  CPU only: the plan is checked here, the kernels under
+it on the card (``tests/test_torch_cuda.py``)."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import nm_spmm, nm_spmv  # noqa: E402
+from repro_torch.models.cnn import CNN_LAYER_GEMMS  # noqa: E402
+
+SMS = 132
+TARGET = 2 * SMS
+# (O, K) of one llama3.2-1b layer and one deepseek-v2-lite layer (with the
+# dense first layer's MLP and the latent up-projections, K 512)
+LLAMA = [(2048, 2048), (512, 2048), (8192, 2048), (2048, 8192)]
+DEEPSEEK = [(3072, 2048), (576, 2048), (2048, 2048), (2816, 2048),
+            (2048, 2816), (2048, 512), (10944, 2048), (2048, 10944)]
+MODEL = sorted(set(LLAMA + DEEPSEEK))
+# CNN GEMMs as nm_xwt sees them (rows = spatial, O = C_out, K rounded up
+# to M as the layer pads it), bf16 case
+CNN = sorted({(sp, co, -(-k // 4) * 4) for layers in CNN_LAYER_GEMMS.values()
+              for _, co, k, sp in layers})
+RAGGED = [(37, 200, 136), (129, 72, 1028), (5, 300, 520), (33, 96, 2052),
+          (1, 64, 64), (130, 96, 520)]
+
+CASES = ([(r, o, k, False) for o, k in MODEL for r in (1, 8, 32, 128)]
+         + [(8, o, k, True) for o, k in MODEL]
+         + [(r, o, k, False) for r, o, k in CNN + RAGGED]
+         + [(r, o, k, True) for r, o, k in RAGGED if r <= 8])
+
+
+def _plan(rows, o, k, decode, n=2, m=4):
+    plan = nm_spmm.mma_plan(rows, o, k, n, m, sms=SMS, decode=decode)
+    assert plan is not None
+    return plan
+
+
+@pytest.mark.parametrize("nm", nm_spmm.FAST_NM)
+@pytest.mark.parametrize("rows,o,k,decode", CASES)
+def test_splits_cover_k_in_whole_steps(rows, o, k, decode, nm):
+    n, m = nm
+    k = -(-k // m) * m
+    p = _plan(rows, o, k, decode, n, m)
+    assert p.kper % 64 == 0 and p.kper % m == 0
+    bounds = [(z * p.kper, min(k, (z + 1) * p.kper)) for z in range(p.splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    assert all(hi > lo for lo, hi in bounds), "an empty split"
+    assert all(b[1] == c[0] for b, c in zip(bounds, bounds[1:]))
+    # every split but the last is whole stages of the ring
+    assert p.kper % (64 * p.ss) == 0
+
+
+@pytest.mark.parametrize("rows,o,k,decode", CASES)
+def test_every_output_in_exactly_one_tile(rows, o, k, decode):
+    p = _plan(rows, o, k, decode)
+    gx, gy, _ = p.grid(rows, o)
+    cover = torch.zeros(rows, o, dtype=torch.int32)
+    for by in range(gy):
+        for bx in range(gx):
+            cover[by * p.row_tile:(by + 1) * p.row_tile,
+                  bx * p.col_tile:(bx + 1) * p.col_tile] += 1
+    assert bool((cover == 1).all())
+    # the warps tile the CTA's rows and columns, and fit one CTA
+    assert p.row_tile == 8 * p.nt * p.ws and p.col_tile == 32 * p.wo
+    assert p.threads <= 256 and p.nt in (1, 4, 8) and 2 <= p.stages <= 4
+    assert p.ss in (1, 2, 4)
+    for n, m in nm_spmm.FAST_NM:         # the ring fits one CTA
+        assert nm_spmm.smem_bytes(p, n, m) <= nm_spmm.SMEM_LIMIT
+    if decode:
+        assert p.nt == 1 and p.ws == 1      # the batch on n = 8
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("nm", nm_spmm.FAST_NM)
+@pytest.mark.parametrize("rows,o,k,decode", CASES[::3])
+def test_stage_layout_holds_its_tiles(rows, o, k, decode, nm, packed):
+    """The stage layout the wrapper passes holds what ``check_layout``
+    (``csrc/nm_mma.cuh``) demands: 16-byte strides wide enough for a
+    staged row of values, indices and X, a 128-byte stage holding the
+    three tiles, and a ring within ``smem_bytes``; the X rows of one
+    16-byte phase on distinct banks."""
+    n, m = nm
+    k = -(-k // m) * m
+    p = _plan(rows, o, k, decode, n, m)
+    vs, ist, xs, stage = nm_spmm.layout(p, n, m, packed)
+    e = 64 * p.ss // m * n
+    per_word = 32 // nm_spmm.index_bits(m)
+    assert vs % 16 == ist % 16 == xs % 16 == stage % 128 == 0
+    assert vs >= 2 * e and xs >= 2 * 64 * p.ss and xs % 128 == 16
+    assert ist >= (4 * (-(-e // per_word) + 8) if packed else e)
+    assert stage >= p.col_tile * (vs + ist) + p.row_tile * xs
+    slots = min(p.stages, -(-p.kper // (64 * p.ss)))
+    assert slots * stage <= nm_spmm.smem_bytes(p, n, m) <= nm_spmm.SMEM_LIMIT
+    # the two index formats differ only in the index tile
+    other = nm_spmm.layout(p, n, m, not packed)
+    assert (other[0], other[2]) == (vs, xs)
+
+
+def _fill(rows, o, k, decode):
+    """(plan, resident slots of the card, most CTAs K allows)."""
+    p = _plan(rows, o, k, decode)
+    nst = -(-k // (64 * p.ss))
+    full = p._replace(splits=1, kper=64 * p.ss * nst)
+    slots = SMS * nm_spmm.resident(full, 2, 4)
+    tiles = p.ctas(rows, o) // p.splits
+    return p, slots, tiles * nst
+
+
+@pytest.mark.parametrize("rows,o,k,decode", CASES)
+def test_splits_fill_the_resident_slots_where_k_allows(rows, o, k, decode):
+    """Fewer CTAs than the card holds at once only where K runs out of
+    stages, and never so many that a last wave runs nearly empty: the
+    split count minimises waves x stages per CTA."""
+    p, slots, most = _fill(rows, o, k, decode)
+    ctas = p.ctas(rows, o)
+    assert ctas >= min(slots, most) // 2
+    nst = -(-k // (64 * p.ss))
+    per = p.kper // (64 * p.ss)
+    cost = -(-ctas // slots) * per
+    for s in range(1, nst + 1):        # no split count does better
+        q_per = -(-nst // s)
+        q_ctas = ctas // p.splits * -(-nst // q_per)
+        assert -(-q_ctas // slots) * q_per >= cost
+
+
+@pytest.mark.parametrize("o,k", MODEL)
+@pytest.mark.parametrize("rows,decode", [(8, True), (32, False),
+                                         (128, False)])
+def test_model_shapes_put_about_two_ctas_per_sm(o, k, rows, decode):
+    """Every llama and deepseek decode, verify-span and prefill shape puts
+    about 2 x 132 CTAs on the card (or all that its resident slots and K
+    allow)."""
+    p, slots, most = _fill(rows, o, k, decode)
+    assert p.ctas(rows, o) >= 0.9 * min(TARGET, slots, most)
+
+
+@pytest.mark.parametrize("rows,o,k", [(128, 2048, 2048), (32, 512, 2048),
+                                      (8, 8192, 2048), (129, 300, 2560)])
+@pytest.mark.parametrize("nm", [(2, 4), (2, 8), (1, 2)])
+def test_int8_and_packed_launch_one_plan(monkeypatch, rows, o, k, nm):
+    """The int8 and packed wrappers hand their launchers the same plan
+    (one tile, one split, one summation order: the same bits)."""
+    from repro_torch.kernels import ops
+    n, m = nm
+    seen = []
+    monkeypatch.setattr(nm_spmm, "launch_planned",
+                        lambda kern, x, v, i, n_, m_, plan:
+                        seen.append((kern.name, plan)) or torch.zeros(0))
+    monkeypatch.setattr(nm_spmm, "sm_count", lambda dev: SMS)
+    x = torch.zeros(rows, k, dtype=torch.bfloat16)
+    vals = torch.zeros(o, k // m * n, dtype=torch.bfloat16)
+    idx = torch.zeros(o, k // m * n, dtype=torch.int8)
+    words = ops.pack_block_indices(idx, n, m, (8, 64, 160 if m == 8 else 512))
+    nm_spmm.launch_xwt(nm_spmm.KERNEL, x, vals, idx, n, m)
+    nm_spmm.launch_xwt(nm_spmm.PACKED_KERNEL, x, vals, words, n, m)
+    (k1, p1), (k2, p2) = seen
+    assert (k1, k2) == ("nm_xwt", "nm_xwt_packed")
+    assert p1 == p2 == nm_spmm.mma_plan(rows, o, k, n, m, sms=SMS)
+
+
+def test_plan_is_none_off_the_tensor_core_body():
+    """N:M the body is not built for (and non-positive sizes) take the
+    first body: the launchers receive nt = 0 and no workspace."""
+    assert nm_spmm.mma_plan(8, 64, 2048, 3, 4) is None
+    assert nm_spmm.mma_plan(8, 64, 2048, 1, 32) is None
+    assert nm_spmm.mma_plan(0, 64, 2048, 2, 4) is None
+    args, ws = nm_spmm.plan_args(None, 8, 64, 3, 4, False,
+                                 torch.device("cpu"))
+    assert args == (0,) * 12 + (None,) and ws is None
+
+
+def test_plan_args_allocate_the_split_workspace():
+    p = nm_spmm.mma_plan(32, 512, 2048, 2, 4, sms=SMS)
+    assert p.splits > 1
+    args, ws = nm_spmm.plan_args(p, 32, 512, 2, 4, False,
+                                 torch.device("cpu"))
+    assert args[:8] == tuple(p) and args[12] == ws.data_ptr()
+    assert args[8:12] == nm_spmm.layout(p, 2, 4, packed=False)
+    assert ws.shape == (p.splits, 32, 512) and ws.dtype == torch.float32
+
+
+def test_onehot_takes_the_decode_plan():
+    """The onehot wrapper's plan keeps the batch on n = 8: B 16 is two
+    8-row tiles along grid.y, not one 16-row tile."""
+    p = nm_spmm.mma_plan(16, 2048, 2048, 2, 4, sms=SMS, decode=True)
+    assert p.nt == 1 and p.grid(16, 2048)[1] == 2
+    assert nm_spmv.ONEHOT_KERNEL.argtypes[:-1] == nm_spmm._PLAN_ARGS
+    assert len(nm_spmm._PLAN_ARGS) == 23

@@ -1,0 +1,128 @@
+#!/usr/bin/env python3
+"""Where the time of the bf16 tensor-core N:M body goes, by ablation.
+
+  python3 tools/nm_mma_ablate.py [--variants orig,nox,now,noout,nomma,nodec]
+
+For each variant a copy of ``src/repro_torch/csrc`` is patched to leave
+one part of ``nm_mma.cuh``'s tile body out, built into
+``src/repro_torch/_build/ablate/<variant>/`` (gitignored), and timed in
+its own process:
+
+* ``orig``   the body as it is;
+* ``nox``    no X tile copies (the ring's X rows keep stale data);
+* ``now``    no W copies (values and indices);
+* ``noout``  no output or split-workspace stores;
+* ``nomma``  each mma.sync replaced by one integer xor into the sum;
+* ``nodec``  each 16-column decompress replaced by an xor of its inputs.
+
+The ablated kernels compute nothing useful; only their device times mean
+anything: per linear, from ``torch.profiler``, for three of one
+llama3.2-1b layer's linears (2:4, bf16) at B 8 (onehot body), S 32 and
+S 128 (nm_xwt) under the wrapper's own plan.  What a variant saves
+against ``orig`` is that part's share of the critical path.  Needs one
+NVIDIA card; prints one JSON line per variant.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+VARIANTS = ("orig", "nox", "now", "noout", "nomma", "nodec")
+SHAPES = ((2048, 2048), (8192, 2048), (2048, 8192))   # wq, wg, wd
+# (marker, replacement) pairs; each variant turns one PROBE_* flag on
+PATCHES = (
+    ("      if (a.xvec) {  // X:", "      if (PROBE_NOX) {} else if (a.xvec) {  // X:"),
+    ("      if (a.vvec) {  // values:",
+     "      if (PROBE_NOW) {} else if (a.vvec) {  // values:"),
+    ("      a.idx.stage(", "      if (!PROBE_NOW) a.idx.stage("),
+    ("          if (part)\n", "          if (PROBE_NOOUT) {} else if (part)\n"),
+    ("mma_bf16(acc[mi][j8], af4, b);",
+     "if (PROBE_NOMMA) acc[mi][j8][0] += __int_as_float(af4[0] ^ af4[1] ^ "
+     "af4[2] ^ af4[3] ^ b[0] ^ b[1]); else mma_bf16(acc[mi][j8], af4, b);"),
+    ("decompress16<N, M>(vw, id, af[mi][h]);",
+     "if (PROBE_NODEC) { for (int q = 0; q < 8; ++q) af[mi][h][q] = "
+     "vw[q % (P / 2)] ^ id[q % P]; } else decompress16<N, M>(vw, id, "
+     "af[mi][h]);"),
+)
+
+
+def patched_source(variant: str, csrc: str, dst: str) -> None:
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(csrc, dst)
+    path = os.path.join(dst, "nm_mma.cuh")
+    with open(path) as f:
+        s = f.read()
+    flags = "".join(f"#define PROBE_{v.upper()} {int(v == variant)}\n"
+                    for v in VARIANTS[1:])
+    s = s.replace("#pragma once\n", "#pragma once\n" + flags, 1)
+    for old, new in PATCHES:
+        if old not in s:
+            raise SystemExit(f"nm_mma_ablate: marker not found: {old!r}")
+        s = s.replace(old, new)
+    with open(path, "w") as f:
+        f.write(s)
+
+
+def run_variant(variant: str) -> dict:
+    from pathlib import Path
+
+    sys.path.insert(0, ROOT)               # chip_smoke adds ROOT/src
+    import torch
+
+    from chip_smoke import device_ms
+    from repro_torch.core.sparsity import compress
+    from repro_torch.kernels import build, nm_spmm, nm_spmv
+    dst = build.BUILD_DIR / "ablate" / variant
+    patched_source(variant, str(build.CSRC_DIR), str(dst / "csrc"))
+    build.CSRC_DIR, build.BUILD_DIR = Path(dst / "csrc"), Path(dst / "lib")
+    build.build_all(("nm_spmv", "nm_xwt"))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    out = {}
+    for rows, decode, kern in ((8, True, nm_spmv.ONEHOT_KERNEL),
+                               (32, False, nm_spmm.KERNEL),
+                               (128, False, nm_spmm.KERNEL)):
+        for o, k in SHAPES:
+            w = (torch.randn(o, k, generator=gen, device="cuda")
+                 * k ** -0.5).to(torch.bfloat16)
+            sp = compress(w, 2, 4)
+            x = torch.randn(rows, k, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            plan = nm_spmm.mma_plan(rows, o, k, 2, 4, decode=decode)
+            out[f"rows{rows}_{o}x{k}"] = round(1e3 * device_ms(
+                torch, lambda: nm_spmm.launch_planned(
+                    kern, x, sp.values, sp.indices, 2, 4, plan), 20), 2)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--variant", help=argparse.SUPPRESS)   # one, in-process
+    args = ap.parse_args()
+    if args.variant:
+        print(json.dumps({"variant": args.variant,
+                          "device_us": run_variant(args.variant)}),
+              flush=True)
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print("nm_mma_ablate: needs an NVIDIA card", file=sys.stderr)
+        return 1
+    rc = 0
+    for v in args.variants.split(","):
+        if v not in VARIANTS:
+            raise SystemExit(f"unknown variant {v!r} (one of {VARIANTS})")
+        rc |= subprocess.run([sys.executable, __file__, "--variant", v],
+                             check=False).returncode
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

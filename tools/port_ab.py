@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare two checkouts of the PyTorch/CUDA port on one NVIDIA card.
 
-  python3 tools/port_ab.py ROOT [--rates] [--spec-twice]
+  python3 tools/port_ab.py ROOT [--rates] [--spec-twice] [--kernels]
 
 Run it once per checkout, each in its own process and all in one session
 on the card (parent, change, change, parent), so that the readings share
@@ -28,6 +28,15 @@ JSON line:
   through the speculative engine (chip_smoke's phase-6 trace and
   configuration): ``requests_identical`` of 16 between the two runs and
   each run's counters.
+* with ``--kernels`` (and then instead of the above): one llama3.2-1b
+  layer's seven linears (2:4, bf16, chip_smoke's ``LAYER_SHAPES``)
+  through the checkout's own wrappers: the onehot nm_spmv body at B 8,
+  nm_xwt at S 128 and S 32, packed nm_xwt at S 128, and ``F.linear`` on
+  the decompressed weights at each of those row counts.  Per case ``ms`` (CUDA events around 20 calls of the layer, so
+  the wrappers' host time is in it), ``device_ms`` (the device time of
+  every kernel the layer launched, from ``torch.profiler``, per layer) and
+  ``bound_ms`` (the layer's bytes, each input read once and the output
+  written once, over 3.35 TB/s).
 """
 
 from __future__ import annotations
@@ -39,12 +48,26 @@ import os
 import sys
 
 
-def _load_smoke(root: str):
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _load_smoke(root: str, name: str = "chip_smoke"):
     spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+        name, os.path.join(root, "chip_smoke.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)      # puts ROOT/src first on sys.path
     return mod
+
+
+def _own_device_ms():
+    """``device_ms`` of this tool's own checkout's ``chip_smoke.py`` (a
+    parent checkout's may predate it), loaded without leaving that
+    checkout's ``src`` on sys.path, so both checkouts are timed alike."""
+    saved = list(sys.path)
+    try:
+        return _load_smoke(HERE, "chip_smoke_timing").device_ms
+    finally:
+        sys.path[:] = saved
 
 
 def trash_write(torch, trials: int = 200) -> dict:
@@ -75,40 +98,83 @@ def trash_write(torch, trials: int = 200) -> dict:
     return dict(trials=trials, distinct=len(outcomes), sequential=sequential)
 
 
-def device_ms(torch, fn, calls: int = 50) -> float:
+def attention_device_ms(device_ms, torch, fn, calls: int = 50) -> float:
     """Device time per launch of the port's paged attention kernel in
-    ``fn``, from ``torch.profiler`` over ``calls`` calls."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = n = 0
-    for ev in prof.key_averages():
-        if "paged_" in ev.key and "CUDA" in str(getattr(ev, "device_type",
-                                                        "")):
-            us += getattr(ev, "self_device_time_total", None) or \
-                getattr(ev, "self_cuda_time_total", 0.0)
-            n += ev.count
-    if n != calls:
-        raise SystemExit(f"port_ab: traced {n} attention launches, "
-                         f"expected {calls}")
-    return us / 1e3 / n
+    ``fn`` (one launch per call), from ``torch.profiler`` over ``calls``
+    calls."""
+    ms, seen = device_ms(torch, fn, calls, match="paged_", names=True)
+    if sum(seen.values()) != calls:
+        raise SystemExit(f"port_ab: traced {sum(seen.values())} attention "
+                         f"launches, expected {calls}")
+    return ms
 
 
-def decode_device_ms(torch, smoke) -> dict:
+def _layer(torch, smoke, seed: int = 11):
+    """One llama3.2-1b layer at 2:4 in bf16: compressed weights, packed
+    words, the dense weights and x at 8, 32 and 128 rows."""
+    from repro_torch.core.sparsity import decompress
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    layer = [smoke._compressed(torch, o, k, torch.bfloat16, gen)
+             for o, k in smoke.LAYER_SHAPES]
+    words = [ops.pack_block_indices(sp.indices, 2, 4, (128, 128, 512))
+             for sp in layer]
+    dense = [decompress(sp) for sp in layer]
+    xs = {r: {k: torch.randn(r, k, generator=gen, device="cuda").to(
+        torch.bfloat16) for k in {k for _, k in smoke.LAYER_SHAPES}}
+        for r in (8, 32, 128)}
+    return layer, words, dense, xs
+
+
+def kernel_times(torch, F, smoke, device_ms) -> dict:
+    from repro_torch.kernels import nm_spmm, nm_spmv
+    layer, words, dense, xs = _layer(torch, smoke)
+    cases = {
+        "nm_spmv_onehot_b8": (8, lambda x, sp, w: nm_spmv.nm_spmv(
+            x, sp.values, sp.indices, 2, 4, mode="onehot")),
+        "nm_xwt_s128": (128, lambda x, sp, w: nm_spmm.nm_xwt(
+            x, sp.values, sp.indices, 2, 4)),
+        "nm_xwt_s32": (32, lambda x, sp, w: nm_spmm.nm_xwt(
+            x, sp.values, sp.indices, 2, 4)),
+        "nm_xwt_packed_s128": (128, lambda x, sp, w: nm_spmm.nm_xwt_packed(
+            x, sp.values, w, 2, 4)),
+    }
+    out = {}
+    for name, (rows, f) in cases.items():
+        def run(f=f, rows=rows):
+            return [f(xs[rows][sp.dense_shape[1]], sp, w)
+                    for sp, w in zip(layer, words)]
+        idx_bytes = sum((w if "packed" in name else sp.indices).numel()
+                        * (4 if "packed" in name else 1)
+                        for sp, w in zip(layer, words))
+        nbytes = idx_bytes + sum(rows * (o + k) * 2 + sp.values.numel() * 2
+                                 for sp, (o, k) in zip(layer,
+                                                       smoke.LAYER_SHAPES))
+        dev, seen = device_ms(torch, run, 20, names=True)
+        out[name] = dict(ms=smoke.time_ms(torch, run), device_ms=dev,
+                         bound_ms=nbytes / smoke.HBM_BYTES_PER_S * 1e3,
+                         kernels=sorted(k[:48] for k in seen))
+    for rows in (8, 32, 128):
+        def lin(rows=rows):
+            return [F.linear(xs[rows][w.shape[1]], w) for w in dense]
+        dev, seen = device_ms(torch, lin, 20, names=True)
+        out[f"F.linear_rows{rows}"] = dict(ms=smoke.time_ms(torch, lin),
+                                           device_ms=dev,
+                                           kernels=sorted(k[:48] for k in seen))
+    return out
+
+
+def decode_device_ms(torch, smoke, device_ms) -> dict:
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(6)
     g = smoke._paged_inputs(torch, torch.bfloat16, gen, smoke.SERVE_LENS)
     m = smoke._mla_inputs(torch, torch.bfloat16, gen, smoke.SERVE_LENS)
     scale = (128 + 64) ** -0.5
     return dict(
-        paged_gqa_decode_device_ms=device_ms(
-            torch, lambda: fa.paged_gqa_decode(*g, scale=0.125)),
-        paged_mla_decode_device_ms=device_ms(
-            torch, lambda: fa.paged_mla_decode(*m, scale=scale)))
+        paged_gqa_decode_device_ms=attention_device_ms(
+            device_ms, torch, lambda: fa.paged_gqa_decode(*g, scale=0.125)),
+        paged_mla_decode_device_ms=attention_device_ms(
+            device_ms, torch, lambda: fa.paged_mla_decode(*m, scale=scale)))
 
 
 def rates(torch, smoke) -> dict:
@@ -168,6 +234,7 @@ def main() -> int:
     ap.add_argument("root")
     ap.add_argument("--rates", action="store_true")
     ap.add_argument("--spec-twice", action="store_true")
+    ap.add_argument("--kernels", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -177,17 +244,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 plain products
     torch.backends.cudnn.allow_tf32 = False
     root = os.path.abspath(args.root)
+    device_ms = _own_device_ms()
     smoke = _load_smoke(root)
     smoke.phase_build(torch)
-    out = dict(root=root,
-               paged_gqa_decode_ms=smoke.phase_attention(torch, F)["ms"],
-               paged_mla_decode_ms=smoke.phase_mla_attention(torch, F)["ms"],
-               **decode_device_ms(torch, smoke),
-               trash_write=trash_write(torch))
+    out = dict(root=root)
+    if not args.kernels:
+        out.update(
+            paged_gqa_decode_ms=smoke.phase_attention(torch, F)["ms"],
+            paged_mla_decode_ms=smoke.phase_mla_attention(torch, F)["ms"],
+            **decode_device_ms(torch, smoke, device_ms),
+            trash_write=trash_write(torch))
     if args.rates:
         out.update(rates(torch, smoke))
     if args.spec_twice:
         out["serve_twice"] = serve_twice(torch, smoke)
+    if args.kernels:
+        out["kernels"] = kernel_times(torch, F, smoke, device_ms)
     print(json.dumps(out), flush=True)
     return 0
 
