@@ -15,9 +15,10 @@ Phases (any failure exits non-zero and prints no result line):
    card, in float32 and bfloat16, at the shapes the paths give it, and time
    it beside its bound, the plain version and one PyTorch call that
    computes the same function (the yardstick; the port never calls it);
-   the N:M linears' times are CUDA events around the wrapper calls and
-   also device time (every kernel launched, from torch.profiler), for the
-   kernel and for F.linear:
+   the N:M linears', the MLA attention kernels' and flash attention's
+   times are CUDA events around the wrapper calls and also device time
+   (every kernel launched, from torch.profiler), for the kernel and for
+   its library call:
    nm_spmv / nm_xwt at one llama3.2-1b layer's and one deepseek-v2-lite
    MoE layer's linears (plus the dense first layer's and the latent
    up-projections' shapes, checked), paged_gqa_decode at the llama serving
@@ -27,9 +28,11 @@ Phases (any failure exits non-zero and prints no result line):
    4), and paged_gqa_verify / paged_mla_verify at 8 slots x S 4, each also
    against S launches of its decode wrapper.  The variants: packed nm_xwt
    bit-equal to int8 nm_xwt at the llama layer, onehot nm_spmv against its
-   plain version, and the tensor-core bodies (onehot B 8, nm_xwt S 32 and
+   plain version, the tensor-core bodies (onehot B 8, nm_xwt S 32 and
    128, packed S 128) launched twice on the same inputs at each llama
-   layer shape, bit-equal; nm_spmm over 1:4 / 2:4 / 2:8 at the
+   layer shape, bit-equal, and the gather nm_spmv body launched twice at
+   every checked shape (llama and deepseek at 2:4, llama at 1:4),
+   bit-equal; nm_spmm over 1:4 / 2:4 / 2:8 at the
    reference's ragged (130, 96, 520) and CNN GEMMs; flash_attention
    against its plain version and chunked_attention at llama prefill (BH
    8 x 32, S 128, d 64), a
@@ -164,20 +167,23 @@ def device_ms(torch, fn, calls: int = 10, match: str = "",
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us, seen = 0.0, {}
-    for ev in prof.key_averages():
-        if match not in ev.key or \
-                "CUDA" not in str(getattr(ev, "device_type", "")):
-            continue
-        t = getattr(ev, "self_device_time_total", None) or \
-            getattr(ev, "self_cuda_time_total", 0.0)
-        if t > 0:
-            us += t
-            seen[ev.key] = seen.get(ev.key, 0) + ev.count
+    for _ in range(3):     # a trace that comes back empty is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us, seen = 0.0, {}
+        for ev in prof.key_averages():
+            if match not in ev.key or \
+                    "CUDA" not in str(getattr(ev, "device_type", "")):
+                continue
+            t = getattr(ev, "self_device_time_total", None) or \
+                getattr(ev, "self_cuda_time_total", 0.0)
+            if t > 0:
+                us += t
+                seen[ev.key] = seen.get(ev.key, 0) + ev.count
+        if us > 0:
+            break
     if us <= 0:
         raise SystemExit("device_ms: the trace recorded no device time")
     ms = us / 1e3 / calls
@@ -254,14 +260,20 @@ def phase_matmuls(torch, F, model: str, check_shapes, spmv_layer,
             sp = _compressed(torch, o, k, dtype, gen, n)
             for b in (1, 8):
                 x = torch.randn(b, k, generator=gen, device="cuda").to(dtype)
-                e, good = max_err(torch, nm_spmv.nm_spmv(x, sp.values, sp.indices, n, M),
+                y = nm_spmv.nm_spmv(x, sp.values, sp.indices, n, M)
+                # the gather body's split sums are added in a fixed order:
+                # the same inputs give the same bits on a second launch
+                same = bool(torch.equal(y, nm_spmv.nm_spmv(
+                    x, sp.values, sp.indices, n, M)))
+                e, good = max_err(torch, y,
                                   nm_spmv.nm_spmv_plain(x, sp.values, sp.indices, n, M),
                                   rtol, atol)
                 errs["nm_spmv"] = max(errs["nm_spmv"], e)
-                ok &= good
+                ok &= good and same
                 log(f"[check] nm_spmv {n}:{M} {dname} B={b} (O,K)=({o},{k}) "
                     f"max_abs_err {e:.3e} tol {atol}+{rtol}|ref| "
-                    f"{'ok' if good else 'FAIL'}")
+                    f"{'same bits twice' if same else 'OTHER BITS twice'} "
+                    f"{'ok' if good and same else 'FAIL'}")
             for s in (4, 32, 128):   # 32: the verify span
                 x = torch.randn(s, k, generator=gen, device="cuda").to(dtype)
                 e, good = max_err(torch, nm_spmm.nm_xwt(x, sp.values, sp.indices, n, M),
@@ -274,7 +286,8 @@ def phase_matmuls(torch, F, model: str, check_shapes, spmv_layer,
                     f"{'ok' if good else 'FAIL'}")
     if not ok:
         raise SystemExit(f"phase 2: a matmul kernel disagrees with its plain "
-                         f"version at {model} shapes ({n}:{M})")
+                         f"version at {model} shapes ({n}:{M}), or the gather "
+                         f"body gave other bits on a second launch")
 
     rows = {}
     for name, fn, plain, b, shapes in (
@@ -591,7 +604,9 @@ def phase_flash(torch, F):
                      iters=iters, warmup=1)
         plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
             q, k, v, **kw), iters=iters, warmup=1)
-        lib_ms = None
+        dev = device_ms(torch, lambda: fa.flash_attention_kernel(
+            q, k, v, **kw), iters)
+        lib_ms = lib_dev = None
         if "cap" not in kw:
             qpos = q_off + torch.arange(sq, device="cuda")[:, None]
             kpos = torch.arange(sk, device="cuda")[None, :]
@@ -599,20 +614,26 @@ def phase_flash(torch, F):
             if kw.get("window") is not None:
                 mask &= qpos - kpos < kw["window"]
             qq, kk, vv = q[:, None], k[:, None], v[:, None]
-            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qq, kk, vv, attn_mask=mask), iters=iters, warmup=1)
+
+            def lib():
+                return F.scaled_dot_product_attention(qq, kk, vv,
+                                                      attn_mask=mask)
+            lib_ms = time_ms(torch, lib, iters=iters, warmup=1)
+            lib_dev = device_ms(torch, lib, iters)
         chunk_ms = time_ms(torch, lambda: chunked_attention(
             q[:, :, None, :], k[:, :, None, :], v[:, :, None, :],
             **{a: kw[a] for a in ("window", "cap") if a in kw}),
             iters=iters, warmup=1) if "q_off" not in kw else None
-        timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd,
-                              bound_by=by, library_ms=lib_ms,
+        timings[label] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms,
+                              bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+                              library_device_ms=lib_dev,
                               chunked_attention_ms=chunk_ms)
         log(f"[time] flash_attention {label} (bf16, BH {bh}, Sq {sq}, Sk "
             f"{sk}, d {d}, dv {dv}{', ' + str(kw) if kw else ''}): kernel "
-            f"{ms:.4f} ms, bound {bnd:.4f} ms ({by}, {pairs / 1e6:.1f} M live"
-            f" pairs, {nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms, SDPA "
-            f"{'n/a (no softcap in SDPA)' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+            f"{ms:.4f} ms (device {dev:.4f} ms), bound {bnd:.4f} ms ({by}, "
+            f"{pairs / 1e6:.1f} M live pairs, {nbytes / 1e6:.1f} MB), plain "
+            f"{plain_ms:.4f} ms, SDPA "
+            f"{'n/a (no softcap in SDPA)' if lib_ms is None else f'{lib_ms:.4f} ms (device {lib_dev:.4f} ms)'}"
             f", chunked_attention "
             f"{'n/a' if chunk_ms is None else f'{chunk_ms:.4f} ms'}")
     kernels.reset_launch_counts()
@@ -761,19 +782,26 @@ def phase_mla_attention(torch, F):
     qq = torch.cat([ql, qp], -1).to(torch.bfloat16).reshape(b, h, 1, r + rd)
     mask = (torch.arange(length, device="cuda")[None, :]
             < kv_len[:, None].long())[:, None, None, :]
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qq, kk, vv, attn_mask=mask, scale=scale), iters=50)
+    def lib():
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask,
+                                              scale=scale)
+    lib_ms = time_ms(torch, lib, iters=50)
+    dev = device_ms(torch, lambda: fa.paged_mla_decode(
+        ql, qp, cp, pp, tbl, kv_len, scale=scale), 50)
+    lib_dev = device_ms(torch, lib, 50)
     pos = sum(lens)
     nbytes = (ql.numel() * 4 + qp.numel() * 4 + pos * (r + rd) * 2
               + tbl.numel() * 4 + b * 4 + b * h * r * 4)
     flops = 2.0 * pos * h * (r + rd + r)
     bnd, by = bound_ms(nbytes, flops, "float32")
     log(f"[time] paged_mla_decode one launch (bf16 pools, 8 slots, 16 heads, "
-        f"kv_len {lens}): kernel {ms:.4f} ms, bound {bnd:.5f} ms ({by}, "
-        f"{nbytes / 1e6:.2f} MB), plain {plain_ms:.4f} ms, SDPA on the "
-        f"gathered latent {lib_ms:.4f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                library_ms=lib_ms, max_abs_err=worst)
+        f"kv_len {lens}): kernel {ms:.4f} ms (device {dev:.4f} ms), bound "
+        f"{bnd:.5f} ms ({by}, {nbytes / 1e6:.2f} MB), plain {plain_ms:.4f} "
+        f"ms, SDPA on the gathered latent {lib_ms:.4f} ms (device "
+        f"{lib_dev:.4f} ms)")
+    return dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bnd,
+                bound_by=by, library_ms=lib_ms, library_device_ms=lib_dev,
+                max_abs_err=worst)
 
 
 def _span_table(torch, gen, lens, s, bs):
@@ -928,8 +956,14 @@ def phase_mla_verify_attention(torch, F):
     vv = ck.expand(b, h, length, r)
     qq = torch.cat([ql, qp], -1).to(torch.bfloat16).transpose(1, 2)
     mask = _span_mask(torch, kv_len, s, length)
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qq, kk, vv, attn_mask=mask, scale=scale), iters=50)
+
+    def lib():
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask,
+                                              scale=scale)
+    lib_ms = time_ms(torch, lib, iters=50)
+    dev = device_ms(torch, lambda: fa.paged_mla_verify(
+        ql, qp, cp, pp, tbl, kv_len, scale=scale), 50)
+    lib_dev = device_ms(torch, lib, 50)
     pos = sum(n + s - 1 for n in lens)
     seen = sum(n + i for n in lens for i in range(s))
     nbytes = (ql.numel() * 4 + qp.numel() * 4 + pos * (r + rd) * 2
@@ -937,12 +971,14 @@ def phase_mla_verify_attention(torch, F):
     flops = 2.0 * seen * h * (r + rd + r)
     bnd, by = bound_ms(nbytes, flops, "float32")
     log(f"[time] paged_mla_verify one launch (bf16 pools, 8 slots x span "
-        f"{s}, 16 heads, kv_len {lens}): kernel {ms:.4f} ms, bound "
-        f"{bnd:.5f} ms ({by}, {nbytes / 1e6:.2f} MB), {s} paged_mla_decode "
-        f"launches {dec_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on the "
-        f"gathered latent with the offset-causal mask {lib_ms:.4f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                library_ms=lib_ms, max_abs_err=worst,
+        f"{s}, 16 heads, kv_len {lens}): kernel {ms:.4f} ms (device "
+        f"{dev:.4f} ms), bound {bnd:.5f} ms ({by}, {nbytes / 1e6:.2f} MB), "
+        f"{s} paged_mla_decode launches {dec_ms:.4f} ms, plain {plain_ms:.4f}"
+        f" ms, SDPA on the gathered latent with the offset-causal mask "
+        f"{lib_ms:.4f} ms (device {lib_dev:.4f} ms)")
+    return dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bnd,
+                bound_by=by, library_ms=lib_ms, library_device_ms=lib_dev,
+                max_abs_err=worst,
                 decode_launches_ms=dec_ms, max_abs_err_vs_decode=worst_dec,
                 bitwise_vs_decode=bitwise)
 

@@ -39,12 +39,18 @@ replaces ``repro/kernels/flash_attention.py::flash_attention_kernel``
 (``_fa_body``) with its semantics: scale, softcap, then the causal / window
 mask anchored at ``q_off`` (default ``Sk - Sq``), masked scores forced to
 p = 0, f32 online softmax, output ``acc / max(l, 1e-30)`` (a row masked
-everywhere gives 0), no block skipped.  Bound by operations at prefill
-widths.  Design: one CTA per (bh, 32-row q tile) walks 32-key K / V tiles
-staged in f32 shared memory (d, dv <= 256, dv may differ from d); each warp
-owns 4 query rows, lane j scores key j, f32 FMAs.  As in the reference,
-the models prefill with ``chunked_attention``; this kernel is a public
-entry point that no model path calls.
+everywhere gives 0).  Bound by operations at prefill widths.  bf16 with
+d and dv multiples of 16 (up to 256) runs on the tensor cores: one CTA of
+4 warps per (bh, 64-row q tile), 16 rows a warp, K / V tiles of 64 keys
+(32 at dv > 128) through a two-stage ``cp.async`` ring, ``mma.sync`` for
+Q K^T and P V with the scores and P kept in registers, and the key tiles
+outside the q tile's causal / window band skipped (they are masked for
+every row, so skipping them changes nothing).  f32, and other bf16
+shapes, keep the first body: one CTA per (bh, 32-row q tile) over 32-key
+tiles staged in f32 shared memory, lane j scoring key j, f32 FMAs, no
+tile skipped.  As in the reference, the models prefill with
+``chunked_attention``; this kernel is a public entry point that no model
+path calls.
 
 ``*_plain`` are the same functions in plain torch (gather the table, masked
 softmax; for flash, one masked f32 softmax over the whole key axis): the

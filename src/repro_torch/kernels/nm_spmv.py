@@ -4,12 +4,22 @@ Kernel: ``csrc/nm_spmv.cu`` (CUDA C++, sm_90a).  It replaces the TPU kernel
 ``repro/kernels/nm_spmv.py::nm_spmv_kernel`` (gather body, wrapper
 ``repro/kernels/ops.py::nm_spmv``).  On the H100 it is bound by device-memory
 bytes: each compressed weight row (values + int8 indices) is read once per
-call, and the N/M-sparse MACs are far below the FMA rate.  The design keeps
-the TPU's resident-activation idea — a K-chunk of x for up to 8 batch rows
-is staged in shared memory with 16-byte loads — and streams two weight rows
-per warp with coalesced loads, f32 accumulation and a warp-shuffle
-reduction.  Any batch B >= 1 is taken as it is (no pad-to-8); batches
-above 8 use more CTAs.
+call, and only the N/M nonzero MACs are done.  The design is the paper's
+``vindexmac`` on this card: x is resident in shared memory once per CTA,
+batch-interleaved (``xs[k][b]`` for a group of up to 8 batch rows), so one
+indexed read at ``block*M + idx`` returns that column for every batch row
+(16 bytes in bf16), multiply-accumulated against one weight value.  A warp
+streams 4 rows together, a row's step one 128-byte line of values, and the
+lanes of a shared-memory phase read two M-blocks on opposite bank halves
+(no bank conflicts at M <= 4); CTAs are persistent over row groups, kw
+warps share a row group's K parts (summed in shared memory in warp
+order), and K is split across CTAs where the rows alone cannot fill the
+card; the last CTA of a row set adds the splits' f32 partial sums in split
+order (an int arrival counter per set: the same bits on every launch, no
+float atomics).  The launch plan (``gather_plan``: batch group, kw, CTAs,
+splits, columns per split) is a pure function of the shape and the SM
+count, computed here; the launcher only checks it.  Any batch B >= 1 is
+taken as it is (no pad-to-8); batches above 8 take more CTAs.
 
 ``mode="onehot"`` runs the reference's other body (``nm_spmv.py:43-47``):
 decompress each W tile, then a dense dot.  Its kernel
@@ -35,20 +45,155 @@ card.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels.build import (DTYPE_CODES, CudaKernel,
                                        check_cuda_operand)
-from repro_torch.kernels.nm_spmm import (_PLAN_ARGS, BK, launch_planned,
-                                         mma_plan, nm_xwt_plain, sm_count)
+from repro_torch.kernels.nm_spmm import (_PLAN_ARGS, BK, SMEM_LIMIT, SMS,
+                                         launch_planned, mma_plan,
+                                         nm_xwt_plain, sm_count)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
-KERNEL = CudaKernel("nm_spmv", "nm_spmv_launch", _ARGS)
+# + the gather plan's five ints, the split workspace and the arrival counters
+KERNEL = CudaKernel("nm_spmv", "nm_spmv_launch", _ARGS + [_I] * 5 + [_P, _P])
 ONEHOT_KERNEL = CudaKernel("nm_spmv_onehot", "nm_spmv_onehot_launch",
                            _PLAN_ARGS, lib="nm_spmv")
 MODES = ("gather", "onehot")
+
+GATHER_WARPS = 8      # warps per CTA of the gather body
+GATHER_ROWS = 4       # rows a warp streams together (a row group)
+GATHER_STEP = 64      # slots of each row a warp streams per step
+GATHER_CPS = 2        # CTAs an SM holds at once (256 threads, <= 128 registers)
+SM_SMEM = 233472      # shared memory of one SM (1 KB of it per CTA reserved)
+GATHER_STATIC = 2048  # a CTA's static shared memory (the K parts' sums)
+MAX_SPLITS = 32
+
+
+class GatherPlan(NamedTuple):
+    """Launch plan of the gather body (``csrc/nm_spmv.cu``)."""
+    bg: int       # batch rows per group (1, 2, 4 or 8): x's column width
+    kw: int       # warps sharing a row group, each a K part (1, 2, 4, 8)
+    ctas: int     # CTAs per (split, batch group), persistent over rows
+    splits: int   # CTAs along K
+    kper: int     # K columns per split
+
+    def groups(self, b: int) -> int:
+        return -(-b // self.bg)
+
+    def grid(self, b: int):
+        return (self.ctas, self.splits, self.groups(b))
+
+    def total(self, b: int) -> int:
+        return self.ctas * self.splits * self.groups(b)
+
+    def pass_rows(self) -> int:
+        """Rows a CTA takes at once: its row groups of 4."""
+        return GATHER_WARPS // self.kw * GATHER_ROWS
+
+    def smem(self, elt: int) -> int:
+        """Dynamic shared memory of a CTA: the resident x slice."""
+        return self.kper * self.bg * elt
+
+
+def gather_unit(n: int, m: int) -> int:
+    """The K columns a split boundary is a multiple of: whole M-blocks,
+    whole 8-column (16-byte) x runs, and whole 8-slot value loads."""
+    u = m * 8 // math.gcd(n, 8)
+    return u * 8 // math.gcd(u, 8)
+
+
+@functools.lru_cache(maxsize=4096)
+def gather_plan(b: int, o: int, k: int, n: int, m: int, elt: int = 2,
+                sms: int = SMS) -> GatherPlan:
+    """The gather body's plan for Y[b, o] = X[b, k] . W^T at ``elt`` bytes
+    per element: a pure function of the shape and the SM count.  The
+    batch group is the smallest power of two covering min(b, 8).  Each
+    split count s (x's slice within a CTA's shared memory), number kw of
+    warps sharing a row group and number of passes over row groups per
+    CTA is costed as CTAs per SM x (passes x (64-slot steps per warp + a
+    row group's reduction) + the x stage), over the share of 16 warps an
+    SM holds at once (fewer leave the weight stream's latency exposed),
+    plus a split's fix-up; the plan that fills every SM (where any can) at
+    the least cost, then with the fewest splits, kw and passes, is
+    taken."""
+    bg = 1
+    while bg < min(b, 8):
+        bg *= 2
+    groups = -(-b // bg)
+    rgroups = -(-o // GATHER_ROWS)
+    unit = gather_unit(n, m)
+    units = -(-k // unit)
+    best = None
+    for s in range(1, min(units, MAX_SPLITS) + 1):
+        per = -(-units // s)
+        if -(-units // per) != s:
+            continue
+        kper = per * unit
+        smem = kper * bg * elt
+        if smem > SMEM_LIMIT:
+            continue
+        es = min(kper, k) // m * n
+        resident = min(GATHER_CPS, SM_SMEM // (smem + GATHER_STATIC + 1024))
+        for kw in (1, 2, 4, 8):
+            per_pass = GATHER_WARPS // kw
+            steps = -(-es // (kw * GATHER_STEP))
+            last = None
+            for passes in range(1, 129):
+                ctas = -(-rgroups // (per_pass * passes))
+                if ctas == last:
+                    continue
+                last = ctas
+                total = ctas * s * groups
+                per_sm = -(-total // sms)
+                warps = GATHER_WARPS * min(per_sm, resident)
+                work = passes * (steps + (0.3 if kw > 1 else 0.1)) \
+                    + 0.5 + 0.5 * kper / 2048
+                cost = per_sm * work / min(1.0, warps / 16) \
+                    + (2.0 + 0.1 * s if s > 1 else 0.0)
+                key = (total < sms, cost, s, kw, passes)
+                if best is None or key < best[0]:
+                    best = (key, GatherPlan(bg, kw, ctas, s, kper))
+    if best is None:
+        raise ValueError(f"nm_spmv: no gather plan fits K={k} at {n}:{m} "
+                         f"in {SMEM_LIMIT} B of shared memory")
+    return best[1]
+
+
+_ARRIVALS = {}        # device -> int32 arrival counters, zero between launches
+
+
+def _arrivals(device: torch.device, count: int) -> torch.Tensor:
+    cnt = _ARRIVALS.get(device)
+    if cnt is None or cnt.numel() < count:
+        cnt = torch.zeros(max(count, 4096), dtype=torch.int32, device=device)
+        _ARRIVALS[device] = cnt
+    return cnt
+
+
+def launch_gather(x: torch.Tensor, values: torch.Tensor,
+                  indices: torch.Tensor, n: int, m: int,
+                  plan: GatherPlan) -> torch.Tensor:
+    """One launch of the gather body on checked card operands x [B, K]
+    under ``plan``; returns y [B, O]."""
+    bsz, k = x.shape
+    o = values.shape[0]
+    y = torch.empty(bsz, o, dtype=x.dtype, device=x.device)
+    if bsz and o:
+        ws = cnt = None
+        if plan.splits > 1:
+            ws = torch.empty(plan.splits, bsz, o, dtype=torch.float32,
+                             device=x.device)
+            cnt = _arrivals(x.device, plan.ctas * plan.groups(bsz))
+        KERNEL.launch(x.data_ptr(), values.data_ptr(), indices.data_ptr(),
+                      y.data_ptr(), bsz, o, k, n, m, DTYPE_CODES[x.dtype],
+                      *plan, None if ws is None else ws.data_ptr(),
+                      None if cnt is None else cnt.data_ptr())
+    return y
 
 
 def nm_spmv_plain(x: torch.Tensor, values: torch.Tensor,
@@ -108,8 +253,7 @@ def nm_spmv(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
             if x.dtype == torch.bfloat16 and bsz and o else None
         y = launch_planned(ONEHOT_KERNEL, xf, values, indices, n, m, plan)
         return y.reshape(*lead, o)
-    y = torch.empty(bsz, o, dtype=x.dtype, device=x.device)
-    if bsz and o:
-        KERNEL.launch(xf.data_ptr(), values.data_ptr(), indices.data_ptr(),
-                      y.data_ptr(), bsz, o, k, n, m, DTYPE_CODES[x.dtype])
-    return y.reshape(*lead, o)
+    if not bsz or not o:
+        return torch.empty(*lead, o, dtype=x.dtype, device=x.device)
+    plan = gather_plan(bsz, o, k, n, m, x.element_size(), sm_count(x.device))
+    return launch_gather(xf, values, indices, n, m, plan).reshape(*lead, o)

@@ -629,3 +629,96 @@ def test_first_bf16_bodies_off_the_tensor_core_set(nm, rows, o, k):
     y = _once_and_again(nm_spmv.ONEHOT_KERNEL, lambda: nm_spmv.nm_spmv(
         xb, sp.values, sp.indices, n, m, mode="onehot"))
     _close(y, nm_spmv.nm_spmv_onehot_plain(xb, sp.values, sp.indices, n, m))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nm", [(1, 2), (1, 4), (2, 4), (2, 8), (4, 8),
+                                (1, 16)])
+@pytest.mark.parametrize("b", [1, 3, 8, 9, 16])
+@pytest.mark.parametrize("o,k", [(512, 2048), (576, 2048), (2048, 8192),
+                                 (200, 1040), (72, 1028)])
+def test_gather_body_matches_plain_twice(dtype, nm, b, o, k):
+    """The gather body under its plan: batch groups 1-8 and two groups
+    (B 9, 16), split K (O 512 / 576, K 8192), K not a multiple of the
+    16-byte run (1028 at M 4; rounded up to M elsewhere), the compile-time
+    N:M instances and the general one (4:8, 1:16); within tolerance of the
+    plain version, and the same bits on a second launch (splits added in
+    order by the last CTA to arrive)."""
+    from repro_torch.kernels import nm_spmv as mod
+    n, m = nm
+    k = -(-k // m) * m
+    sp, g = _compressed(o, k, n, m, dtype, seed=b + o + k + m)
+    x = torch.randn(b, k, generator=g, device="cuda").to(dtype)
+    y = _once_and_again(mod.KERNEL, lambda: mod.nm_spmv(
+        x, sp.values, sp.indices, n, m))
+    np.testing.assert_allclose(
+        y.float().cpu().numpy(),
+        mod.nm_spmv_plain(x, sp.values, sp.indices, n, m).float().cpu().numpy(),
+        **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 2, 4, 5])
+@pytest.mark.parametrize("bs", [16, 32])
+def test_mla_kernel_lengths_around_blocks(dtype, s, bs):
+    """Deepseek width (16 heads, kv_lora 512, rope 64) at kv_len 1, 15, 16,
+    17 and 160 (spans ending inside, at and past a block), a hot (1e4)
+    trash block, f32 and bf16 pools: verify within 2e-4 of its plain
+    version, decode within 2e-4 of its own, verify offset i equal bit for
+    bit to a decode launch at kv_len + i, and the same bits twice."""
+    from repro_torch.kernels import flash_attention as mod
+    lens = [1, 15, 16, 17, 160]
+    b, h, r, rd = len(lens), 16, 512, 64
+    gen = torch.Generator(device="cuda").manual_seed(bs + s)
+    tbl, nb = _span_table(gen, lens, s, bs)
+    cp = torch.randn(nb, bs, r, generator=gen, device="cuda").to(dtype)
+    pp = torch.randn(nb, bs, rd, generator=gen, device="cuda").to(dtype)
+    cp[0] = 1e4
+    pp[0] = 1e4
+    ql = torch.randn(b, s, h, r, generator=gen, device="cuda")
+    qp = torch.randn(b, s, h, rd, generator=gen, device="cuda")
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    scale = (128 + 64) ** -0.5
+    out = _once_and_again(mod.MLA_VERIFY_KERNEL, lambda: mod.paged_mla_verify(
+        ql, qp, cp, pp, tbl, kv_len, scale=scale))
+    want = mod.paged_mla_verify_plain(ql, qp, cp, pp, tbl, kv_len,
+                                      scale=scale)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+    for i in range(s):
+        args = (ql[:, i].contiguous(), qp[:, i].contiguous(), cp, pp, tbl,
+                kv_len + i)
+        one = mod.paged_mla_decode(*args, scale=scale)
+        np.testing.assert_allclose(
+            one.cpu().numpy(),
+            mod.paged_mla_decode_plain(*args, scale=scale).cpu().numpy(),
+            rtol=2e-4, atol=2e-4)
+        assert torch.equal(out[:, i], one), f"offset {i}"
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,dv,case", [
+    (2, 1000, 1000, 128, 128, dict(window=300)),
+    (1, 300, 700, 64, 64, dict(causal=False, window=100)),
+    (2, 128, 2048, 64, 64, dict(q_off=1900, window=256)),
+    (1, 200, 333, 256, 256, dict(cap=30.0)),
+    (3, 64, 64, 64, 64, dict(q_off=-64)),
+    (2, 130, 97, 192, 128, dict(causal=False))])
+def test_flash_tensor_core_body_skips_only_masked_tiles(bh, sq, sk, d, dv,
+                                                        case):
+    """The bf16 tensor-core body skips key tiles outside each q tile's
+    causal / window band: long windows, a non-causal window, a q_off
+    slice deep in the keys, the 32-key tiles of dv 256 with a softcap,
+    rows masked everywhere (0), and ragged Sq / Sk; against the plain
+    version at bf16's 3e-2, finite, and the same bits twice."""
+    from repro_torch.kernels import flash_attention as mod
+    g = torch.Generator(device="cuda").manual_seed(bh * sq + sk + d)
+    q = torch.randn(bh, sq, d, generator=g, device="cuda").to(torch.bfloat16)
+    k = torch.randn(bh, sk, d, generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn(bh, sk, dv, generator=g, device="cuda").to(torch.bfloat16)
+    out = _once_and_again(mod.FLASH_KERNEL, lambda: mod.flash_attention_kernel(
+        q, k, v, **case))
+    want = mod.flash_attention_plain(q, k, v, **case)
+    assert bool(torch.isfinite(out).all())
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=3e-2,
+                               atol=3e-2)

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time of the bf16 tensor-core N:M body goes, by ablation.
+"""Where the time of the bf16 N:M bodies goes, by ablation.
 
   python3 tools/nm_mma_ablate.py [--variants orig,nox,now,noout,nomma,nodec]
+  python3 tools/nm_mma_ablate.py --body gather \
+      [--variants orig,nox,now,nofma,nostage]
 
 For each variant a copy of ``src/repro_torch/csrc`` is patched to leave
-one part of ``nm_mma.cuh``'s tile body out, built into
-``src/repro_torch/_build/ablate/<variant>/`` (gitignored), and timed in
-its own process:
+one part of a body out, built into
+``src/repro_torch/_build/ablate/<body>-<variant>/`` (gitignored), and
+timed in its own process.  The tensor-core tile body of ``nm_mma.cuh``
+(``--body mma``, the default):
 
 * ``orig``   the body as it is;
 * ``nox``    no X tile copies (the ring's X rows keep stale data);
@@ -15,12 +18,20 @@ its own process:
 * ``nomma``  each mma.sync replaced by one integer xor into the sum;
 * ``nodec``  each 16-column decompress replaced by an xor of its inputs.
 
+The gather nm_spmv body of ``nm_spmv.cu`` (``--body gather``):
+
+* ``nox``     each x read at a fixed column of the lane's (no index, no
+  bank conflict);
+* ``now``     no weight loads (the ring's fragments are zero);
+* ``nofma``   only batch row 0 converted and multiply-accumulated;
+* ``nostage`` x not staged (shared memory keeps stale data).
+
 The ablated kernels compute nothing useful; only their device times mean
-anything: per linear, from ``torch.profiler``, for three of one
-llama3.2-1b layer's linears (2:4, bf16) at B 8 (onehot body), S 32 and
-S 128 (nm_xwt) under the wrapper's own plan.  What a variant saves
-against ``orig`` is that part's share of the critical path.  Needs one
-NVIDIA card; prints one JSON line per variant.
+anything: per linear, from ``torch.profiler``, for one llama3.2-1b
+layer's linears (2:4, bf16) under the wrapper's own plan: the mma body
+at B 8 (onehot), S 32 and S 128 (nm_xwt), the gather body at B 8.  What
+a variant saves against ``orig`` is that part's share of the critical
+path.  Needs one NVIDIA card; prints one JSON line per variant.
 """
 
 from __future__ import annotations
@@ -33,10 +44,11 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-VARIANTS = ("orig", "nox", "now", "noout", "nomma", "nodec")
+VARIANTS = {"mma": ("orig", "nox", "now", "noout", "nomma", "nodec"),
+            "gather": ("orig", "nox", "now", "nofma", "nostage")}
 SHAPES = ((2048, 2048), (8192, 2048), (2048, 8192))   # wq, wg, wd
 # (marker, replacement) pairs; each variant turns one PROBE_* flag on
-PATCHES = (
+MMA_PATCHES = (
     ("      if (a.xvec) {  // X:", "      if (PROBE_NOX) {} else if (a.xvec) {  // X:"),
     ("      if (a.vvec) {  // values:",
      "      if (PROBE_NOW) {} else if (a.vvec) {  // values:"),
@@ -50,18 +62,34 @@ PATCHES = (
      "vw[q % (P / 2)] ^ id[q % P]; } else decompress16<N, M>(vw, id, "
      "af[mi][h]);"),
 )
+GATHER_PATCHES = (
+    ("XCol<T, BG>::load(xs, base + (SWZ ? off ^ key : off), xv);",
+     "XCol<T, BG>::load(xs, base + (PROBE_NOX ? key : SWZ ? off ^ key : off), "
+     "xv);"),
+    ("  if (wvec) {  // the row's slot count",
+     "  if (PROBE_NOW) { f = WFrag<T>{}; return; }\n"
+     "  if (wvec) {  // the row's slot count"),
+    ("        for (int b = 0; b < BG; ++b) acc[b] = fmaf(w, xv[b], acc[b]);\n"
+     "      }\n    }\n  } else {",
+     "        for (int b = 0; b < BG; ++b) if (!PROBE_NOFMA || b == 0) "
+     "acc[b] = fmaf(w, xv[b], acc[b]);\n      }\n    }\n  } else {"),
+    ("  stage_x<T, BG>(xs,", "  if (!PROBE_NOSTAGE) stage_x<T, BG>(xs,"),
+)
+BODIES = {"mma": ("nm_mma.cuh", "#pragma once\n", MMA_PATCHES),
+          "gather": ("nm_spmv.cu", '#include "nm_mma.cuh"\n', GATHER_PATCHES)}
 
 
-def patched_source(variant: str, csrc: str, dst: str) -> None:
+def patched_source(body: str, variant: str, csrc: str, dst: str) -> None:
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(csrc, dst)
-    path = os.path.join(dst, "nm_mma.cuh")
+    name, anchor, patches = BODIES[body]
+    path = os.path.join(dst, name)
     with open(path) as f:
         s = f.read()
     flags = "".join(f"#define PROBE_{v.upper()} {int(v == variant)}\n"
-                    for v in VARIANTS[1:])
-    s = s.replace("#pragma once\n", "#pragma once\n" + flags, 1)
-    for old, new in PATCHES:
+                    for v in VARIANTS[body][1:])
+    s = s.replace(anchor, anchor + flags, 1)
+    for old, new in patches:
         if old not in s:
             raise SystemExit(f"nm_mma_ablate: marker not found: {old!r}")
         s = s.replace(old, new)
@@ -69,7 +97,7 @@ def patched_source(variant: str, csrc: str, dst: str) -> None:
         f.write(s)
 
 
-def run_variant(variant: str) -> dict:
+def run_variant(body: str, variant: str) -> dict:
     from pathlib import Path
 
     sys.path.insert(0, ROOT)               # chip_smoke adds ROOT/src
@@ -78,13 +106,24 @@ def run_variant(variant: str) -> dict:
     from chip_smoke import device_ms
     from repro_torch.core.sparsity import compress
     from repro_torch.kernels import build, nm_spmm, nm_spmv
-    dst = build.BUILD_DIR / "ablate" / variant
-    patched_source(variant, str(build.CSRC_DIR), str(dst / "csrc"))
+    dst = build.BUILD_DIR / "ablate" / f"{body}-{variant}"
+    patched_source(body, variant, str(build.CSRC_DIR), str(dst / "csrc"))
     build.CSRC_DIR, build.BUILD_DIR = Path(dst / "csrc"), Path(dst / "lib")
-    build.build_all(("nm_spmv", "nm_xwt"))
+    build.build_all(("nm_spmv",) if body == "gather" else ("nm_spmv", "nm_xwt"))
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     out = {}
+    if body == "gather":
+        for o, k in ((512, 2048),) + SHAPES:
+            w = (torch.randn(o, k, generator=gen, device="cuda")
+                 * k ** -0.5).to(torch.bfloat16)
+            sp = compress(w, 2, 4)
+            x = torch.randn(8, k, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            out[f"rows8_{o}x{k}"] = round(1e3 * device_ms(
+                torch, lambda: nm_spmv.nm_spmv(x, sp.values, sp.indices,
+                                               2, 4), 20), 2)
+        return out
     for rows, decode, kern in ((8, True, nm_spmv.ONEHOT_KERNEL),
                                (32, False, nm_spmm.KERNEL),
                                (128, False, nm_spmm.KERNEL)):
@@ -103,12 +142,13 @@ def run_variant(variant: str) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--body", choices=sorted(BODIES), default="mma")
+    ap.add_argument("--variants")
     ap.add_argument("--variant", help=argparse.SUPPRESS)   # one, in-process
     args = ap.parse_args()
     if args.variant:
-        print(json.dumps({"variant": args.variant,
-                          "device_us": run_variant(args.variant)}),
+        print(json.dumps({"body": args.body, "variant": args.variant,
+                          "device_us": run_variant(args.body, args.variant)}),
               flush=True)
         return 0
     import torch
@@ -116,11 +156,12 @@ def main() -> int:
         print("nm_mma_ablate: needs an NVIDIA card", file=sys.stderr)
         return 1
     rc = 0
-    for v in args.variants.split(","):
-        if v not in VARIANTS:
-            raise SystemExit(f"unknown variant {v!r} (one of {VARIANTS})")
-        rc |= subprocess.run([sys.executable, __file__, "--variant", v],
-                             check=False).returncode
+    variants = VARIANTS[args.body]
+    for v in (args.variants or ",".join(variants)).split(","):
+        if v not in variants:
+            raise SystemExit(f"unknown variant {v!r} (one of {variants})")
+        rc |= subprocess.run([sys.executable, __file__, "--body", args.body,
+                              "--variant", v], check=False).returncode
     return rc
 
 

@@ -2,6 +2,7 @@
 """Compare two checkouts of the PyTorch/CUDA port on one NVIDIA card.
 
   python3 tools/port_ab.py ROOT [--rates] [--spec-twice] [--kernels]
+                                [--device-table]
 
 Run it once per checkout, each in its own process and all in one session
 on the card (parent, change, change, parent), so that the readings share
@@ -37,6 +38,19 @@ JSON line:
   every kernel the layer launched, from ``torch.profiler``, per layer) and
   ``bound_ms`` (the layer's bytes, each input read once and the output
   written once, over 3.35 TB/s).
+* with ``--device-table`` (and then instead of the above): the device
+  time (``device_ms``: every kernel the call launched, from
+  ``torch.profiler``) of each kernel of the port beside the one PyTorch
+  call that computes the same function, with the bound, at the shapes of
+  the checkout's ``chip_smoke.py``: the gather nm_spmv body over one
+  llama3.2-1b layer at B 8 (2:4 and the rerank draft's 1:4) against
+  ``F.linear``; paged_gqa_decode / paged_gqa_verify and paged_mla_decode
+  / paged_mla_verify at the serving shape (8 slots, ``SERVE_LENS``, span
+  4, bf16 pools) against SDPA on the gathered cache; flash_attention at
+  the phase-2 cases against SDPA (none with a softcap); nm_spmm over the
+  15 CNN layers (2:4, f32, batch 32, TF32 off) against ``torch.mm`` on
+  the dense weights.  Per case ``device_ms``, ``library_device_ms``,
+  ``factor`` (their ratio) and ``bound_ms``.
 """
 
 from __future__ import annotations
@@ -177,6 +191,184 @@ def decode_device_ms(torch, smoke, device_ms) -> dict:
             device_ms, torch, lambda: fa.paged_mla_decode(*m, scale=scale)))
 
 
+def _pair(device_ms, torch, kernel_fn, lib_fn, bound, calls=20) -> dict:
+    dev = device_ms(torch, kernel_fn, calls)
+    lib = device_ms(torch, lib_fn, calls) if lib_fn is not None else None
+    return dict(device_ms=dev, library_device_ms=lib,
+                factor=None if lib is None else dev / lib, bound_ms=bound)
+
+
+def _gather_rows(torch, F, smoke, device_ms) -> dict:
+    """The gather nm_spmv body over one llama layer's seven linears at B 8,
+    2:4 and 1:4 (bf16), against F.linear on the decompressed weights."""
+    from repro_torch.core.sparsity import decompress
+    from repro_torch.kernels import nm_spmv
+    out = {}
+    for n in (2, 1):
+        gen = torch.Generator(device="cuda").manual_seed(12 + n)
+        layer = [smoke._compressed(torch, o, k, torch.bfloat16, gen, n)
+                 for o, k in smoke.LAYER_SHAPES]
+        dense = [decompress(sp) for sp in layer]
+        xs = {k: torch.randn(8, k, generator=gen, device="cuda").to(
+            torch.bfloat16) for _, k in smoke.LAYER_SHAPES}
+        nbytes = sum(8 * (o + k) * 2 + sp.values.numel() * 3
+                     for sp, (o, k) in zip(layer, smoke.LAYER_SHAPES))
+        out[f"nm_spmv_gather_{n}of4_b8"] = _pair(
+            device_ms, torch,
+            lambda: [nm_spmv.nm_spmv(xs[sp.dense_shape[1]], sp.values,
+                                     sp.indices, n, 4) for sp in layer],
+            lambda: [F.linear(xs[w.shape[1]], w) for w in dense],
+            nbytes / smoke.HBM_BYTES_PER_S * 1e3)
+        del layer, dense
+    return out
+
+
+def _attention_rows(torch, F, smoke, device_ms) -> dict:
+    """The paged attention kernels at chip_smoke's serving shapes (bf16
+    pools, 8 slots, SERVE_LENS; verify at span SPAN with its table), each
+    against SDPA on the cache gathered into position order (outside the
+    timed call)."""
+    from repro_torch.kernels import flash_attention as fa
+    lens, s = smoke.SERVE_LENS, smoke.SPAN
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out = {}
+    bf = torch.bfloat16
+    for span in (1, s):
+        kvh, g, d, bs = 8, 4, 64, 16
+        tbl, nb = (smoke._span_table(torch, gen, lens, span, bs) if span > 1
+                   else smoke._paged_table(torch, gen, lens, bs))
+        b, length = len(lens), tbl.shape[1] * bs
+        kp = torch.randn(nb, bs, kvh, d, generator=gen, device="cuda").to(bf)
+        vp = torch.randn(nb, bs, kvh, d, generator=gen, device="cuda").to(bf)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = torch.randn(b, span, kvh, g, d, generator=gen,
+                        device="cuda").to(bf)
+        kr = kp[tbl.long()].reshape(b, length, kvh, d).repeat_interleave(g, 2)
+        vr = vp[tbl.long()].reshape(b, length, kvh, d).repeat_interleave(g, 2)
+        kr, vr = kr.transpose(1, 2).contiguous(), vr.transpose(1, 2).contiguous()
+        qq = q.permute(0, 2, 3, 1, 4).reshape(b, kvh * g, span, d)
+        mask = smoke._span_mask(torch, kv_len, span, length)
+        pos = sum(n + span - 1 for n in lens)
+        nbytes = (q.numel() * 2 + pos * kvh * 2 * d * 2 + tbl.numel() * 4
+                  + b * 4 + b * span * kvh * g * d * 4)
+        if span == 1:
+            q1 = q[:, 0].contiguous()
+            kern = lambda: fa.paged_gqa_decode(q1, kp, vp, tbl, kv_len,
+                                               scale=0.125)
+        else:
+            kern = lambda: fa.paged_gqa_verify(q, kp, vp, tbl, kv_len,
+                                               scale=0.125)
+        out["paged_gqa_" + ("decode" if span == 1 else "verify")] = _pair(
+            device_ms, torch, kern,
+            lambda: F.scaled_dot_product_attention(qq, kr, vr, attn_mask=mask,
+                                                   scale=0.125),
+            nbytes / smoke.HBM_BYTES_PER_S * 1e3)
+
+        h, r, rd = 16, 512, 64
+        scale = (128 + 64) ** -0.5
+        cp = torch.randn(nb, bs, r, generator=gen, device="cuda").to(bf)
+        pp = torch.randn(nb, bs, rd, generator=gen, device="cuda").to(bf)
+        ql = torch.randn(b, span, h, r, generator=gen, device="cuda")
+        qp = torch.randn(b, span, h, rd, generator=gen, device="cuda")
+        ck = cp[tbl.long()].reshape(b, 1, length, r)
+        kk = torch.cat([ck, pp[tbl.long()].reshape(b, 1, length, rd)], -1)
+        kk = kk.expand(b, h, length, r + rd)
+        vv = ck.expand(b, h, length, r)
+        qq2 = torch.cat([ql, qp], -1).to(bf).transpose(1, 2)
+        seen = sum(n + i for n in lens for i in range(span))
+        nbytes = (ql.numel() * 4 + qp.numel() * 4 + pos * (r + rd) * 2
+                  + tbl.numel() * 4 + b * 4 + b * span * h * r * 4)
+        bnd, _ = smoke.bound_ms(nbytes, 2.0 * seen * h * (r + rd + r),
+                                "float32")
+        if span == 1:
+            ql1, qp1 = ql[:, 0].contiguous(), qp[:, 0].contiguous()
+            kern = lambda: fa.paged_mla_decode(ql1, qp1, cp, pp, tbl, kv_len,
+                                               scale=scale)
+        else:
+            kern = lambda: fa.paged_mla_verify(ql, qp, cp, pp, tbl, kv_len,
+                                               scale=scale)
+        out["paged_mla_" + ("decode" if span == 1 else "verify")] = _pair(
+            device_ms, torch, kern,
+            lambda: F.scaled_dot_product_attention(qq2, kk, vv,
+                                                   attn_mask=mask,
+                                                   scale=scale), bnd)
+    return out
+
+
+def _flash_rows(torch, F, smoke, device_ms) -> dict:
+    """flash_attention_kernel at chip_smoke's FLASH_CASES (bf16) against
+    SDPA with the same mask (none where the case has a softcap)."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    out = {}
+    for label, bh, sq, sk, d, dv, kw in smoke.FLASH_CASES:
+        bf = torch.bfloat16
+        q = torch.randn(bh, sq, d, generator=gen, device="cuda").to(bf)
+        k = torch.randn(bh, sk, d, generator=gen, device="cuda").to(bf)
+        v = torch.randn(bh, sk, dv, generator=gen, device="cuda").to(bf)
+        q_off = kw.get("q_off", sk - sq)
+        lib = None
+        if "cap" not in kw:
+            qpos = q_off + torch.arange(sq, device="cuda")[:, None]
+            kpos = torch.arange(sk, device="cuda")[None, :]
+            mask = qpos >= kpos
+            if kw.get("window") is not None:
+                mask &= qpos - kpos < kw["window"]
+            qq, kk, vv = q[:, None], k[:, None], v[:, None]
+            lib = lambda: F.scaled_dot_product_attention(qq, kk, vv,
+                                                         attn_mask=mask)
+        pairs = bh * smoke._live_pairs(torch, sq, sk, kw.get("causal", True),
+                                       kw.get("window"), q_off)
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + bh * sq * dv)
+        bnd, _ = smoke.bound_ms(nbytes, 2.0 * pairs * (d + dv), "bfloat16")
+        out[f"flash_attention {label}"] = _pair(
+            device_ms, torch,
+            lambda: fa.flash_attention_kernel(q, k, v, **kw), lib, bnd,
+            calls=3 if sq >= 4096 else 20)
+    return out
+
+
+def _spmm_rows(torch, smoke, device_ms) -> dict:
+    """nm_spmm over the 15 CNN layers (2:4, f32, batch 32) against
+    torch.mm on the dense pruned weights (TF32 off), summed."""
+    from repro_torch.core.sparsity import decompress
+    from repro_torch.kernels import nm_spmm
+    from repro_torch.models.cnn import CNN_LAYER_CONVS, im2col, sparse_conv_init
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    dev = lib = bound = 0.0
+    for convs in CNN_LAYER_CONVS.values():
+        for _, c_in, c_out, kh, kw, stride, h in convs:
+            w = sparse_conv_init(gen, c_in, c_out, kh, kw, 2, 4)
+            wd = decompress(w)
+            x = torch.randn(32, h, h, c_in, generator=gen, device="cuda")
+            cols, _ = im2col(x, kh, kw, stride)
+            ckp = w.dense_shape[1]
+            colst = F.pad(cols, (0, ckp - cols.shape[1])).t().contiguous()
+            dev += device_ms(torch, lambda: nm_spmm.nm_spmm(
+                w.values, w.indices, colst, 2, 4), 5)
+            lib += device_ms(torch, lambda: torch.mm(wd, colst), 5)
+            nbytes = 4 * (colst.numel() + colst.shape[1] * c_out) \
+                + w.values.numel() * 5
+            bound += smoke.bound_ms(nbytes, 2.0 * colst.shape[1]
+                                    * w.values.numel(), "float32")[0]
+            del x, cols, colst
+    return {"nm_spmm 15 CNN layers": dict(
+        device_ms=dev, library_device_ms=lib, factor=dev / lib,
+        bound_ms=bound)}
+
+
+def device_table(torch, F, smoke, device_ms) -> dict:
+    out = {}
+    for part in (lambda: _gather_rows(torch, F, smoke, device_ms),
+                 lambda: _attention_rows(torch, F, smoke, device_ms),
+                 lambda: _flash_rows(torch, F, smoke, device_ms),
+                 lambda: _spmm_rows(torch, smoke, device_ms)):
+        out.update(part())
+        print(f"port_ab: {sorted(out)} done", file=sys.stderr, flush=True)
+    return out
+
+
 def rates(torch, smoke) -> dict:
     import dataclasses
 
@@ -235,6 +427,7 @@ def main() -> int:
     ap.add_argument("--rates", action="store_true")
     ap.add_argument("--spec-twice", action="store_true")
     ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--device-table", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -248,7 +441,7 @@ def main() -> int:
     smoke = _load_smoke(root)
     smoke.phase_build(torch)
     out = dict(root=root)
-    if not args.kernels:
+    if not (args.kernels or args.device_table):
         out.update(
             paged_gqa_decode_ms=smoke.phase_attention(torch, F)["ms"],
             paged_mla_decode_ms=smoke.phase_mla_attention(torch, F)["ms"],
@@ -260,6 +453,8 @@ def main() -> int:
         out["serve_twice"] = serve_twice(torch, smoke)
     if args.kernels:
         out["kernels"] = kernel_times(torch, F, smoke, device_ms)
+    if args.device_table:
+        out["device_table"] = device_table(torch, F, smoke, device_ms)
     print(json.dumps(out), flush=True)
     return 0
 
