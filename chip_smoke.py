@@ -15,7 +15,7 @@ Phases (any failure exits non-zero and prints no result line):
    card, in float32 and bfloat16, at the shapes the paths give it, and time
    it beside its bound, the plain version and one PyTorch call that
    computes the same function (the yardstick; the port never calls it);
-   the N:M linears', the MLA attention kernels' and flash attention's
+   the N:M linears', the paged attention kernels' and flash attention's
    times are CUDA events around the wrapper calls and also device time
    (every kernel launched, from torch.profiler), for the kernel and for
    its library call:
@@ -26,7 +26,11 @@ Phases (any failure exits non-zero and prints no result line):
    operands: nm_spmv / nm_xwt at 1:4 (the rerank draft's format) at the
    llama layer shapes, nm_xwt at the 32 rows of a verify span (8 slots x
    4), and paged_gqa_verify / paged_mla_verify at 8 slots x S 4, each also
-   against S launches of its decode wrapper.  The variants: packed nm_xwt
+   against S launches of its decode wrapper, and again at a long context
+   (``LONG_LENS``: up to 2100 positions, so a row's view spans several
+   chunks of the tensor-core bodies and their cross-CTA fold runs) against
+   the plain version, against decode bit for bit, and launched twice on
+   the same inputs, bit-equal.  The variants: packed nm_xwt
    bit-equal to int8 nm_xwt at the llama layer, onehot nm_spmv against its
    plain version, the tensor-core bodies (onehot B 8, nm_xwt S 32 and
    128, packed S 128) launched twice on the same inputs at each llama
@@ -717,18 +721,25 @@ def phase_attention(torch, F):
     qq = q.reshape(b, kvh * g, 1, d)
     mask = (torch.arange(length, device="cuda")[None, :]
             < kv_len[:, None].long())[:, None, None, :]
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qq, kr, vr, attn_mask=mask, scale=0.125), iters=50)
+    def lib():
+        return F.scaled_dot_product_attention(qq, kr, vr, attn_mask=mask,
+                                              scale=0.125)
+    lib_ms = time_ms(torch, lib, iters=50)
+    dev = device_ms(torch, lambda: fa.paged_gqa_decode(
+        q, kp, vp, tbl, kv_len, scale=0.125), 50)
+    lib_dev = device_ms(torch, lib, 50)
     pos = sum(lens)
     nbytes = (q.numel() * 2 + pos * kvh * 2 * d * 2 + tbl.numel() * 4
               + b * 4 + b * kvh * g * d * 4)
     flops = 2.0 * pos * kvh * g * 2 * d
     bnd, by = bound_ms(nbytes, flops, "bfloat16")
     log(f"[time] paged_gqa_decode one launch (bf16, 8 slots, kv_len {lens}): "
-        f"kernel {ms:.4f} ms, bound {bnd:.5f} ms ({by}, {nbytes / 1e6:.2f} MB),"
-        f" plain {plain_ms:.4f} ms, SDPA on gathered K/V {lib_ms:.4f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                library_ms=lib_ms, max_abs_err=worst)
+        f"kernel {ms:.4f} ms (device {dev:.4f} ms), bound {bnd:.5f} ms ({by},"
+        f" {nbytes / 1e6:.2f} MB), plain {plain_ms:.4f} ms, SDPA on gathered "
+        f"K/V {lib_ms:.4f} ms (device {lib_dev:.4f} ms)")
+    return dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bnd,
+                bound_by=by, library_ms=lib_ms, library_device_ms=lib_dev,
+                max_abs_err=worst)
 
 
 def _mla_inputs(torch, dtype, gen, lens, h=16, r=512, rd=64, bs=16):
@@ -830,6 +841,49 @@ def _against_decode(torch, verify, decode, name, dname, case, tol):
     return e, good, same
 
 
+# views of several 64-position chunks (the cross-CTA fold of the
+# tensor-core bodies), chunk edges, and a row of trash blocks only (row 0)
+LONG_LENS = [1, 2100, 1000, 17, 16, 15, 64, 65]
+
+
+def _long_inputs(torch, gen, dtype, kshape, vshape, qshape, bs):
+    """Pools of LONG_LENS plus the span behind a span table, hot (1e4)
+    trash block; f32 queries of each shape in ``qshape`` (MLA: a list) or
+    one query of the pool dtype (GQA)."""
+    s = qshape[0][0] if isinstance(qshape, list) else qshape[0]
+    tbl, nb = _span_table(torch, gen, LONG_LENS, s, bs)
+    kp = torch.randn(nb, bs, *kshape, generator=gen, device="cuda").to(dtype)
+    vp = torch.randn(nb, bs, *vshape, generator=gen, device="cuda").to(dtype)
+    kp[0] = 1e4
+    vp[0] = 1e4
+    b = len(LONG_LENS)
+    if isinstance(qshape, list):
+        q = [torch.randn(b, *sh, generator=gen, device="cuda")
+             for sh in qshape]
+    else:
+        q = torch.randn(b, *qshape, generator=gen, device="cuda").to(dtype)
+    kv_len = torch.tensor(LONG_LENS, dtype=torch.int32, device="cuda")
+    return q, kp, vp, tbl, kv_len
+
+
+def check_long_context(torch, name, what, launch, plain, decode, s):
+    """[check] lines at LONG_LENS: the verify wrapper against its plain
+    version, a second launch bit for bit, and offset i against the decode
+    wrapper at kv_len + i bit for bit.  Returns (max_abs_err, all held)."""
+    out = launch()
+    e, good = max_err(torch, out, plain(), ATTN_TOL, ATTN_TOL)
+    twice = bool(torch.equal(launch(), out))
+    same = all(bool(torch.equal(out[:, i], decode(i))) for i in range(s))
+    log(f"[check] {name} {what} long context (kv_len {LONG_LENS}, span {s})"
+        f" max_abs_err {e:.3e} tol {ATTN_TOL}+{ATTN_TOL}|ref| "
+        f"{'ok' if good else 'FAIL'}")
+    log(f"[check] {name} {what} long context: second launch "
+        f"{'same bits' if twice else 'DIFFERENT bits'}, offsets vs decode at "
+        f"kv_len + i {'bitwise equal' if same else 'NOT bitwise'} "
+        f"{'ok' if twice and same else 'FAIL'}")
+    return e, good and twice and same
+
+
 def phase_verify_attention(torch, F):
     """paged_gqa_verify at the llama speculative shape: 8 slots x span 4,
     KVH 8, G 4, d 64, block 16, kv_len 1..160 (spans crossing block
@@ -849,6 +903,7 @@ def phase_verify_attention(torch, F):
         vp[0] = 1e4
         q = torch.randn(b, s, kvh, g, d, generator=gen, device="cuda").to(dtype)
         kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        args = (q, kp, vp, tbl, kv_len)
         for case in (dict(), dict(window=48, cap=30.0)):
             out = fa.paged_gqa_verify(q, kp, vp, tbl, kv_len, scale=0.125,
                                       **case)
@@ -866,9 +921,24 @@ def phase_verify_attention(torch, F):
                                               ATTN_TOL)
             worst, worst_dec = max(worst, e), max(worst_dec, ed)
             ok, bitwise = ok and good and goodd, bitwise and same
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        q, kp, vp, tbl, kv_len = _long_inputs(torch, gen, dtype, (kvh, d),
+                                              (kvh, d), (s, kvh, g, d), bs)
+        for case in (dict(), dict(window=48, cap=30.0)):
+            kw = dict(scale=0.125, **case)
+            e, good = check_long_context(
+                torch, "paged_gqa_verify", f"{dname} {case or 'plain mask'}",
+                lambda: fa.paged_gqa_verify(q, kp, vp, tbl, kv_len, **kw),
+                lambda: fa.paged_gqa_verify_plain(q, kp, vp, tbl, kv_len,
+                                                  **kw),
+                lambda i: fa.paged_gqa_decode(q[:, i].contiguous(), kp, vp,
+                                              tbl, kv_len + i, **kw), s)
+            worst, ok = max(worst, e), ok and good
     if not ok:
         raise SystemExit("phase 2: paged_gqa_verify disagrees with its plain "
                          "version or with the decode kernel")
+    q, kp, vp, tbl, kv_len = args
     length = tbl.shape[1] * bs
     ms = time_ms(torch, lambda: fa.paged_gqa_verify(
         q, kp, vp, tbl, kv_len, scale=0.125), iters=50)
@@ -884,8 +954,14 @@ def phase_verify_attention(torch, F):
     kr, vr = kr.transpose(1, 2).contiguous(), vr.transpose(1, 2).contiguous()
     qq = q.permute(0, 2, 3, 1, 4).reshape(b, kvh * g, s, d)
     mask = _span_mask(torch, kv_len, s, length)
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qq, kr, vr, attn_mask=mask, scale=0.125), iters=50)
+
+    def lib():
+        return F.scaled_dot_product_attention(qq, kr, vr, attn_mask=mask,
+                                              scale=0.125)
+    lib_ms = time_ms(torch, lib, iters=50)
+    dev = device_ms(torch, lambda: fa.paged_gqa_verify(
+        q, kp, vp, tbl, kv_len, scale=0.125), 50)
+    lib_dev = device_ms(torch, lib, 50)
     pos = sum(n + s - 1 for n in lens)        # each slot's span, read once
     seen = sum(n + i for n in lens for i in range(s))
     nbytes = (q.numel() * 2 + pos * kvh * 2 * d * 2 + tbl.numel() * 4
@@ -893,12 +969,14 @@ def phase_verify_attention(torch, F):
     flops = 2.0 * seen * kvh * g * 2 * d
     bnd, by = bound_ms(nbytes, flops, "bfloat16")
     log(f"[time] paged_gqa_verify one launch (bf16, 8 slots x span {s}, "
-        f"kv_len {lens}): kernel {ms:.4f} ms, bound {bnd:.5f} ms ({by}, "
-        f"{nbytes / 1e6:.2f} MB), {s} paged_gqa_decode launches {dec_ms:.4f}"
-        f" ms, plain {plain_ms:.4f} ms, SDPA on gathered K/V with the "
-        f"offset-causal mask {lib_ms:.4f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                library_ms=lib_ms, max_abs_err=worst,
+        f"kv_len {lens}): kernel {ms:.4f} ms (device {dev:.4f} ms), bound "
+        f"{bnd:.5f} ms ({by}, {nbytes / 1e6:.2f} MB), {s} paged_gqa_decode "
+        f"launches {dec_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on gathered"
+        f" K/V with the offset-causal mask {lib_ms:.4f} ms (device "
+        f"{lib_dev:.4f} ms)")
+    return dict(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bnd,
+                bound_by=by, library_ms=lib_ms, library_device_ms=lib_dev,
+                max_abs_err=worst,
                 decode_launches_ms=dec_ms, max_abs_err_vs_decode=worst_dec,
                 bitwise_vs_decode=bitwise)
 
@@ -923,6 +1001,7 @@ def phase_mla_verify_attention(torch, F):
         ql = torch.randn(b, s, h, r, generator=gen, device="cuda")
         qp = torch.randn(b, s, h, rd, generator=gen, device="cuda")
         kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        args = (ql, qp, cp, pp, tbl, kv_len)
         out = fa.paged_mla_verify(ql, qp, cp, pp, tbl, kv_len, scale=scale)
         e, good = max_err(torch, out, fa.paged_mla_verify_plain(
             ql, qp, cp, pp, tbl, kv_len, scale=scale), ATTN_TOL, ATTN_TOL)
@@ -935,9 +1014,24 @@ def phase_mla_verify_attention(torch, F):
                                           dname, {}, ATTN_TOL)
         worst, worst_dec = max(worst, e), max(worst_dec, ed)
         ok, bitwise = ok and good and goodd, bitwise and same
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        (ql, qp), cp, pp, tbl, kv_len = _long_inputs(
+            torch, gen, dtype, (r,), (rd,), [(s, h, r), (s, h, rd)], bs)
+        e, good = check_long_context(
+            torch, "paged_mla_verify", f"{dname} pools",
+            lambda: fa.paged_mla_verify(ql, qp, cp, pp, tbl, kv_len,
+                                        scale=scale),
+            lambda: fa.paged_mla_verify_plain(ql, qp, cp, pp, tbl, kv_len,
+                                              scale=scale),
+            lambda i: fa.paged_mla_decode(ql[:, i].contiguous(),
+                                          qp[:, i].contiguous(), cp, pp, tbl,
+                                          kv_len + i, scale=scale), s)
+        worst, ok = max(worst, e), ok and good
     if not ok:
         raise SystemExit("phase 2: paged_mla_verify disagrees with its plain "
                          "version or with the decode kernel")
+    ql, qp, cp, pp, tbl, kv_len = args
     length = tbl.shape[1] * bs
     ms = time_ms(torch, lambda: fa.paged_mla_verify(
         ql, qp, cp, pp, tbl, kv_len, scale=scale), iters=50)

@@ -34,7 +34,7 @@
 // row max and sum are warp shuffles, and each lane accumulates dv/32
 // output columns of its 4 rows, the probabilities broadcast by shuffle.
 // No block is skipped there (the reference runs fully masked blocks too).
-#include "nm_mma.cuh"
+#include "attn_mma.cuh"
 
 namespace {
 
@@ -45,12 +45,6 @@ constexpr int kBKv = 32;                    // keys per tile (one per lane)
 constexpr int kMaxD = 256;
 constexpr int kNV = kMaxD / 32;             // output columns per lane
 constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
 
 size_t smem_bytes(int d, int dv) {
   return sizeof(float) * ((size_t)kBQ * d + (size_t)kBKv * (d + 1) + (size_t)kBKv * dv);
@@ -181,12 +175,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH,
 namespace tc {
 
 using bf16 = __nv_bfloat16;
+using attn::kLog2e;
+using attn::ldsm_x4;
+using attn::ldsm_x4_t;
+using attn::pack_bf16;
 using nm::mma::mma_bf16;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBQ = kWarps * 16;  // query rows per CTA
-constexpr float kLog2e = 1.4426950408889634f;
 
 // keys per tile: 64, or 32 when the output tile is wide (registers)
 template <int DVMAX>
@@ -208,23 +205,6 @@ template <int DVMAX>
 int smem_bytes(int d, int dv) {
   constexpr int BKV = kv_tile<DVMAX>();
   return 2 * (kBQ * (d + 8) + 2 * BKV * (d + 8) + 2 * BKV * (dv + 8));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(nm::mma::smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(nm::mma::smem_addr(p)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 // rows [rows) of width w from src (row-major, zero past `valid` rows) into

@@ -13,37 +13,61 @@
 // (_paged_mla_body) and ::paged_mla_verify, which launches paged_mla_decode
 // once per span offset i with kv_len + i.  Scores are
 // (q_lat . ckv + q_pe . kpe) * scale and the value operand is the latent
-// cache itself.  Bound on the H100: device-memory bytes — every latent
-// position a slot owns is read once, (R + RD) values, against
-// 2 * (R + RD) + 2 * R FLOPs per query row and position; S separate
-// launches would read each slot's blocks S times.  Design: the TPU kernel
-// keeps all H heads' [H, R] f32 accumulator of a slot in VMEM; at
-// deepseek-v2-lite width that is 16 x 512 x 4 B = 32 KB per span row, too
-// much for one CTA's registers, so the heads split across CTAs: ONE launch
-// for the span, a CTA per (slot, head) holding that head's span rows (up to
-// kMaxRows per CTA; a longer span splits into more CTAs along grid.y), 128
-// threads, each keeping R / 128 accumulator columns per row in registers.
-// The CTA walks the slot's block table itself up to
-// ceil((kv_len + S - 1) / BS) (the reference's trailing trash tiles are
-// fully masked, so stopping there gives its result).  Each step stages
-// physical block table[b, j] as f32 rows [ckv | kpe] in shared memory with
-// 16-byte loads, several in flight per thread before any is used (at 8
-// slots there is about one CTA per SM, so load latency is what a step
-// waits on).  Row i sees kv_len + i positions and stops updating at its own
-// ceil((kv_len + i) / BS) steps.  A row's operations — one warp per (row,
-// position) score dot with lane-strided columns and a shuffle sum, the
-// sequential softmax over a block by one thread, the accumulator update —
-// never depend on the other rows, so span offset i equals an S = 1 launch
-// at kv_len + i bit for bit.  S = 1 runs the one-row instance of the
-// kernel, whose accumulator is R / 128 registers per thread instead of
-// kMaxRows times that.  The H CTAs of a slot read the same blocks, the
-// first from device memory and the rest mostly from L2; few slots give few
-// CTAs, and a split over the kv axis with a combine pass is later work.
+// cache itself; span row i sees kv_len + i positions, positions past the
+// table are not read, output acc / max(l, 1e-30).
+//
+// Bound on the H100: device-memory bytes — every latent position a slot
+// owns is read once, (R + RD) values, against 2 * (R + RD) + 2 * R FLOPs
+// per query row and position (PERF.md section 6: about a microsecond at
+// the serving shape).  At 8 slots the launch is latency-bound, and all H
+// heads of a slot read the same latent block.
+//
+// The launch plan (CTAs, chunk, shared memory, workspace) comes from
+// kernels/flash_attention.py mla_plan; the launcher only checks it.
+//
+// Tensor-core body (bf16 pools, R and RD multiples of 16, R <= 512,
+// R + RD <= 640, H <= 16, block size dividing the chunk): the KV axis is
+// cut into chunks
+// of 64 positions fixed in absolute position, one CTA of 8 warps per
+// (chunk, span row, slot) holding all H heads of the row as one 16-row m
+// tile, so each latent block is read once per span row instead of once per
+// head.  The CTA copies the chunk's [ckv | kpe] rows with 16-byte cp.async
+// straight into shared memory, all at once, behind the f32 queries' loads
+// (all in flight, issued before the row's length is read), which it splits
+// into hi + lo bf16 (two mma on hi and lo carry about 16 bits of the
+// query).  S = Q K^T on mma.sync m16n8k16: warp w scores positions
+// 8w .. 8w + 7 over the whole depth R + RD in four accumulation chains
+// (hi / lo, even / odd k-steps) added in a fixed order.  The softmax runs
+// row-parallel (two head rows per warp, lanes across positions), and P,
+// split into hi + lo bf16, multiplies the latent on the tensor cores, each
+// warp owning 16-column slices of the R output columns (32 accumulators a
+// thread at R = 512).  k-steps of 16 positions past the row's view are
+// skipped.  A row whose view fits one chunk writes its output; otherwise
+// each chunk parks its partial (m, l, acc) in the workspace and the last of
+// the row's chunks to arrive (an int counter per row, reset to 0 by that
+// CTA; no float atomics) folds chunks 0 .. ceil(L / 64) - 1 in order, the
+// loop unrolled so that the loads of two chunks are in flight before their
+// merges (a fold that waited on each chunk's loads in turn cost several
+// microseconds a chunk).  A row's arithmetic depends only on its own
+// length and query, so span offset i equals an S = 1 launch at
+// kv_len + i bit for bit.
+//
+// First body (f32 pools, and other shapes): one CTA of 128 threads per
+// (slot, head) holding up to 4 span rows; it walks the slot's block table
+// up to ceil((kv_len + S - 1) / BS), staging each block as f32 rows
+// [ckv | kpe] in shared memory with 16-byte loads (several in flight per
+// thread); one warp per (row, position) score dot with a shuffle sum, the
+// softmax over a block by one thread per row, and R / 128 accumulator
+// columns per row and thread.  A row stops at its own
+// ceil((kv_len + i) / BS) steps and never depends on the other rows.
 #include <math.h>
 
-#include "common.cuh"
+#include "attn_mma.cuh"
 
 namespace {
+
+namespace first {
+
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
@@ -197,57 +221,359 @@ paged_mla_verify_kernel(const float* __restrict__ q_lat,
   }
 }
 
-template <typename T, int MaxRows>
-int launch_rows(const void* q_lat, const void* q_pe, const void* ckv,
-                const void* kpe, const void* table, const void* kv_len,
-                void* out, int B, int S, int H, int R, int RD, int BS, int Tw,
-                float scale, cudaStream_t st) {
-  const int rows = min(S, MaxRows);
-  const int smem = ((R + RD) * (rows + BS) + rows * BS) * (int)sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_mla_verify_kernel<T, MaxRows>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid(B * H, (S + MaxRows - 1) / MaxRows);
-  paged_mla_verify_kernel<T, MaxRows><<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(q_lat), static_cast<const float*>(q_pe),
-      static_cast<const T*>(ckv), static_cast<const T*>(kpe),
-      static_cast<const int*>(table), static_cast<const int*>(kv_len),
-      static_cast<float*>(out), S, H, R, RD, BS, Tw, scale);
-  return static_cast<int>(cudaGetLastError());
-}
 
-template <typename T>
 int launch(const void* q_lat, const void* q_pe, const void* ckv,
            const void* kpe, const void* table, const void* kv_len, void* out,
            int B, int S, int H, int R, int RD, int BS, int Tw, float scale,
+           int dtype, int rows, int threads, int smem, int gx, int gy, int gz,
            cudaStream_t st) {
-  if (S == 1)
-    return launch_rows<T, 1>(q_lat, q_pe, ckv, kpe, table, kv_len, out, B, S,
-                             H, R, RD, BS, Tw, scale, st);
-  return launch_rows<T, kMaxRows>(q_lat, q_pe, ckv, kpe, table, kv_len, out,
-                                  B, S, H, R, RD, BS, Tw, scale, st);
+  const int max_rows = S == 1 ? 1 : kMaxRows;
+  const int need = ((R + RD) * (rows + BS) + rows * BS) * (int)sizeof(float);
+  if (R > kThreads * kMaxPairs || rows != min(S, max_rows) ||
+      threads != kThreads || smem < need || gx != B * H ||
+      gy != (S + max_rows - 1) / max_rows || gz != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(gx, gy);
+  auto run = [&](auto kern, auto tq) {
+    using T = decltype(tq);
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    kern<<<grid, kThreads, smem, st>>>(
+        static_cast<const float*>(q_lat), static_cast<const float*>(q_pe),
+        static_cast<const T*>(ckv), static_cast<const T*>(kpe),
+        static_cast<const int*>(table), static_cast<const int*>(kv_len),
+        static_cast<float*>(out), S, H, R, RD, BS, Tw, scale);
+    return static_cast<int>(cudaGetLastError());
+  };
+  // S = 1 runs the one-row instance (R / 128 accumulators per thread)
+  if (dtype == REPRO_DTYPE_F32)
+    return S == 1 ? run(paged_mla_verify_kernel<float, 1>, 0.f)
+                  : run(paged_mla_verify_kernel<float, kMaxRows>, 0.f);
+  if (dtype == REPRO_DTYPE_BF16)
+    return S == 1 ? run(paged_mla_verify_kernel<__nv_bfloat16, 1>, __nv_bfloat16())
+                  : run(paged_mla_verify_kernel<__nv_bfloat16, kMaxRows>, __nv_bfloat16());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
+
+}  // namespace first
+
+// ------------------------------------------- bf16, tensor-core body
+
+namespace tc {
+
+using namespace attn;
+
+constexpr int kChunk = 64;     // positions per chunk, fixed in absolute position
+constexpr int kWarps = 8;      // warp w scores positions 8w .. 8w + 7
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = 16;      // head rows of the m tile (H <= 16)
+constexpr int kMaxPairs = 4;   // 16-column output slices per warp: R <= 512
+constexpr int kPS = kChunk + 8;  // row stride of P in shared memory
+constexpr int kMaxDepth = 640;   // R + RD: kTile * kMaxDepth / 4 float4
+constexpr int kQ = kTile * kMaxDepth / 4 / kThreads;  // query loads per thread
+constexpr float kNeg = -1e30f;
+static_assert(kChunk == 8 * kWarps, "one score n-tile per warp");
+
+struct Args {
+  const float* q_lat;
+  const float* q_pe;
+  const bf16* ckv;
+  const bf16* kpe;
+  const int* table;
+  const int* kv_len;
+  float* out;
+  float* ws;  // [B * S][chunks][H * (R + 2)] partials (chunks > 1)
+  int* cnt;   // [B * S] arrival counters, 0 between launches
+  int S, H, R, RD, BS, Tw, chunks;
+  float scale;
+};
+
+__global__ void __launch_bounds__(kThreads)
+paged_mla_verify_tc_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int R = a.R, D = R + a.RD, DS = D + 8;
+  bf16* qh = reinterpret_cast<bf16*>(smem);  // [kTile][DS] query, hi
+  bf16* ql = qh + kTile * DS;                 // [kTile][DS] query, lo
+  bf16* kv = ql + kTile * DS;                 // [kChunk][DS]: ckv | kpe
+  bf16* ph = kv + kChunk * DS;                // [kTile][kPS] P, hi
+  bf16* pl = ph + kTile * kPS;                // [kTile][kPS] P, lo
+  float* sc = reinterpret_cast<float*>(pl + kTile * kPS);  // [kTile][kChunk]
+  float* ms = sc + kTile * kChunk;            // [kTile] row max
+  float* ls = ms + kTile;                     // [kTile] row sum
+  __shared__ int last_s;
+  const int c = blockIdx.x, i = blockIdx.y, b = blockIdx.z;
+  // the row's H queries [q_lat | q_pe], all loads in flight before the
+  // row's length is known; rows past H are zero
+  const int qw = D / 4;
+  float4 qx[kQ];
+#pragma unroll
+  for (int u = 0; u < kQ; ++u) {
+    const int idx = threadIdx.x + u * kThreads, hh = idx / qw, col = idx % qw * 4;
+    qx[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (hh < a.H) {
+      const size_t q = ((size_t)b * a.S + i) * a.H + hh;
+      qx[u] = col < R ? __ldg(reinterpret_cast<const float4*>(a.q_lat + q * R + col))
+                      : __ldg(reinterpret_cast<const float4*>(a.q_pe + q * a.RD + col - R));
+    }
+  }
+  const int L = a.kv_len[b] + i, top = min(L, a.Tw * a.BS);
+  // chunks 0 .. nc - 1 hold the row's view; a row that sees nothing gets
+  // chunk 0, all of it masked
+  const int nc = max(1, (top + kChunk - 1) / kChunk);
+  if (c >= nc) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  // the chunk's latent rows; blocks past the table or the view zero-filled
+  const int CB = kChunk / a.BS, pr = R / 8, per = pr + a.RD / 8;
+  for (int idx = threadIdx.x; idx < kChunk * per; idx += kThreads) {
+    const int p = idx / per, col = idx % per;
+    const int j = c * CB + p / a.BS;
+    const bool live = j < a.Tw && j * a.BS < top;
+    const size_t row = (size_t)(live ? __ldg(a.table + (size_t)b * a.Tw + j) : 0) * a.BS + p % a.BS;
+    const bf16* src = col < pr ? a.ckv + row * R + col * 8 : a.kpe + row * a.RD + (col - pr) * 8;
+    cp16(kv + p * DS + col * 8, src, live);
+  }
+  commit();
+  // the queries as hi + lo bf16
+#pragma unroll
+  for (int u = 0; u < kQ; ++u) {
+    const int idx = threadIdx.x + u * kThreads, hh = idx / qw, col = idx % qw * 4;
+    if (hh >= kTile) break;
+    uint2 hi, lo;
+    split_bf16(qx[u].x, qx[u].y, hi.x, lo.x);
+    split_bf16(qx[u].z, qx[u].w, hi.y, lo.y);
+    *reinterpret_cast<uint2*>(qh + hh * DS + col) = hi;
+    *reinterpret_cast<uint2*>(ql + hh * DS + col) = lo;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // S = Q K^T for positions 8w .. 8w + 7: chains (hi, even k-step), (hi,
+  // odd), (lo, even), (lo, odd), added in that fixed order
+  {
+    float acc[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;
+    auto step = [&](float (&dh)[4], float (&dl)[4], int kk) {
+      uint32_t ah[4], al[4], bk[2];
+      ldsm_x4(ah, qh + (lane & 15) * DS + kk * 16 + (lane >> 4) * 8);
+      ldsm_x4(al, ql + (lane & 15) * DS + kk * 16 + (lane >> 4) * 8);
+      ldsm_x2(bk, kv + (warp * 8 + (lane & 7)) * DS + kk * 16 + ((lane >> 3) & 1) * 8);
+      mma_bf16(dh, ah, bk);
+      mma_bf16(dl, al, bk);
+    };
+    const int ksteps = D / 16;
+    for (int kk = 0; kk < ksteps; kk += 2) {
+      step(acc[0], acc[2], kk);
+      if (kk + 1 < ksteps) step(acc[1], acc[3], kk + 1);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sc[(g + 8 * (e >> 1)) * kChunk + warp * 8 + 2 * t + (e & 1)] =
+          (acc[0][e] + acc[1][e]) + (acc[2][e] + acc[3][e]);
+  }
+  __syncthreads();
+
+  // the softmax of the chunk, two head rows per warp, lanes across positions
+  const int base = c * kChunk;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = 2 * warp + rr;
+    float v[kChunk / 32], mx = kNeg;
+#pragma unroll
+    for (int u = 0; u < kChunk / 32; ++u) {
+      v[u] = sc[row * kChunk + lane + 32 * u] * a.scale;
+      if (base + lane + 32 * u < top) mx = fmaxf(mx, v[u]);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int u = 0; u < kChunk / 32; ++u) {
+      const int pos = lane + 32 * u;
+      const float p = base + pos < top ? exp2f((v[u] - mx) * kLog2e) : 0.f;
+      const bf16 hi = __float2bfloat16(p);
+      ph[row * kPS + pos] = hi;
+      pl[row * kPS + pos] = __float2bfloat16(p - __bfloat162float(hi));
+      sum += p;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) ms[row] = mx, ls[row] = sum;
+  }
+  __syncthreads();
+
+  // O = P V: warp w owns the 16-column slices w, w + 8, ... of the R
+  // columns; k-steps of 16 positions past the row's view are skipped
+  float o[kMaxPairs][2][4];
+#pragma unroll
+  for (int j = 0; j < kMaxPairs; ++j)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) o[j][hf][0] = o[j][hf][1] = o[j][hf][2] = o[j][hf][3] = 0.f;
+#pragma unroll
+  for (int kp = 0; kp < kChunk / 16; ++kp) {
+    if (base + kp * 16 >= top) break;
+    uint32_t aph[4], apl[4];
+    ldsm_x4(aph, ph + (lane & 15) * kPS + kp * 16 + (lane >> 4) * 8);
+    ldsm_x4(apl, pl + (lane & 15) * kPS + kp * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int j = 0; j < kMaxPairs; ++j) {
+      const int np = warp + kWarps * j;
+      if (np * 16 < R) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, kv + (kp * 16 + (lane & 15)) * DS + np * 16 + (lane >> 4) * 8);
+        const uint32_t b0[2] = {bv[0], bv[1]}, b1[2] = {bv[2], bv[3]};
+        mma_bf16(o[j][0], aph, b0);
+        mma_bf16(o[j][1], aph, b1);
+        mma_bf16(o[j][0], apl, b0);
+        mma_bf16(o[j][1], apl, b1);
+      }
+    }
+  }
+
+  // more than one chunk: park this chunk's partial, and the last chunk of
+  // the row to arrive folds chunks 0 .. nc - 1
+  const size_t prow = (size_t)b * a.S + i;
+  float m[2] = {ms[g], ms[g + 8]}, l[2] = {ls[g], ls[g + 8]};
+  const size_t stride = (size_t)a.H * (R + 2);
+  if (nc > 1) {
+    float* ws = a.ws + prow * a.chunks * stride;
+    float* part = ws + c * stride;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = g + 8 * r;
+      if (row >= a.H) continue;
+#pragma unroll
+      for (int j = 0; j < kMaxPairs; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int col = (warp + kWarps * j) * 16 + hf * 8 + 2 * t;
+          if (col < R)
+            *reinterpret_cast<float2*>(part + row * R + col) =
+                make_float2(o[j][hf][2 * r], o[j][hf][2 * r + 1]);
+        }
+    }
+    if (threadIdx.x < a.H) {
+      part[a.H * R + threadIdx.x] = ms[threadIdx.x];
+      part[a.H * R + a.H + threadIdx.x] = ls[threadIdx.x];
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      last_s = atomicAdd(a.cnt + prow, 1) == nc - 1;
+      if (last_s) a.cnt[prow] = 0;
+    }
+    __syncthreads();
+    if (!last_s) return;
+    __threadfence();
+    // the fold, in chunk order from the empty state; unrolled so that the
+    // loads of two chunks are in flight before their merges
+    m[0] = m[1] = kNeg;
+    l[0] = l[1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kMaxPairs; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) o[j][hf][0] = o[j][hf][1] = o[j][hf][2] = o[j][hf][3] = 0.f;
+#pragma unroll 2
+    for (int cc = 0; cc < nc; ++cc) {
+      const float* p = ws + cc * stride;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = g + 8 * r;
+        if (row >= a.H) continue;
+        float sa, sb;
+        merge_weights(m[r], __ldcg(p + a.H * R + row), &sa, &sb);
+        l[r] = l[r] * sa + __ldcg(p + a.H * R + a.H + row) * sb;
+#pragma unroll
+        for (int j = 0; j < kMaxPairs; ++j)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int col = (warp + kWarps * j) * 16 + hf * 8 + 2 * t;
+            if (col >= R) continue;
+            const float2 x = __ldcg(reinterpret_cast<const float2*>(p + row * R + col));
+            float* d = &o[j][hf][2 * r];
+            d[0] = d[0] * sa + x.x * sb;
+            d[1] = d[1] * sa + x.y * sb;
+          }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = g + 8 * r;
+    if (row >= a.H) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    float* dst = a.out + (prow * a.H + row) * R;
+#pragma unroll
+    for (int j = 0; j < kMaxPairs; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int col = (warp + kWarps * j) * 16 + hf * 8 + 2 * t;
+        if (col < R)
+          *reinterpret_cast<float2*>(dst + col) =
+              make_float2(o[j][hf][2 * r] / den, o[j][hf][2 * r + 1] / den);
+      }
+  }
+}
+
+int smem_bytes(int D) {
+  return 2 * ((2 * kTile + kChunk) * (D + 8) + 2 * kTile * kPS) +
+         4 * (kTile * kChunk + 2 * kTile);
+}
+
+int launch(const Args& a, int B, int chunk, int rows, int threads, int smem,
+           int gx, int gy, int gz, cudaStream_t st) {
+  static int smem_set = 48 * 1024;  // in this library
+  auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const int chunks = max(1, (a.Tw * a.BS + kChunk - 1) / kChunk);
+  if (chunk != kChunk || kChunk % a.BS || a.R % 16 || a.RD % 16 ||
+      a.R > 16 * kWarps * kMaxPairs || a.R + a.RD > kMaxDepth || a.H > kTile || rows != 1 ||
+      threads != kThreads || gx != chunks ||
+      gy != a.S || gz != B || smem < smem_bytes(a.R + a.RD) || !al(a.q_lat) ||
+      !al(a.q_pe) || !al(a.ckv) || !al(a.kpe) ||
+      (chunks > 1 && (a.ws == nullptr || a.cnt == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_mla_verify_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = smem;
+  }
+  paged_mla_verify_tc_kernel<<<dim3(gx, gy, gz), kThreads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
 
 }  // namespace
 
-extern "C" int paged_mla_verify_launch(const void* q_lat, const void* q_pe,
-                                       const void* ckv_pool,
-                                       const void* kpe_pool, const void* table,
-                                       const void* kv_len, void* out, int B,
-                                       int S, int H, int R, int RD, int BS,
-                                       int Tw, float scale, int dtype,
-                                       void* stream) {
-  if (R > kThreads * kMaxPairs) return static_cast<int>(cudaErrorInvalidValue);
+// body 1: the tensor-core body (bf16 pools), 0: the first body.  The
+// plan's ints come from kernels/flash_attention.py mla_plan; a plan this
+// library does not take returns cudaErrorInvalidValue.
+extern "C" int paged_mla_verify_launch(
+    const void* q_lat, const void* q_pe, const void* ckv_pool,
+    const void* kpe_pool, const void* table, const void* kv_len, void* out,
+    int B, int S, int H, int R, int RD, int BS, int Tw, float scale,
+    int dtype, int body, int chunk, int rows, int threads, int smem, int gx,
+    int gy, int gz, void* ws, void* cnt, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == REPRO_DTYPE_F32)
-    return launch<float>(q_lat, q_pe, ckv_pool, kpe_pool, table, kv_len, out,
-                         B, S, H, R, RD, BS, Tw, scale, st);
-  if (dtype == REPRO_DTYPE_BF16)
-    return launch<__nv_bfloat16>(q_lat, q_pe, ckv_pool, kpe_pool, table,
-                                 kv_len, out, B, S, H, R, RD, BS, Tw, scale,
-                                 st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (body == 0 && chunk == 0)
+    return first::launch(q_lat, q_pe, ckv_pool, kpe_pool, table, kv_len, out,
+                         B, S, H, R, RD, BS, Tw, scale, dtype, rows, threads,
+                         smem, gx, gy, gz, st);
+  if (body != 1 || dtype != REPRO_DTYPE_BF16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const tc::Args a{static_cast<const float*>(q_lat),
+                   static_cast<const float*>(q_pe),
+                   static_cast<const __nv_bfloat16*>(ckv_pool),
+                   static_cast<const __nv_bfloat16*>(kpe_pool),
+                   static_cast<const int*>(table),
+                   static_cast<const int*>(kv_len),
+                   static_cast<float*>(out),
+                   static_cast<float*>(ws),
+                   static_cast<int*>(cnt),
+                   S, H, R, RD, BS, Tw, gx, scale};
+  return tc::launch(a, B, chunk, rows, threads, smem, gx, gy, gz, st);
 }

@@ -10,28 +10,36 @@ and ``GQA_VERIFY_KERNEL`` / ``MLA_VERIFY_KERNEL``).
 GQA kernel: ``csrc/paged_gqa_verify.cu`` (CUDA C++, sm_90a).  It replaces
 the TPU kernels ``repro/kernels/flash_attention.py::paged_gqa_decode``
 (``_paged_gqa_body``) and ``::paged_gqa_verify`` (one decode launch per
-span offset).  On the H100 it is bound by device-memory bytes: each K/V
-position a slot owns is read once, against 2*(d+dv) FLOPs per query row.
-Design: one CTA per (slot, kv head) keeps the S*G query rows of that kv
-head in shared memory and walks the slot's block table itself, once for
-the whole span, stopping at ``ceil((kv_len + S - 1) / block_size)`` (the
-TPU's trailing table entries are fully masked, so stopping there gives its
-result).  Each step loads one physical K/V block into shared memory; the
-m/l/acc online-softmax state stays in f32; each row applies its own kv_len
-mask, the sliding window and the softcap exactly as the reference body
-does.  Output is float32.
+span offset).  MLA kernel: ``csrc/paged_mla_verify.cu``; it replaces
+``paged_mla_decode`` (``_paged_mla_body``) and ``paged_mla_verify``:
+absorbed MLA in the latent space, scores ``(q_lat . ckv + q_pe . kpe) *
+scale`` and the latent cache itself as the value.  Both are bound by
+device-memory bytes (each cache position a slot owns is read once; under
+a microsecond at the serving shape), and at 8 slots both are latency-bound
+launches.  Each row applies its own ``kv_len + i`` mask (GQA also the
+sliding window and the softcap) as the reference body does; a row that
+sees nothing gives 0.  Output is float32.
 
-MLA kernel: ``csrc/paged_mla_verify.cu`` (CUDA C++, sm_90a).  It replaces
-``paged_mla_decode`` (``_paged_mla_body``) and ``paged_mla_verify`` of the
-reference: absorbed MLA in the latent space, scores ``(q_lat . ckv + q_pe .
-kpe) * scale`` and the latent cache itself as the value.  Also bound by
-bytes (576 bf16 values per position at deepseek-v2-lite width).  One CTA per
-(slot, head): a slot's 16 x 512 f32 accumulator does not fit one CTA's
-registers, so heads split across CTAs and each re-reads the slot's blocks
-(from L2 after the first head).
+The launch is cut in Python (``gqa_plan`` / ``mla_plan``; the C launchers
+only check it).  bf16 pools at the models' widths take the tensor-core
+bodies: the KV axis is cut into chunks of ``CHUNK`` (64) positions fixed in
+absolute position, a CTA per chunk that copies its K/V (or latent) tile
+into shared memory with 16-byte ``cp.async``, all at once, and runs Q K^T
+and P V on ``mma.sync`` (P, and MLA's f32 queries, split into hi + lo
+bf16, so the products stay within 2e-4).  GQA: a CTA per (chunk, slot x kv
+head, up to 4 span rows), a warp per span row, its G query rows one m
+tile.  MLA: a CTA of 8 warps per (chunk, span row, slot) holding the
+row's H heads, so each latent block is read once per span row rather than
+once per head.  A row whose view spans several chunks parks each chunk's
+partial (m, l, acc) in a workspace the wrapper allocates, and the last of
+its chunks to arrive (int counters, zero between launches) folds them in
+chunk order.  f32 pools and other shapes take the first bodies: a CTA per
+(slot, kv head) or (slot, head) walks the slot's table block by block on
+CUDA cores.
 
-Each span row reduces in an order that does not depend on the other rows,
-so verify offset i equals a decode launch at ``kv_len + i`` bit for bit.
+Each span row reduces in an order that depends only on its own length
+(and window) and query, never on S or the other rows, so verify offset i
+equals a decode launch at ``kv_len + i`` bit for bit.
 
 Flash attention kernel: ``csrc/flash_attention.cu`` (CUDA C++, sm_90a),
 launched by ``flash_attention_kernel`` (counter ``FLASH_KERNEL``).  It
@@ -60,17 +68,23 @@ CPU path, and what the kernels are held against on the card.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.build import (DTYPE_CODES, CudaKernel,
                                        check_cuda_operand)
+from repro_torch.kernels.nm_spmv import _arrivals
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# + the plan: body, chunk, rows, threads, smem, grid x / y / z, workspace,
+# arrival counters
+_PLAN_ARGS = [_I] * 8 + [_P, _P]
 _GQA_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-             _F, _I]
-_MLA_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I]
+             _F, _I] + _PLAN_ARGS
+_MLA_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+             _I] + _PLAN_ARGS
 # one kernel per family; the decode and verify wrappers count separately
 KERNEL = CudaKernel("paged_gqa_decode", "paged_gqa_verify_launch", _GQA_ARGS,
                     lib="paged_gqa_verify")
@@ -86,9 +100,136 @@ FLASH_KERNEL = CudaKernel("flash_attention", "flash_attention_launch",
 _FLASH_MAX_D = 256
 _NEG = -1e30
 DEFAULT_BLOCK_FA = (512, 1024)      # (bq, bk) of the reference flash tile
-_THREADS, _MAX_PAIRS = 128, 8
-_OPTIN_SMEM_LIMIT = 227 * 1024      # opt-in dynamic shared memory per CTA
-_MLA_VERIFY_ROWS = 4                # span rows per CTA of paged_mla_verify
+SMEM_LIMIT = 232448                 # opt-in dynamic shared memory per CTA
+CHUNK = 64             # positions per chunk of the tensor-core bodies
+GQA_SPAN_ROWS = 4      # span rows (one warp each) per CTA, GQA tensor cores
+MLA_WARPS = 8          # warps per CTA, MLA tensor cores
+MLA_MAX_DEPTH = 640    # r + rd: a thread holds its query loads in flight
+TILE = 16              # query rows of one mma m tile (G or H at most)
+_FIRST_THREADS, _FIRST_ACC = 128, 8   # first bodies: accumulators / thread
+_MLA_FIRST_ROWS = 4    # span rows per CTA of the first MLA body (S > 1)
+
+
+class PagedPlan(NamedTuple):
+    """One paged attention launch as cut by ``gqa_plan`` / ``mla_plan``
+    (the C launcher only checks it).  ``body`` is "tc" (tensor cores: the
+    KV axis in chunks of ``chunk`` positions fixed in absolute position,
+    a CTA per chunk) or "first" (CUDA cores: a CTA walks a slot's whole
+    table).  ``rows`` are the span rows per CTA (tc GQA: one warp each;
+    first GQA: query rows), ``ws`` the f32 elements of the chunk partials'
+    workspace and ``counters`` the int32 arrival counters (both 0 when every
+    row's view fits one chunk, or on the first body)."""
+    body: str
+    chunk: int
+    rows: int
+    threads: int
+    smem: int
+    grid: Tuple[int, int, int]
+    ws: int
+    counters: int
+
+    def args(self) -> Tuple[int, ...]:
+        """The plan's ints in the launcher's order."""
+        return (int(self.body == "tc"), self.chunk, self.rows, self.threads,
+                self.smem, *self.grid)
+
+
+def table_chunks(tw: int, bs: int) -> int:
+    """Chunks of ``CHUNK`` positions along a table of ``tw`` blocks."""
+    return max(1, -(-tw * bs // CHUNK))
+
+
+def row_chunks(kv_len: int, tw: int, bs: int,
+               window: Optional[int] = None) -> range:
+    """The chunks that hold what a row seeing ``kv_len`` positions attends
+    to (``kv_len - window <= pos < min(kv_len, tw * bs)``); a row that sees
+    nothing gets chunk 0, all of it masked.  The tensor-core kernels visit
+    these for the row and fold them in this order."""
+    top = min(kv_len, tw * bs)
+    lo = max(0, kv_len - window) if window is not None else 0
+    if lo >= top:
+        return range(0, 1)
+    return range(lo // CHUNK, -(-top // CHUNK))
+
+
+@functools.lru_cache(maxsize=1024)
+def gqa_plan(b: int, s: int, kvh: int, g: int, d: int, dv: int, bs: int,
+             tw: int, dtype: torch.dtype, aligned: bool = True) -> PagedPlan:
+    """The launch of the GQA kernel for q [b, s, kvh, g, d] over a table of
+    ``tw`` blocks of ``bs``.  The tensor-core body takes bf16 with d, dv
+    multiples of 16 up to 256, g <= 16, a block size dividing the chunk and
+    16-byte aligned operands: a CTA of 4 warps per (chunk, slot x kv head,
+    group of up to 4 span rows), a warp per span row; all 4 warps copy the
+    chunk, also at s = 1.  Everything else takes the first body.  The chunk
+    is the same at every s, so a row's chunks are too."""
+    if (dtype == torch.bfloat16 and d % 16 == 0 and dv % 16 == 0
+            and d <= 256 and dv <= 256 and g <= TILE and CHUNK % bs == 0
+            and aligned):
+        chunks = table_chunks(tw, bs)
+        groups = -(-s // GQA_SPAN_ROWS)
+        rows = -(-s // groups)
+        smem = 2 * (CHUNK * (d + 8) + CHUNK * (dv + 8) + rows * TILE * (d + 8))
+        split = chunks > 1
+        return PagedPlan("tc", CHUNK, rows, 32 * GQA_SPAN_ROWS, smem,
+                         (chunks, b * kvh, groups),
+                         b * kvh * s * chunks * g * (dv + 2) if split else 0,
+                         b * kvh * s if split else 0)
+    if dv > _FIRST_THREADS * _FIRST_ACC:
+        raise ValueError(f"paged GQA: dv = {dv} exceeds the first body's "
+                         f"{_FIRST_THREADS * _FIRST_ACC} accumulators per CTA")
+    rows = min(s * g, _FIRST_THREADS * _FIRST_ACC // dv)
+    smem = (rows * d + bs * d + bs * dv + rows * bs + 5 * rows) * 4
+    return PagedPlan("first", 0, rows, _FIRST_THREADS, smem,
+                     (b * kvh, -(-s * g // rows), 1), 0, 0)
+
+
+@functools.lru_cache(maxsize=1024)
+def mla_plan(b: int, s: int, h: int, r: int, rd: int, bs: int, tw: int,
+             dtype: torch.dtype, aligned: bool = True) -> PagedPlan:
+    """The launch of the MLA kernel for q_lat [b, s, h, r] and q_pe
+    [b, s, h, rd] over a table of ``tw`` blocks of ``bs``.  The tensor-core
+    body takes bf16 pools with r, rd multiples of 16, r <= 512, r + rd <=
+    640, h <= 16, a block size dividing the chunk and 16-byte aligned
+    operands: a CTA of 8 warps per (chunk, span row, slot) holding the
+    row's h heads.  Everything else takes the first body."""
+    smem = (2 * ((2 * TILE + CHUNK) * (r + rd + 8) + 2 * TILE * (CHUNK + 8))
+            + 4 * (TILE * CHUNK + 2 * TILE))
+    if (dtype == torch.bfloat16 and r % 16 == 0 and rd % 16 == 0
+            and r <= 512 and r + rd <= MLA_MAX_DEPTH and h <= TILE
+            and CHUNK % bs == 0 and aligned and smem <= SMEM_LIMIT):
+        chunks = table_chunks(tw, bs)
+        split = chunks > 1
+        return PagedPlan("tc", CHUNK, 1, 32 * MLA_WARPS, smem, (chunks, s, b),
+                         b * s * chunks * h * (r + 2) if split else 0,
+                         b * s if split else 0)
+    if r > _FIRST_THREADS * _FIRST_ACC:
+        raise ValueError(f"paged MLA: kv_lora {r} exceeds the first body's "
+                         f"{_FIRST_THREADS * _FIRST_ACC} accumulators per CTA")
+    most = 1 if s == 1 else _MLA_FIRST_ROWS
+    rows = min(s, most)
+    smem = ((r + rd) * (rows + bs) + rows * bs) * 4
+    return PagedPlan("first", 0, rows, _FIRST_THREADS, smem,
+                     (b * h, -(-s // most), 1), 0, 0)
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _launch_planned(kernel: CudaKernel, plan: PagedPlan, device, *args
+                    ) -> None:
+    """Launch ``kernel`` with ``args`` and ``plan``: the workspace is
+    ``torch.empty`` here and the arrival counters are zero between
+    launches (the kernel resets them)."""
+    fn = kernel.name
+    if plan.smem > SMEM_LIMIT:
+        raise ValueError(f"{fn} needs {plan.smem} B of shared memory per CTA;"
+                         f" the kernel takes at most {SMEM_LIMIT}")
+    ws = torch.empty(plan.ws, dtype=torch.float32, device=device) \
+        if plan.ws else None
+    cnt = _arrivals(device, plan.counters) if plan.counters else None
+    kernel.launch(*args, *plan.args(), None if ws is None else ws.data_ptr(),
+                  None if cnt is None else cnt.data_ptr())
 
 
 def paged_gqa_decode_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -243,27 +384,21 @@ def _gqa_launch(kernel: CudaKernel, q, k_pool, v_pool, block_table, kv_len,
                          f"{tuple(kv_len.shape)} do not match batch {b}")
     if cap is not None and cap <= 0:
         raise ValueError(f"softcap must be positive, got {cap}")
-    if dv > _THREADS * _MAX_PAIRS:
-        raise ValueError(f"dv = {dv} exceeds the kernel's "
-                         f"{_THREADS * _MAX_PAIRS} accumulators per CTA")
-    rows = min(s * g, _THREADS * _MAX_PAIRS // dv)     # span rows per CTA
-    smem = (rows * d + bs * d + bs * dv + rows * bs + 5 * rows) * 4
-    if smem > _OPTIN_SMEM_LIMIT:
-        raise ValueError(f"{fn} needs {smem} B of shared memory per CTA "
-                         f"(block_size {bs}, d {d}, dv {dv}); the kernel "
-                         f"takes at most {_OPTIN_SMEM_LIMIT}")
     check_cuda_operand("q", q, q.device)
     check_cuda_operand("k_pool", k_pool, q.device, q.dtype)
     check_cuda_operand("v_pool", v_pool, q.device, q.dtype)
     check_cuda_operand("block_table", block_table, q.device, torch.int32)
     check_cuda_operand("kv_len", kv_len, q.device, torch.int32)
+    tw = block_table.shape[1]
+    plan = gqa_plan(b, s, kvh, g, d, dv, bs, tw, q.dtype,
+                    _aligned(q, k_pool, v_pool))
     out = torch.empty(q.shape[:-1] + (dv,), dtype=torch.float32,
                       device=q.device)
     if out.numel():
-        kernel.launch(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b, s,
-            kvh, g, d, dv, bs, block_table.shape[1], float(scale),
+        _launch_planned(
+            kernel, plan, q.device, q.data_ptr(), k_pool.data_ptr(),
+            v_pool.data_ptr(), block_table.data_ptr(), kv_len.data_ptr(),
+            out.data_ptr(), b, s, kvh, g, d, dv, bs, tw, float(scale),
             -1 if window is None else int(window),
             0.0 if cap is None else float(cap), DTYPE_CODES[q.dtype])
     return out
@@ -330,27 +465,21 @@ def _mla_launch(kernel: CudaKernel, q_lat, q_pe, ckv_pool, kpe_pool,
     if block_table.shape[0] != b or kv_len.shape != (b,):
         raise ValueError(f"block_table {tuple(block_table.shape)} / kv_len "
                          f"{tuple(kv_len.shape)} do not match batch {b}")
-    if r > _THREADS * _MAX_PAIRS:
-        raise ValueError(f"kv_lora {r} exceeds the kernel's "
-                         f"{_THREADS * _MAX_PAIRS} accumulators per CTA")
-    rows = min(s, _MLA_VERIFY_ROWS)
-    smem = ((r + rd) * (rows + bs) + rows * bs) * 4
-    if smem > _OPTIN_SMEM_LIMIT:
-        raise ValueError(f"{fn} needs {smem} B of shared memory per CTA "
-                         f"(block_size {bs}, r {r}, rd {rd}); the kernel "
-                         f"takes at most {_OPTIN_SMEM_LIMIT}")
     check_cuda_operand("q_lat", q_lat, q_lat.device, torch.float32)
     check_cuda_operand("q_pe", q_pe, q_lat.device, torch.float32)
     check_cuda_operand("ckv_pool", ckv_pool, q_lat.device)
     check_cuda_operand("kpe_pool", kpe_pool, q_lat.device, ckv_pool.dtype)
     check_cuda_operand("block_table", block_table, q_lat.device, torch.int32)
     check_cuda_operand("kv_len", kv_len, q_lat.device, torch.int32)
+    tw = block_table.shape[1]
+    plan = mla_plan(b, s, h, r, rd, bs, tw, ckv_pool.dtype,
+                    _aligned(q_lat, q_pe, ckv_pool, kpe_pool))
     out = torch.empty(q_lat.shape, dtype=torch.float32, device=q_lat.device)
     if out.numel():
-        kernel.launch(
-            q_lat.data_ptr(), q_pe.data_ptr(), ckv_pool.data_ptr(),
-            kpe_pool.data_ptr(), block_table.data_ptr(), kv_len.data_ptr(),
-            out.data_ptr(), b, s, h, r, rd, bs, block_table.shape[1],
+        _launch_planned(
+            kernel, plan, q_lat.device, q_lat.data_ptr(), q_pe.data_ptr(),
+            ckv_pool.data_ptr(), kpe_pool.data_ptr(), block_table.data_ptr(),
+            kv_len.data_ptr(), out.data_ptr(), b, s, h, r, rd, bs, tw,
             float(scale), DTYPE_CODES[ckv_pool.dtype])
     return out
 

@@ -290,6 +290,129 @@ def test_paged_mla_verify_kernel_matches_plain_and_decode(dtype, bs, h, r, rd,
         assert torch.equal(out[:, i], one), f"offset {i}"
 
 
+# the edges of the chunked tensor-core bodies (chunks of 64 positions):
+# views ending at 15 / 16 / 17 and 63 / 64 / 65 positions, a long context
+# (several chunks, the cross-CTA fold), a row of trash blocks only, and the
+# span crossing a chunk boundary
+EDGE_LENS = [15, 16, 17, 1, 2100, 1000, 63, 65]
+TRASH_ROW = 3
+
+
+def _edge_table(gen, s, bs):
+    tbl, nb = _span_table(gen, EDGE_LENS, s, bs)
+    tbl[TRASH_ROW] = 0
+    return tbl, nb
+
+
+def _against_decode_and_twice(out, launch, decode, s):
+    """A second launch gives the same bits, and offset i equals the decode
+    launch at kv_len + i bit for bit."""
+    assert torch.equal(launch(), out), "a second launch changed the bits"
+    for i in range(s):
+        assert torch.equal(out[:, i], decode(i)), f"offset {i}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("s", [1, 2, 4, 5, 7])
+@pytest.mark.parametrize("case", [dict(), dict(window=20, cap=30.0)])
+def test_paged_gqa_kernel_edges(dtype, bs, s, case):
+    """Llama width at the chunk edges and a long context; the window (20)
+    is shorter than a chunk, so a long row skips all but its last chunks.
+    Within 2e-4 of the plain version, the same bits twice, and offset i
+    bit-equal to decode at kv_len + i."""
+    from repro_torch.kernels import flash_attention as mod
+    b, kvh, g, d = len(EDGE_LENS), 8, 4, 64
+    gen = torch.Generator(device="cuda").manual_seed(100 + bs + s)
+    tbl, nb = _edge_table(gen, s, bs)
+    kp = torch.randn(nb, bs, kvh, d, generator=gen, device="cuda").to(dtype)
+    vp = torch.randn(nb, bs, kvh, d, generator=gen, device="cuda").to(dtype)
+    kp[0] = 1e4
+    vp[0] = 1e4
+    q = torch.randn(b, s, kvh, g, d, generator=gen, device="cuda").to(dtype)
+    kv_len = torch.tensor(EDGE_LENS, dtype=torch.int32, device="cuda")
+    kw = dict(scale=d ** -0.5, **case)
+
+    def launch():
+        return mod.paged_gqa_verify(q, kp, vp, tbl, kv_len, **kw)
+    out = launch()
+    want = mod.paged_gqa_verify_plain(q, kp, vp, tbl, kv_len, **kw)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+    _against_decode_and_twice(out, launch, lambda i: mod.paged_gqa_decode(
+        q[:, i].contiguous(), kp, vp, tbl, kv_len + i, **kw), s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("s", [1, 2, 4, 5, 7])
+@pytest.mark.parametrize("h,r,rd", [(16, 512, 64), (3, 32, 16)])
+def test_paged_mla_kernel_edges(dtype, bs, s, h, r, rd):
+    """Deepseek width and a narrow odd shape (3 heads of a 16-row tile) at
+    the chunk edges and a long context.  Within 2e-4 of the plain version,
+    the same bits twice, and offset i bit-equal to decode at kv_len + i."""
+    from repro_torch.kernels import flash_attention as mod
+    b = len(EDGE_LENS)
+    gen = torch.Generator(device="cuda").manual_seed(200 + bs + s + h)
+    tbl, nb = _edge_table(gen, s, bs)
+    cp = torch.randn(nb, bs, r, generator=gen, device="cuda").to(dtype)
+    pp = torch.randn(nb, bs, rd, generator=gen, device="cuda").to(dtype)
+    cp[0] = 1e4
+    pp[0] = 1e4
+    ql = torch.randn(b, s, h, r, generator=gen, device="cuda")
+    qp = torch.randn(b, s, h, rd, generator=gen, device="cuda")
+    kv_len = torch.tensor(EDGE_LENS, dtype=torch.int32, device="cuda")
+    scale = (r + rd) ** -0.5
+
+    def launch():
+        return mod.paged_mla_verify(ql, qp, cp, pp, tbl, kv_len, scale=scale)
+    out = launch()
+    want = mod.paged_mla_verify_plain(ql, qp, cp, pp, tbl, kv_len,
+                                      scale=scale)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+    _against_decode_and_twice(out, launch, lambda i: mod.paged_mla_decode(
+        ql[:, i].contiguous(), qp[:, i].contiguous(), cp, pp, tbl,
+        kv_len + i, scale=scale), s)
+
+
+@pytest.mark.parametrize("family", ["gqa", "mla"])
+def test_paged_bodies_follow_the_plan(family):
+    """bf16 at the models' widths takes the tensor-core body and f32 the
+    first one: a launch of either agrees with the plain version, so the
+    rule the CPU plan tests check is the one the card runs."""
+    from repro_torch.kernels import flash_attention as mod
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    lens = [5, 70]
+    tbl, nb = _paged_table(gen, lens, 16)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    for dtype, body in ((torch.bfloat16, "tc"), (torch.float32, "first")):
+        if family == "gqa":
+            assert mod.gqa_plan(2, 1, 8, 4, 64, 64, 16, tbl.shape[1],
+                                dtype).body == body
+            kp = torch.randn(nb, 16, 8, 64, generator=gen,
+                             device="cuda").to(dtype)
+            q = torch.randn(2, 8, 4, 64, generator=gen,
+                            device="cuda").to(dtype)
+            args = (q, kp, kp.flip(0).contiguous(), tbl, kv_len)
+            got = mod.paged_gqa_decode(*args, scale=0.125)
+            want = mod.paged_gqa_decode_plain(*args, scale=0.125)
+        else:
+            assert mod.mla_plan(2, 1, 16, 512, 64, 16, tbl.shape[1],
+                                dtype).body == body
+            cp = torch.randn(nb, 16, 512, generator=gen,
+                             device="cuda").to(dtype)
+            pp = torch.randn(nb, 16, 64, generator=gen,
+                             device="cuda").to(dtype)
+            ql = torch.randn(2, 16, 512, generator=gen, device="cuda")
+            qp = torch.randn(2, 16, 64, generator=gen, device="cuda")
+            args = (ql, qp, cp, pp, tbl, kv_len)
+            got = mod.paged_mla_decode(*args, scale=0.05)
+            want = mod.paged_mla_decode_plain(*args, scale=0.05)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=2e-4, atol=2e-4)
+
+
 def test_span_write_duplicate_cells_take_the_last_writer_on_the_card():
     """Masked rows all write the trash block; on the card the cell takes
     its last writer's value in (row, offset) order on every call (the
