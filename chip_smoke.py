@@ -107,7 +107,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
+# dense, no sparsity: bf16 and TF32 tensor cores, f32 CUDA cores.  An f32
+# N:M product's operations term is the lesser of its N/M MACs on the CUDA
+# cores and three TF32 passes over its dense MACs on the tensor cores (the
+# split-TF32 body keeps f32 accuracy with three passes), so no f32 N:M
+# kernel can read past 100% of its bound (``nm_f32_bound_ms``).
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 # one llama3.2-1b decode layer's seven linears (out, in): wq, wk, wv, wo,
 # wg, wu, wd
 LAYER_SHAPES = [(2048, 2048), (512, 2048), (512, 2048), (2048, 2048),
@@ -206,6 +211,17 @@ def max_err(torch, got, want, rtol: float, atol: float):
 def bound_ms(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nm_f32_bound_ms(nbytes: float, cols: int, rows: int, k: int, nnz: int):
+    """``bound_ms`` of an f32 N:M product of ``cols`` dense columns against
+    ``rows`` compressed rows of K (``nnz`` values in all), its operations
+    term the faster of the N/M MACs at the f32 CUDA-core rate and three
+    TF32 passes over the dense MACs at the tensor-core rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = min(2.0 * cols * nnz / PEAK_FLOPS["float32"],
+                3 * 2.0 * cols * rows * k / PEAK_FLOPS["tf32"]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -498,29 +514,50 @@ def check_same_bits_twice(torch, layer, words, gen) -> None:
 
 def phase_spmm_check(torch):
     """nm_spmm against nm_spmm_plain over 1:4 / 2:4 / 2:8 in f32 and bf16 at
-    the reference's ragged (130, 96, 520) and two CNN GEMMs (R, C, K)."""
+    the reference's ragged (130, 96, 520) and three CNN GEMMs (R, C, K):
+    densenet121 L1 at batch 1, and resnet50 conv5_3x3 and inceptionv3
+    mix7_3x3 at batch 1, whose f32 plans split K.  In f32 the split shapes
+    also run twice through nm_spmm and nm_xwt (the same GEMM transposed),
+    which must give the same bits."""
     from repro_torch.core.sparsity import compress
     from repro_torch.kernels import nm_spmm
     gen = torch.Generator(device="cuda").manual_seed(9)
     worst, ok = 0.0, True
+    sms = nm_spmm.sm_count(torch.device("cuda"))
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
         rtol, atol = TOL[dname]
         for n, m in ((1, 4), (2, 4), (2, 8)):
-            for r, c, k in ((130, 96, 520), (64, 12544, 152), (512, 49, 4608)):
+            for r, c, k in ((130, 96, 520), (64, 12544, 152), (512, 49, 4608),
+                            (384, 64, 1152)):
                 w = (torch.randn(r, k, generator=gen, device="cuda")
                      * k ** -0.5).to(dtype)
                 sp = compress(w, n, m)
                 b = torch.randn(k, c, generator=gen, device="cuda").to(dtype)
-                e, good = max_err(torch, nm_spmm.nm_spmm(
-                    sp.values, sp.indices, b, n, m), nm_spmm.nm_spmm_plain(
+                y = nm_spmm.nm_spmm(sp.values, sp.indices, b, n, m)
+                e, good = max_err(torch, y, nm_spmm.nm_spmm_plain(
                     sp.values, sp.indices, b, n, m), rtol, atol)
                 worst, ok = max(worst, e), ok and good
+                plan = nm_spmm.f32_plan(r, c, k, n, m, sms) \
+                    if dtype == torch.float32 else None
+                splits = plan.splits if plan else 1
                 log(f"[check] nm_spmm {n}:{m} {dname} (R,C,K)=({r},{c},{k}) "
-                    f"max_abs_err {e:.3e} tol {atol}+{rtol}|ref| "
-                    f"{'ok' if good else 'FAIL'}")
+                    f"splits {splits} max_abs_err {e:.3e} tol {atol}+{rtol}"
+                    f"|ref| {'ok' if good else 'FAIL'}")
+                if splits > 1:
+                    x = b.t().contiguous()
+                    xw = nm_spmm.nm_xwt(x, sp.values, sp.indices, n, m)
+                    same = bool(torch.equal(y, nm_spmm.nm_spmm(
+                        sp.values, sp.indices, b, n, m))) and bool(
+                        torch.equal(xw, nm_spmm.nm_xwt(x, sp.values,
+                                                       sp.indices, n, m)))
+                    ok = ok and same
+                    log(f"[check] nm_spmm / nm_xwt {n}:{m} f32 split K "
+                        f"({splits} splits): same inputs twice, bit-equal "
+                        f"{'ok' if same else 'FAIL'}")
     if not ok:
-        raise SystemExit("phase 2: nm_spmm disagrees with its plain version")
+        raise SystemExit("phase 2: nm_spmm disagrees with its plain version "
+                         "or gave other bits on a second launch")
     return worst
 
 
@@ -1093,9 +1130,9 @@ def phase_cnn(torch, F):
     the int8 kernel bit for bit.  Counts are zeroed before and read after;
     nm_xwt and nm_spmm must have launched.  Timings: the entry point
     (im2col + kernel), each kernel alone on the layer's patches, its plain
-    version, and the library calls (F.conv2d; torch.mm on the dense
-    weights for the GEMM), per layer and per net, the card's Fig 11
-    analogue."""
+    version, and the library calls (F.conv2d for the route; on the dense
+    weights torch.mm(W, cols^T) for nm_spmm's GEMM and F.linear(cols, W)
+    for nm_xwt's), per layer and per net, the card's Fig 11 analogue."""
     from repro_torch import kernels
     from repro_torch.core.sparsity import decompress
     from repro_torch.kernels import nm_spmm, ops
@@ -1116,7 +1153,7 @@ def phase_cnn(torch, F):
         for batch in (1, 32):
             for net, convs in CNN_LAYER_CONVS.items():
                 tot = totals.setdefault((n, batch, net), dict(
-                    conv=0.0, xwt=0.0, spmm=0.0, dense=0.0, mm=0.0,
+                    conv=0.0, xwt=0.0, spmm=0.0, dense=0.0, mm=0.0, lin=0.0,
                     xwt_plain=0.0, spmm_plain=0.0, bound=0.0))
                 for name, c_in, c_out, kh, kw, stride, h in convs:
                     w = sparse_conv_init(gen, c_in, c_out, kh, kw, n, M)
@@ -1160,6 +1197,8 @@ def phase_cnn(torch, F):
                             x, wd, c_in, kh, kw, stride), iters=5, warmup=1),
                         mm=time_ms(torch, lambda: torch.mm(wd, colst),
                                    iters=5, warmup=1),
+                        lin=time_ms(torch, lambda: F.linear(cols, wd),
+                                    iters=5, warmup=1),
                         xwt_plain=time_ms(torch, lambda: nm_spmm.nm_xwt_plain(
                             cols, w.values, w.indices, n, M), iters=3,
                             warmup=1),
@@ -1168,11 +1207,12 @@ def phase_cnn(torch, F):
                             warmup=1))
                     rows_, k_ = cols.shape
                     # bytes: patches, values + int8 indices, output (f32);
-                    # operations: the N/M nonzero MACs at the f32 rate
+                    # operations: the N/M MACs on the CUDA cores or three
+                    # TF32 passes over the dense MACs, the faster
                     nbytes = 4 * (rows_ * k_ + rows_ * c_out) \
                         + w.values.numel() * 5
-                    flops = 2.0 * rows_ * w.values.numel()
-                    bnd, by = bound_ms(nbytes, flops, "float32")
+                    bnd, by = nm_f32_bound_ms(nbytes, rows_, c_out, k_,
+                                              w.values.numel())
                     ms["bound"] = bnd
                     for key, val in ms.items():
                         tot[key] += val
@@ -1183,7 +1223,8 @@ def phase_cnn(torch, F):
                         f"R {c_out} K {ckp} C {rows_}): conv2d_sparse "
                         f"{ms['conv']:.4f} ms, nm_xwt {ms['xwt']:.4f}, "
                         f"nm_spmm {ms['spmm']:.4f}, F.conv2d {ms['dense']:.4f}"
-                        f", torch.mm dense {ms['mm']:.4f}; bound "
+                        f", torch.mm dense {ms['mm']:.4f}, F.linear "
+                        f"{ms['lin']:.4f}; bound "
                         f"{bnd:.4f} ({by}); plain xwt {ms['xwt_plain']:.4f}, "
                         f"spmm {ms['spmm_plain']:.4f}; max_abs_err vs "
                         f"F.conv2d {e1:.2e} / {e2:.2e} (tol {CNN_TOL}+"
@@ -1194,10 +1235,11 @@ def phase_cnn(torch, F):
                     f"{len(convs)} layers: conv2d_sparse {tot['conv']:.4f} "
                     f"ms, nm_xwt {tot['xwt']:.4f}, nm_spmm {tot['spmm']:.4f}"
                     f", F.conv2d {tot['dense']:.4f}, torch.mm "
-                    f"{tot['mm']:.4f}, bound {tot['bound']:.4f}; dense / "
-                    f"sparse: conv {tot['dense'] / tot['conv']:.3f}x, GEMM "
-                    f"{tot['mm'] / tot['spmm']:.3f}x (nm_spmm) "
-                    f"{tot['mm'] / tot['xwt']:.3f}x (nm_xwt)")
+                    f"{tot['mm']:.4f}, F.linear {tot['lin']:.4f}, bound "
+                    f"{tot['bound']:.4f}; dense / sparse: conv "
+                    f"{tot['dense'] / tot['conv']:.3f}x, GEMM "
+                    f"{tot['mm'] / tot['spmm']:.3f}x (nm_spmm vs torch.mm) "
+                    f"{tot['lin'] / tot['xwt']:.3f}x (nm_xwt vs F.linear)")
     torch.cuda.synchronize()
     log(f"[cnn] kernel launches of the routes: {launches}; packed nm_xwt "
         f"bit-equal on {packed_ok} layer runs, rejected on {packed_rejected} "
@@ -1214,8 +1256,8 @@ def phase_cnn(torch, F):
     cnn_cli.main([])
     agg = {key: sum(t[key] for (n, b, _), t in totals.items()
                     if n == N and b == 32)
-           for key in ("conv", "xwt", "spmm", "dense", "mm", "xwt_plain",
-                       "spmm_plain", "bound")}
+           for key in ("conv", "xwt", "spmm", "dense", "mm", "lin",
+                       "xwt_plain", "spmm_plain", "bound")}
     # what bounds most of the summed bound time
     by = max(("bytes", "operations"),
              key=lambda b: bound_by.get((N, 32, b), 0.0))
@@ -1224,9 +1266,11 @@ def phase_cnn(torch, F):
                              agg["mm"], worst),
                         at="15 CNN layers, 2:4, f32, batch 32 (sum)"),
         "nm_xwt": dict(ms=agg["xwt"], plain_ms=agg["xwt_plain"],
-                       bound_ms=agg["bound"], library_ms=agg["dense"],
+                       bound_ms=agg["bound"], library_ms=agg["lin"],
                        conv2d_sparse_ms=agg["conv"],
+                       f_conv2d_ms=agg["dense"],
                        at="15 CNN layers, 2:4, f32, batch 32 (sum; library "
+                          "F.linear(cols, W); the route's yardstick "
                           "F.conv2d)"),
     }
     return rows, {"cnn": launches}
@@ -1711,15 +1755,19 @@ def check_reference_route(torch, model, cfg, reqs, tol, phase,
 
 # device kernel symbol -> label (first match wins); each family's one
 # attention kernel runs its decode (S = 1) and verify (S = k + 1)
-# launches; nm_xwt.cu's tensor-core body and its split reduction are
-# nm_xwt_*, its first bodies are templated on the orientation (false:
-# nm_xwt, int8 or packed; true: nm_spmm)
+# launches; nm_xwt.cu's bf16 tensor-core body and its split reduction
+# are nm_xwt_*; its first bf16 body and its f32 split-TF32 body are
+# templated on the orientation (false: nm_xwt, int8 or packed; true:
+# nm_spmm), the f32 split sums are nm_tf32_reduce
 PROFILE_LABELS = (("nm_spmv_onehot", "nm_spmv onehot"), ("nm_spmv", "nm_spmv"),
                   ("nm_xwt_", "nm_xwt"),
                   ("nm_bf16_kernel<false", "nm_xwt"),
-                  ("nm_f32_kernel<false", "nm_xwt"),
+                  ("nm_tf32_kernel<2, false", "nm_xwt"),
+                  ("nm_tf32_kernel<4, false", "nm_xwt"),
                   ("nm_bf16_kernel<true", "nm_spmm"),
-                  ("nm_f32_kernel<true", "nm_spmm"),
+                  ("nm_tf32_kernel<2, true", "nm_spmm"),
+                  ("nm_tf32_kernel<4, true", "nm_spmm"),
+                  ("nm_tf32_reduce", "nm_xwt / nm_spmm f32 split sums"),
                   ("paged_gqa_verify", "paged GQA attention (decode+verify)"),
                   ("paged_mla_verify", "paged MLA attention (decode+verify)"))
 

@@ -471,8 +471,9 @@ __device__ __forceinline__ void tile_body(const TileArgs<Idx>& a) {
         }
 }
 
-// y = bf16(sum over splits of ws[z]), added in split order
-__device__ __forceinline__ void reduce_splits(const float* ws, bf16* y, int count,
+// y = sum over splits of ws[z] (rounded to T), added in split order
+template <typename T>
+__device__ __forceinline__ void reduce_splits(const float* ws, T* y, int count,
                                               int splits) {
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < count;
        i += gridDim.x * blockDim.x) {
@@ -487,7 +488,7 @@ __device__ __forceinline__ void reduce_splits(const float* ws, bf16* y, int coun
       for (int q = 0; q < 8; ++q)
         if (z0 + q < splits) s = z0 + q == 0 ? p[q] : s + p[q];
     }
-    y[i] = __float2bfloat16(s);
+    y[i] = from_f32<T>(s);
   }
 }
 

@@ -1,5 +1,5 @@
 // The tiled N:M sparse-dense products: both orientations of the reference's
-// src/repro/kernels/nm_spmm.py, one kernel body each for f32 and bf16.
+// src/repro/kernels/nm_spmm.py, in f32 and bf16.
 //
 //   nm_xwt   Y[S, O] = X[S, K] . W_sp^T  (nm_xwt_kernel / _xwt_body), the
 //            W indices as int8 or as the paper's bit-packed words
@@ -7,18 +7,18 @@
 //   nm_spmm  C[R, C] = A_sp[R, K] . B[K, C]  (nm_spmm_kernel / _spmm_body),
 //            the paper's orientation
 //
-// Both compute out[rows, cols] = P[rows, K] . Q[cols, K]^T with one operand
-// compressed: in xwt P = X is dense and Q = W sparse; in spmm P = A is
-// sparse and Q^T = B dense.  The template parameter Spmm picks which tile is
-// decompressed and which is staged; the index stream is a template
-// parameter (nm::Int8Idx or nm::PackedIdx), so the packed kernel differs
-// from the int8 one only in its index reads and its output is the same bit
-// for bit.
-//
 // Bound on the H100: at the serving prefill lengths the compressed weight
 // bytes (the MACs at the bf16 tensor-core rate take less time than reading
 // the weights once); at the CNN GEMMs' widths (K up to 4608, tens of
 // thousands of columns) the operations.
+//
+// f32 (all three launchers, every N:M with M dividing 64) runs the
+// split-TF32 tensor-core body of nm_tf32.cuh: the compressed operand is
+// always the mma's A (its rows are W's or A's rows), a cp.async ring feeds
+// values, indices and the dense tile, each stage is decompressed into hi
+// and lo TF32 tiles in shared memory, and three mma.sync passes (lo.hi,
+// hi.lo, hi.hi) keep f32 accuracy.  Its plan (tile, warps, ring, K splits)
+// comes from the wrapper (kernels/nm_spmm.py f32_plan).
 //
 // bf16 nm_xwt (int8 and packed) at N:M in {1:2, 1:4, 2:4, 2:8} runs the
 // tensor-core tile body of nm_mma.cuh (shared with the onehot nm_spmv
@@ -28,91 +28,28 @@
 // a 2-4 stage cp.async ring feeds values, indices (packed words as 16-byte
 // copies where a row's words are 16-byte aligned) and X; W is decompressed
 // in registers into mma.sync A fragments.  The plan (tile, splits, ring)
-// comes from the wrapper (kernels/nm_spmm.py mma_plan) and does not depend
-// on the index format, so the packed instance sums in the int8 instance's
-// order and equals it bit for bit.
+// comes from the wrapper (kernels/nm_spmm.py mma_plan).
 //
-// The first bodies stay for the rest: one CTA per output tile loops over K;
-// per 64-column step it stages the dense tile and decompresses the sparse
-// tile into shared memory with the reference's block*M + idx placement,
-// each thread issuing all of its global loads (16-byte runs where the
-// shapes allow) before its first shared store.  bf16 tiles (64x64) feed
-// mma.sync m16n8k16 with f32 accumulators, eight warps of 32x16 each: this
-// is nm_spmm's bf16 body and nm_xwt's at other N:M.  f32 tiles (32x64, all
-// three launchers) take an f32 FMA loop with 2x4 register micro-tiles.
-// Ragged edges are masked in the loads and the store; nothing is padded.
-#include "nm_mma.cuh"
+// Both plans do not depend on the index format, so the packed instances
+// sum in the int8 instances' order and equal them bit for bit.
+//
+// The first bf16 body stays for nm_spmm and for nm_xwt at other N:M: one
+// CTA per 64x64 output tile loops over K; per 64-column step it stages
+// the dense tile and decompresses the sparse tile into shared memory with
+// the reference's block*M + idx placement (out[rows, cols] = P . Q^T with
+// P = X dense, Q = W sparse in xwt and P = A sparse, Q^T = B dense in
+// spmm), each thread issuing all of its global loads (16-byte runs where
+// the shapes allow) before its first shared store, and feeds mma.sync
+// m16n8k16 with f32 accumulators, eight warps of 32x16 each.  Ragged edges
+// are masked in the loads and the stores; nothing is padded.
+#include "nm_tf32.cuh"
 
 namespace {
 
 using nm::kBK;
 typedef __nv_bfloat16 bf16;
 
-// ------------------------------------------------------------ f32: FMA path
-
-constexpr int kFBM = 32, kFBN = 64, kFThreads = 256;
-
-// P is [rows, K] (xwt: dense X; spmm: compressed A), Q is [cols, K] (xwt:
-// compressed W; spmm: dense B given as [K, cols]).  dense is the dense
-// operand, vals/idx the compressed one.
-template <bool Spmm, class Idx>
-__global__ void __launch_bounds__(kFThreads)
-nm_f32_kernel(const float* __restrict__ dense, const float* __restrict__ vals,
-              Idx idx, float* __restrict__ y, int rows, int cols, int K,
-              int n, int m) {
-  __shared__ float xs[kFBM][kBK + 1];  // P tile [row][k]
-  __shared__ float ws[kBK][kFBN + 1];  // Q tile [k][col]
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // output columns tx + 16*j
-  const int ty = tid / 16;  // output rows ty + 16*i
-  const int s0 = blockIdx.y * kFBM;
-  const int c0 = blockIdx.x * kFBN;
-  float acc[2][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    __syncthreads();  // previous step's tiles fully consumed
-    if constexpr (Spmm) {
-      nm::decompress_tile(vals, idx, kFBM, s0, k0, rows, K, n, m,
-                          [&](int r, int kk, float v) { xs[r][kk] = v; });
-      for (int i = tid; i < kBK * kFBN; i += kFThreads) {  // along cols
-        const int kk = i / kFBN, c = i % kFBN;
-        const int k = k0 + kk, col = c0 + c;
-        ws[kk][c] = (k < K && col < cols) ? dense[(size_t)k * cols + col] : 0.f;
-      }
-    } else {
-      for (int i = tid; i < kFBM * kBK; i += kFThreads) {  // along K
-        const int r = i / kBK, kk = i % kBK;
-        const int s = s0 + r, k = k0 + kk;
-        xs[r][kk] = (s < rows && k < K) ? dense[(size_t)s * K + k] : 0.f;
-      }
-      nm::decompress_tile(vals, idx, kFBN, c0, k0, cols, K, n, m,
-                          [&](int c, int kk, float v) { ws[kk][c] = v; });
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float a0 = xs[ty][kk];
-      const float a1 = xs[ty + 16][kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float b = ws[kk][tx + 16 * j];
-        acc[0][j] = fmaf(a0, b, acc[0][j]);
-        acc[1][j] = fmaf(a1, b, acc[1][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int s = s0 + ty + 16 * i;
-    if (s >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (c < cols) y[(size_t)s * cols + c] = acc[i][j];
-    }
-  }
-}
-
-// --------------------------------------------------- bf16: tensor-core path
+// ----------------------------------------------------- bf16: the first body
 
 constexpr int kMBM = 64, kMBN = 64, kMThreads = 256;
 constexpr int kStride = kBK + 8;  // 144 B rows: conflict-free fragments
@@ -253,32 +190,100 @@ bool aligned(const void* p, uintptr_t a) {
   return reinterpret_cast<uintptr_t>(p) % a == 0;
 }
 
-// out[rows, cols]; dense is X [rows, K] (xwt) or B [K, cols] (spmm)
+// The first bf16 body: out[rows, cols]; dense is X [rows, K] (xwt) or B
+// [K, cols] (spmm)
 template <bool Spmm, class Idx>
-int launch(const void* dense, const void* vals, Idx idx, bool idx_runs_ok,
-           void* y, int rows, int cols, int K, int n, int m, int dtype,
-           void* stream) {
+int launch_bf16(const void* dense, const void* vals, Idx idx, bool idx_runs_ok,
+                void* y, int rows, int cols, int K, int n, int m, void* stream) {
   if (m <= 0 || kBK % m != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == REPRO_DTYPE_F32) {
-    const dim3 grid((cols + kFBN - 1) / kFBN, (rows + kFBM - 1) / kFBM);
-    nm_f32_kernel<Spmm, Idx><<<grid, kFThreads, 0, st>>>(
-        static_cast<const float*>(dense), static_cast<const float*>(vals), idx,
-        static_cast<float*>(y), rows, cols, K, n, m);
-  } else if (dtype == REPRO_DTYPE_BF16) {
-    const dim3 grid((cols + kMBN - 1) / kMBN, (rows + kMBM - 1) / kMBM);
-    const int nnz = K / m * n;
-    const int dense_minor = Spmm ? cols : K;
-    const bool vec_dense = dense_minor % 8 == 0 && aligned(dense, 16);
-    const bool runs = 8 % n == 0 && nnz % 8 == 0 && (kBK / m * n) % 8 == 0
-                      && aligned(vals, 16) && idx_runs_ok;
-    nm_bf16_kernel<Spmm, Idx><<<grid, kMThreads, 0, st>>>(
-        static_cast<const bf16*>(dense), static_cast<const bf16*>(vals), idx,
-        static_cast<bf16*>(y), rows, cols, K, n, m, vec_dense, runs);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const dim3 grid((cols + kMBN - 1) / kMBN, (rows + kMBM - 1) / kMBM);
+  const int nnz = K / m * n;
+  const int dense_minor = Spmm ? cols : K;
+  const bool vec_dense = dense_minor % 8 == 0 && aligned(dense, 16);
+  const bool runs = 8 % n == 0 && nnz % 8 == 0 && (kBK / m * n) % 8 == 0
+                    && aligned(vals, 16) && idx_runs_ok;
+  nm_bf16_kernel<Spmm, Idx><<<grid, kMThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(dense), static_cast<const bf16*>(vals), idx,
+      static_cast<bf16*>(y), rows, cols, K, n, m, vec_dense, runs);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------ f32: the split-TF32 body
+
+using nm::tf32::Args;
+
+template <bool Spmm, class Idx, int CN, int CM>
+__global__ void __launch_bounds__(256, 2) nm_tf32_kernel(Args<Idx> a) {
+  nm::tf32::tile_body<Spmm, Idx, CN, CM>(a);
+}
+
+__global__ void nm_tf32_reduce_kernel(const float* ws, float* y, int count,
+                                      int splits) {
+  nm::mma::reduce_splits(ws, y, count, splits);
+}
+
+template <bool Spmm, class Idx, int CN, int CM>
+int run_tf32(const Args<Idx>& a, cudaStream_t s) {
+  static int smem_set = 48 * 1024;  // per kernel, in this library
+  auto kern = nm_tf32_kernel<Spmm, Idx, CN, CM>;
+  if (a.pl.smem > smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, a.pl.smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = a.pl.smem;
+  }
+  const nm::tf32::Plan& p = a.pl;
+  const int bm = 32 * p.wm, bn = 32 * p.wn;
+  const dim3 grid((a.C + bn - 1) / bn, (a.R + bm - 1) / bm, p.splits);
+  kern<<<grid, 32 * p.wm * p.wn, p.smem, s>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || p.splits == 1) return static_cast<int>(e);
+  const int count = a.R * a.C;
+  const int blocks = min((count + 255) / 256, 132 * 8);
+  nm_tf32_reduce_kernel<<<blocks, 256, 0, s>>>(a.ws, a.y, count, p.splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out = W_sp . D^T in f32 under the wrapper's plan: R compressed rows, C
+// dense columns (xwt: Y [C, R] from X [C, K]; spmm: C [R, C] from B [K,
+// C]).  The N:M of the bf16 tensor-core set take compile-time instances
+// (a 16-column decompress in registers); every other N:M the run-time one.
+template <bool Spmm, class Idx>
+int launch_tf32(const void* dense, const void* vals, Idx idx, void* y, int R,
+                int C, int K, int n, int m, const nm::tf32::Plan& plan,
+                void* ws, void* stream) {
+  if (m <= 0 || n <= 0 || n >= m || kBK % m || K % m)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args<Idx> a{};
+  a.dense = static_cast<const float*>(dense);
+  a.vals = static_cast<const float*>(vals);
+  a.idx = idx;
+  a.y = static_cast<float*>(y);
+  a.ws = static_cast<float*>(ws);
+  a.R = R, a.C = C, a.K = K, a.n = n, a.m = m;
+  a.pl = plan;
+  if (!nm::tf32::check_plan<Spmm>(a))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int E = a.ly.ks / m * n;  // slots per stage
+  a.vvec = (K / m * n) % 4 == 0 && E % 4 == 0 && aligned(vals, 16);
+  a.dvec = (Spmm ? C : K) % 4 == 0 && aligned(dense, 16);
+  a.ovec = C % 4 == 0 && aligned(y, 16) && aligned(ws, 16);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 1 && m == 2) return run_tf32<Spmm, Idx, 1, 2>(a, s);
+  if (n == 1 && m == 4) return run_tf32<Spmm, Idx, 1, 4>(a, s);
+  if (n == 2 && m == 4) return run_tf32<Spmm, Idx, 2, 4>(a, s);
+  if (n == 2 && m == 8) return run_tf32<Spmm, Idx, 2, 8>(a, s);
+  return run_tf32<Spmm, Idx, 0, 0>(a, s);
+}
+
+// the int8 index stream of the f32 body: 16- or 4-byte copies where a
+// stage's index bytes and the rows allow
+nm::tf32::I8 tf32_int8(const void* idx, int K, int n, int m) {
+  const int nnz = K / m * n, E = nm::tf32::stage_cols(m) / m * n;
+  const int mode = E % 16 == 0 && nnz % 16 == 0 && aligned(idx, 16) ? 2
+                   : E % 4 == 0 && nnz % 4 == 0 && aligned(idx, 4) ? 1 : 0;
+  return nm::tf32::I8{static_cast<const int8_t*>(idx), nnz, mode};
 }
 
 // --------------------------------------- bf16 nm_xwt: the tensor-core body
@@ -341,49 +346,61 @@ int launch_mma(const void* x, const void* vals, Idx idx, void* y, int S, int O,
 
 }  // namespace
 
-// Y[S, O] = X[S, K] . W^T, W as values [O, K/M*N] + int8 indices.  plan:
-// the tensor-core body's launch plan (nt, ws, wo, wk, ss, stages, splits,
-// kper) and its stage layout (vstride, istride, xstride, stage) from the
-// wrapper, nt = 0 for the first bodies; ws: the f32 split workspace
-// [splits, S, O] when splits > 1.
+// The launchers' twelve plan ints p0..p11.  bf16 nm_xwt: the tensor-core
+// body's plan (nt, ws, wo, wk, ss, stages, splits, kper) and stage layout
+// (vstride, istride, xstride, stage) from the wrapper, nt = 0 for the first
+// body.  f32: the split-TF32 body's plan (wm, wn, stages, splits, kper,
+// smem), then zeros.  bf16 nm_spmm takes none.  ws: the f32 split
+// workspace [splits, rows, cols] of the output when the plan splits K.
+#define PLAN_INTS                                                          \
+  int p0, int p1, int p2, int p3, int p4, int p5, int p6, int p7, int p8, \
+      int p9, int p10, int p11
+#define F32_PLAN nm::tf32::Plan{p0, p1, p2, p3, p4, p5}
+
+// Y[S, O] = X[S, K] . W^T, W as values [O, K/M*N] + int8 indices.
 extern "C" int nm_xwt_launch(const void* x, const void* vals, const void* idx,
                              void* y, int S, int O, int K, int n, int m,
-                             int dtype, int nt, int wrows, int wo, int wk,
-                             int ss, int stages, int splits, int kper, int vstride,
-                             int istride, int xstride, int stage, void* ws,
-                             void* stream) {
+                             int dtype, PLAN_INTS, void* ws, void* stream) {
   if (m <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int nnz = K / m * n;
-  if (nt != 0) {
-    const nm::mma::Plan plan{nt, wrows, wo, wk, ss, stages, splits, kper};
-    const nm::mma::Layout ly{vstride, istride, xstride, stage, 0, 0, 0};
+  if (dtype == REPRO_DTYPE_F32)
+    return launch_tf32<false>(x, vals, tf32_int8(idx, K, n, m), y, O, S, K, n,
+                              m, F32_PLAN, ws, stream);
+  if (dtype != REPRO_DTYPE_BF16) return static_cast<int>(cudaErrorInvalidValue);
+  if (p0 != 0) {
+    const nm::mma::Plan plan{p0, p1, p2, p3, p4, p5, p6, p7};
+    const nm::mma::Layout ly{p8, p9, p10, p11, 0, 0, 0};
     const Int8Stream reader{static_cast<const int8_t*>(idx), nnz,
                             nnz % 16 == 0 && aligned(idx, 16)};
     return launch_mma(x, vals, reader, y, S, O, K, n, m, dtype, plan, ly, ws,
                       stream);
   }
   const nm::Int8Idx reader{static_cast<const int8_t*>(idx), nnz};
-  return launch<false>(x, vals, reader, aligned(idx, 8), y, S, O, K, n, m,
-                       dtype, stream);
+  return launch_bf16<false>(x, vals, reader, aligned(idx, 8), y, S, O, K, n, m,
+                            stream);
 }
 
 // The same product with W's indices as the packed uint32 words of each row
 // (ceil(nnz / per_word) words per row, passed as raw 32-bit patterns).
 extern "C" int nm_xwt_packed_launch(const void* x, const void* vals,
                                     const void* words, void* y, int S, int O,
-                                    int K, int n, int m, int dtype, int nt,
-                                    int wrows, int wo, int wk, int ss,
-                                    int stages, int splits, int kper, int vstride,
-                                    int istride, int xstride, int stage, void* ws,
-                                    void* stream) {
+                                    int K, int n, int m, int dtype, PLAN_INTS,
+                                    void* ws, void* stream) {
   if (m <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int bits = nm::index_bits(m);
   const int per_word = 32 / bits;
   const int nnz = K / m * n;
   const int wpr = (nnz + per_word - 1) / per_word;
-  if (nt != 0) {
-    const nm::mma::Plan plan{nt, wrows, wo, wk, ss, stages, splits, kper};
-    const nm::mma::Layout ly{vstride, istride, xstride, stage, 0, 0, 0};
+  if (dtype == REPRO_DTYPE_F32) {
+    const nm::tf32::Packed reader{static_cast<const uint32_t*>(words), wpr, bits,
+                                  per_word};
+    return launch_tf32<false>(x, vals, reader, y, O, S, K, n, m, F32_PLAN, ws,
+                              stream);
+  }
+  if (dtype != REPRO_DTYPE_BF16) return static_cast<int>(cudaErrorInvalidValue);
+  if (p0 != 0) {
+    const nm::mma::Plan plan{p0, p1, p2, p3, p4, p5, p6, p7};
+    const nm::mma::Layout ly{p8, p9, p10, p11, 0, 0, 0};
     const PackedStream reader{static_cast<const uint32_t*>(words), wpr, per_word,
                               wpr % 4 == 0 && aligned(words, 16)};
     return launch_mma(x, vals, reader, y, S, O, K, n, m, dtype, plan, ly, ws,
@@ -391,16 +408,21 @@ extern "C" int nm_xwt_packed_launch(const void* x, const void* vals,
   }
   const nm::PackedIdx reader{static_cast<const uint32_t*>(words), wpr, bits,
                              per_word};
-  return launch<false>(x, vals, reader, true, y, S, O, K, n, m, dtype, stream);
+  return launch_bf16<false>(x, vals, reader, true, y, S, O, K, n, m, stream);
 }
 
 // C[R, Ccols] = A_sp[R, K] . B[K, Ccols], A as values [R, K/M*N] + int8
 // indices.
 extern "C" int nm_spmm_launch(const void* vals, const void* idx, const void* b,
                               void* c, int R, int Ccols, int K, int n, int m,
-                              int dtype, void* stream) {
+                              int dtype, PLAN_INTS, void* ws, void* stream) {
   if (m <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const nm::Int8Idx reader{static_cast<const int8_t*>(idx), K / m * n};
-  return launch<true>(b, vals, reader, aligned(idx, 8), c, R, Ccols, K, n, m,
-                      dtype, stream);
+  const int nnz = K / m * n;
+  if (dtype == REPRO_DTYPE_F32)
+    return launch_tf32<true>(b, vals, tf32_int8(idx, K, n, m), c, R, Ccols, K,
+                             n, m, F32_PLAN, ws, stream);
+  if (dtype != REPRO_DTYPE_BF16) return static_cast<int>(cudaErrorInvalidValue);
+  const nm::Int8Idx reader{static_cast<const int8_t*>(idx), nnz};
+  return launch_bf16<true>(b, vals, reader, aligned(idx, 8), c, R, Ccols, K, n,
+                           m, stream);
 }

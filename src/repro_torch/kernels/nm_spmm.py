@@ -13,6 +13,19 @@ kernels ``repro/kernels/nm_spmm.py::nm_xwt_kernel`` (``_xwt_body`` +
 At serving prefill lengths the compressed weight bytes bound it on the
 H100; at the CNN GEMMs' widths the operations.
 
+f32 (all three launchers, every N:M with M dividing 64) runs the
+split-TF32 tensor-core body of ``csrc/nm_tf32.cuh``.  The f32 CUDA cores
+(67 TFLOP/s) bound an FMA loop, and one TF32 pass misses the 1e-4 checks,
+so each operand is split into hi + lo TF32 parts and three ``mma.sync``
+passes (lo.hi, hi.lo, hi.hi) are summed in f32: f32-accurate MACs at up to
+a third of the 495 TFLOP/s TF32 rate, over the dense MACs.  The compressed
+operand is always the mma's A (W's rows in xwt, A's in spmm), the dense
+one its B; a ``cp.async`` ring feeds values, indices and the dense tile,
+and the warps decompress the next stage into a second shared A tile (the
+reference's placement) between the current stage's mma.  Its plan
+(``f32_plan``: warps, tile, ring and K splits) is a pure function of the
+GEMM's shape and the SM count.
+
 bf16 ``nm_xwt`` (int8 and packed) at N:M in ``FAST_NM`` runs the
 tensor-core tile body of ``csrc/nm_mma.cuh``, shared with the onehot
 decode body: the weight stream flows through a 2-4 stage ``cp.async`` ring,
@@ -22,16 +35,17 @@ across CTAs where the output tiles alone would leave the card empty.  The
 launch plan (``mma_plan``: row and column tile, warps, ring, splits and K
 per split) is a pure function of the shape and the SM count, computed here
 and passed to the launcher with its shared-memory stage layout (``layout``:
-row strides and stage bytes, which the launcher only checks); split partial sums go to an f32 workspace
-allocated here and are added in split order by a second kernel (no float
-atomics, so every run and both index formats give the same bits).  The
-packed instance stages its words with 16-byte copies and unpacks them from
-shared memory; it takes the int8 plan, so its output equals the int8
-kernel's bit for bit.  f32 (all three launchers), ``nm_spmm`` in bf16 and
-bf16 at other N:M keep the first body: one CTA per 64-wide output tile
-loops over K in 64-column steps, decompressing into shared memory
-(``mma.sync`` in bf16, an f32 FMA loop in f32).  Ragged edges are masked
-in the kernel, never padded.
+row strides and stage bytes, which the launcher only checks).  The packed
+instance stages its words with 16-byte copies and unpacks them from shared
+memory.  ``nm_spmm`` in bf16 and bf16 ``nm_xwt`` at other N:M keep the
+first body: one CTA per 64-wide output tile loops over K in 64-column
+steps, decompressing into shared memory for ``mma.sync``.
+
+Under both plans, split partial sums go to an f32 workspace allocated here
+and are added in split order by a second kernel (no float atomics, so every
+run gives the same bits), and the plan does not look at the index format,
+so the packed instance equals the int8 one bit for bit.  Ragged edges are
+masked in the kernels, never padded.
 
 ``nm_xwt_plain``, ``nm_xwt_packed_plain`` and ``nm_spmm_plain`` are the same
 functions in plain torch: the CPU path, and what the kernels are held
@@ -55,13 +69,15 @@ from repro_torch.kernels.build import (DTYPE_CODES, CudaKernel,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
-# + the plan's eight ints (nt = 0: the first body), its stage layout's four
-# and the split workspace
+# + twelve plan ints (bf16: the mma plan's eight, nt = 0 for the first
+# body, and its stage layout's four; f32: the F32Plan's five and its
+# shared memory, then zeros) and the split workspace
 _PLAN_ARGS = _ARGS + [_I] * 12 + [_P]
 KERNEL = CudaKernel("nm_xwt", "nm_xwt_launch", _PLAN_ARGS)
 PACKED_KERNEL = CudaKernel("nm_xwt_packed", "nm_xwt_packed_launch",
                            _PLAN_ARGS, lib="nm_xwt")
-SPMM_KERNEL = CudaKernel("nm_spmm", "nm_spmm_launch", _ARGS, lib="nm_xwt")
+SPMM_KERNEL = CudaKernel("nm_spmm", "nm_spmm_launch", _PLAN_ARGS,
+                         lib="nm_xwt")
 BK = 64     # the kernels' K step: M must divide it
 SMS = 132   # streaming multiprocessors of an H100 SXM
 # the (N, M) the tensor-core body is instantiated for (M divides 16, N <= 2)
@@ -78,7 +94,7 @@ class MmaPlan(NamedTuple):
     wo: int       # warps along O, 32 output columns each
     wk: int       # warps sharing each stage's 64-column supersteps
     ss: int       # supersteps per ring stage
-    stages: int   # ring depth
+    stages: int   # ring depth: 3 or 4
     splits: int   # CTAs along K
     kper: int     # K columns per split (a multiple of 64)
 
@@ -218,24 +234,172 @@ def mma_plan(rows: int, o: int, k: int, n: int, m: int, sms: int = SMS,
     return full._replace(splits=splits, kper=64 * ss * per)
 
 
+class F32Plan(NamedTuple):
+    """Launch plan of the split-TF32 f32 body (``csrc/nm_tf32.cuh``) for
+    out = W_sp . D^T with ``rows`` compressed rows and ``cols`` dense
+    columns (xwt: rows = O, cols = S; spmm: rows = R, cols = C).  Every
+    warp holds a 32 x 32 output tile."""
+    wm: int       # warps along the compressed rows, 32 rows each
+    wn: int       # warps along the dense columns, 32 columns each
+    stages: int   # ring depth: 3 or 4
+    splits: int   # CTAs along K
+    kper: int     # K columns per split (a multiple of 64)
+
+    @property
+    def row_tile(self) -> int:
+        return 32 * self.wm
+
+    @property
+    def col_tile(self) -> int:
+        return 32 * self.wn
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.wm * self.wn
+
+    def grid(self, rows: int, cols: int):
+        return (-(-cols // self.col_tile), -(-rows // self.row_tile),
+                self.splits)
+
+    def ctas(self, rows: int, cols: int) -> int:
+        gx, gy, gz = self.grid(rows, cols)
+        return gx * gy * gz
+
+
+# (wm, wn) by row tile, widest column tile first, at most 8 warps
+F32_TILES = {128: ((4, 2), (4, 1)),
+             64: ((2, 4), (2, 2), (2, 1)),
+             32: ((1, 8), (1, 4), (1, 2), (1, 1))}
+HALF_SM = 115712    # shared memory of each of two CTAs on one SM
+# The plan's time model (seconds): a stage of an m x n tile costs its
+# three-pass MACs at an assumed 300 TFLOP/s of mma.sync TF32 over 132 SMs
+# plus a fixed 0.25 us (barriers, decompress, latency); K splits cost their
+# partial sums' bytes at 3.35 TB/s and a 3 us reduce launch.
+_SM_TF32 = 300e12 / SMS
+_STAGE_FIXED = 0.25e-6
+_HBM = 3.35e12
+
+
+def _r16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def f32_stage_cols(m: int) -> int:
+    """K columns per ring stage of the f32 body: 32, or 64 at M = 64 (one
+    M-block per stage)."""
+    return 64 if m > 32 else 32
+
+
+def f32_smem_bytes(plan: F32Plan, n: int, m: int) -> int:
+    """Dynamic shared memory of a CTA under ``plan`` (what the launcher's
+    ``check_plan`` in ``csrc/nm_tf32.cuh`` derives, taking the larger of
+    the int8 and the packed index rows and of the xwt [n][k] and the spmm
+    [k][n] dense tile, so every launcher takes one plan): two f32 A tiles
+    (the stage the mma reads and the next one being decompressed), then
+    ``stages`` ring stages of values, indices and dense tile."""
+    ks = f32_stage_cols(m)
+    e = ks // m * n
+    per_word = 32 // index_bits(m)
+    istride = _r16(max(e, 4 * (-(-e // per_word) + 1)))
+    bm, bn = plan.row_tile, plan.col_tile
+    dense = max(bn * (ks + 4) * 4, ks * (bn + 8) * 4)
+    stage = -(-(bm * (_r16(4 * e) + istride) + dense) // 128) * 128
+    return 2 * bm * (ks + 4) * 4 + plan.stages * stage
+
+
+def f32_row_tile(rows: int) -> int:
+    """The row tile for ``rows`` compressed rows: the one of 128, 64, 32
+    that pads the rows least, the largest on a tie."""
+    return min((128, 64, 32), key=lambda t: (-(-rows // t) * t, -t))
+
+
+def f32_cost(plan: F32Plan, rows: int, cols: int, n: int, m: int,
+             sms: int) -> float:
+    """The plan's modelled seconds: the stages on the busiest SM (CTAs
+    spread evenly over the SMs; a stage's fixed part doubles where one CTA
+    holds the SM alone) and the split partial sums' traffic."""
+    ks = f32_stage_cols(m)
+    alone = f32_smem_bytes(plan, n, m) > HALF_SM
+    stage = 6.0 * ks * plan.row_tile * plan.col_tile / _SM_TF32 \
+        + _STAGE_FIXED * (2 if alone else 1)
+    t = -(-plan.ctas(rows, cols) // sms) * (plan.kper // ks) * stage
+    if plan.splits > 1:
+        t += 2.0 * plan.splits * rows * cols * 4 / _HBM + 3e-6
+    return t
+
+
+def _f32_ring(wm: int, wn: int, n: int, m: int) -> Optional[F32Plan]:
+    """The tile with the deepest ring (4 or 3 stages: the body decompresses
+    stage st + 1 while stage st feeds the mma) under which two CTAs share
+    an SM, else with 3 stages if one CTA fits, else None."""
+    for stages in (4, 3):
+        plan = F32Plan(wm, wn, stages, 1, 64)
+        if f32_smem_bytes(plan, n, m) <= HALF_SM:
+            return plan
+    return plan if f32_smem_bytes(plan, n, m) <= SMEM_LIMIT else None
+
+
+@functools.lru_cache(maxsize=4096)
+def f32_plan(rows: int, cols: int, k: int, n: int, m: int,
+             sms: int = SMS) -> Optional[F32Plan]:
+    """The split-TF32 body's plan for out = W_sp[rows, k] . D[cols, k]^T,
+    or None for an empty output or an N:M the body does not take.  A pure
+    function of the shape and the SM count, not of the index format or the
+    orientation.  The row tile pads the rows least (``f32_row_tile``;
+    a smaller one where no tile of it fits the shared memory); the column
+    tile and the K splits (whole 64-column steps) are the ones with
+    the least ``f32_cost`` among those that put at least 0.9 x min(SMs,
+    the most CTAs the shape allows) CTAs on the card, on a tie the fewer
+    splits, then the wider tile; the ring is the deepest that lets two
+    CTAs share an SM (``_f32_ring``)."""
+    if min(rows, cols, k) <= 0 or k % m or BK % m or not 0 < n < m:
+        return None
+    nst = -(-k // BK)
+    plans = []
+    for bm in (128, 64, 32):     # the least padded first, then smaller
+        if bm > f32_row_tile(rows):
+            continue
+        for wm, wn in F32_TILES[bm]:
+            ring = _f32_ring(wm, wn, n, m)
+            if ring is None:
+                continue
+            for s in range(1, nst + 1):
+                per = -(-nst // s)
+                plans.append(ring._replace(splits=-(-nst // per),
+                                           kper=BK * per))
+        if plans:
+            break
+    most = max(p.ctas(rows, cols) for p in plans)
+    fill = 0.9 * min(sms, most)
+    return min((p for p in plans if p.ctas(rows, cols) >= fill),
+               key=lambda p: (f32_cost(p, rows, cols, n, m, sms), p.splits,
+                              -p.col_tile))
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def plan_args(plan: Optional[MmaPlan], rows: int, o: int, n: int, m: int,
-              packed: bool, device: torch.device):
-    """The launcher's plan and layout ints and workspace pointer, and the
-    f32 split workspace [splits, rows, O] itself (None without splits),
-    which the caller keeps alive until the launch is queued."""
+def plan_args(plan, rows: int, o: int, n: int, m: int, packed: bool,
+              device: torch.device):
+    """The launcher's twelve plan ints and workspace pointer, and the f32
+    split workspace [splits, rows, O] of the output itself (None without
+    splits), which the caller keeps alive until the launch is queued.  An
+    ``MmaPlan`` gives its eight ints and its stage layout's four, an
+    ``F32Plan`` its five and its shared memory, then zeros; None (the first
+    bf16 body) gives zeros."""
     if plan is None:
         return NO_PLAN + (None,), None
     ws = None
     if plan.splits > 1:
         ws = torch.empty(plan.splits, rows, o, dtype=torch.float32,
                          device=device)
-    return (tuple(plan) + layout(plan, n, m, packed)
-            + (ws.data_ptr() if ws is not None else None,)), ws
+    if isinstance(plan, F32Plan):
+        ints = tuple(plan) + (f32_smem_bytes(plan, n, m),) + (0,) * 6
+    else:
+        ints = tuple(plan) + layout(plan, n, m, packed)
+    return ints + (ws.data_ptr() if ws is not None else None,), ws
 
 
 def nm_xwt_plain(x: torch.Tensor, values: torch.Tensor,
@@ -314,22 +478,26 @@ def _xwt(kernel: CudaKernel, plain, x, values, idx, n, m, idx_dtype):
 
 def launch_xwt(kernel: CudaKernel, x: torch.Tensor, values: torch.Tensor,
                idx: torch.Tensor, n: int, m: int) -> torch.Tensor:
-    """The int8 or packed launch on checked operands x [rows, K]: bf16
-    under ``mma_plan`` (which does not look at the index stream, so both
-    instances take one plan), f32 through the first body."""
+    """The int8 or packed launch on checked operands x [rows, K]: f32
+    under ``f32_plan`` (O compressed rows, ``rows`` dense columns), bf16
+    under ``mma_plan`` (None outside ``FAST_NM``: the first body).  Neither
+    plan looks at the index stream, so both instances take one plan."""
     rows, k = x.shape
     o = values.shape[0]
-    plan = mma_plan(rows, o, k, n, m, sm_count(x.device)) \
-        if x.dtype == torch.bfloat16 and rows and o else None
+    plan = None
+    if rows and o:
+        sms = sm_count(x.device)
+        plan = f32_plan(o, rows, k, n, m, sms) if x.dtype == torch.float32 \
+            else mma_plan(rows, o, k, n, m, sms)
     return launch_planned(kernel, x, values, idx, n, m, plan)
 
 
 def launch_planned(kernel: CudaKernel, x: torch.Tensor, values: torch.Tensor,
-                   idx: torch.Tensor, n: int, m: int,
-                   plan: Optional[MmaPlan]) -> torch.Tensor:
+                   idx: torch.Tensor, n: int, m: int, plan) -> torch.Tensor:
     """One launch of ``kernel`` (an ``nm_xwt`` launcher or the onehot
     ``nm_spmv`` one) on checked card operands x [rows, K] under ``plan``
-    (None: the first body); returns y [rows, O]."""
+    (an ``MmaPlan``, an ``F32Plan``, or None: the first bf16 body); returns
+    y [rows, O]."""
     rows, k = x.shape
     o = values.shape[0]
     y = torch.empty(rows, o, dtype=x.dtype, device=x.device)
@@ -361,7 +529,10 @@ def nm_spmm(values: torch.Tensor, indices: torch.Tensor, b: torch.Tensor,
     check_cuda_operand("indices", indices, b.device, torch.int8)
     out = torch.empty(r, c, dtype=b.dtype, device=b.device)
     if r and c:
+        plan = f32_plan(r, c, k, n, m, sm_count(b.device)) \
+            if b.dtype == torch.float32 else None
+        args, _ws = plan_args(plan, r, c, n, m, False, b.device)
         SPMM_KERNEL.launch(values.data_ptr(), indices.data_ptr(),
                            b.data_ptr(), out.data_ptr(), r, c, k, n, m,
-                           DTYPE_CODES[b.dtype])
+                           DTYPE_CODES[b.dtype], *args)
     return out

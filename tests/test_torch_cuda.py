@@ -845,3 +845,106 @@ def test_flash_tensor_core_body_skips_only_masked_tiles(bh, sq, sk, d, dv,
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=3e-2,
                                atol=3e-2)
+
+
+# ----------------------------------- the f32 split-TF32 body (nm_tf32.cuh)
+
+def _cnn_gemms():
+    from repro_torch.models.cnn import CNN_LAYER_GEMMS
+    return [(f"{net}/{name}", co, -(-k // 4) * 4, sp)
+            for net, layers in CNN_LAYER_GEMMS.items()
+            for name, co, k, sp in layers]
+
+
+CNN_GEMMS = _cnn_gemms()
+
+
+def _f32_case(r, k, n, m, c, seed):
+    """Compressed W [r, k] at k^-0.5 and dense columns [c, k] in f32."""
+    sp, g = _compressed(r, k, n, m, torch.float32, seed)
+    return sp, torch.randn(c, k, generator=g, device="cuda")
+
+
+def _close_f32(y, want):
+    np.testing.assert_allclose(y.cpu().numpy(), want.cpu().numpy(),
+                               **_tol(torch.float32))
+
+
+@pytest.mark.parametrize("nm", [(2, 4), (1, 4)])
+@pytest.mark.parametrize("layer,r,k,c", CNN_GEMMS,
+                         ids=[g[0] for g in CNN_GEMMS])
+def test_f32_body_at_cnn_batch1_shapes(layer, r, k, c, nm):
+    """Every CNN GEMM at batch 1, the paper's batch, where the plans split
+    K (resnet50 conv5_3x3: R 512, K 4608, 49 columns): nm_spmm (C = A_sp .
+    B) and nm_xwt (Y = cols . W^T) within 1e-4 of their plain versions,
+    the same bits twice, packed bit-equal to int8."""
+    from repro_torch.core.sparsity import pack_indices_i32
+    from repro_torch.kernels import nm_spmm as mod
+    n, m = nm
+    sp, cols = _f32_case(r, k, n, m, c, seed=r + k + c + n)
+    y = _once_and_again(mod.KERNEL, lambda: mod.nm_xwt(
+        cols, sp.values, sp.indices, n, m))
+    _close_f32(y, mod.nm_xwt_plain(cols, sp.values, sp.indices, n, m))
+    words = pack_indices_i32(sp.indices, m)
+    yp = _once_and_again(mod.PACKED_KERNEL, lambda: mod.nm_xwt_packed(
+        cols, sp.values, words, n, m))
+    assert torch.equal(yp, y)
+    b = cols.t().contiguous()
+    y2 = _once_and_again(mod.SPMM_KERNEL, lambda: mod.nm_spmm(
+        sp.values, sp.indices, b, n, m))
+    _close_f32(y2, mod.nm_spmm_plain(sp.values, sp.indices, b, n, m))
+
+
+@pytest.mark.parametrize("nm", [(4, 8), (1, 8), (3, 4), (1, 16), (2, 32),
+                                (1, 64), (63, 64)])
+@pytest.mark.parametrize("r,c,k", [(130, 96, 520), (64, 49, 1152),
+                                   (200, 5, 1024), (72, 37, 4608)])
+def test_f32_body_off_the_bf16_set(nm, r, c, k):
+    """N:M outside ``FAST_NM`` (M up to 64: an M-block wider than the
+    body's 16-column decompress group) in f32: nm_xwt, packed nm_xwt and
+    nm_spmm within 1e-4 of plain, twice the same bits, packed bit-equal to
+    int8; ragged rows, columns and K (C 49 and 37: dense rows not 16-byte
+    aligned)."""
+    from repro_torch.core.sparsity import pack_indices_i32
+    from repro_torch.kernels import nm_spmm as mod
+    n, m = nm
+    k = -(-k // m) * m
+    sp, cols = _f32_case(r, k, n, m, c, seed=r + c + k + 10 * m + n)
+    y = _once_and_again(mod.KERNEL, lambda: mod.nm_xwt(
+        cols, sp.values, sp.indices, n, m))
+    _close_f32(y, mod.nm_xwt_plain(cols, sp.values, sp.indices, n, m))
+    words = pack_indices_i32(sp.indices, m)
+    yp = _once_and_again(mod.PACKED_KERNEL, lambda: mod.nm_xwt_packed(
+        cols, sp.values, words, n, m))
+    assert torch.equal(yp, y)
+    b = cols.t().contiguous()
+    y2 = _once_and_again(mod.SPMM_KERNEL, lambda: mod.nm_spmm(
+        sp.values, sp.indices, b, n, m))
+    _close_f32(y2, mod.nm_spmm_plain(sp.values, sp.indices, b, n, m))
+
+
+@pytest.mark.parametrize("nm,r,c,k", [((2, 4), 512, 49, 4608),
+                                      ((2, 4), 384, 64, 1152),
+                                      ((2, 8), 256, 196, 2304),
+                                      ((1, 4), 2048, 32, 8192)])
+def test_f32_body_split_k_same_bits_and_packed(nm, r, c, k):
+    """At shapes whose plan splits K: a second launch gives the same bits
+    (partial sums added in split order, no float atomics), and packed
+    nm_xwt equals int8 bit for bit (one plan for both)."""
+    from repro_torch.core.sparsity import pack_indices_i32
+    from repro_torch.kernels import nm_spmm as mod
+    n, m = nm
+    assert mod.f32_plan(r, c, k, n, m, mod.sm_count(torch.device(
+        "cuda"))).splits > 1
+    sp, cols = _f32_case(r, k, n, m, c, seed=r + c + k)
+    y = _once_and_again(mod.KERNEL, lambda: mod.nm_xwt(
+        cols, sp.values, sp.indices, n, m))
+    words = pack_indices_i32(sp.indices, m)
+    yp = _once_and_again(mod.PACKED_KERNEL, lambda: mod.nm_xwt_packed(
+        cols, sp.values, words, n, m))
+    assert torch.equal(yp, y)
+    _close_f32(y, mod.nm_xwt_plain(cols, sp.values, sp.indices, n, m))
+    b = cols.t().contiguous()
+    y2 = _once_and_again(mod.SPMM_KERNEL, lambda: mod.nm_spmm(
+        sp.values, sp.indices, b, n, m))
+    _close_f32(y2, mod.nm_spmm_plain(sp.values, sp.indices, b, n, m))

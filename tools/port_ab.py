@@ -47,10 +47,14 @@ JSON line:
   ``F.linear``; paged_gqa_decode / paged_gqa_verify and paged_mla_decode
   / paged_mla_verify at the serving shape (8 slots, ``SERVE_LENS``, span
   4, bf16 pools) against SDPA on the gathered cache; flash_attention at
-  the phase-2 cases against SDPA (none with a softcap); nm_spmm over the
-  15 CNN layers (2:4, f32, batch 32, TF32 off) against ``torch.mm`` on
-  the dense weights.  Per case ``device_ms``, ``library_device_ms``,
-  ``factor`` (their ratio) and ``bound_ms``.
+  the phase-2 cases against SDPA (none with a softcap); over the 15 CNN
+  layers (2:4, TF32 off), f32 nm_spmm against ``torch.mm(W, cols^T)`` and
+  f32 nm_xwt against ``torch.mm(cols, W^T)`` at batch 32 and 1, and bf16
+  nm_spmm at batch 32 against bf16 ``torch.mm``, all on the dense
+  weights.  Per case ``device_ms``, ``library_device_ms``, ``factor``
+  (their ratio) and ``bound_ms`` (an f32 N:M product's operations at the
+  lesser of its N/M MACs on the CUDA cores and three TF32 passes over
+  its dense MACs).
 """
 
 from __future__ import annotations
@@ -73,13 +77,15 @@ def _load_smoke(root: str, name: str = "chip_smoke"):
     return mod
 
 
-def _own_device_ms():
-    """``device_ms`` of this tool's own checkout's ``chip_smoke.py`` (a
-    parent checkout's may predate it), loaded without leaving that
-    checkout's ``src`` on sys.path, so both checkouts are timed alike."""
+def _own_smoke():
+    """This tool's own checkout's ``chip_smoke.py`` (a parent checkout's
+    may predate what the tool uses of it: ``device_ms``, the one profiler
+    helper, and ``nm_f32_bound_ms``), loaded without leaving that
+    checkout's ``src`` on sys.path, so both checkouts are timed and
+    bounded alike."""
     saved = list(sys.path)
     try:
-        return _load_smoke(HERE, "chip_smoke_timing").device_ms
+        return _load_smoke(HERE, "chip_smoke_own")
     finally:
         sys.path[:] = saved
 
@@ -328,42 +334,67 @@ def _flash_rows(torch, F, smoke, device_ms) -> dict:
     return out
 
 
-def _spmm_rows(torch, smoke, device_ms) -> dict:
-    """nm_spmm over the 15 CNN layers (2:4, f32, batch 32) against
-    torch.mm on the dense pruned weights (TF32 off), summed."""
+def _spmm_rows(torch, smoke, own) -> dict:
+    """The N:M GEMM kernels over the 15 CNN layers (2:4, TF32 off), summed:
+    f32 nm_spmm (C = W . cols^T) against torch.mm(W, cols^T) and f32 nm_xwt
+    (Y = cols . W^T) against torch.mm(cols, W^T), both at batch 32 and 1,
+    and bf16 nm_spmm at batch 32 against bf16 torch.mm, on the dense
+    pruned weights.  f32 bounds: ``own.nm_f32_bound_ms``."""
     from repro_torch.core.sparsity import decompress
     from repro_torch.kernels import nm_spmm
     from repro_torch.models.cnn import CNN_LAYER_CONVS, im2col, sparse_conv_init
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(15)
-    dev = lib = bound = 0.0
-    for convs in CNN_LAYER_CONVS.values():
-        for _, c_in, c_out, kh, kw, stride, h in convs:
-            w = sparse_conv_init(gen, c_in, c_out, kh, kw, 2, 4)
-            wd = decompress(w)
-            x = torch.randn(32, h, h, c_in, generator=gen, device="cuda")
-            cols, _ = im2col(x, kh, kw, stride)
-            ckp = w.dense_shape[1]
-            colst = F.pad(cols, (0, ckp - cols.shape[1])).t().contiguous()
-            dev += device_ms(torch, lambda: nm_spmm.nm_spmm(
-                w.values, w.indices, colst, 2, 4), 5)
-            lib += device_ms(torch, lambda: torch.mm(wd, colst), 5)
-            nbytes = 4 * (colst.numel() + colst.shape[1] * c_out) \
-                + w.values.numel() * 5
-            bound += smoke.bound_ms(nbytes, 2.0 * colst.shape[1]
-                                    * w.values.numel(), "float32")[0]
-            del x, cols, colst
-    return {"nm_spmm 15 CNN layers": dict(
-        device_ms=dev, library_device_ms=lib, factor=dev / lib,
-        bound_ms=bound)}
+    cases = (("nm_spmm 15 CNN layers", 32, torch.float32, "spmm"),
+             ("nm_xwt f32 15 CNN layers", 32, torch.float32, "xwt"),
+             ("nm_spmm 15 CNN layers batch 1", 1, torch.float32, "spmm"),
+             ("nm_xwt f32 15 CNN layers batch 1", 1, torch.float32, "xwt"),
+             ("nm_spmm bf16 15 CNN layers", 32, torch.bfloat16, "spmm"))
+    out = {}
+    for label, batch, dtype, kind in cases:
+        dev = lib = bound = 0.0
+        for convs in CNN_LAYER_CONVS.values():
+            for _, c_in, c_out, kh, kw, stride, h in convs:
+                w = sparse_conv_init(gen, c_in, c_out, kh, kw, 2, 4)
+                x = torch.randn(batch, h, h, c_in, generator=gen,
+                                device="cuda")
+                cols, _ = im2col(x, kh, kw, stride)
+                ckp = w.dense_shape[1]
+                cols = F.pad(cols, (0, ckp - cols.shape[1])).to(dtype)
+                vals = w.values.to(dtype)
+                wd = decompress(w).to(dtype)
+                if kind == "spmm":
+                    colst = cols.t().contiguous()
+                    kern = lambda: nm_spmm.nm_spmm(vals, w.indices, colst, 2, 4)
+                    ref = lambda: torch.mm(wd, colst)
+                else:
+                    wt = wd.t()
+                    kern = lambda: nm_spmm.nm_xwt(cols, vals, w.indices, 2, 4)
+                    ref = lambda: torch.mm(cols, wt)
+                dev += own.device_ms(torch, kern, 5)
+                lib += own.device_ms(torch, ref, 5)
+                es = cols.element_size()
+                nbytes = es * (cols.numel() + cols.shape[0] * c_out) \
+                    + vals.numel() * (es + 1)
+                if dtype == torch.float32:
+                    bound += own.nm_f32_bound_ms(nbytes, cols.shape[0], c_out,
+                                                 ckp, vals.numel())[0]
+                else:
+                    bound += smoke.bound_ms(nbytes, 2.0 * cols.shape[0]
+                                            * vals.numel(), "bfloat16")[0]
+                del x, cols
+        out[label] = dict(device_ms=dev, library_device_ms=lib,
+                          factor=dev / lib, bound_ms=bound)
+    return out
 
 
-def device_table(torch, F, smoke, device_ms) -> dict:
+def device_table(torch, F, smoke, own) -> dict:
+    device_ms = own.device_ms
     out = {}
     for part in (lambda: _gather_rows(torch, F, smoke, device_ms),
                  lambda: _attention_rows(torch, F, smoke, device_ms),
                  lambda: _flash_rows(torch, F, smoke, device_ms),
-                 lambda: _spmm_rows(torch, smoke, device_ms)):
+                 lambda: _spmm_rows(torch, smoke, own)):
         out.update(part())
         print(f"port_ab: {sorted(out)} done", file=sys.stderr, flush=True)
     return out
@@ -437,7 +468,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 plain products
     torch.backends.cudnn.allow_tf32 = False
     root = os.path.abspath(args.root)
-    device_ms = _own_device_ms()
+    own = _own_smoke()
+    device_ms = own.device_ms
     smoke = _load_smoke(root)
     smoke.phase_build(torch)
     out = dict(root=root)
@@ -454,7 +486,7 @@ def main() -> int:
     if args.kernels:
         out["kernels"] = kernel_times(torch, F, smoke, device_ms)
     if args.device_table:
-        out["device_table"] = device_table(torch, F, smoke, device_ms)
+        out["device_table"] = device_table(torch, F, smoke, own)
     print(json.dumps(out), flush=True)
     return 0
 
