@@ -43,20 +43,35 @@ Phases (any failure exits non-zero and prints no result line):
    gemma2-9b local layer (d 256, window 4096, softcap 50, S 8192, BH 2),
    deepseek's MLA prefill (d 192, dv 128) and a q_off slice, then one
    launch per case through the entry point with the counts zeroed.
+Every serve phase (3-6) runs the engine as a user would on the card:
+each entry point (decode, prefill per bucket, propose, verify) captured as
+CUDA graphs before the first admission (``prewarm=True``), any mid-serve
+capture an error (``strict_prewarm=True``); a replay adds what its graph
+captured to each kernel's launch count.  Each phase also runs the eager
+engine (``graphs=False``) on the same trace: tokens and counters are
+compared with the graphed run's (a flip is printed with its top-2
+margin), and a ``[graph]`` line gives tokens/s in the order eager,
+graphed, graphed (, eager: phases 3 and 4), the prewarm, the first and
+steady tick and the graph pool's bytes.
+
 3. Serve llama3.2-1b: full width (16 layers, d 2048, 32/8 heads, d_ff
    8192, vocab 128256, bf16, 2:4 compressed; random weights from a seed)
    through ``ServeEngine(kv="paged", attn="fused", compressed=True)``: 8
    slots, 16 requests of 128 prompt tokens, generation mix 16/32, block
-   size 16.  Each kernel of the path must have launched during the run,
-   and a second engine over the same trace must emit the same tokens and
-   counters (as in phases 4-6).  Then the same prefills and first decode
-   steps run through the kernel route and through the reference route
-   (``impl="ref"``, ``attn="gather"``) and the logits are compared.
+   size 16.  Each kernel of the path must have launched during the run
+   (nm_spmv decode steps x 16 layers x 7 times), and a second engine over
+   the same trace must emit the same tokens and counters (as in phases
+   4-6).  Then the same prefills and first decode steps run through the
+   kernel route and through the reference route (``impl="ref"``,
+   ``attn="gather"``) and the logits are compared; traced eager and
+   graphed runs give the busy share (``[profile]``), and ``[coldstart]``
+   compares a lazy graphed engine (shapes captured at first use) with a
+   prewarmed one.
    Phase 3b: the same trace under ``SparsityConfig(spmv_mode="onehot")``:
    the onehot launcher must serve every decode linear (decode steps x 16
    layers x 7) and the gather one none; tokens compared with phase 3's;
    hard check: full width, 4 layers, float32, 2 slots: onehot tokens
-   exactly equal to gather tokens.
+   exactly equal to gather tokens, and each equal to its eager engine's.
 4. Serve deepseek-v2-lite-16b: full width (27 layers = 1 dense + 26 MoE,
    d 2048, 16 heads, MLA kv_lora 512 / rope 64 / v 128, 64 routed experts
    top-6 + 2 shared of hidden 1408, dense d_ff 10944, vocab 102400, bf16,
@@ -69,12 +84,12 @@ Phases (any failure exits non-zero and prints no result line):
 5. Speculative llama3.2-1b (run after phase 3, on its model): the same
    trace through ``ServeEngine(spec=SpecConfig(k=3, draft="rerank"))``,
    fused.  paged_gqa_verify must launch once per layer per verify pass
-   (the passes are counted by wrapping the engine's ``verify_step``).  The
+   (a pass is one call of the engine's verify entry point).  The
    tokens are compared with phase 3's (bf16 decode and verify sum in other
    orders, so a near-tie may flip; the first divergence of each request is
    printed with the plain model's top-2 logit margin there).  Hard check:
    full width, 4 layers, float32, 2 slots: the speculative tokens equal
-   the plain engine's exactly.
+   the plain engine's exactly, and each equals its eager engine's.
 6. Speculative deepseek-v2-lite-16b (after phase 4, on its model):
    ``SpecConfig(k=3, draft="skip", stride=2)``; paged_mla_verify once per
    layer per verify pass; the same comparisons, and the same float32 hard
@@ -1278,12 +1293,38 @@ def phase_cnn(torch, F):
 
 # ------------------------------------------------------------ phases 3 and 4
 
+def graphed(kw):
+    """The engine settings of every measured serve run: each entry point
+    captured as CUDA graphs (the engine's default on the card) before the
+    first admission, a mid-serve capture an error."""
+    return dict(kw, prewarm=True, strict_prewarm=True)
 
-def serve_run(torch, model, cfg, path, kw, phase: str, before_run=None):
+
+def eager(kw):
+    """The same engine with every forward run eagerly: the oracle."""
+    return dict(kw, graphs=False)
+
+
+def timed_run(torch, model, cfg, kw, reqs):
+    """A fresh engine over ``reqs`` -> (engine, wall seconds of its
+    synchronised run; bring-up not included)."""
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(model, cfg, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def serve_run(torch, model, cfg, path, kw, phase: str):
     """The measured engine run: 16 requests of 128 prompt tokens, gen mix
-    16/32, with every launch count zeroed just before (``before_run``, if
-    given, is called there too) and read just after.  Returns (engine,
-    requests, launches, wall seconds)."""
+    16/32, through the graphed engine ``kw``, with every launch count
+    zeroed just before and read just after (the prewarm's captures happen
+    before: a replay adds what its graph captured).  Before it, the same
+    trace through the eager engine, the first run of the eager, graphed,
+    graphed, eager order that ``check_graphed`` completes.  Returns
+    (engine, requests, launches, wall seconds, (eager engine, its wall))."""
     from repro_torch import kernels
     from repro_torch.serve import ServeEngine, synthetic_trace
     # warm-up (first-call library set-up), not counted
@@ -1291,10 +1332,9 @@ def serve_run(torch, model, cfg, path, kw, phase: str, before_run=None):
         cfg, n_requests=2, prompt_len=128, gen_lens=[2], seed=99))
     reqs = synthetic_trace(cfg, n_requests=16, prompt_len=128,
                            gen_lens=[16, 32], seed=0)
+    first_eager = timed_run(torch, model, cfg, eager(kw), reqs)
     eng = ServeEngine(model, cfg, **kw)
     kernels.reset_launch_counts()
-    if before_run is not None:
-        before_run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = eng.run(reqs)
@@ -1303,7 +1343,8 @@ def serve_run(torch, model, cfg, path, kw, phase: str, before_run=None):
     launches = {k.name: k.launches for k in kernels.all_kernels()}
     st = eng.stats()
     log(f"[serve] {cfg.name}: {int(st['tokens'])} tokens in {wall:.3f}s = "
-        f"{st['tokens'] / wall:.1f} tokens/s; {int(st['decode_steps'])} decode "
+        f"{st['tokens'] / wall:.1f} tokens/s (graphed); "
+        f"{int(st['decode_steps'])} decode "
         f"steps, {int(st['prefill_calls'])} prefills, occupancy "
         f"{st['occupancy']:.3f}, weight stream {st['weight_stream_ratio']:.4f}x"
         f" dense ({st['weight_stream_bytes'] / 1e9:.3f} GB/step), "
@@ -1318,7 +1359,16 @@ def serve_run(torch, model, cfg, path, kw, phase: str, before_run=None):
     if st["tokens"] != want or not lens_ok:
         raise SystemExit(f"{phase}: expected {want} tokens over "
                          f"{len(reqs)} requests, got {st['tokens']}")
-    return eng, reqs, launches, wall
+    if (not eng.graphs or st["mid_serve_compiles"]
+            or st["prewarmed_executables"] != st["executables_expected"]
+            or st["warm_calls"] != sum(e.calls
+                                       for e in eng.entries.values())):
+        raise SystemExit(f"{phase}: the engine did not serve from its "
+                         f"prewarmed graphs alone (graphs {eng.graphs}, "
+                         f"{st['prewarmed_executables']:.0f} of "
+                         f"{st['executables_expected']:.0f} prewarmed, "
+                         f"{st['mid_serve_compiles']:.0f} mid-serve)")
+    return eng, reqs, launches, wall, first_eager
 
 
 REPEAT_KEYS = ("tokens", "decode_steps", "prefill_calls", "preemptions",
@@ -1326,19 +1376,20 @@ REPEAT_KEYS = ("tokens", "decode_steps", "prefill_calls", "preemptions",
                "spec_steps_saved")
 
 
-def check_repeat(model, cfg, kw, reqs, eng, phase: str) -> None:
+def moved_counters(a, b):
+    keys = [k for k in REPEAT_KEYS if k in a]
+    return {k: (a[k], b[k]) for k in keys if a[k] != b[k]}
+
+
+def check_repeat(torch, model, cfg, kw, reqs, eng, phase: str) -> float:
     """Serving is deterministic: a second engine over the same trace emits
     the same tokens and the same counters.  (In the MoE family the masked
     rows of a forward, which all write the trash block, compete with the
     live rows for expert capacity, so a race between their writes would
-    show here.)"""
+    show here.)  Returns the second run's wall seconds."""
     import numpy as np
-    from repro_torch.serve import ServeEngine
-    again = ServeEngine(model, cfg, **kw)
-    again.run(reqs)
-    a, b = eng.stats(), again.stats()
-    keys = [k for k in REPEAT_KEYS if k in a]
-    moved = {k: (a[k], b[k]) for k in keys if a[k] != b[k]}
+    again, wall = timed_run(torch, model, cfg, kw, reqs)
+    moved = moved_counters(eng.stats(), again.stats())
     same = sum(bool(np.array_equal(eng.results[r.rid].tokens,
                                    again.results[r.rid].tokens))
                for r in reqs)
@@ -1349,6 +1400,66 @@ def check_repeat(model, cfg, kw, reqs, eng, phase: str) -> None:
         raise SystemExit(f"{phase}: serving is not deterministic: a second "
                          f"run differs ({same}/{len(reqs)} requests "
                          f"identical, counters {moved})")
+    return wall
+
+
+def graph_pool_bytes(torch, eng):
+    """Bytes the engine's graph memory pool holds (the allocator's segments
+    of that pool), or None where the snapshot does not name pools."""
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    pool = tuple(eng.graph_pool)
+    return sum(s["total_size"] for s in segs
+               if tuple(s["segment_pool_id"]) == pool)
+
+
+def check_graphed(torch, model, cfg, kw, reqs, eng, wall, again_wall,
+                  first_eager, phase, last_eager: bool = True,
+                  busy=None) -> None:
+    """The graphed run against the eager engine on the same trace, then the
+    ``[graph]`` line.  The graphs replay the same kernels under the same
+    plans, so the same bits are expected: a token flip is printed with the
+    top-2 margin where it happened, and counters that differ where every
+    token agrees fail the phase.  Tokens/s of the runs in the order eager,
+    graphed, graphed and (with ``last_eager``) eager again; the prewarm's
+    seconds and graphs, mid-serve captures, first and steady tick of both
+    engines, the graph pool's bytes and (``busy``: the eager and graphed
+    ``profile_breakdown`` shares) the traced busy share."""
+    runs = [first_eager]
+    if last_eager:
+        runs.append(timed_run(torch, model, cfg, eager(kw), reqs))
+    st = eng.stats()
+    for e, _ in runs:
+        differ = compare_tokens(torch, e, reqs, eng.results,
+                                f"{phase} {cfg.name} eager", "eager",
+                                "graphed")
+        moved = moved_counters(st, e.stats())
+        if moved and not differ:
+            raise SystemExit(f"{phase}: the eager engine's counters differ "
+                             f"from the graphed one's on the same tokens: "
+                             f"{moved}")
+        if moved:
+            log(f"[graph]   counters differ with the tokens: {moved}")
+    rate = [st["tokens"] / w for w in (wall, again_wall)]
+    erate = [e.stats()["tokens"] / w for e, w in runs]
+    order = [erate[0], *rate] + erate[1:]
+    es = runs[0][0].stats()
+    pool = graph_pool_bytes(torch, eng)
+    log(f"[graph] {phase} {cfg.name}: tokens/s eager, graphed, graphed"
+        f"{', eager' if last_eager else ''}: "
+        f"{', '.join(f'{r:.1f}' for r in order)} (graphed / eager "
+        f"{sum(rate) / sum(erate) * len(erate) / len(rate):.2f}x); prewarm "
+        f"{st['prewarm_seconds']:.3f}s for {int(st['prewarmed_executables'])}"
+        f" graphs {eng.executable_shapes()['entries']}, mid-serve captures "
+        f"{int(st['mid_serve_compiles'])}; tick first {st['first_tick_s'] * 1e3:.2f}"
+        f" ms, steady {st['steady_tick_s'] * 1e3:.2f} ms (eager "
+        f"{es['first_tick_s'] * 1e3:.2f} / {es['steady_tick_s'] * 1e3:.2f} ms);"
+        f" graph pool "
+        f"{'not measured' if pool is None else gib(pool)}"
+        + ("" if busy is None else "; traced busy " + ", ".join(
+            f"{name} {100 * b:.1f}%" for name, b in zip(("eager", "graphed"),
+                                                       busy) if b is not None)))
 
 
 def phase_serve(torch):
@@ -1361,14 +1472,24 @@ def phase_serve(torch):
     log(f"[serve] init {cfg.name}: {cfg.n_layers}L d{cfg.d_model} "
         f"{cfg.n_heads}H/{cfg.n_kv}KV d_ff {cfg.d_ff} vocab {cfg.vocab} "
         f"{cfg.dtype} in {time.perf_counter() - t0:.1f}s")
-    kw = dict(n_slots=8, max_len=128 + 32, compressed=True,
-              kv="paged", attn="fused", block_size=16, device="cuda")
-    eng, reqs, launches, wall = serve_run(torch, model, cfg, LLAMA_PATH, kw,
-                                          "phase 3")
-    check_repeat(model, cfg, kw, reqs, eng, "phase 3")
+    kw = graphed(dict(n_slots=8, max_len=128 + 32, compressed=True,
+                      kv="paged", attn="fused", block_size=16,
+                      device="cuda"))
+    eng, reqs, launches, wall, first_eager = serve_run(
+        torch, model, cfg, LLAMA_PATH, kw, "phase 3")
+    want = eng.decode_steps * cfg.n_layers * LINEARS_PER_LAYER
+    if launches["nm_spmv"] != want:
+        raise SystemExit(f"phase 3: nm_spmv launched {launches['nm_spmv']} "
+                         f"times, expected {eng.decode_steps} ticks x "
+                         f"{cfg.n_layers} layers x {LINEARS_PER_LAYER}")
+    again = check_repeat(torch, model, cfg, kw, reqs, eng, "phase 3")
+    busy = (profile_breakdown(torch, model, cfg, eager(kw)),
+            profile_breakdown(torch, model, cfg, kw))
+    check_graphed(torch, model, cfg, kw, reqs, eng, wall, again,
+                  first_eager, "phase 3", busy=busy)
     check_reference_route(torch, eng.model, eng.cfg, reqs[:8], LOGIT_ATOL,
                           "phase 3")
-    profile_breakdown(torch, model, cfg, kw)
+    coldstart(torch, model, cfg, kw)
     onehot_launches = phase_onehot_serve(torch, eng, kw, wall)
     from repro_torch.serve import SpecConfig
     spec = SpecConfig(k=SPAN - 1, draft="rerank")
@@ -1382,6 +1503,29 @@ def phase_serve(torch):
     check_onehot_exact(torch)
     return {"llama3.2-1b": launches, "llama3.2-1b onehot": onehot_launches,
             "llama3.2-1b spec": spec_launches}
+
+
+def coldstart(torch, model, cfg, kw):
+    """``[coldstart]``: a lazy graphed engine (each shape captured at its
+    first use, a mid-serve capture) against a prewarmed one, on the traced
+    trace (8 requests, 128 prompt tokens, 16 generated): bring-up, the
+    capture bill, first tick against steady tick, and the run's wall."""
+    from repro_torch.serve import synthetic_trace
+    reqs = synthetic_trace(cfg, n_requests=8, prompt_len=128, gen_lens=[16],
+                           seed=5)
+    parts = []
+    for name, k in (("lazy", dict(kw, prewarm=False, strict_prewarm=False)),
+                    ("prewarmed", kw)):
+        eng, wall = timed_run(torch, model, cfg, k, reqs)
+        st = eng.stats()
+        parts.append(
+            f"{name}: bring-up {st['init_seconds']:.3f}s (prewarm "
+            f"{st['prewarm_seconds']:.3f}s, {int(st['prewarmed_executables'])}"
+            f" graphs), {int(st['mid_serve_compiles'])} mid-serve captures "
+            f"({st['compile_seconds']:.3f}s of captures in all), first tick "
+            f"{st['first_tick_s'] * 1e3:.2f} ms against steady "
+            f"{st['steady_tick_s'] * 1e3:.2f} ms, run {wall:.3f}s")
+    log(f"[coldstart] {cfg.name}: " + "; ".join(parts))
 
 
 LINEARS_PER_LAYER = 7            # llama: wq, wk, wv, wo, wg, wu, wd
@@ -1398,16 +1542,18 @@ def phase_onehot_serve(torch, base, kw, base_wall):
     have served every decode linear (decode steps x layers x 7) and the
     gather one none; the tokens are compared with phase 3's."""
     cfg = _onehot(base.cfg)
-    eng, reqs, launches, wall = serve_run(
+    eng, reqs, launches, wall, first_eager = serve_run(
         torch, base.model, cfg, ("nm_spmv_onehot", "nm_xwt",
                                  "paged_gqa_decode"), kw, "phase 3b")
-    check_repeat(base.model, cfg, kw, reqs, eng, "phase 3b")
+    again = check_repeat(torch, base.model, cfg, kw, reqs, eng, "phase 3b")
+    check_graphed(torch, base.model, cfg, kw, reqs, eng, wall, again,
+                  first_eager, "phase 3b", last_eager=False)
     want = eng.decode_steps * cfg.n_layers * LINEARS_PER_LAYER
     log(f"[onehot] {cfg.name} spmv_mode=onehot: "
         f"{eng.stats()['tokens'] / wall:.1f} tokens/s against "
-        f"{base.stats()['tokens'] / base_wall:.1f} with the gather body; "
-        f"nm_spmv_onehot {launches['nm_spmv_onehot']} launches (decode "
-        f"linears {want}), nm_spmv {launches['nm_spmv']}")
+        f"{base.stats()['tokens'] / base_wall:.1f} with the gather body "
+        f"(both graphed); nm_spmv_onehot {launches['nm_spmv_onehot']} "
+        f"launches (decode linears {want}), nm_spmv {launches['nm_spmv']}")
     if launches["nm_spmv_onehot"] != want or launches["nm_spmv"] != 0:
         raise SystemExit(f"phase 3b: the onehot launcher did not serve every "
                          f"decode linear ({launches['nm_spmv_onehot']} of "
@@ -1417,9 +1563,22 @@ def phase_onehot_serve(torch, base, kw, base_wall):
     return launches
 
 
+def check_graphed_exact(torch, model, cfg, kw, reqs, graphed_results,
+                        what) -> None:
+    """Hard check: the eager engine's tokens equal the graphed engine's,
+    token for token."""
+    eng, _ = timed_run(torch, model, cfg, eager(kw), reqs)
+    differ = compare_tokens(torch, eng, reqs, graphed_results,
+                            f"{what} eager", "eager", "graphed")
+    if differ:
+        raise SystemExit(f"{what}: float32 eager tokens differ from the "
+                         f"graphed engine's in {differ} requests")
+
+
 def check_onehot_exact(torch):
     """Hard check at full width, 4 layers, float32, 2 slots: the onehot
-    decode body's tokens equal the gather body's exactly."""
+    decode body's tokens equal the gather body's exactly, and each equals
+    its eager engine's."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.models import init_model
@@ -1430,67 +1589,64 @@ def check_onehot_exact(torch):
     model = init_model(cfg, seed=1, device="cuda")
     reqs = synthetic_trace(cfg, n_requests=4, prompt_len=37,
                            gen_lens=[12, 9], seed=11)
-    kw = dict(n_slots=2, max_len=37 + 12, compressed=True, kv="paged",
-              attn="fused", block_size=16, device="cuda")
+    kw = graphed(dict(n_slots=2, max_len=37 + 12, compressed=True,
+                      kv="paged", attn="fused", block_size=16,
+                      device="cuda"))
     want = ServeEngine(model, cfg, **kw).run(reqs)
     kernels.reset_launch_counts()
     eng = ServeEngine(model, _onehot(cfg), **kw)
     eng.run(reqs)
     launched = {k.name: k.launches for k in kernels.all_kernels()}
-    log(f"[onehot] llama3.2-1b exact check (4 layers, float32, 2 slots): "
-        f"nm_spmv_onehot {launched['nm_spmv_onehot']} launches, nm_spmv "
-        f"{launched['nm_spmv']}")
+    log(f"[onehot] llama3.2-1b exact check (4 layers, float32, 2 slots, "
+        f"graphed): nm_spmv_onehot {launched['nm_spmv_onehot']} launches, "
+        f"nm_spmv {launched['nm_spmv']}")
     differ = compare_tokens(torch, eng, reqs, want, "phase 3b exact check",
                             "onehot", "gather")
     if differ or launched["nm_spmv_onehot"] <= 0 or launched["nm_spmv"]:
         raise SystemExit(f"phase 3b: float32 onehot tokens differ from the "
                          f"gather body's in {differ} requests (or the wrong "
                          f"body served)")
+    check_graphed_exact(torch, model, cfg, kw, reqs, want,
+                        "phase 3b exact check (gather)")
+    check_graphed_exact(torch, model, _onehot(cfg), kw, reqs, eng.results,
+                        "phase 3b exact check (onehot)")
     del eng, model
     torch.cuda.empty_cache()
 
 
 def phase_spec(torch, model, cfg, kw, spec, path, verify_kernel, base,
                base_wall, phase):
-    """The phase-3/4 trace through the speculative engine.  Verify passes
-    are counted by wrapping the engine module's ``verify_step``; the verify
+    """The phase-3/4 trace through the speculative engine.  A verify pass is
+    one call of the engine's verify entry (one graph replay); the verify
     kernel must launch once per layer per pass.  Tokens are compared with
-    the plain run ``base``, and the device busy share read from a traced
-    run."""
-    from repro_torch.serve import engine
-    passes = []
-    orig = engine.verify_step
-
-    def counted(*a, **k):
-        passes.append(1)
-        return orig(*a, **k)
-    engine.verify_step = counted
-    try:
-        eng, reqs, launches, wall = serve_run(
-            torch, model, cfg, path, dict(kw, spec=spec), phase,
-            before_run=passes.clear)
-    finally:
-        engine.verify_step = orig
-    check_repeat(model, cfg, dict(kw, spec=spec), reqs, eng, phase)
-    want = len(passes) * cfg.n_layers
+    the plain run ``base`` and with the eager speculative engine, and the
+    device busy share read from a traced run."""
+    skw = dict(kw, spec=spec)
+    eng, reqs, launches, wall, first_eager = serve_run(
+        torch, model, cfg, path, skw, phase)
+    passes = eng.entries["verify"].calls
+    again = check_repeat(torch, model, cfg, skw, reqs, eng, phase)
+    busy = profile_breakdown(torch, model, cfg, skw)
+    check_graphed(torch, model, cfg, skw, reqs, eng, wall, again,
+                  first_eager, phase, last_eager=False, busy=(None, busy))
+    want = passes * cfg.n_layers
     if launches[verify_kernel] != want:
         raise SystemExit(f"{phase}: {verify_kernel} launched "
                          f"{launches[verify_kernel]} times, expected "
-                         f"{len(passes)} verify passes x {cfg.n_layers} "
+                         f"{passes} verify passes x {cfg.n_layers} "
                          f"layers")
     st = eng.stats()
     base_tps = base.stats()["tokens"] / base_wall
     log(f"[spec] {cfg.name} draft={spec.draft} k={spec.k}: "
         f"{st['tokens'] / wall:.1f} tokens/s against {base_tps:.1f} without "
-        f"speculation; {int(st['decode_steps'])} target passes ("
-        f"{len(passes)} verify, plain run {int(base.decode_steps)}), "
+        f"speculation (both graphed); {int(st['decode_steps'])} target "
+        f"passes ({passes} verify, plain run {int(base.decode_steps)}), "
         f"{int(st['draft_steps'])} draft steps, proposed "
         f"{int(st['spec_proposed'])}, accepted {int(st['spec_accepted'])} "
         f"(acceptance {st['spec_acceptance']:.3f}), steps saved "
         f"{int(st['spec_steps_saved'])}, draft stream "
         f"{st['draft_stream_bytes'] / st['weight_stream_bytes']:.3f}x target")
     compare_tokens(torch, eng, reqs, base.results, f"{phase} {cfg.name}")
-    profile_breakdown(torch, model, cfg, dict(kw, spec=spec))
     return launches
 
 
@@ -1528,7 +1684,8 @@ def compare_tokens(torch, eng, reqs, base, what, label="with speculation",
 def check_spec_exact(torch, arch, spec, verify_kernel, phase):
     """Hard check at full width, 4 layers, float32, 2 slots: the speculative
     engine's tokens equal the plain engine's exactly (prompts of 37 bucket
-    down to 32, so prompt catch-up rides the verify span)."""
+    down to 32, so prompt catch-up rides the verify span), and each equals
+    its eager engine's."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.models import init_model
@@ -1539,8 +1696,9 @@ def check_spec_exact(torch, arch, spec, verify_kernel, phase):
     model = init_model(cfg, seed=1, device="cuda")
     reqs = synthetic_trace(cfg, n_requests=4, prompt_len=37,
                            gen_lens=[12, 9], seed=11)
-    kw = dict(n_slots=2, max_len=37 + 12, compressed=True, kv="paged",
-              attn="fused", block_size=16, device="cuda")
+    kw = graphed(dict(n_slots=2, max_len=37 + 12, compressed=True,
+                      kv="paged", attn="fused", block_size=16,
+                      device="cuda"))
     plain = ServeEngine(model, cfg, **kw)
     want = plain.run(reqs)
     kernels.reset_launch_counts()
@@ -1549,8 +1707,8 @@ def check_spec_exact(torch, arch, spec, verify_kernel, phase):
     launched = {k.name: k.launches for k in kernels.all_kernels()}
     st = eng.stats()
     log(f"[spec] {arch} exact check (4 layers, float32, 2 slots, draft="
-        f"{spec.draft}): {int(st['decode_steps'])} target passes against "
-        f"{plain.decode_steps}, accepted {int(st['spec_accepted'])}/"
+        f"{spec.draft}, graphed): {int(st['decode_steps'])} target passes "
+        f"against {plain.decode_steps}, accepted {int(st['spec_accepted'])}/"
         f"{int(st['spec_proposed'])}, {verify_kernel} launches "
         f"{launched[verify_kernel]}")
     differ = compare_tokens(torch, eng, reqs, want, f"{phase} exact check")
@@ -1558,6 +1716,10 @@ def check_spec_exact(torch, arch, spec, verify_kernel, phase):
         raise SystemExit(f"{phase}: float32 speculative tokens differ from "
                          f"the plain engine's in {differ} requests (or "
                          f"{verify_kernel} never launched)")
+    check_graphed_exact(torch, model, cfg, kw, reqs, want,
+                        f"{phase} exact check (plain)")
+    check_graphed_exact(torch, model, cfg, dict(kw, spec=spec), reqs,
+                        eng.results, f"{phase} exact check (spec)")
     del eng, plain, model
     torch.cuda.empty_cache()
 
@@ -1586,21 +1748,25 @@ def phase_serve_deepseek(torch):
         f"{time.perf_counter() - t0:.1f}s; resident "
         f"{gib(torch.cuda.memory_allocated())}, peak "
         f"{gib(torch.cuda.max_memory_allocated())}")
-    kw = dict(n_slots=8, max_len=128 + 32, compressed=True,
-              kv="paged", attn="fused", block_size=16, device="cuda")
+    kw = graphed(dict(n_slots=8, max_len=128 + 32, compressed=True,
+                      kv="paged", attn="fused", block_size=16,
+                      device="cuda"))
     torch.cuda.reset_peak_memory_stats()
-    eng, reqs, launches, wall = serve_run(torch, model, cfg, DEEPSEEK_PATH,
-                                          kw, "phase 4")
-    check_repeat(model, cfg, kw, reqs, eng, "phase 4")
-    log(f"[serve] {cfg.name} peak device memory in the run "
+    eng, reqs, launches, wall, first_eager = serve_run(
+        torch, model, cfg, DEEPSEEK_PATH, kw, "phase 4")
+    log(f"[serve] {cfg.name} peak device memory in the runs "
         f"{gib(torch.cuda.max_memory_allocated())}")
     want = eng.decode_steps * cfg.n_layers
     if launches["paged_mla_decode"] != want:
         raise SystemExit(f"phase 4: paged_mla_decode launched "
                          f"{launches['paged_mla_decode']} times, expected "
                          f"{eng.decode_steps} ticks x {cfg.n_layers} layers")
+    again = check_repeat(torch, model, cfg, kw, reqs, eng, "phase 4")
+    busy = (profile_breakdown(torch, model, cfg, eager(kw)),
+            profile_breakdown(torch, model, cfg, kw, time_calls=True))
+    check_graphed(torch, model, cfg, kw, reqs, eng, wall, again,
+                  first_eager, "phase 4", busy=busy)
     decompress_share(torch, model, cfg, eng, wall)
-    profile_breakdown(torch, model, cfg, kw, time_calls=True)
     from repro_torch.serve import SpecConfig
     spec = SpecConfig(k=SPAN - 1, draft="skip", stride=2)
     spec_launches = phase_spec(torch, model, cfg, kw, spec,
@@ -1635,8 +1801,8 @@ def decompress_share(torch, model, cfg, eng, wall):
     log(f"[moe] decompressing one MoE layer's experts (3 stacks, "
         f"{gib(dense_bytes)} of bf16 written) takes {ms:.3f} ms; x {n_moe} "
         f"layers = {ms * n_moe:.1f} ms per decode tick or prefill; "
-        f"{calls} such calls in the run = {total:.2f} s of its {wall:.2f} s "
-        f"wall ({100 * total / wall:.1f}%)")
+        f"{calls} such calls in the graphed run = {total:.2f} s of its "
+        f"{wall:.2f} s wall ({100 * total / wall:.1f}%)")
 
 
 def _route_log(ffn):
@@ -1774,15 +1940,20 @@ PROFILE_LABELS = (("nm_spmv_onehot", "nm_spmv onehot"), ("nm_spmv", "nm_spmv"),
 
 def profile_breakdown(torch, model, cfg, kw, time_calls: bool = False):
     """Where the time goes: device time by kernel over a traced engine run
-    (8 requests, 128 prompt tokens, 16 generated), against its wall time.
-    The trace itself slows the host, so the wall here is not the rate.
-    With ``time_calls`` a second, untraced run of the same trace times each
-    decode tick and each prefill on the host clock (synchronised)."""
+    (8 requests, 128 prompt tokens, 16 generated), against its wall time,
+    for the graphed engine or the eager one (``kw``; the prewarm happens
+    before the trace).  The trace itself slows the host, so the wall here
+    is not the rate.  With ``time_calls`` a second, untraced run of the
+    same trace times each decode tick and each prefill (one call of the
+    entry point: a graph replay or an eager forward) on the host clock,
+    synchronised.  Returns the busy share."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serve import ServeEngine, engine, synthetic_trace
+    from repro_torch.serve import ServeEngine, synthetic_trace
+    from repro_torch.serve.prewarm import GraphEntry
     reqs = synthetic_trace(cfg, n_requests=8, prompt_len=128, gen_lens=[16],
                            seed=5)
     eng = ServeEngine(model, cfg, **kw)
+    mode = "graphed" if eng.graphs else "eager"
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1815,37 +1986,38 @@ def profile_breakdown(torch, model, cfg, kw, time_calls: bool = False):
         raise SystemExit("profile: the trace recorded no device time")
     parts = ", ".join(f"{k} {v:.2f} ms" for k, v in
                       sorted(groups.items(), key=lambda kv: -kv[1]))
-    log(f"[profile] {cfg.name} traced run ({eng.stats()['decode_steps']:.0f} "
+    share = busy / (wall * 1e3)
+    log(f"[profile] {cfg.name} {mode} traced run "
+        f"({eng.stats()['decode_steps']:.0f} "
         f"decode steps, {eng.prefill_calls} prefills): wall "
         f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
-        f"({100 * busy / (wall * 1e3):.1f}%): {parts}")
+        f"({100 * share:.1f}%): {parts}")
     for ms, count, name in sorted(kernels, reverse=True)[:8]:
         log(f"[profile]   {ms:9.2f} ms  {count:6d}x  {name}")
     if not time_calls:
-        return
-    spent = {"decode_step": [], "prefill": []}
-    orig = {name: getattr(engine, name) for name in spent}
+        return share
+    spent = {"decode": [], "prefill": []}
+    orig = GraphEntry.__call__
 
-    def timed(name):
-        def call(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = orig[name](*a, **k)
-            torch.cuda.synchronize()
-            spent[name].append(time.perf_counter() - t)
-            return out
-        return call
+    def timed(self, *a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(self, *a)
+        torch.cuda.synchronize()
+        if self.name in spent:
+            spent[self.name].append(time.perf_counter() - t)
+        return out
+    again = ServeEngine(model, cfg, **kw)
+    GraphEntry.__call__ = timed
     try:
-        for name in spent:
-            setattr(engine, name, timed(name))
-        ServeEngine(model, cfg, **kw).run(reqs)
+        again.run(reqs)
     finally:
-        for name, fn in orig.items():
-            setattr(engine, name, fn)
+        GraphEntry.__call__ = orig
     for name, ts in spent.items():
-        log(f"[profile] {cfg.name} {name}: {len(ts)} calls, mean "
+        log(f"[profile] {cfg.name} {mode} {name}: {len(ts)} calls, mean "
             f"{1e3 * sum(ts) / len(ts):.2f} ms, min {1e3 * min(ts):.2f} ms "
             f"(host clock, synchronised)")
+    return share
 
 
 # ------------------------------------------------------------------ main

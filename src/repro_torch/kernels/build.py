@@ -3,14 +3,23 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` (``sm_90a``) into a shared
 library with a plain C interface, loaded with ``ctypes``.  The build runs at
 first use, all sources at once (one ``nvcc`` per source, started together),
-into ``repro_torch/_build/`` (listed in ``.gitignore``); a library is named
-by the hash of its source and of every shared ``*.cuh`` header, so an
-edited source rebuilds and an unchanged one is reused.  A missing ``nvcc``
-or a failed build raises: the port has no CPU fallback for a CUDA tensor.
+into ``repro_torch/_build/`` (listed in ``.gitignore``; ``set_build_dir``,
+which the serve engine's ``compile_cache=`` calls, names another); a
+library is named by the hash of its source and of every shared ``*.cuh``
+header, so an edited source rebuilds and an unchanged one is reused.  A
+missing ``nvcc`` or a failed build raises: the port has no CPU fallback for
+a CUDA tensor.
+
+Launch accounting: ``CudaKernel.launches`` counts launches.  A launch made
+while a CUDA graph is being captured is not one (the kernel runs when the
+graph is replayed): inside ``capture_launches`` it is recorded in the
+yielded dict instead, and the graph's owner
+(``serve.prewarm.GraphEntry``) adds those counts at every replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,7 +32,8 @@ import torch
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR / "_build"
+DEFAULT_BUILD_DIR = PKG_DIR / "_build"
+BUILD_DIR = DEFAULT_BUILD_DIR
 SOURCES = ("nm_spmv", "nm_xwt", "paged_gqa_verify", "paged_mla_verify",
            "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -31,6 +41,34 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}       # name -> nvcc/ptxas output of the build
+_CAPTURED: Optional[Dict["CudaKernel", int]] = None
+
+
+def set_build_dir(path) -> Path:
+    """Build and load the kernel libraries in ``path`` (created if
+    missing); returns it resolved.  Raises once a library has been loaded
+    from another directory in this process."""
+    global BUILD_DIR
+    path = Path(path).resolve()
+    if _LIBS and path != BUILD_DIR:
+        raise RuntimeError(f"kernel libraries are already loaded from "
+                           f"{BUILD_DIR}; the build directory cannot move "
+                           f"to {path} in this process")
+    path.mkdir(parents=True, exist_ok=True)
+    BUILD_DIR = path
+    return path
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """Record, into the yielded dict (kernel -> count), the launches made
+    while a CUDA graph is captured, instead of counting them."""
+    global _CAPTURED
+    prev, _CAPTURED = _CAPTURED, {}
+    try:
+        yield _CAPTURED
+    finally:
+        _CAPTURED = prev
 
 
 def nvcc_path() -> str:
@@ -98,7 +136,9 @@ class CudaKernel:
     """One launcher symbol of a kernel library, with its launch count.
 
     ``launches`` is incremented where the kernel is launched and nowhere
-    else, so a run can prove the main path went through the kernel.  The
+    else (for a launch captured into a CUDA graph: at each replay, see the
+    module's note), so a run can prove the main path went through the
+    kernel.  The
     library is ``csrc/<lib>.cu`` (``lib`` defaults to ``name``; two wrappers
     of one kernel keep two counters over one library).  The C launcher takes
     every pointer and the stream as ``void*`` and returns
@@ -127,7 +167,10 @@ class CudaKernel:
     def launch(self, *args) -> None:
         fn = self._fn or self._bind()
         stream = torch.cuda.current_stream().cuda_stream
-        self.launches += 1
+        if not torch.cuda.is_current_stream_capturing():
+            self.launches += 1
+        elif _CAPTURED is not None:      # runs at each replay of the graph
+            _CAPTURED[self] = _CAPTURED.get(self, 0) + 1
         code = fn(*args, stream)
         if code != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {code} "

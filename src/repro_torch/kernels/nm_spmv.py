@@ -165,11 +165,23 @@ def gather_plan(b: int, o: int, k: int, n: int, m: int, elt: int = 2,
 
 
 _ARRIVALS = {}        # device -> int32 arrival counters, zero between launches
+_OUTGROWN = []        # counters a larger set replaced: a CUDA graph may name them
 
 
 def _arrivals(device: torch.device, count: int) -> torch.Tensor:
+    """At least ``count`` arrival counters on ``device``, zero between
+    launches (each kernel resets its own).  Grown outside a CUDA graph
+    capture only: a capture raises if it would need more than the warm-up
+    allocated, and a replaced set stays allocated, since a captured graph
+    keeps its address."""
     cnt = _ARRIVALS.get(device)
     if cnt is None or cnt.numel() < count:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"split-K arrival counters would grow to {count} inside a "
+                f"CUDA graph capture; run the shape eagerly first")
+        if cnt is not None:
+            _OUTGROWN.append(cnt)
         cnt = torch.zeros(max(count, 4096), dtype=torch.int32, device=device)
         _ARRIVALS[device] = cnt
     return cnt

@@ -7,9 +7,15 @@ runs the continuous-batching engine on the card (``--device cuda``, the
 default; ``--device cpu`` runs the plain path); ``--arch
 deepseek-v2-lite-16b`` serves the MoE family with MLA attention; ``--spec``
 adds self-speculative decoding (``--spec-k`` drafts per verify, ``--draft
-rerank|skip``).  Weights are random, from ``--seed``.  Flags of features
-not ported yet are accepted and raise ``NotImplementedError`` naming the
-slice that brings them.
+rerank|skip``).  On the card every engine entry point runs as CUDA graphs;
+``--prewarm`` captures the engine's complete graph set before the first
+admission, and
+``--compile-cache [DIR]`` builds and loads the kernels in DIR (default
+``$REPRO_COMPILE_CACHE``, else the package's build directory), so a second
+bring-up skips nvcc.  The compile line reports the capture bill.  Weights
+are random, from ``--seed``.  Flags of features not ported yet are
+accepted and raise ``NotImplementedError`` naming the slice that brings
+them.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from repro_torch.configs import get_config
 from repro_torch.models import init_model
 from repro_torch.serve import ServeEngine, SpecConfig, synthetic_trace
 from repro_torch.serve.engine import not_ported
+from repro_torch.serve.prewarm import enable_compile_cache
 
 
 def main(argv=None) -> None:
@@ -67,7 +74,12 @@ def main(argv=None) -> None:
                          "weights to 1:M (needs --weights compressed), "
                          "'skip' keeps every other layer")
     ap.add_argument("--tp", type=int, default=0)
-    ap.add_argument("--prewarm", action="store_true")
+    ap.add_argument("--prewarm", action="store_true",
+                    help="capture every entry point's graphs before the "
+                         "first admission")
+    ap.add_argument("--compile-cache", nargs="?", const="auto", default=None,
+                    help="kernel build directory kept across processes "
+                         "(bare flag: $REPRO_COMPILE_CACHE or the package's)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -81,6 +93,9 @@ def main(argv=None) -> None:
                          "--weights compressed (or --draft skip)")
     if args.tp:
         raise not_ported("--tp", "distribution")
+    if args.compile_cache is not None:
+        # before anything builds, so the kernels land in (or load from) it
+        print(f"compile cache: {enable_compile_cache(args.compile_cache)}")
 
     cfg = get_config(args.arch, smoke=args.smoke)
     # weights are born dense (srste semantics) so both --weights settings
@@ -108,6 +123,15 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     st = eng.stats()
+    mode = "prewarmed" if args.prewarm else "lazy"
+    print(f"compile[{mode}, {'graphs' if eng.graphs else 'eager'}]: "
+          f"{int(st['prewarmed_executables'])} prewarmed + "
+          f"{int(st['mid_serve_compiles'])} mid-serve of "
+          f"{int(st['executables_expected'])} expected executables, "
+          f"{st['compile_seconds']:.2f}s capture bill (bring-up "
+          f"{st['init_seconds']:.2f}s), first tick "
+          f"{st['first_tick_s'] * 1e3:.1f}ms vs steady "
+          f"{st['steady_tick_s'] * 1e3:.1f}ms")
     print(f"continuous[{args.weights},{args.kv},{args.attn}] on "
           f"{eng.device}: {int(st['tokens'])} tokens in "
           f"{int(st['decode_steps'])} decode steps, {wall:.3f}s wall, "

@@ -24,7 +24,7 @@ yet.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -127,7 +127,43 @@ def gqa_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype,
     return {"k": z, "v": z.clone()}
 
 
-def _paged_write_span(cache, updates, block_table, cache_pos):
+class PagedStep(NamedTuple):
+    """What every block of one paged forward shares, computed once per
+    forward (``paged_step``): the RoPE angles of the span's positions, the
+    per-slot kv_len and the span write's cells (``_span_cells``)."""
+    cos: torch.Tensor
+    sin: torch.Tensor
+    kv_len: torch.Tensor
+    cells: Tuple[torch.Tensor, torch.Tensor]
+
+
+def paged_step(cfg: ArchConfig, cache_pos: torch.Tensor, s: int,
+               block_table: torch.Tensor, block_size: int) -> PagedStep:
+    """The per-forward invariants of S tokens per slot at positions
+    ``cache_pos .. cache_pos + S - 1``: the same tensors every block would
+    compute for itself, so a forward that hoists them is bit-equal."""
+    cos, sin = _rope(cache_pos, s, cfg.qk_rope_dim if cfg.mla else cfg.hd(),
+                     cfg)
+    return PagedStep(cos, sin, _paged_kv_len(cache_pos),
+                     _span_cells(block_table, cache_pos, s, block_size))
+
+
+def _span_cells(block_table, cache_pos, span: int, bsz: int):
+    """(cell, last) of a span write: row r's offset i (flattened r * S + i)
+    lands in pool cell ``cell`` (block * block_size + offset), and
+    ``last`` names, for each write, the flattened write whose value the
+    cell takes (see ``_paged_write_span``)."""
+    posv = cache_pos.reshape(-1).long()
+    dev = posv.device
+    posm = (posv[:, None] + torch.arange(span, device=dev)).reshape(-1)
+    rows = torch.arange(posv.shape[0], device=dev).repeat_interleave(span)
+    cell = block_table[rows, posm // bsz].long() * bsz + posm % bsz  # [B*S]
+    order = torch.arange(cell.shape[0], device=dev)
+    last = ((cell[:, None] == cell[None, :]) * order).amax(1)
+    return cell, last
+
+
+def _paged_write_span(cache, updates, block_table, cache_pos, cells=None):
     """Write S consecutive tokens per batch row through the block table,
     in place: ``updates[name]`` is [B, S, ...] and row r's offset i lands
     at logical position ``cache_pos[r] + i``, in physical block
@@ -142,16 +178,13 @@ def _paged_write_span(cache, updates, block_table, cache_pos):
     with the live rows for expert capacity, so what the cell holds must not
     depend on which parallel write lands last.  Each cell therefore takes
     the value of its last writer in (row, offset) order, as a sequential
-    write leaves it: every write to the cell carries that value."""
-    bsz = next(iter(cache.values())).shape[1]
-    posv = cache_pos.reshape(-1).long()
-    span = next(iter(updates.values())).shape[1]
-    dev = posv.device
-    posm = (posv[:, None] + torch.arange(span, device=dev)).reshape(-1)
-    rows = torch.arange(posv.shape[0], device=dev).repeat_interleave(span)
-    cell = block_table[rows, posm // bsz].long() * bsz + posm % bsz  # [B*S]
-    order = torch.arange(cell.shape[0], device=dev)
-    last = ((cell[:, None] == cell[None, :]) * order).amax(1)
+    write leaves it: every write to the cell carries that value.
+    ``cells`` is ``_span_cells``'s result when the caller computed it."""
+    if cells is None:
+        cells = _span_cells(block_table, cache_pos,
+                            next(iter(updates.values())).shape[1],
+                            next(iter(cache.values())).shape[1])
+    cell, last = cells
     for name, val in updates.items():
         val = val.reshape((-1,) + tuple(val.shape[2:]))[last]
         cache[name].view((-1,) + tuple(cache[name].shape[2:]))[cell] = \
@@ -159,7 +192,7 @@ def _paged_write_span(cache, updates, block_table, cache_pos):
     return cache
 
 
-def _paged_update_span(cache, updates, block_table, cache_pos):
+def _paged_update_span(cache, updates, block_table, cache_pos, cells=None):
     """``_paged_write_span`` + gather each row's stream back in logical
     order: returns ``(cache, reads, length)`` with ``reads[name]`` in the
     plain layout [B, table_width * block_size, ...] — the gather read path,
@@ -167,7 +200,7 @@ def _paged_update_span(cache, updates, block_table, cache_pos):
     bsz = next(iter(cache.values())).shape[1]
     b = cache_pos.reshape(-1).shape[0]
     length = block_table.shape[1] * bsz
-    cache = _paged_write_span(cache, updates, block_table, cache_pos)
+    cache = _paged_write_span(cache, updates, block_table, cache_pos, cells)
     tbl = block_table.long()
     reads = {name: c[tbl].reshape((b, length) + tuple(c.shape[2:]))
              for name, c in cache.items()}
@@ -194,28 +227,39 @@ def _paged_kv_len(cache_pos: torch.Tensor) -> torch.Tensor:
     return (cache_pos.reshape(-1) + 1).to(torch.int32)
 
 
+def _rope(positions: torch.Tensor, s: int, dim: int, cfg: ArchConfig):
+    """RoPE (cos, sin) at ``positions``: [B, S], or the per-slot [B] start
+    of S consecutive ones."""
+    if positions.dim() == 1:
+        positions = positions[:, None] + torch.arange(s,
+                                                      device=positions.device)
+    return rope_angles(positions, dim, cfg.rope_theta)
+
+
 def gqa_apply(p: GQA, x: torch.Tensor, cfg: ArchConfig, *,
               positions: torch.Tensor, window: Optional[int] = None,
               cache: Optional[Dict[str, torch.Tensor]] = None,
               cache_pos: Optional[torch.Tensor] = None,
               block_table: Optional[torch.Tensor] = None,
-              return_kv: bool = False):
+              return_kv: bool = False, step: Optional[PagedStep] = None):
     """x [B, S, d].  Prefill when ``cache`` is None (``return_kv`` returns
     this call's K/V); paged decode when ``cache`` (one layer's pool leaves)
     and ``block_table`` are given, with ``cache_pos`` the per-slot [B]
     position vector: one token per slot (S == 1), or a verify span of S
-    tokens at positions ``cache_pos .. cache_pos + S - 1``.  Returns (y,
-    new_kv)."""
+    tokens at positions ``cache_pos .. cache_pos + S - 1``; ``step`` is the
+    forward's ``paged_step`` (else computed here).  Returns (y, new_kv)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd()
     sp = cfg.sparsity
-    if positions.dim() == 1:
-        positions = positions[:, None] + torch.arange(s, device=x.device)
+    cos, sin = ((step.cos, step.sin) if step is not None
+                else _rope(positions, s, hd, cfg))
+    if step is None and cache is not None and block_table is not None:
+        step = PagedStep(cos, sin, _paged_kv_len(cache_pos), _span_cells(
+            block_table, cache_pos, s, cache["k"].shape[1]))
 
     q = linear_apply(p.wq, x, sp).reshape(b, s, h, hd)
     k = linear_apply(p.wk, x, sp).reshape(b, s, kv, hd)
     v = linear_apply(p.wv, x, sp).reshape(b, s, kv, hd)
-    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
@@ -233,20 +277,19 @@ def gqa_apply(p: GQA, x: torch.Tensor, cfg: ArchConfig, *,
         # the pool is never copied into position order.  A verify span
         # (S > 1) is one launch scoring offset i against kv_len + i
         new_kv = _paged_write_span(cache, {"k": k, "v": v}, block_table,
-                                   cache_pos)
+                                   cache_pos, step.cells)
         kw = dict(scale=hd ** -0.5, window=window, cap=cfg.softcap_attn)
         if s == 1:
             o = paged_gqa_decode(q.reshape(b, kv, h // kv, hd), new_kv["k"],
-                                 new_kv["v"], block_table,
-                                 _paged_kv_len(cache_pos), **kw)
+                                 new_kv["v"], block_table, step.kv_len, **kw)
         else:
             o = paged_gqa_verify(q.reshape(b, s, kv, h // kv, hd),
                                  new_kv["k"], new_kv["v"], block_table,
-                                 _paged_kv_len(cache_pos), **kw)
+                                 step.kv_len, **kw)
         o = o.reshape(b, s, h, hd).to(x.dtype)
     elif cfg.attn_impl == "gather":
         new_kv, reads, length = _paged_update_span(
-            cache, {"k": k, "v": v}, block_table, cache_pos)
+            cache, {"k": k, "v": v}, block_table, cache_pos, step.cells)
         qg = q.reshape(b, s, kv, h // kv, hd)
         sc = torch.einsum("bshgd,blhd->bshgl", qg.float(),
                           reads["k"].float()) * hd ** -0.5
@@ -298,7 +341,7 @@ def mla_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype,
                                dtype=dtype, device=device)}
 
 
-def _mla_qkv(p: MLA, x, cfg: ArchConfig, positions):
+def _mla_qkv(p: MLA, x, cfg: ArchConfig, cos, sin):
     b, s, _ = x.shape
     h, nd, rd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     sp = cfg.sparsity
@@ -306,7 +349,6 @@ def _mla_qkv(p: MLA, x, cfg: ArchConfig, positions):
     qn, qpe = q[..., :nd], q[..., nd:]
     dkv = linear_apply(p.wdkv, x, sp)
     ckv, kpe = dkv[..., :cfg.kv_lora], dkv[..., cfg.kv_lora:]
-    cos, sin = rope_angles(positions, rd, cfg.rope_theta)
     qpe = apply_rope(qpe, cos, sin)
     kpe = apply_rope(kpe[..., None, :], cos, sin)[..., 0, :]   # one kv head
     return qn, qpe, ckv, kpe
@@ -323,20 +365,24 @@ def mla_apply(p: MLA, x: torch.Tensor, cfg: ArchConfig, *,
               cache: Optional[Dict[str, torch.Tensor]] = None,
               cache_pos: Optional[torch.Tensor] = None,
               block_table: Optional[torch.Tensor] = None,
-              return_kv: bool = False):
+              return_kv: bool = False, step: Optional[PagedStep] = None):
     """x [B, S, d].  Prefill when ``cache`` is None (``return_kv`` returns
     this call's latent cache entries {"ckv", "kpe"}); paged decode when
     ``cache`` (one layer's pool leaves) and ``block_table`` are given, with
     ``cache_pos`` the per-slot [B] position vector: one token per slot
     (S == 1), or a verify span of S tokens at positions ``cache_pos ..
-    cache_pos + S - 1``.  Returns (y, new_kv)."""
+    cache_pos + S - 1``; ``step`` is the forward's ``paged_step`` (else
+    computed here).  Returns (y, new_kv)."""
     b, s, _ = x.shape
     h, nd, rd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     vd, r = cfg.v_head_dim, cfg.kv_lora
     sp = cfg.sparsity
-    if positions.dim() == 1:
-        positions = positions[:, None] + torch.arange(s, device=x.device)
-    qn, qpe, ckv, kpe = _mla_qkv(p, x, cfg, positions)
+    cos, sin = ((step.cos, step.sin) if step is not None
+                else _rope(positions, s, rd, cfg))
+    if step is None and cache is not None and block_table is not None:
+        step = PagedStep(cos, sin, _paged_kv_len(cache_pos), _span_cells(
+            block_table, cache_pos, s, cache["ckv"].shape[1]))
+    qn, qpe, ckv, kpe = _mla_qkv(p, x, cfg, cos, sin)
     scale = (nd + rd) ** -0.5
 
     if cache is None:
@@ -367,18 +413,18 @@ def mla_apply(p: MLA, x: torch.Tensor, cfg: ArchConfig, *,
         if cfg.attn_impl == "fused":
             # write through the table, then the kernel walks it: scores,
             # softmax and the latent context never leave the kernel
-            new_kv = _paged_write_span(cache, upd, block_table, cache_pos)
-            kv_len = _paged_kv_len(cache_pos)
+            new_kv = _paged_write_span(cache, upd, block_table, cache_pos,
+                                       step.cells)
             if s == 1:
                 ov = paged_mla_decode(qlat[:, 0], qp[:, 0], new_kv["ckv"],
-                                      new_kv["kpe"], block_table, kv_len,
+                                      new_kv["kpe"], block_table, step.kv_len,
                                       scale=scale)[:, None]
             else:
                 ov = paged_mla_verify(qlat, qp, new_kv["ckv"], new_kv["kpe"],
-                                      block_table, kv_len, scale=scale)
+                                      block_table, step.kv_len, scale=scale)
         elif cfg.attn_impl == "gather":
-            new_kv, reads, length = _paged_update_span(cache, upd,
-                                                       block_table, cache_pos)
+            new_kv, reads, length = _paged_update_span(
+                cache, upd, block_table, cache_pos, step.cells)
             cc = reads["ckv"].float()
             sc = (torch.einsum("bshr,blr->bshl", qlat, cc)
                   + torch.einsum("bshd,bld->bshl", qp, reads["kpe"].float()))

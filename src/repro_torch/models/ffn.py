@@ -122,6 +122,14 @@ def moe_route(router: torch.Tensor, xt: torch.Tensor, k: int
     return probs, gate, ids
 
 
+def expert_counts(ids: torch.Tensor, e: int) -> torch.Tensor:
+    """Assignments per expert, int64 [e]: ``torch.bincount(ids,
+    minlength=e)`` without its host sync (on the card bincount reads the
+    ids' range back to the host, which a CUDA graph capture forbids)."""
+    return torch.zeros(e, dtype=torch.long, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ArchConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (y [B, S, d], aux load-balance loss).  Every token of
@@ -143,7 +151,7 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ArchConfig
     tok_f = torch.arange(t, device=dev).repeat_interleave(k)
     s_eid, s_orig = torch.sort(ids_f, stable=True)
     s_tok = tok_f[s_orig]
-    counts = torch.bincount(ids_f, minlength=e)               # [e]
+    counts = expert_counts(ids_f, e)                          # [e]
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(t * k, device=dev) - starts[s_eid]
     keep = pos < cap

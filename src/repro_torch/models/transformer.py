@@ -131,12 +131,12 @@ def _dense_block_init(gen, cfg: ArchConfig, dtype, device) -> DenseBlock:
 
 def _dense_block_apply(p: DenseBlock, x, cfg: ArchConfig, *, positions,
                        window=None, cache=None, cache_pos=None,
-                       block_table=None, return_kv=False):
+                       block_table=None, return_kv=False, step=None):
     kw = {} if cfg.mla else {"window": window}
     a, new_cache = _attn_apply(p.attn, _norm(p.ln1, x, cfg), cfg,
                                positions=positions, cache=cache,
                                cache_pos=cache_pos, block_table=block_table,
-                               return_kv=return_kv, **kw)
+                               return_kv=return_kv, step=step, **kw)
     x = x + a
     h = ffn_mod.mlp_apply(p.mlp, _norm(p.ln2, x, cfg), cfg)
     return x + h, new_cache
@@ -153,11 +153,11 @@ def _moe_block_init(gen, cfg: ArchConfig, dtype, device) -> MoEBlock:
 
 def _moe_block_apply(p: MoEBlock, x, cfg: ArchConfig, *, positions,
                      cache=None, cache_pos=None, block_table=None,
-                     return_kv=False):
+                     return_kv=False, step=None):
     a, new_cache = _attn_apply(p.attn, _norm(p.ln1, x, cfg), cfg,
                                positions=positions, cache=cache,
                                cache_pos=cache_pos, block_table=block_table,
-                               return_kv=return_kv)
+                               return_kv=return_kv, step=step)
     x = x + a
     xn = _norm(p.ln2, x, cfg)
     h, aux = ffn_mod.moe_apply(p.moe, xn, cfg)
@@ -211,11 +211,13 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, device="cuda"
 
 
 def prefill(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
-            logit_pos: Optional[int] = None):
+            logit_pos: Union[int, torch.Tensor, None] = None):
     """Full-sequence forward over ``batch["tokens"]`` [B, S] that returns
     the per-layer caches and only one position's logits [B, V] (f32): the
     last, or ``logit_pos`` (the bucketed-prefill hook for right-padded
-    prompts).  Caches are stacked [L, B, S, ...] leaves ({"k", "v"} or
+    prompts): an int, or an integer tensor of one element on the model's
+    device, read there (so one CUDA graph per bucket serves every
+    position, as the reference lowers it to a traced int32 scalar).  Caches are stacked [L, B, S, ...] leaves ({"k", "v"} or
     {"ckv", "kpe"}); the MoE family returns them per stack as the reference
     does, {"dense": ..., "moe": ...} ("dense" only with first_dense_layers)."""
     _check_family(cfg)
@@ -239,7 +241,12 @@ def prefill(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     else:
         caches = run(p.layers)
     x = _norm(p.lnf, x, cfg)
-    xl = x[:, -1:] if logit_pos is None else x[:, logit_pos:logit_pos + 1]
+    if logit_pos is None:
+        xl = x[:, -1:]
+    elif isinstance(logit_pos, torch.Tensor):
+        xl = x.index_select(1, logit_pos.reshape(1))
+    else:
+        xl = x[:, logit_pos:logit_pos + 1]
     logits = lm_head_apply(p.embed, xl, cfg.softcap_final)[:, 0]
     return logits, caches
 
@@ -293,15 +300,20 @@ def _paged_forward(p: LM, cfg: ArchConfig, caches, tokens, pos, block_table,
                    attn_impl, layers=None):
     """Every block over tokens [B, S] at per-slot positions ``pos`` against
     the paged pools (updated in place; block i on pool layer ``layers[i]``,
-    or i) -> f32 logits [B, S, V]."""
+    or i) -> f32 logits [B, S, V].  The RoPE angles, kv_len and the span
+    write's cells are computed once here (``attn.paged_step``) and shared
+    by every block."""
     if attn_impl is not None and attn_impl != cfg.attn_impl:
         cfg = cfg.replace(attn_impl=attn_impl)
     x = embed_apply(p.embed, tokens)
+    step = attn.paged_step(cfg, pos, tokens.shape[1], block_table,
+                           next(iter(caches.values())).shape[2])
     for i, lp in enumerate(p.blocks()):
         li = i if layers is None else int(layers[i])
         layer_cache = {name: leaf[li] for name, leaf in caches.items()}
         x, _ = _block_apply(lp, x, cfg, positions=pos, cache=layer_cache,
-                            cache_pos=pos, block_table=block_table)
+                            cache_pos=pos, block_table=block_table,
+                            step=step)
     x = _norm(p.lnf, x, cfg)
     return lm_head_apply(p.embed, x, cfg.softcap_final)
 

@@ -36,14 +36,31 @@ tokens ride the verify span with those tokens as forced drafts.  Greedy
 acceptance keeps the token stream of the non-speculative engine; the table
 rolls back past the committed position (``BlockPool.rollback``).
 
+Every forward runs through an entry point of ``serve.prewarm``
+(``GraphEntry``): decode, prefill (one shape per bucket), and under
+``spec=`` propose and verify, each returning its greedy argmax, so a tick
+reads back one small int tensor.  On the card each entry captures a CUDA
+graph per shape (``graphs``, the default there, as the reference's jit is
+always on), and a steady tick is one graph replay plus the host's
+bookkeeping; the per-call host arrays (tokens, positions, block tables,
+prompts) are copied into the entry's static buffers.  ``prewarm=True``
+captures the closed shape set (``executable_shapes()``) before the first
+admission; a lazy engine captures a shape at first use, which counts as a
+mid-serve compile (``strict_prewarm=True`` raises on one).
+``graphs=False`` runs every forward eagerly, the oracle (the counterpart
+of the reference under ``jax.disable_jit()``); the CPU always does.
+``compile_cache=`` names the kernel build directory
+(``serve.prewarm.enable_compile_cache``).
+
 Not ported yet (the constructor raises ``NotImplementedError``): the
-slotted layout, prefix caching, suspend-to-host preemption, tensor-parallel
-meshes and executable prewarming.
+slotted layout, prefix caching, suspend-to-host preemption and
+tensor-parallel meshes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -53,7 +70,11 @@ from repro_torch import resolve_device
 from repro_torch.models import (convert_to_compressed, decode_step,
                                 make_draft, prefill, verify_step,
                                 weight_stream_bytes)
+from repro_torch.models.common import greedy_sample
 from repro_torch.serve.paged import TRASH_BLOCK, BlockPool, default_buckets
+from repro_torch.serve.prewarm import (CompileLog, GraphEntry, abstract,
+                                       abstract_batch, batch_prompt,
+                                       enable_compile_cache)
 from repro_torch.serve.request import Request, RequestResult
 from repro_torch.serve.scheduler import SlotScheduler
 from repro_torch.serve.speculative import (SpecConfig, accept_greedy,
@@ -86,7 +107,14 @@ class ServeEngine:
     oracle); ``spec`` turns on self-speculative decoding;
     ``debug_invariants=True`` cross-checks the block tables before every
     decode tick.  ``device`` defaults to ``cuda`` and raises when no card is
-    present."""
+    present.
+
+    ``graphs`` (default: on for a CUDA device) captures every entry point
+    as CUDA graphs; ``graphs=True`` on the CPU raises.  ``prewarm=True``
+    captures the complete ``executable_shapes()`` set at init;
+    ``strict_prewarm=True`` raises on any capture inside the serving loop;
+    ``compile_cache=`` (a directory, or True for the default) is where the
+    kernels are built and loaded from."""
 
     def __init__(self, model, cfg, n_slots: int, max_len: int,
                  compressed: bool = False, kv: str = "paged",
@@ -95,7 +123,10 @@ class ServeEngine:
                  attn: str = "gather", prefix_cache: bool = False,
                  preempt: str = "replay", debug_invariants: bool = False,
                  mesh=None, spec: Optional[SpecConfig] = None,
-                 prewarm: bool = False, device="cuda"):
+                 compile_cache=None, prewarm: bool = False,
+                 strict_prewarm: bool = False, graphs: Optional[bool] = None,
+                 device="cuda"):
+        t_init = time.perf_counter()
         if kv == "slotted":
             raise not_ported("kv='slotted'", "slotted-cache/sequential-oracle")
         if kv != "paged":
@@ -110,14 +141,21 @@ class ServeEngine:
             raise not_ported("prefix_cache=True", "serve-features")
         if mesh is not None:
             raise not_ported("mesh= (tensor-parallel serving)", "distribution")
-        if prewarm:
-            raise not_ported("prewarm=True", "cold-start")
         if (spec is not None and spec.draft == "rerank" and not compressed
                 and cfg.sparsity.mode != "compressed"):
             raise ValueError("spec.draft='rerank' re-ranks the compressed "
                              "N:M pool — serve with compressed=True (or a "
                              "model already in compressed mode)")
         self.device = resolve_device(device)
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        if graphs and self.device.type != "cuda":
+            raise ValueError(f"graphs=True captures CUDA graphs; it needs a "
+                             f"CUDA device, got {self.device}")
+        self.graphs = graphs
+        self.compile_cache_dir = (enable_compile_cache(compile_cache)
+                                  if compile_cache else None)
+        self._compile_log = CompileLog(strict=strict_prewarm)
         model = model.to(self.device)
         if compressed:
             # serve from the compressed pool: pack every SparseLinear offline
@@ -160,9 +198,125 @@ class ServeEngine:
                               device=self.device)
         # max_len always rides in the bucket set so every admissible prompt
         # lands in a bucket
-        self.prefill_buckets = tuple(sorted(set(
+        self._prefill_buckets = tuple(sorted(set(
             prefill_buckets if prefill_buckets is not None
             else default_buckets(max_len)) | {max_len}))
+        self._make_entries()
+        self._exec_shapes = None
+        self._tick_wall: List[float] = []
+        self.prewarm_seconds = 0.0
+        if prewarm:
+            self.prewarm()
+        self.init_seconds = time.perf_counter() - t_init
+        # anything captured from here on is a mid-serve compile — the
+        # cold-start bill prewarm exists to remove (strict mode raises)
+        self._compile_log.serving = True
+
+    # ------------------------------------------------------ entry points
+
+    def _make_entries(self) -> None:
+        """The engine's entry points, each a ``GraphEntry`` over one
+        forward that ends in its greedy argmax.  All of them share one
+        graph memory pool and one side stream, and capture the KV pools by
+        address (the forwards update them in place)."""
+        self.entries: Dict[str, GraphEntry] = {}
+        self.graph_pool = self._stream = None
+        if self.graphs:
+            self.graph_pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+        model, cfg, attn = self.model, self.cfg, self.attn
+        caches = self.pool.caches
+
+        def entry(name, fn):
+            self.entries[name] = GraphEntry(
+                name, fn, device=self.device, graphs=self.graphs,
+                log=self._compile_log, pool=self.graph_pool,
+                stream=self._stream, fixed=lambda: list(caches.values()))
+            return self.entries[name]
+
+        def decode(tok, pos, tbl):
+            logits, _ = decode_step(model, cfg, caches, tok, pos, tbl,
+                                    attn_impl=attn)
+            return greedy_sample(logits)
+
+        def prefill_one(batch, logit_pos):
+            logits, pf = prefill(model, cfg, batch, logit_pos=logit_pos)
+            return greedy_sample(logits), pf
+
+        self._decode = entry("decode", decode)
+        self._prefill = entry("prefill", prefill_one)
+        if self._spec is None:
+            return
+        draft, dcfg, cache_idx = self._draft, self._draft_cfg, self._cache_idx
+        k = self._spec.k
+
+        def propose(tok, pos, tbl):
+            drafts, _ = draft_propose_k(draft, dcfg, caches, tok, pos, tbl,
+                                        k=k, attn_impl=attn,
+                                        cache_idx=cache_idx)
+            return drafts
+
+        def verify(span, pos, tbl):
+            logits, _ = verify_step(model, cfg, caches, span, pos, tbl,
+                                    attn_impl=attn)
+            return greedy_sample(logits)
+
+        self._propose = entry("propose", propose)
+        self._verify = entry("verify", verify)
+
+    @property
+    def prefill_buckets(self):
+        return self.executable_shapes()["prefill_buckets"]
+
+    def executable_shapes(self) -> Dict[str, object]:
+        """The complete captured-shape universe of this engine config, the
+        one source admission (``_plan`` buckets via ``prefill_buckets``),
+        ``prewarm()`` and ``stats()`` (``executables_expected``) read: one
+        pool-shaped graph each for decode (and propose / verify under
+        ``spec=``), plus one prefill graph per bucket.  The bucket set
+        contains ``max_len``, so every admissible prompt lands in a bucket
+        and the set is closed."""
+        if self._exec_shapes is None:
+            entries: Dict[str, int] = {
+                "decode": 1, "prefill": len(self._prefill_buckets)}
+            if self._spec is not None:
+                entries["propose"] = 1
+                entries["verify"] = 1
+            self._exec_shapes = {
+                "prefill_buckets": self._prefill_buckets,
+                "entries": entries,
+                "total": sum(entries.values()),
+            }
+        return self._exec_shapes
+
+    def prewarm(self, prompt_lens: Sequence[int] = ()) -> None:
+        """Capture the engine's complete graph set before any request is
+        admitted (``GraphEntry.capture`` per shape, on abstract per-call
+        arguments; without graphs, set up each shape's static buffers).
+        Idempotent: shapes already built are skipped.  ``prompt_lens``
+        adds explicit prefill lengths, as in the reference."""
+        t0 = time.perf_counter()
+        shapes = self.executable_shapes()
+        n, tw = self.n_slots, self.pool.table_width
+        tok = abstract((n,), torch.long)
+        pos = abstract((n,), torch.int32)
+        tbl = abstract((n, tw), torch.int32)
+        self._decode.capture(tok, pos, tbl, label="decode")
+        if self._spec is not None:
+            k = self._spec.k
+            self._propose.capture(tok, pos, tbl, label=f"propose@k{k}")
+            self._verify.capture(abstract((n, k + 1), torch.long), pos, tbl,
+                                 label=f"verify@k{k}")
+        for b in sorted(set(shapes["prefill_buckets"]) | set(prompt_lens)):
+            self._prefill.capture(abstract_batch(self.cfg, b),
+                                  abstract((), torch.long),
+                                  label=f"prefill@{b}")
+        self.prewarm_seconds += time.perf_counter() - t0
+
+    def compile_events(self) -> List[Dict[str, object]]:
+        """Per-graph capture records (entry, label, phase, warm-up and total
+        seconds), the observability feed for the CLI and chip_smoke."""
+        return [dataclasses.asdict(e) for e in self._compile_log.events]
 
     # --------------------------------------------------------------- frontend
 
@@ -221,15 +375,13 @@ class ServeEngine:
             return False
         toks = np.asarray(req.inputs["tokens"])
         prompt = toks[:pb] if not pad_up else np.pad(toks, (0, pb - plen))
-        batch = {"tokens": torch.tensor(prompt[None], dtype=torch.long,
-                                        device=self.device)}
         self.prefill_lengths.add(pb)
         self.prefill_calls += 1
-        logits, pf = prefill(self.model, self.cfg, batch,
-                             logit_pos=(plen if pad_up else pb) - 1)
+        lp = torch.tensor((plen if pad_up else pb) - 1, dtype=torch.long)
+        first, pf = self._prefill(batch_prompt({"tokens": prompt}), lp)
         self.pool.seed(slot, pf, n_seed)
         if n_seed >= plen:                   # prompt fully prefilled
-            first = int(logits[0].argmax())
+            first = int(first[0])
             st = _SlotState(req=req, tokens=[first], admitted_at=now)
             self.pos[slot] = plen
             self.tok[slot] = first
@@ -302,21 +454,14 @@ class ServeEngine:
         if self.debug_invariants:
             self.pool.check_invariants(
                 active_pos={s: int(self.pos[s]) for s in self._slots})
-        dev = self.device
-        self._decode_tick(
-            list(self._slots),
-            torch.tensor(self.tok, dtype=torch.long, device=dev),
-            torch.tensor(self.pos, device=dev), self.pool.device_table(),
-            now)
+        self._decode_tick(list(self._slots), self.tok, self.pos,
+                          self.pool.table, now)
 
     def _decode_tick(self, slots, tok, pos, tbl, now: int) -> None:
-        """One decode forward over the device args, then advance ``slots``
-        (in the order given) by the token it emitted or their next prompt
-        token."""
-        logits, self.pool.caches = decode_step(
-            self.model, self.cfg, self.pool.caches, tok, pos, tbl,
-            attn_impl=self.attn)
-        nxt = logits.argmax(-1).to(torch.int32).cpu().numpy()
+        """One decode forward over the host arrays (token ids, positions,
+        block table), then advance ``slots`` (in the order given) by the
+        token it emitted or their next prompt token."""
+        nxt = self._decode(*_host(tok, pos, tbl)).cpu().numpy()
         self.decode_steps += 1
         for slot in slots:
             st = self._slots[slot]
@@ -332,7 +477,7 @@ class ServeEngine:
     # -------------------------------------------------- speculative decoding
 
     def _masked(self, participants):
-        """(tok, pos, table) device args with every non-participant row
+        """(tok, pos, table) host arrays with every non-participant row
         pointed at the trash block at position 0 — the disguise idle slots
         already wear — so a forward over them touches only the
         participants' blocks (the others' writes land in trash and their
@@ -344,9 +489,7 @@ class ServeEngine:
         tbl[out] = TRASH_BLOCK
         pos[out] = 0
         tok[out] = 0
-        dev = self.device
-        return (torch.tensor(tok, dtype=torch.long, device=dev),
-                torch.tensor(pos, device=dev), torch.tensor(tbl, device=dev))
+        return tok, pos, tbl
 
     def _spec_step(self, now: int) -> None:
         """One speculative tick: a plain decode forward for the slots that
@@ -393,10 +536,7 @@ class ServeEngine:
         span = np.zeros((self.n_slots, k + 1), np.int32)
         span[:, 0] = self.tok
         if draft_set:
-            tok, pos, tbl = self._masked(draft_set)
-            drafts, self.pool.caches = draft_propose_k(
-                self._draft, self._draft_cfg, self.pool.caches, tok, pos, tbl,
-                k=k, attn_impl=self.attn, cache_idx=self._cache_idx)
+            drafts = self._propose(*_host(*self._masked(draft_set)))
             span[:, 1:] = drafts.cpu().numpy()
             self.draft_steps += k
         # forced rows: the next prompt tokens ride the span in place of
@@ -407,11 +547,7 @@ class ServeEngine:
             span[slot, 1:] = 0
             span[slot, 1:1 + f] = pend[:f]
         _, pos, tbl = self._masked(spec_set)
-        vlogits, self.pool.caches = verify_step(
-            self.model, self.cfg, self.pool.caches,
-            torch.tensor(span, dtype=torch.long, device=self.device), pos,
-            tbl, attn_impl=self.attn)
-        va = vlogits.argmax(-1).to(torch.int32).cpu().numpy()   # [B, k+1]
+        va = self._verify(*_host(span, pos, tbl)).cpu().numpy()  # [B, k+1]
         self.decode_steps += 1
         self.scheduler.record_occupancy()
         acc = accept_greedy(span[:, 1:], va)
@@ -458,7 +594,12 @@ class ServeEngine:
                 if not pairs or not self._admit(pairs[0][0], pairs[0][1], t):
                     break
             if self.active.any():
+                t0 = time.perf_counter()
                 self.step(t)
+                # step() reads its tokens back to the host, so this wall
+                # time is synchronous: stats()["first_tick_s"] and
+                # ["steady_tick_s"]
+                self._tick_wall.append(time.perf_counter() - t0)
             t += 1
         self.ticks = t
         return self.results
@@ -470,11 +611,29 @@ class ServeEngine:
     def stats(self) -> Dict[str, float]:
         toks = sum(len(r.tokens) for r in self.results.values())
         ws = self.weight_stream
+        log = self._compile_log
         out = {
             "tokens": float(toks),
             "decode_steps": float(self.decode_steps),
             "ticks": float(self.ticks),
             "occupancy": self.scheduler.occupancy(),
+            # the capture bill per entry point: graphs actually captured
+            # (prewarmed + lazy; without graphs, shape keys set up)
+            "prefill_compiles": float(self._prefill.n_compiles),
+            "decode_compiles": float(self._decode.n_compiles),
+            "prewarmed_executables": float(log.prewarm_compiles),
+            "mid_serve_compiles": float(log.mid_serve_compiles),
+            "compile_seconds": float(log.compile_seconds),
+            "prewarm_seconds": float(self.prewarm_seconds),
+            "init_seconds": float(self.init_seconds),
+            "warm_calls": float(sum(e.warm_calls
+                                    for e in self.entries.values())),
+            "executables_expected": float(
+                self.executable_shapes()["total"]),
+            "first_tick_s": float(self._tick_wall[0]
+                                  if self._tick_wall else 0.0),
+            "steady_tick_s": float(np.median(self._tick_wall[1:])
+                                   if len(self._tick_wall) > 1 else 0.0),
             "prefill_calls": float(self.prefill_calls),
             "preemptions": float(self.preemptions),
             "rejected": float(self.rejected),
@@ -494,6 +653,8 @@ class ServeEngine:
             # steps_saved = target passes the non-speculative engine would
             # have needed beyond those run
             out.update({
+                "propose_compiles": float(self._propose.n_compiles),
+                "verify_compiles": float(self._verify.n_compiles),
                 "spec_proposed": float(self.spec_proposed),
                 "spec_accepted": float(self.spec_accepted),
                 "spec_acceptance": (self.spec_accepted
@@ -505,3 +666,10 @@ class ServeEngine:
                 "draft_stream_bytes": float(
                     self.draft_stream["stream_bytes"])})
         return out
+
+
+def _host(*arrays: np.ndarray):
+    """Host arrays as the CPU tensors an entry copies into its static
+    buffers (token ids int64, positions and tables int32)."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(
+        a, np.int64 if i == 0 else np.int32)) for i, a in enumerate(arrays))

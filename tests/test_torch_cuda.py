@@ -507,6 +507,82 @@ def test_spec_engine_matches_plain_engine_on_the_card(arch, draft,
         np.testing.assert_array_equal(got[r.rid].tokens, want[r.rid].tokens)
 
 
+# --------------------------------------------- CUDA-graphed entry points
+
+@pytest.mark.parametrize("arch,draft", [("llama3.2-1b", None),
+                                        ("deepseek-v2-lite-16b", None),
+                                        ("llama3.2-1b", "rerank"),
+                                        ("deepseek-v2-lite-16b", "skip")])
+def test_graphed_engine_equals_eager_engine(arch, draft):
+    """Smoke-size f32 engine on the card, prewarmed and strict: every entry
+    point replays its graph, and the tokens, the counters and the launch
+    count of every kernel (replays adding what each graph captured) equal
+    the eager engine's on the same trace."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.serve import ServeEngine, SpecConfig, synthetic_trace
+    cfg = get_config(arch, smoke=True)
+    model = init_model(cfg, seed=0, device="cuda")
+    reqs = synthetic_trace(cfg, n_requests=5, prompt_len=9,
+                           gen_lens=[4, 7], seed=1)
+    kw = dict(n_slots=2, max_len=24, compressed=True, block_size=4,
+              attn="fused", device="cuda", prewarm=True, strict_prewarm=True,
+              spec=draft and SpecConfig(k=3, draft=draft))
+    runs = {}
+    for graphs in (False, True):
+        eng = ServeEngine(model, cfg, graphs=graphs, **kw)
+        kernels.reset_launch_counts()
+        res = eng.run(reqs)
+        torch.cuda.synchronize()
+        assert eng.graphs is graphs
+        runs[graphs] = (res, eng.stats(),
+                        {k.name: k.launches for k in kernels.all_kernels()})
+    (want, ws, wl), (got, gs, gl) = runs[False], runs[True]
+    for r in reqs:
+        np.testing.assert_array_equal(got[r.rid].tokens, want[r.rid].tokens)
+    for key in ("tokens", "decode_steps", "prefill_calls", "preemptions"):
+        assert gs[key] == ws[key], key
+    assert gl == wl and gl["nm_spmv"] > 0 and gl["nm_xwt"] > 0
+    assert gs["mid_serve_compiles"] == 0
+    assert gs["prewarmed_executables"] == gs["executables_expected"]
+
+
+def test_capture_over_a_syncing_function_raises():
+    """A host sync in a captured function raises (in the warm-up, under
+    the sync debug mode) instead of running eagerly."""
+    from repro_torch.serve.prewarm import GraphEntry, abstract
+    entry = GraphEntry("sync", lambda x: x + x.sum().item(),
+                       device=torch.device("cuda"), graphs=True,
+                       pool=torch.cuda.graph_pool_handle(),
+                       stream=torch.cuda.Stream())
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        entry.capture(abstract((4,), torch.float32))
+    assert entry.n_compiles == 0
+
+
+def test_graph_replay_raises_when_a_captured_pool_moved():
+    """A graph writes its pool by address: a replay after the pool tensor
+    was replaced raises instead of writing freed memory."""
+    from repro_torch.serve.prewarm import GraphEntry
+    pool = {"k": torch.zeros(4, device="cuda")}
+
+    def fn(x):
+        pool["k"].add_(x)
+        return pool["k"] * 2
+    entry = GraphEntry("w", fn, device=torch.device("cuda"), graphs=True,
+                       pool=torch.cuda.graph_pool_handle(),
+                       stream=torch.cuda.Stream(),
+                       fixed=lambda: [pool["k"]])
+    out = entry(torch.ones(4))           # captured at first use, replayed
+    torch.cuda.synchronize()
+    assert out.tolist() == [2.0] * 4     # the warm-up's add ran on zeros
+    assert entry(torch.ones(4)).tolist() == [4.0] * 4
+    pool["k"] = torch.zeros(4, device="cuda")
+    with pytest.raises(RuntimeError, match="moved"):
+        entry(torch.ones(4))
+
+
 # ------------------------------------------- the kernels off the serving path
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -182,7 +182,6 @@ def test_idle_rows_write_only_the_trash_block():
     (dict(preempt="suspend"), "suspend"),
     (dict(spec=SpecConfig(draft="skip"), mesh=object()), "mesh"),
     (dict(mesh=object()), "mesh"),
-    (dict(prewarm=True), "prewarm"),
 ])
 def test_unported_engine_features_raise(kw, msg):
     _, _, tc, model = _model()

@@ -645,8 +645,10 @@ def test_engine_spec_validation():
 
 
 def test_verify_passes_are_the_engines_verify_calls(monkeypatch):
-    """What the chip smoke counts: each verify pass is one call of the
-    engine module's ``verify_step``, with a [B, k+1] span."""
+    """Each verify pass is one call of the engine's verify entry point
+    (what the chip smoke counts: on the card one graph replay), and on the
+    CPU one call of the engine module's ``verify_step``, with a [B, k+1]
+    span."""
     calls = []
     orig = engine_mod.verify_step
 
@@ -660,6 +662,7 @@ def test_verify_passes_are_the_engines_verify_calls(monkeypatch):
                       spec=SpecConfig(k=2), device="cpu")
     eng.run(_ragged(tc, [5, 8], [6, 7], 1, synthetic_request))
     assert calls and set(calls) == {(2, 3)}
+    assert eng.entries["verify"].calls == len(calls)
     st = eng.stats()
     assert len(calls) <= st["decode_steps"]
     assert 0 < st["draft_steps"] <= 2 * len(calls)

@@ -2,7 +2,7 @@
 """Compare two checkouts of the PyTorch/CUDA port on one NVIDIA card.
 
   python3 tools/port_ab.py ROOT [--rates] [--spec-twice] [--kernels]
-                                [--device-table]
+                                [--device-table] [--coldstart]
 
 Run it once per checkout, each in its own process and all in one session
 on the card (parent, change, change, parent), so that the readings share
@@ -24,7 +24,8 @@ JSON line:
   order leaves: ``distinct`` outcomes seen and ``sequential`` matches.
 * with ``--rates``: ``tokens_per_s`` of full-width llama3.2-1b and
   deepseek-v2-lite-16b through the plain engine (chip_smoke's phase-3/4
-  trace, configuration and timed run).
+  trace, configuration and timed run; graphed and prewarmed where the
+  checkout's ``chip_smoke.py`` has ``graphed``).
 * with ``--spec-twice``: full-width deepseek-v2-lite-16b served twice
   through the speculative engine (chip_smoke's phase-6 trace and
   configuration): ``requests_identical`` of 16 between the two runs and
@@ -55,6 +56,14 @@ JSON line:
   (their ratio) and ``bound_ms`` (an f32 N:M product's operations at the
   lesser of its N/M MACs on the CUDA cores and three TF32 passes over
   its dense MACs).
+* with ``--coldstart`` (and then instead of the above; a checkout whose
+  CLI has ``--compile-cache``): cold against warm bring-up.  The serve CLI
+  (``repro_torch.launch.serve``, full-width llama3.2-1b, ``--prewarm``, 8
+  slots, 8 requests of 128 prompt tokens, 16 generated) runs twice in a
+  child process over one fresh ``--compile-cache`` directory: the first
+  builds every kernel with nvcc, the second loads the libraries.  Per run
+  the child's wall seconds (interpreter start to exit) and its compile
+  line (bring-up, prewarm captures, first and steady tick).
 """
 
 from __future__ import annotations
@@ -63,7 +72,10 @@ import argparse
 import importlib.util
 import json
 import os
+import shutil
+import subprocess
 import sys
+import time
 
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -415,8 +427,9 @@ def rates(torch, smoke) -> dict:
         model = init_model(cfg, seed=0, device="cuda")
         kw = dict(n_slots=8, max_len=128 + 32, compressed=True, kv="paged",
                   attn="fused", block_size=16, device="cuda")
-        eng, _, _, wall = smoke.serve_run(torch, model, cfg, path, kw, arch)
-        out[arch] = eng.stats()["tokens"] / wall
+        kw = getattr(smoke, "graphed", dict)(kw)
+        run = smoke.serve_run(torch, model, cfg, path, kw, arch)
+        out[arch] = run[0].stats()["tokens"] / run[3]
         del eng, model
         torch.cuda.empty_cache()
     return dict(tokens_per_s=out)
@@ -436,6 +449,7 @@ def serve_twice(torch, smoke) -> dict:
     kw = dict(n_slots=8, max_len=128 + 32, compressed=True, kv="paged",
               attn="fused", block_size=16, device="cuda",
               spec=SpecConfig(k=smoke.SPAN - 1, draft="skip", stride=2))
+    kw = getattr(smoke, "graphed", dict)(kw)
     reqs = synthetic_trace(cfg, n_requests=16, prompt_len=128,
                            gen_lens=[16, 32], seed=0)
     runs = []
@@ -452,6 +466,38 @@ def serve_twice(torch, smoke) -> dict:
                 counters=[c for _, c in runs])
 
 
+def coldstart(root: str) -> dict:
+    """Cold against warm bring-up of the checkout's serve CLI over one
+    fresh kernel build directory (see the module's note)."""
+    cache = os.path.join(root, "src", "repro_torch", "_build",
+                         f"coldstart-{os.getpid()}")
+    shutil.rmtree(cache, ignore_errors=True)
+    # the checkout's src on sys.path, not on PYTHONPATH: that would also
+    # run its sitecustomize (the JAX package's start-up shims)
+    run_cli = ("import sys; sys.path.insert(0, sys.argv.pop(1)); "
+               "from repro_torch.launch import serve; serve.main(sys.argv[1:])")
+    cmd = [sys.executable, "-c", run_cli, os.path.join(root, "src"), "--arch",
+           "llama3.2-1b", "--prewarm", "--compile-cache", cache, "--slots",
+           "8", "--requests", "8", "--prompt-len", "128", "--gen", "16",
+           "--block-size", "16"]
+    out = {}
+    try:
+        for run in ("cold", "warm"):
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, cwd=root, capture_output=True,
+                               text=True, timeout=900)
+            wall = time.perf_counter() - t0
+            if r.returncode:
+                raise SystemExit(f"coldstart: the {run} run failed:\n"
+                                 f"{r.stdout}\n{r.stderr}")
+            line = next(ln for ln in r.stdout.splitlines()
+                        if ln.startswith("compile["))
+            out[run] = dict(process_s=wall, compile_line=line)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root")
@@ -459,6 +505,7 @@ def main() -> int:
     ap.add_argument("--spec-twice", action="store_true")
     ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--device-table", action="store_true")
+    ap.add_argument("--coldstart", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -468,6 +515,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 plain products
     torch.backends.cudnn.allow_tf32 = False
     root = os.path.abspath(args.root)
+    if args.coldstart:        # child processes only: nothing built here
+        print(json.dumps(dict(root=root, coldstart=coldstart(root))),
+              flush=True)
+        return 0
     own = _own_smoke()
     device_ms = own.device_ms
     smoke = _load_smoke(root)
