@@ -43,7 +43,7 @@ Phases (any failure exits non-zero and prints no result line):
    gemma2-9b local layer (d 256, window 4096, softcap 50, S 8192, BH 2),
    deepseek's MLA prefill (d 192, dv 128) and a q_off slice, then one
    launch per case through the entry point with the counts zeroed.
-Every serve phase (3-6) runs the engine as a user would on the card:
+Every serve phase (3-6, 8) runs the engine as a user would on the card:
 each entry point (decode, prefill per bucket, propose, verify) captured as
 CUDA graphs before the first admission (``prewarm=True``), any mid-serve
 capture an error (``strict_prewarm=True``); a replay adds what its graph
@@ -104,7 +104,29 @@ steady tick and the graph pool's bytes.
    accepts the packing; per-layer and per-net times (the card's Fig 11
    analogue); nm_xwt and nm_spmm must have launched; then
    ``repro_torch.launch.cnn`` on the card.
-8. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
+8. Prefix caching and suspend-to-host preemption (run after phase 5, on
+   phase 3's model and engine settings): the shared-prefix trace (16
+   requests, one of two 120-token system prompts + an 8-token suffix, gen
+   16/32; 120 is not a multiple of the block size, so a hit ends
+   mid-block and copies on write).  8a, full pool: the non-sharing engine
+   against ``prefix_cache=True``; hard checks: exactly the 6 hits the
+   schedule gives (weights do not move it), prefills + hits = 16, COW
+   copies > 0, nm_spmv launched decode steps x 16 x 7 times; the tokens
+   against the non-sharing run are printed (a hit's suffix goes through
+   decode, a miss's through prefill, so a bf16 near-tie may flip).  8b, a
+   pool of 72 blocks, where both runs preempt: the prefix cache with
+   ``preempt="replay"`` against ``"suspend"``; hard checks: preemptions in
+   both, swap-outs = swap-ins = preemptions, nothing left on the host,
+   suspend ticks <= replay ticks.  Every engine graphed, prewarmed and
+   strict, against its eager engine (tokens and counters equal), the pool
+   invariants after each run and the index pinning exactly the used
+   blocks.  ``[prefix]`` and ``[suspend]`` lines (swap ms: CUDA events
+   around ``swap_out`` / ``swap_in`` in the eager suspend engine).  Hard
+   check, after phases 5 and 6: full width, 4 layers, float32, 2 slots,
+   for llama and deepseek: non-sharing, prefix and prefix + suspend tokens
+   exactly equal, each equal to its eager engine's; for deepseek no decode
+   route over expert capacity.
+9. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
    device line last.  The total time is printed on the ``[done]`` line.
 """
 
@@ -1496,13 +1518,17 @@ def phase_serve(torch):
     spec_launches = phase_spec(torch, eng.model, eng.cfg, kw, spec,
                                LLAMA_SPEC_PATH, "paged_gqa_verify", eng, wall,
                                "phase 5")
-    del eng, model
+    del eng
+    prefix_launches = phase_prefix(torch, model, cfg, kw)
+    del model
     torch.cuda.empty_cache()
     check_spec_exact(torch, "llama3.2-1b", spec, "paged_gqa_verify",
                      "phase 5")
     check_onehot_exact(torch)
+    check_prefix_exact(torch, "llama3.2-1b")
     return {"llama3.2-1b": launches, "llama3.2-1b onehot": onehot_launches,
-            "llama3.2-1b spec": spec_launches}
+            "llama3.2-1b spec": spec_launches,
+            "llama3.2-1b prefix": prefix_launches}
 
 
 def coldstart(torch, model, cfg, kw):
@@ -1724,6 +1750,273 @@ def check_spec_exact(torch, arch, spec, verify_kernel, phase):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ phase 8
+
+# the schedule does not depend on the weights (every request runs to its
+# max_new_tokens, all arrive at tick 0), so these counts are the CPU run's
+# of the same trace shape at smoke width: rids 0-7 miss, prefix 0 (even
+# rids, gen 16) retires first, so rids 9 and 11 (prefix 1) miss too
+PREFIX_TRACE = dict(n_requests=16, prefix_len=120, suffix_len=8,
+                    gen_lens=[16, 32], n_prefixes=2, seed=0)
+PREFIX_HITS = 6
+# 8b's pool: the reference benchmark's n_slots * span_blocks - 4 = 76
+# blocks is absorbed by LRU eviction of the index alone down to 73; at 72
+# both the replay and the suspend run preempt
+PREFIX_CUT_BLOCKS = 72
+PREFIX_KEYS = ("tokens", "ticks", "decode_steps", "prefill_calls",
+               "preemptions", "prefix_hits", "prefix_hit_tokens",
+               "cow_copies", "swap_outs", "swap_ins", "index_evictions",
+               "index_blocks", "index_tokens")
+
+
+def time_swaps(torch, pool):
+    """Wrap ``pool.swap_out`` / ``swap_in`` in CUDA events; returns the
+    record {"out": [(ms, bytes)], "in": [...]} the calls fill."""
+    seen = {"out": [], "in": []}
+    for key in seen:
+        orig = getattr(pool, f"swap_{key}")
+
+        def wrapped(slot, *a, _orig=orig, _key=key):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = _orig(slot, *a)
+            end.record()
+            end.synchronize()
+            swap = out if _key == "out" else a[0]
+            seen[_key].append((start.elapsed_time(end), swap.nbytes))
+            return out
+        setattr(pool, f"swap_{key}", wrapped)
+    return seen
+
+
+def prefix_run(torch, model, cfg, kw, reqs, what, swaps=None):
+    """The graphed engine ``kw`` over ``reqs`` with every launch count
+    zeroed just before and read just after, then its eager engine on the
+    same trace (``swaps``: a dict the eager engine's swap times fill).
+    Hard checks: tokens and ``PREFIX_KEYS`` graphed = eager, 0 mid-serve
+    captures, the pool invariants (index pins included) after the run,
+    and the index still pinning exactly the used blocks once the trace
+    drained.  Returns (graphed engine, wall seconds, launches, eager
+    engine, eager wall)."""
+    from repro_torch import kernels
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(model, cfg, **kw)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.all_kernels()}
+    ref = ServeEngine(model, cfg, **eager(kw))
+    if swaps is not None:
+        swaps.update(time_swaps(torch, ref.pool))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref.run(reqs)
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    st, es = eng.stats(), ref.stats()
+    differ = compare_tokens(torch, ref, reqs, eng.results, f"{what} eager",
+                            "eager", "graphed")
+    moved = {k: (st[k], es[k]) for k in PREFIX_KEYS if st[k] != es[k]}
+    for e in (eng, ref):
+        e.check_invariants()
+    if (differ or moved or st["mid_serve_compiles"]
+            or eng.pool.used_blocks != st["index_blocks"]):
+        raise SystemExit(f"{what}: graphed and eager differ in {differ} "
+                         f"requests, counters {moved}; mid-serve captures "
+                         f"{st['mid_serve_compiles']}; used blocks "
+                         f"{eng.pool.used_blocks} against index blocks "
+                         f"{st['index_blocks']}")
+    return eng, wall, launches, ref, ref_wall
+
+
+def phase_prefix(torch, model, cfg, kw):
+    """Phase 8 (on phase 3's model and engine settings): the shared-prefix
+    trace (16 requests, a 120-token system prompt of two + an 8-token
+    suffix, gen 16/32).  8a, full pool: the non-sharing engine against
+    ``prefix_cache=True``.  8b, a pool cut so both runs preempt: the
+    prefix cache with ``preempt="replay"`` against ``"suspend"``.  Each
+    engine graphed (prewarmed, strict) and against its eager engine."""
+    from repro_torch.serve import shared_prefix_trace
+    reqs = shared_prefix_trace(cfg, **PREFIX_TRACE)
+    plen = PREFIX_TRACE["prefix_len"] + PREFIX_TRACE["suffix_len"]
+    pkw = dict(kw, prefix_cache=True)
+    base, base_wall, _, base_e, base_ewall = prefix_run(
+        torch, model, cfg, kw, reqs, "phase 8a non-sharing")
+    eng, wall, launches, ref, ewall = prefix_run(
+        torch, model, cfg, pkw, reqs, "phase 8a prefix")
+    st = eng.stats()
+    want = eng.decode_steps * cfg.n_layers * LINEARS_PER_LAYER
+    if (min(launches[name] for name in LLAMA_PATH) <= 0
+            or launches["nm_spmv"] != want):
+        raise SystemExit(f"phase 8a: a kernel of the path never launched, or "
+                         f"nm_spmv not {want} times: {launches}")
+    if (st["prefix_hits"] != PREFIX_HITS or st["cow_copies"] <= 0
+            or st["prefill_calls"] + st["prefix_hits"] != len(reqs)
+            or st["tokens"] != sum(r.max_new_tokens for r in reqs)):
+        raise SystemExit(f"phase 8a: expected {PREFIX_HITS} hits, "
+                         f"prefills + hits = {len(reqs)} and COW copies, "
+                         f"got {st}")
+    again, again_wall, _, _, _ = prefix_run(torch, model, cfg, pkw, reqs,
+                                            "phase 8a prefix (again)")
+    base2, base2_wall, _, _, _ = prefix_run(torch, model, cfg, kw, reqs,
+                                            "phase 8a non-sharing (again)")
+    if (moved_counters(again.stats(), st)
+            or moved_counters(base2.stats(), base.stats())):
+        raise SystemExit("phase 8a: a second run moved the counters")
+    bs = base.stats()
+    rate = [e.stats()["tokens"] / w for e, w in (
+        (base, base_wall), (eng, wall), (again, again_wall),
+        (base2, base2_wall))]
+    log(f"[prefix] {cfg.name}: graphed tokens/s non-sharing, prefix, "
+        f"prefix, non-sharing: {', '.join(f'{r:.1f}' for r in rate)} "
+        f"(prefix / non-sharing {(rate[1] + rate[2]) / (rate[0] + rate[3]):.3f}"
+        f"x; eager {bs['tokens'] / base_ewall:.1f} / "
+        f"{st['tokens'] / ewall:.1f}); prefills {int(bs['prefill_calls'])} -> "
+        f"{int(st['prefill_calls'])}; hits {int(st['prefix_hits'])} "
+        f"({int(st['prefix_hit_tokens'])} tokens); COW copies "
+        f"{int(st['cow_copies'])}; catch-up decode positions "
+        f"{int(st['prefix_hits']) * plen - int(st['prefix_hit_tokens'])}; "
+        f"decode steps {int(bs['decode_steps'])} -> "
+        f"{int(st['decode_steps'])}; steady tick "
+        f"{bs['steady_tick_s'] * 1e3:.2f} -> {st['steady_tick_s'] * 1e3:.2f} "
+        f"ms; index {int(st['index_blocks'])} blocks "
+        f"({st['index_blocks'] * st['kv_block_bytes'] / 2 ** 20:.1f} MiB), "
+        f"{int(st['index_tokens'])} tokens, {int(st['index_evictions'])} "
+        f"evictions")
+    compare_tokens(torch, eng, reqs, base.results, f"phase 8a {cfg.name}",
+                   "prefix", "non-sharing")
+
+    ckw = dict(pkw, n_blocks=PREFIX_CUT_BLOCKS)
+    rep, rep_wall, _, _, _ = prefix_run(torch, model, cfg, ckw, reqs,
+                                        "phase 8b replay")
+    swaps = {}
+    sus, sus_wall, _, _, _ = prefix_run(
+        torch, model, cfg, dict(ckw, preempt="suspend"), reqs,
+        "phase 8b suspend", swaps=swaps)
+    rs, ss = rep.stats(), sus.stats()
+    if (rs["preemptions"] <= 0 or ss["preemptions"] <= 0
+            or not ss["swap_outs"] == ss["swap_ins"] == ss["preemptions"]
+            or ss["swap_bytes_resident"] or ss["ticks"] > rs["ticks"]):
+        raise SystemExit(f"phase 8b: expected preemptions in both runs, "
+                         f"swap-outs = swap-ins = preemptions, nothing left "
+                         f"on the host and suspend ticks <= replay ticks; "
+                         f"replay {rs}, suspend {ss}")
+    out_ms, out_b = zip(*swaps["out"])
+    in_ms, in_b = zip(*swaps["in"])
+    pool = sus.pool
+    log(f"[suspend] {cfg.name}: pool {PREFIX_CUT_BLOCKS} blocks "
+        f"({pool.usable_blocks} usable, "
+        f"{pool.usable_blocks * pool.bytes_per_block / 2 ** 20:.1f} MiB); "
+        f"preemptions replay {int(rs['preemptions'])} / suspend "
+        f"{int(ss['preemptions'])}; swap-outs {int(ss['swap_outs'])}, "
+        f"swap-ins {int(ss['swap_ins'])}; moved {sum(out_b) / 2 ** 20:.1f} "
+        f"MiB out, {sum(in_b) / 2 ** 20:.1f} MiB in; swap_out {sum(out_ms) / len(out_ms):.3f} ms "
+        f"mean ({sum(out_ms):.2f} ms in all), swap_in "
+        f"{sum(in_ms) / len(in_ms):.3f} ms mean ({sum(in_ms):.2f} ms) (CUDA "
+        f"events, eager engine); prefills replay "
+        f"{int(rs['prefill_calls'])} / suspend {int(ss['prefill_calls'])}; "
+        f"ticks replay {int(rs['ticks'])} / suspend {int(ss['ticks'])}; "
+        f"graphed tokens/s replay {rs['tokens'] / rep_wall:.1f} / suspend "
+        f"{ss['tokens'] / sus_wall:.1f}; index evictions "
+        f"{int(rs['index_evictions'])} / {int(ss['index_evictions'])}")
+    for name, e in (("replay", rep), ("suspend", sus)):
+        compare_tokens(torch, e, reqs, base.results,
+                       f"phase 8b {cfg.name} {name}", name, "non-sharing")
+    return launches
+
+
+def _drop_log(ffn, cfg):
+    """Wrap ``ffn.moe_route`` to count, per call, the routes over expert
+    capacity (the dispatch drops them); returns (log list of (tokens,
+    dropped), restore function).  Eager engines only: it reads back."""
+    seen, orig = [], ffn.moe_route
+
+    def wrapped(router, xt, k):
+        out = orig(router, xt, k)
+        t = xt.shape[0]
+        cap = ffn._capacity(t, cfg.n_experts, k, cfg.capacity_factor)
+        counts = ffn.expert_counts(out[2].reshape(-1), cfg.n_experts)
+        seen.append((t, int((counts - cap).clamp_min(0).sum())))
+        return out
+    ffn.moe_route = wrapped
+    return seen, lambda: setattr(ffn, "moe_route", orig)
+
+
+def check_prefix_exact(torch, arch):
+    """Hard check at full width, 4 layers, float32, 2 slots, one shared
+    36-token prefix + 4 (prompts of 40 prefill 32 and catch up 8 through
+    decode, so every run computes each position by the same route): the
+    non-sharing engine, ``prefix_cache=True`` and the prefix cache with
+    ``preempt="suspend"`` on a pool of 8 blocks emit the same tokens, and
+    each equals its eager engine's (``debug_invariants=True`` throughout).
+    For deepseek the eager runs count the routes over expert capacity: a
+    decode batch of 2 stays under the floor of 8, so decode drops none."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ffn, init_model
+    from repro_torch.serve import shared_prefix_trace
+    cfg = get_config(arch)
+    cfg = cfg.replace(n_layers=4, dtype="float32", sparsity=dataclasses.replace(
+        cfg.sparsity, mode="compressed"))
+    model = init_model(cfg, seed=1, device="cuda")
+    reqs = shared_prefix_trace(cfg, n_requests=6, prefix_len=36,
+                               suffix_len=4, gen_lens=[12, 9], n_prefixes=1,
+                               seed=11)
+    kw = graphed(dict(n_slots=2, max_len=40 + 12, compressed=True,
+                      kv="paged", attn="fused", block_size=16,
+                      debug_invariants=True, device="cuda"))
+    runs = {"non-sharing": kw, "prefix": dict(kw, prefix_cache=True),
+            "suspend": dict(kw, prefix_cache=True, preempt="suspend",
+                            n_blocks=8)}
+    engines, line, drops = {}, [], []
+    moe = cfg.n_experts > 0
+    for name, k in runs.items():
+        eng, _ = timed_run(torch, model, cfg, k, reqs)
+        seen, restore = _drop_log(ffn, cfg) if moe else ([], lambda: None)
+        try:
+            ref, _ = timed_run(torch, model, cfg, eager(k), reqs)
+        finally:
+            restore()
+        drops += seen
+        for e in (eng, ref):
+            e.check_invariants()
+        if compare_tokens(torch, ref, reqs, eng.results,
+                          f"phase 8 exact check {arch} {name} eager",
+                          "eager", "graphed"):
+            raise SystemExit(f"phase 8: float32 eager tokens differ from the "
+                             f"graphed engine's ({arch} {name})")
+        engines[name] = eng
+        st = eng.stats()
+        line.append(f"{name}: hits {int(st['prefix_hits'])}, COW "
+                    f"{int(st['cow_copies'])}, preemptions "
+                    f"{int(st['preemptions'])}, swap-outs "
+                    f"{int(st['swap_outs'])}, ticks {int(st['ticks'])}")
+    decode_drops = sum(d for t, d in drops if t == 2)
+    log(f"[prefix] {arch} exact check (4 layers, float32, 2 slots, graphed "
+        f"= eager): " + "; ".join(line)
+        + (f"; routes over capacity: decode {decode_drops}, prefill "
+           f"{sum(d for t, d in drops if t != 2)} (eager runs)" if moe
+           else ""))
+    base = engines["non-sharing"].results
+    differ = sum(compare_tokens(torch, engines[name], reqs, base,
+                                f"phase 8 exact check {arch} {name}", name,
+                                "non-sharing")
+                 for name in ("prefix", "suspend"))
+    st = engines["suspend"].stats()
+    if (differ or decode_drops or st["prefix_hits"] <= 0
+            or st["swap_outs"] <= 0):
+        raise SystemExit(f"phase 8: float32 tokens with the prefix cache or "
+                         f"suspend differ from the non-sharing engine's in "
+                         f"{differ} requests (decode routes dropped: "
+                         f"{decode_drops}; the suspend run's hits "
+                         f"{st['prefix_hits']}, swap-outs {st['swap_outs']})")
+    del engines, model
+    torch.cuda.empty_cache()
+
+
 def phase_serve_deepseek(torch):
     """Full-width deepseek-v2-lite-16b, compressed as it is drawn (the
     dense bf16 model, ~31 GB, never exists at once)."""
@@ -1777,6 +2070,7 @@ def phase_serve_deepseek(torch):
     check_deepseek_reference_route(torch)
     check_spec_exact(torch, "deepseek-v2-lite-16b", spec, "paged_mla_verify",
                      "phase 6")
+    check_prefix_exact(torch, "deepseek-v2-lite-16b")
     return {"deepseek-v2-lite-16b": launches,
             "deepseek-v2-lite-16b spec": spec_launches}
 

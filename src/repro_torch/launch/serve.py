@@ -7,7 +7,11 @@ runs the continuous-batching engine on the card (``--device cuda``, the
 default; ``--device cpu`` runs the plain path); ``--arch
 deepseek-v2-lite-16b`` serves the MoE family with MLA attention; ``--spec``
 adds self-speculative decoding (``--spec-k`` drafts per verify, ``--draft
-rerank|skip``).  On the card every engine entry point runs as CUDA graphs;
+rerank|skip``).  ``--prefix-cache`` shares cached prompt prefixes across
+requests (the trace becomes shared-prefix: 3/4 of ``--prompt-len`` is one
+of ``--prefix-mix`` system prompts); ``--preempt suspend`` swaps a
+preempted request's blocks to host and resumes it instead of replaying
+it.  On the card every engine entry point runs as CUDA graphs;
 ``--prewarm`` captures the engine's complete graph set before the first
 admission, and
 ``--compile-cache [DIR]`` builds and loads the kernels in DIR (default
@@ -28,7 +32,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models import init_model
-from repro_torch.serve import ServeEngine, SpecConfig, synthetic_trace
+from repro_torch.serve import (ServeEngine, SpecConfig, shared_prefix_trace,
+                               synthetic_trace)
 from repro_torch.serve.engine import not_ported
 from repro_torch.serve.prewarm import enable_compile_cache
 
@@ -59,8 +64,19 @@ def main(argv=None) -> None:
                     help="physical block count incl. the trash block "
                          "(0 = full provisioning)")
     ap.add_argument("--preempt", default="replay",
-                    choices=["replay", "suspend"])
-    ap.add_argument("--prefix-cache", action="store_true")
+                    choices=["replay", "suspend"],
+                    help="pool-exhaustion policy: 'replay' requeues the "
+                         "victim and replays it from prefill; 'suspend' "
+                         "swaps its blocks to host and resumes it bit-exact")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="keep retired requests' KV blocks in a radix index "
+                         "over prompt tokens; a prompt sharing a cached "
+                         "prefix skips prefill for the shared span "
+                         "(refcounted blocks, copy-on-write)")
+    ap.add_argument("--prefix-mix", type=int, default=1,
+                    help="with --prefix-cache: number of distinct shared "
+                         "system prompts in the trace (3/4 of --prompt-len "
+                         "shared, 1/4 per-request suffix)")
     ap.add_argument("--spec", action="store_true",
                     help="self-speculative decoding: a cheap draft view of "
                          "the served model proposes --spec-k tokens per slot "
@@ -86,8 +102,6 @@ def main(argv=None) -> None:
 
     if args.scheduler == "sequential":
         raise not_ported("--scheduler sequential", "slotted-cache/sequential-oracle")
-    if args.prefix_cache:
-        raise not_ported("--prefix-cache", "serve-features")
     if args.spec and args.draft == "rerank" and args.weights != "compressed":
         raise SystemExit("--draft rerank re-ranks the compressed pool: use "
                          "--weights compressed (or --draft skip)")
@@ -105,15 +119,26 @@ def main(argv=None) -> None:
     model = init_model(cfg, seed=args.seed, device=args.device)
     gen_lens = ([int(g) for g in args.gen_mix.split(",")] if args.gen_mix
                 else [args.gen])
-    reqs = synthetic_trace(cfg, n_requests=args.requests or args.slots,
-                           prompt_len=args.prompt_len, gen_lens=gen_lens,
-                           seed=args.seed, arrival_every=args.arrival_every)
+    n_req = args.requests or args.slots
+    if args.prefix_cache:
+        pre = max(1, args.prompt_len * 3 // 4)
+        reqs = shared_prefix_trace(cfg, n_requests=n_req, prefix_len=pre,
+                                   suffix_len=args.prompt_len - pre,
+                                   gen_lens=gen_lens, seed=args.seed,
+                                   arrival_every=args.arrival_every,
+                                   n_prefixes=args.prefix_mix)
+    else:
+        reqs = synthetic_trace(cfg, n_requests=n_req,
+                               prompt_len=args.prompt_len, gen_lens=gen_lens,
+                               seed=args.seed,
+                               arrival_every=args.arrival_every)
     eng = ServeEngine(model, cfg, n_slots=args.slots,
                       max_len=args.prompt_len + max(gen_lens),
                       compressed=args.weights == "compressed", kv=args.kv,
                       block_size=args.block_size,
                       n_blocks=args.blocks or None, attn=args.attn,
-                      preempt=args.preempt, prewarm=args.prewarm,
+                      prefix_cache=args.prefix_cache, preempt=args.preempt,
+                      prewarm=args.prewarm,
                       spec=(SpecConfig(k=args.spec_k, draft=args.draft)
                             if args.spec else None),
                       device=args.device)
@@ -140,6 +165,17 @@ def main(argv=None) -> None:
           f"({int(st['weight_stream_bytes'])} B/step), "
           f"{int(st['preemptions'])} preemptions, "
           f"{int(st['prefill_calls'])} prefills")
+    print(f"paged pool: {int(st['kv_bytes_peak'])} B KV peak of "
+          f"{int(st['kv_bytes_capacity'])} B capacity, "
+          f"{int(st['prefill_compiles'])} prefill shapes, "
+          f"{int(st['preemptions'])} preemptions "
+          f"({args.preempt}: {int(st['swap_outs'])} swap-outs)")
+    if args.prefix_cache:
+        print(f"prefix cache: {int(st['prefix_hits'])} hits / "
+              f"{int(st['prefill_calls'])} prefills, "
+              f"{int(st['prefix_hit_tokens'])} cached tokens reused, "
+              f"{int(st['cow_copies'])} COW copies, "
+              f"{int(st['index_blocks'])} blocks resident in index")
     if args.spec:
         print(f"speculative[{args.draft},k={args.spec_k}]: acceptance "
               f"{st['spec_acceptance']:.2f} ({int(st['spec_accepted'])}/"

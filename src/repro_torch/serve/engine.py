@@ -24,8 +24,25 @@ interleaves two operations:
 
 Blocks are appended lazily (one every ``block_size`` ticks per slot); when
 the pool runs dry the newest-admitted request is preempted back to the
-queue front and later replays from prefill (greedy decode makes the replay
-deterministic).
+queue front.  ``preempt="replay"`` (the default, the oracle) replays it
+from prefill on readmission (greedy decode makes the replay
+deterministic); ``preempt="suspend"`` swaps its owned blocks to host
+(``BlockPool.swap_out``) together with its emitted tokens, pending prompt
+catch-up and position, and readmission restores all of it
+(``swap_in``): preemption then costs resident bytes, not a prefill, and
+no emitted token is recomputed.
+
+``prefix_cache=True`` adds cross-request block sharing: a retiring
+request registers its prompt's (token -> block) mapping in a host-side
+radix trie (``serve.prefix.PrefixIndex``) that pins those blocks;
+admission matches an incoming prompt against it, and a hit points the new
+slot's table at the cached blocks (``BlockPool.share``): no prefill for
+the shared span, and the divergent suffix replays through the decode
+graph as forced tokens, like a bucketed-down prompt's catch-up.  The trie
+is evicted LRU under memory pressure (before anyone is preempted); a write
+into a shared block first copies it (``BlockPool.cow``), so a shared block
+is never mutated.  Neither feature adds a graph shape: the copies run
+eagerly between replays, on the stream the graphs replay on.
 
 ``spec=SpecConfig(k, draft, stride)`` turns on self-speculative decoding
 (``serve.speculative``): each tick runs a plain decode forward for the
@@ -53,8 +70,7 @@ of the reference under ``jax.disable_jit()``); the CPU always does.
 (``serve.prewarm.enable_compile_cache``).
 
 Not ported yet (the constructor raises ``NotImplementedError``): the
-slotted layout, prefix caching, suspend-to-host preemption and
-tensor-parallel meshes.
+slotted layout and tensor-parallel meshes.
 """
 
 from __future__ import annotations
@@ -71,7 +87,9 @@ from repro_torch.models import (convert_to_compressed, decode_step,
                                 make_draft, prefill, verify_step,
                                 weight_stream_bytes)
 from repro_torch.models.common import greedy_sample
-from repro_torch.serve.paged import TRASH_BLOCK, BlockPool, default_buckets
+from repro_torch.serve.paged import (TRASH_BLOCK, BlockPool, SwapState,
+                                     default_buckets)
+from repro_torch.serve.prefix import PrefixIndex
 from repro_torch.serve.prewarm import (CompileLog, GraphEntry, abstract,
                                        abstract_batch, batch_prompt,
                                        enable_compile_cache)
@@ -91,6 +109,15 @@ class _SlotState:
     pending: List[int] = dataclasses.field(default_factory=list)
 
 
+@dataclasses.dataclass
+class _Suspended:
+    """A suspended-to-host request: swapped cache state + runtime state."""
+    state: _SlotState
+    swap: SwapState
+    pos: int
+    tok: int
+
+
 def not_ported(feature: str, slice_: str) -> NotImplementedError:
     """The error for a reference feature a later slice of the port brings."""
     return NotImplementedError(f"{feature} is not ported yet; it comes with "
@@ -105,6 +132,8 @@ class ServeEngine:
     ``block_size`` / ``n_blocks`` / ``prefill_buckets`` configure the paged
     pool; ``attn`` picks the paged read ('fused' kernel or 'gather'
     oracle); ``spec`` turns on self-speculative decoding;
+    ``prefix_cache=True`` shares cached prompt prefixes across requests;
+    ``preempt`` is ``"replay"`` or ``"suspend"``;
     ``debug_invariants=True`` cross-checks the block tables before every
     decode tick.  ``device`` defaults to ``cuda`` and raises when no card is
     present.
@@ -133,12 +162,9 @@ class ServeEngine:
             raise ValueError(f"kv must be 'paged', got {kv!r}")
         if attn not in ("gather", "fused"):
             raise ValueError(f"attn must be 'gather' or 'fused', got {attn!r}")
-        if preempt == "suspend":
-            raise not_ported("preempt='suspend'", "serve-features")
-        if preempt != "replay":
-            raise ValueError(f"preempt must be 'replay', got {preempt!r}")
-        if prefix_cache:
-            raise not_ported("prefix_cache=True", "serve-features")
+        if preempt not in ("replay", "suspend"):
+            raise ValueError(f"preempt must be 'replay' or 'suspend', "
+                             f"got {preempt!r}")
         if mesh is not None:
             raise not_ported("mesh= (tensor-parallel serving)", "distribution")
         if (spec is not None and spec.draft == "rerank" and not compressed
@@ -169,6 +195,7 @@ class ServeEngine:
         self.n_slots = n_slots
         self.max_len = max_len
         self.attn = attn
+        self.preempt_mode = preempt
         self.debug_invariants = debug_invariants
         self.scheduler = SlotScheduler(n_slots)
         self.pos = np.zeros(n_slots, np.int32)
@@ -178,10 +205,16 @@ class ServeEngine:
         self.decode_steps = 0
         self.ticks = 0
         self.preemptions = 0
-        self.prefill_calls = 0
+        self.prefill_calls = 0               # admissions that ran a prefill
+        self.prefix_hits = 0                 # admissions served from the trie
+        self.prefix_hit_tokens = 0           # prompt tokens skipped via hits
+        self.swap_outs = 0
+        self.swap_ins = 0
+        self.index_evictions = 0
         self.rejected = 0
         self.prefill_lengths = set()
         self._slots: Dict[int, _SlotState] = {}
+        self._suspended: Dict[int, _Suspended] = {}   # rid -> host state
         self._spec = spec
         self.spec_proposed = 0               # draft tokens offered to verify
         self.spec_accepted = 0               # draft tokens the target kept
@@ -196,6 +229,7 @@ class ServeEngine:
                                                     self._draft_cfg)
         self.pool = BlockPool(cfg, n_slots, max_len, block_size, n_blocks,
                               device=self.device)
+        self.index = PrefixIndex() if prefix_cache else None
         # max_len always rides in the bucket set so every admissible prompt
         # lands in a bucket
         self._prefill_buckets = tuple(sorted(set(
@@ -362,18 +396,97 @@ class ServeEngine:
         pb, pad_up = self._plan(req)
         return req.prompt_len if pad_up else pb
 
-    def _fits(self, req: Request) -> bool:
-        return self.pool.can_alloc(
-            self.pool.blocks_for(self._seed_positions(req)))
+    def _prefix_cacheable(self) -> bool:
+        """Prefix sharing needs every cache leaf behind the block table
+        (slot-indexed state is only regenerated by prefill)."""
+        return self.index is not None and not self.pool.state
+
+    def _match(self, req: Request, now: int
+               ) -> "tuple[int, List[int], Optional[object]]":
+        """Longest cached prefix of ``req``'s prompt: ``(m, blocks, node)``
+        where ``blocks`` back positions [0, m) and ``node`` is the deepest
+        trie node on the match path (for ``_reclaim``'s eviction pin).
+        Capped at ``prompt_len - 1``: the last prompt token always feeds
+        through decode to produce the first logits.
+
+        The per-token pids collapse to one block per ``block_size`` span by
+        taking the pid at each span's **last** matched position: a match
+        that crosses a radix-node boundary mid-block sees the older
+        branch's block and the later branch's copy-on-write block in that
+        span, and only the latter holds the matched history
+        (``serve/prefix.py``)."""
+        if not self._prefix_cacheable():
+            return 0, [], None
+        toks = np.asarray(req.inputs["tokens"])[:req.prompt_len - 1]
+        m, pids, node = self.index.match_path(toks, now)
+        if m <= 0:
+            return 0, [], None
+        bs = self.pool.block_size
+        return (m, [pids[min(i + bs - 1, m - 1)] for i in range(0, m, bs)],
+                node)
+
+    def _fits(self, req: Request, now: int) -> bool:
+        """Block-aware admission gate.  A prefix hit needs one fresh block
+        (the shared span is a table write; the first divergent write needs
+        one block to copy or grow into) and **pins its match path** while
+        reclaiming, so the eviction loop cannot drop the nodes that
+        justified the one-block need.  A suspended request needs its
+        swapped blocks back.  When the free heap is short, LRU-evict the
+        prefix index before refusing."""
+        if req.rid in self._suspended:
+            return self._reclaim(
+                max(self._suspended[req.rid].swap.n_blocks, 1))
+        m, _, node = self._match(req, now)
+        if m > 0 and self._reclaim(1, protect=(node,)):
+            return True
+        # no hit, or the match's own path pins the pool: fall back to the
+        # full-prefill need with nothing protected (admission re-matches
+        # and shares whatever smaller hit survives the eviction)
+        return self._reclaim(self.pool.blocks_for(self._seed_positions(req)))
+
+    def _reclaim(self, need: int, protect: Sequence = ()) -> bool:
+        """Evict LRU prefix-index entries until ``need`` blocks are free (or
+        nothing evictable is left); ``protect`` exempts the current
+        admission's match path.  True when the allocation can proceed."""
+        while not self.pool.can_alloc(need):
+            if self.index is None or not self.index.evict_lru(
+                    self.pool, protect=protect):
+                return False
+            self.index_evictions += 1
+        return True
 
     def _admit(self, slot: int, req: Request, now: int) -> bool:
+        """Install ``req`` into ``slot``.  False when the admission backed
+        out (the blocks the fits-gate sized against are gone): the request
+        is requeued at the queue front and the caller stops admitting this
+        tick."""
+        if req.rid in self._suspended:
+            return self._resume(slot, req)
         plen = req.prompt_len
+        toks = np.asarray(req.inputs["tokens"])
+        # prefix-cache hit: point the slot's table at the cached blocks and
+        # replay only the divergent suffix through forced decode.  Matched
+        # again here (not reused from _fits), so an eviction between the
+        # two can never hand out a freed block.
+        m, shared, _ = self._match(req, now)
+        if m > 0:
+            self.pool.share(slot, shared)
+            self._slots[slot] = _SlotState(
+                req=req, tokens=[], admitted_at=now,
+                pending=[int(t) for t in toks[m + 1:plen]])
+            self.pos[slot] = m
+            self.tok[slot] = int(toks[m])
+            self.active[slot] = True
+            self.prefix_hits += 1
+            self.prefix_hit_tokens += m
+            return True
         pb, pad_up = self._plan(req)
         n_seed = plen if pad_up else pb
         if not self.pool.alloc(slot, self.pool.blocks_for(n_seed)):
-            self.scheduler.preempt(slot)     # back out: retry next tick
+            # the fits-gate sized this against a match that no longer
+            # holds: requeue at the front, retry once blocks come back
+            self.scheduler.preempt(slot)
             return False
-        toks = np.asarray(req.inputs["tokens"])
         prompt = toks[:pb] if not pad_up else np.pad(toks, (0, pb - plen))
         self.prefill_lengths.add(pb)
         self.prefill_calls += 1
@@ -403,35 +516,83 @@ class ServeEngine:
             admitted_at=st.admitted_at, finished_at=now)
         self.scheduler.release(slot)
         self.active[slot] = False
+        if self._prefix_cacheable():
+            # register the prompt's (token -> block) mapping BEFORE the slot
+            # drops its references: the index pins the blocks, so the
+            # cached span never passes through the free heap
+            toks = np.asarray(st.req.inputs["tokens"])[:st.req.prompt_len]
+            bs = self.pool.block_size
+            pids = [int(self.pool.table[slot, i // bs])
+                    for i in range(len(toks))]
+            self.index.insert(toks, pids, now, self.pool)
         self.pool.free(slot)
         self.pos[slot] = 0                   # idle rows write into trash:0
         self.tok[slot] = 0
 
     def _preempt(self, slot: int) -> None:
-        """Evict ``slot`` back to the queue front; readmission replays it
-        from prefill."""
-        self._slots.pop(slot)
-        self.pool.free(slot)
-        self.scheduler.preempt(slot)
+        """Evict ``slot`` back to the queue front.  ``preempt="replay"``
+        drops the resident state (readmission replays from prefill);
+        ``"suspend"`` swaps it to host (blocks, emitted tokens, prompt
+        catch-up, position) and readmission restores it."""
+        st = self._slots.pop(slot)
+        if self.preempt_mode == "suspend":
+            self._suspended[st.req.rid] = _Suspended(
+                state=st, swap=self.pool.swap_out(slot),
+                pos=int(self.pos[slot]), tok=int(self.tok[slot]))
+            self.swap_outs += 1
+            self.scheduler.suspend(slot)     # requeued at the FRONT, tagged
+        else:
+            self.pool.free(slot)
+            self.scheduler.preempt(slot)     # requeued at the FRONT
         self.active[slot] = False
         self.pos[slot] = 0
         self.tok[slot] = 0
         self.preemptions += 1
 
+    def _resume(self, slot: int, req: Request) -> bool:
+        """Readmit a suspended request: swap its resident state back in and
+        continue where it stopped (no prefill, no token replay).  Backs out
+        (False: suspended again at the queue front) when the pool cannot
+        back the swapped blocks despite the fits-gate."""
+        sus = self._suspended.pop(req.rid)
+        if not self.pool.swap_in(slot, sus.swap):
+            self._suspended[req.rid] = sus
+            self.scheduler.suspend(slot)
+            return False
+        self._slots[slot] = sus.state
+        self.pos[slot] = sus.pos
+        self.tok[slot] = sus.tok
+        self.active[slot] = True
+        self.swap_ins += 1
+        return True
+
     def _prepare_slots(self, spec_set: Optional[set] = None) -> None:
-        """Back every active slot's write span, oldest admission first: its
-        next position, or the whole k+1 span for a slot in ``spec_set``.
-        When the pool runs dry, first demote the slot from speculation (a
-        1-wide span needs fewer blocks), then preempt the newest-admitted
-        request (the oldest is never preempted, so progress is
-        guaranteed)."""
+        """Make every active slot writable for this tick, oldest admission
+        first: back its write span (its next position, or the whole k+1
+        span for a slot in ``spec_set``) and copy-on-write every shared
+        block the span touches, so ``rollback`` only ever frees exclusive
+        blocks.  When the pool runs dry, reclaim LRU prefix-index blocks,
+        then demote the slot from speculation (a 1-wide span needs fewer
+        blocks), then preempt the newest-admitted request (the oldest is
+        never preempted, so progress is guaranteed)."""
         k = self._spec.k if self._spec is not None else 0
+        bs = self.pool.block_size
         for slot in sorted(self._slots,
                            key=lambda s: (self._slots[s].admitted_at, s)):
-            while slot in self._slots:
+            while slot in self._slots:       # not preempted by earlier victim
+                pos = int(self.pos[slot])
                 spec = spec_set is not None and slot in spec_set
-                if self.pool.ensure(slot, int(self.pos[slot]) + (k if spec
-                                                                 else 0)):
+                last = pos + (k if spec else 0)
+                owned = self.pool._owned[slot]
+                short = max(0, last // bs + 1 - len(owned))
+                shared = [i for i in range(pos // bs,
+                                           min(last // bs, len(owned) - 1) + 1)
+                          if self.pool.ref[self.pool.table[slot, i]] > 1]
+                ok = (self._reclaim(short + len(shared))
+                      and self.pool.ensure(slot, last))
+                for i in shared:
+                    ok = ok and self.pool.cow(slot, i * bs)
+                if ok:
                     break
                 if spec:                     # cheapen before evicting anyone
                     spec_set.discard(slot)
@@ -452,7 +613,7 @@ class ServeEngine:
             return                           # everything was preempted
         self.scheduler.record_occupancy()
         if self.debug_invariants:
-            self.pool.check_invariants(
+            self.check_invariants(
                 active_pos={s: int(self.pos[s]) for s in self._slots})
         self._decode_tick(list(self._slots), self.tok, self.pos,
                           self.pool.table, now)
@@ -525,7 +686,7 @@ class ServeEngine:
         forced_set &= spec_set
         plain = set(self._slots) - spec_set
         if self.debug_invariants:
-            self.pool.check_invariants(active_pos={
+            self.check_invariants(active_pos={
                 s: (int(self.pos[s]), int(self.pos[s]) + k) if s in spec_set
                 else int(self.pos[s]) for s in self._slots})
         if plain:
@@ -574,7 +735,8 @@ class ServeEngine:
                 self.spec_accepted += int(acc[slot])
                 self.steps_saved += n_commit - 1
             # rewind: keep the blocks backing the consumed positions, free
-            # the span tail (exclusively owned: refcounts are 1 here)
+            # the span tail (exclusive: _prepare_slots copied any shared
+            # block of the span)
             self.pool.rollback(slot, int(self.pos[slot]))
             if st.tokens and len(st.tokens) >= st.req.max_new_tokens:
                 self._retire(slot, now)
@@ -590,7 +752,8 @@ class ServeEngine:
         t = 0
         while self.scheduler.has_work():
             while True:
-                pairs = self.scheduler.admit(t, fits=self._fits, limit=1)
+                pairs = self.scheduler.admit(
+                    t, fits=lambda r: self._fits(r, t), limit=1)
                 if not pairs or not self._admit(pairs[0][0], pairs[0][1], t):
                     break
             if self.active.any():
@@ -606,7 +769,12 @@ class ServeEngine:
 
     def check_invariants(self, active_pos: Optional[Dict[int, int]] = None
                          ) -> None:
-        self.pool.check_invariants(active_pos=active_pos)
+        """Pool invariants with the engine's full reference picture: the
+        prefix index's pins ride along as ``external_refs``, so the
+        free-XOR-refcounted accounting closes."""
+        self.pool.check_invariants(
+            active_pos=active_pos,
+            external_refs=self.index.block_refs() if self.index else None)
 
     def stats(self) -> Dict[str, float]:
         toks = sum(len(r.tokens) for r in self.results.values())
@@ -647,6 +815,19 @@ class ServeEngine:
                                    * self.pool.bytes_per_block),
             "kv_bytes_capacity": float(self.pool.usable_blocks
                                        * self.pool.bytes_per_block),
+            "kv_bytes_resident": float(self.pool.resident_bytes()),
+            "kv_state_bytes": float(self.pool.state_bytes),
+            "prefix_hits": float(self.prefix_hits),
+            "prefix_hit_tokens": float(self.prefix_hit_tokens),
+            "cow_copies": float(self.pool.cow_copies),
+            "swap_outs": float(self.swap_outs),
+            "swap_ins": float(self.swap_ins),
+            "swap_bytes_resident": float(sum(
+                s.swap.nbytes for s in self._suspended.values())),
+            "index_evictions": float(self.index_evictions),
+            "index_blocks": float(self.index.blocks if self.index else 0),
+            "index_tokens": float(self.index.cached_tokens
+                                  if self.index else 0),
         }
         if self._spec is not None:
             # acceptance = share of drafted tokens the target kept;

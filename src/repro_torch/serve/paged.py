@@ -11,21 +11,48 @@ to physical block ``table[slot, p // block_size]``.  Block 0 is the reserved
 *trash* block: idle batch rows keep writing there, and a freed slot's table
 resets to it.
 
+Blocks are **refcounted**: ``alloc`` hands out fresh blocks at refcount 1,
+``share`` appends *existing* live blocks to another slot's table (incref:
+the prefix-cache hit path, where admission becomes a table write instead
+of a prefill), ``incref`` / ``decref`` are the prefix index's pins, and
+``free`` drops a slot's references, returning a block to the free heap only
+when its last reference drops.  Writes never touch a shared block: ``cow``
+copies a block with refcount > 1 onto a fresh block before the owner's next
+write.  ``swap_out`` / ``swap_in`` move one slot's owned blocks to host
+tensors and back, bit-exact: the suspend-to-host preemption path, whose
+cost scales with resident bytes instead of prompt length.
+
+The device side is written **in place**: the engine's CUDA graphs capture
+the pool tensors by address and every replay checks their ``data_ptr()``s,
+so ``seed``, ``cow`` (``pool[:, new].copy_(pool[:, old])``) and ``swap_in``
+(an index put) update the pools without rebinding them, on the current
+stream, the one the graphs replay on.  ``swap_out`` reads back
+synchronously (``.cpu()``), so its blocks hold no pending read when they
+return to the free heap.
+
 Invariants (``check_invariants``):
-  * a physical block is free XOR referenced by exactly one table;
+  * a physical block is free XOR refcounted >= 1, and its refcount equals
+    the table entries naming it plus its external references (the prefix
+    index's pins, supplied by the engine);
   * table entries past a slot's owned prefix point at block 0, and no owned
-    entry is free or trash — the fused kernel walks the table itself, so a
+    entry is free or trash; the fused kernel walks the table itself, so a
     table naming a freed or trash block would be a read-after-free;
-  * freed blocks are reused lowest id first (the free list is a min-heap).
+  * **write-exclusivity**: every block an active slot writes this tick
+    (its next position, or a speculative slot's whole span) has refcount 1;
+  * freed blocks are reused lowest id first (the free list is a min-heap);
+  * ``swap_out`` -> ``swap_in`` round-trips every block bit-exact.
 
 ``rollback`` rewinds a slot's table after a speculative verify (the
-rejected tail's blocks return to the free heap).  Refcounted sharing,
-copy-on-write and swap-to-host are not ported yet (they arrive with prefix
-caching and suspend serving), so every owned block has refcount 1.
+rejected tail's blocks return to the free heap); it refuses a block whose
+refcount is not 1, since the engine copies a shared span before any draft
+write.  Slot-indexed leaves (``state``, one row per slot: SSM state, conv
+tails) ride ``swap_out`` / ``swap_in`` as the reference's do; the ported
+families keep all their state behind the table, so ``state`` is empty.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import heapq
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -47,6 +74,25 @@ def default_buckets(max_len: int, lo: int = 4) -> Tuple[int, ...]:
         b *= 2
     out.append(max_len)
     return tuple(out)
+
+
+@dataclasses.dataclass
+class SwapState:
+    """One suspended slot's resident cache state, on the host.
+
+    ``paged`` holds one ``[L, n_blocks, block_size, ...]`` tensor per paged
+    leaf (the slot's owned blocks, in table order); ``state`` one slot row
+    per slot-indexed leaf.  ``swap_in`` restores both bit-exact into freshly
+    allocated blocks / the target slot's row."""
+
+    n_blocks: int
+    paged: List[torch.Tensor]
+    state: List[torch.Tensor]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in self.paged + self.state)
 
 
 class BlockPool:
@@ -80,6 +126,8 @@ class BlockPool:
                               + tuple(leaf.shape[3:]), dtype=leaf.dtype,
                               device=self.device)
             for name, leaf in probe.items()}
+        # slot-indexed leaves [n_slots, ...]: none in the ported families
+        self.state: Dict[str, torch.Tensor] = {}
         self._staging = None                 # built lazily on first seed
         self.table = np.zeros((n_slots, self.table_width), np.int32)
         self._free: List[int] = list(range(1, self.n_blocks))
@@ -87,6 +135,7 @@ class BlockPool:
         self._owned: Dict[int, List[int]] = {s: [] for s in range(n_slots)}
         self.ref = np.zeros(self.n_blocks, np.int32)   # trash stays 0
         self.peak_blocks = 0
+        self.cow_copies = 0
 
     # ------------------------------------------------------------ accounting
 
@@ -103,6 +152,8 @@ class BlockPool:
 
     @property
     def used_blocks(self) -> int:
+        """Physical blocks with at least one live reference (a block shared
+        by k tables still occupies one physical block)."""
         return self.usable_blocks - len(self._free)
 
     @property
@@ -110,13 +161,24 @@ class BlockPool:
         return sum(leaf.numel() * leaf.element_size() // self.n_blocks
                    for leaf in self.caches.values())
 
+    @property
+    def state_bytes(self) -> int:
+        """Bytes of the slot-indexed (non-paged) leaves."""
+        return sum(leaf.numel() * leaf.element_size()
+                   for leaf in self.state.values())
+
+    def resident_bytes(self) -> int:
+        """KV bytes actually backing live requests (allocated blocks only)."""
+        return self.used_blocks * self.bytes_per_block
+
     # ------------------------------------------------------------ alloc/free
 
     def can_alloc(self, n: int) -> bool:
         return len(self._free) >= n
 
     def alloc(self, slot: int, n: int) -> bool:
-        """Append n fresh blocks to ``slot``'s table; False if exhausted."""
+        """Append n fresh blocks (refcount 1) to ``slot``'s table; False if
+        exhausted."""
         if len(self._free) < n:
             return False
         owned = self._owned[slot]
@@ -132,6 +194,44 @@ class BlockPool:
         self.peak_blocks = max(self.peak_blocks, self.used_blocks)
         return True
 
+    def share(self, slot: int, pids: List[int]) -> None:
+        """Append *existing live* blocks to ``slot``'s table (incref each):
+        the prefix-cache hit path, where the new request's table points at
+        blocks another owner (a slot or the prefix index) already holds, so
+        the shared span costs a table write instead of a prefill."""
+        owned = self._owned[slot]
+        if len(owned) + len(pids) > self.table_width:
+            raise ValueError(
+                f"slot {slot}: sharing {len(pids)} blocks onto {len(owned)} "
+                f"exceeds table width {self.table_width}")
+        for pid in pids:
+            if pid == TRASH_BLOCK or self.ref[pid] < 1:
+                raise ValueError(
+                    f"share: block {pid} is not live (ref "
+                    f"{int(self.ref[pid])}) — sharing a freed block is a "
+                    f"use-after-free")
+            if pid in owned:
+                raise ValueError(
+                    f"share: slot {slot} already owns block {pid} — a table "
+                    f"must not name a block twice")
+            self.ref[pid] += 1
+            self.table[slot, len(owned)] = pid
+            owned.append(pid)
+
+    def incref(self, pid: int) -> None:
+        """Take an extra reference on a live block (prefix-index pinning)."""
+        if pid == TRASH_BLOCK or self.ref[pid] < 1:
+            raise ValueError(f"incref on non-live block {pid}")
+        self.ref[pid] += 1
+
+    def decref(self, pid: int) -> None:
+        """Drop one reference; the block returns to the free heap at zero."""
+        if pid == TRASH_BLOCK or self.ref[pid] < 1:
+            raise ValueError(f"decref on non-live block {pid}")
+        self.ref[pid] -= 1
+        if self.ref[pid] == 0:
+            heapq.heappush(self._free, pid)
+
     def ensure(self, slot: int, pos: int) -> bool:
         """Lazily append blocks until position ``pos`` is backed."""
         short = pos // self.block_size + 1 - len(self._owned[slot])
@@ -140,13 +240,11 @@ class BlockPool:
         return self.alloc(slot, short)
 
     def free(self, slot: int) -> None:
-        """Release every block ``slot`` holds; reset its table to trash."""
+        """Release every reference ``slot`` holds; reset its table to trash.
+        Blocks shared with other tables (or the prefix index) stay
+        resident."""
         for pid in self._owned[slot]:
-            if pid == TRASH_BLOCK or self.ref[pid] != 1:
-                raise ValueError(f"free: block {pid} of slot {slot} has "
-                                 f"refcount {int(self.ref[pid])}")
-            self.ref[pid] = 0
-            heapq.heappush(self._free, pid)
+            self.decref(pid)
         self._owned[slot] = []
         self.table[slot, :] = TRASH_BLOCK
 
@@ -168,24 +266,100 @@ class BlockPool:
         for pid in reversed(tail):
             owned.pop()
             self.table[slot, len(owned)] = TRASH_BLOCK
-            self.ref[pid] = 0
-            heapq.heappush(self._free, pid)
+            self.decref(pid)
+
+    # --------------------------------------------------------- copy-on-write
+
+    def write_block(self, slot: int, pos: int) -> int:
+        """The physical block a decode write at ``pos`` would land in."""
+        return int(self.table[slot, pos // self.block_size])
+
+    def needs_cow(self, slot: int, pos: int) -> bool:
+        """True when the block backing ``pos`` is shared (refcount > 1):
+        the owner must copy before its next write mutates it."""
+        return self.ref[self.write_block(slot, pos)] > 1
+
+    def cow(self, slot: int, pos: int) -> bool:
+        """Copy-on-write the block backing ``pos`` for ``slot``: copy its
+        device contents onto a fresh block (in place, per leaf), repoint the
+        slot's table entry, and drop the reference on the shared original.
+        No-op (True) when the block is already exclusive; False when no
+        free block is available (the caller must evict or preempt first).
+        The shared block itself is **never mutated**."""
+        idx = pos // self.block_size
+        old = int(self.table[slot, idx])
+        if self.ref[old] <= 1:
+            return True
+        if not self._free:
+            return False
+        new = heapq.heappop(self._free)
+        self.ref[new] = 1
+        for pool in self.caches.values():
+            pool[:, new].copy_(pool[:, old])
+        self.table[slot, idx] = new
+        self._owned[slot][idx] = new
+        self.decref(old)
+        self.peak_blocks = max(self.peak_blocks, self.used_blocks)
+        self.cow_copies += 1
+        return True
+
+    # ------------------------------------------------------- suspend-to-host
+
+    def swap_out(self, slot: int) -> SwapState:
+        """Copy ``slot``'s resident state to host tensors and release its
+        block references: every owned block's contents per paged leaf (in
+        table order) plus the slot's row of every slot-indexed leaf.  The
+        read-back is synchronous, so the freed blocks can be handed out at
+        once.  Preemption cost therefore scales with *resident bytes*, not
+        prompt length."""
+        owned = list(self._owned[slot])
+        idx = torch.as_tensor(owned, dtype=torch.long, device=self.device)
+        paged = [pool[:, idx].cpu() for pool in self.caches.values()]
+        state = [leaf[slot].cpu() for leaf in self.state.values()]
+        self.free(slot)
+        return SwapState(n_blocks=len(owned), paged=paged, state=state)
+
+    def swap_in(self, slot: int, swap: SwapState) -> bool:
+        """Restore a ``swap_out`` snapshot into ``slot``: allocate fresh
+        blocks and write the host copies back bit-exact, in place.  False
+        (nothing mutated) when the pool cannot back ``swap.n_blocks``
+        blocks.  The target slot must be empty: the snapshot's block
+        contents encode positions [0, n_blocks * block_size)."""
+        if self._owned[slot]:
+            raise ValueError(
+                f"swap_in: slot {slot} already owns {len(self._owned[slot])} "
+                f"blocks — restore needs an empty table")
+        if not self.alloc(slot, swap.n_blocks):
+            return False
+        idx = torch.as_tensor(self._owned[slot], dtype=torch.long,
+                              device=self.device)
+        for pool, host in zip(self.caches.values(), swap.paged):
+            pool[:, idx] = host.to(self.device)
+        for leaf, host in zip(self.state.values(), swap.state):
+            leaf[slot] = host.to(self.device)
+        return True
 
     def check_invariants(
             self, active_pos: Optional[Dict[int, Union[int, Tuple[int, int]]]]
-            = None) -> None:
+            = None, external_refs: Optional[Dict[int, int]] = None) -> None:
         """Raise if the pool bookkeeping is inconsistent (test/debug hook).
 
-        Always checked: every block is free XOR referenced once by a table;
-        each table row is its owner's blocks followed by trash; no owned
-        entry is free or trash.  ``active_pos`` maps a slot to its decode
-        position ``pos``, or to the write window ``(pos, last)`` of a
-        speculative span; it also proves each active slot's read window
-        [0, last] is backed and every block of its write window exclusive."""
+        Always checked: every block is **free XOR refcounted >= 1**: a freed
+        block has refcount 0 and a live block's refcount equals the table
+        entries naming it plus its ``external_refs`` count (the prefix
+        index's pins, supplied by the engine); each table row is its
+        owner's blocks followed by trash; no owned entry is free or trash.
+        ``active_pos`` maps a slot to its decode position ``pos``, or to the
+        write window ``(pos, last)`` of a speculative span; it also proves
+        each active slot's read window [0, last] is backed and every block
+        of its write window exclusive (refcount 1: copy-on-write ran)."""
         free = set(self._free)
         assert len(free) == len(self._free), "free heap holds duplicates"
         assert TRASH_BLOCK not in free, "trash block leaked into free heap"
-        counts: Dict[int, int] = {}
+        counts: Dict[int, int] = dict(external_refs or {})
+        for pid in counts:
+            assert pid != TRASH_BLOCK and pid not in free, \
+                f"external ref on freed/trash block {pid}"
         for s, owned in self._owned.items():
             assert len(set(owned)) == len(owned), \
                 f"slot {s} table names a block twice"
@@ -208,7 +382,7 @@ class BlockPool:
                 assert ref >= 1, f"block {pid} leaked (not free, refcount 0)"
                 assert ref == counts.get(pid, 0), (
                     f"block {pid} refcount {ref} != {counts.get(pid, 0)} "
-                    f"table references")
+                    f"live references (tables + external)")
         for s, window in (active_pos or {}).items():
             pos, last = window if isinstance(window, tuple) else (window,
                                                                   window)
@@ -222,7 +396,8 @@ class BlockPool:
                 wb = int(self.table[s, i])
                 assert int(self.ref[wb]) == 1, (
                     f"slot {s} is about to write positions [{pos}, {last}] "
-                    f"into block {wb} with refcount {int(self.ref[wb])}")
+                    f"into block {wb} with refcount {int(self.ref[wb])} — "
+                    f"COW must copy first")
 
     # --------------------------------------------------------------- seeding
 

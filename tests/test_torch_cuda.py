@@ -548,6 +548,44 @@ def test_graphed_engine_equals_eager_engine(arch, draft):
     assert gs["prewarmed_executables"] == gs["executables_expected"]
 
 
+def test_graphed_prefix_suspend_engine_equals_eager_engine():
+    """Smoke-size f32 llama at 2 layers on the card, prewarmed and strict,
+    with ``prefix_cache=True`` and ``preempt="suspend"`` on a tight pool:
+    hits copy on write and preemptions swap to host between graph
+    replays; tokens and counters equal the eager engine's, and the pool
+    tensors the graphs captured never moved."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.serve import ServeEngine, shared_prefix_trace
+    cfg = get_config("llama3.2-1b", smoke=True).replace(n_layers=2)
+    model = init_model(cfg, seed=0, device="cuda")
+    reqs = shared_prefix_trace(cfg, n_requests=8, prefix_len=6, suffix_len=2,
+                               gen_lens=[3, 5], seed=1, n_prefixes=2)
+    kw = dict(n_slots=3, max_len=16, n_blocks=7, block_size=4,
+              prefill_buckets=(4, 8), compressed=True, attn="fused",
+              prefix_cache=True, preempt="suspend", debug_invariants=True,
+              device="cuda", prewarm=True, strict_prewarm=True)
+    runs = {}
+    for graphs in (False, True):
+        eng = ServeEngine(model, cfg, graphs=graphs, **kw)
+        ptrs = [t.data_ptr() for t in eng.pool.caches.values()]
+        res = eng.run(reqs)
+        torch.cuda.synchronize()
+        eng.check_invariants()
+        assert [t.data_ptr() for t in eng.pool.caches.values()] == ptrs
+        runs[graphs] = (res, eng.stats())
+    (want, ws), (got, gs) = runs[False], runs[True]
+    for r in reqs:
+        np.testing.assert_array_equal(got[r.rid].tokens, want[r.rid].tokens)
+    for key in ("tokens", "ticks", "decode_steps", "prefill_calls",
+                "preemptions", "prefix_hits", "prefix_hit_tokens",
+                "cow_copies", "swap_outs", "swap_ins", "index_evictions"):
+        assert gs[key] == ws[key], key
+    assert gs["cow_copies"] > 0 and gs["swap_outs"] > 0
+    assert gs["swap_ins"] == gs["swap_outs"] == gs["preemptions"]
+    assert gs["mid_serve_compiles"] == 0
+
+
 def test_capture_over_a_syncing_function_raises():
     """A host sync in a captured function raises (in the warm-up, under
     the sync debug mode) instead of running eagerly."""

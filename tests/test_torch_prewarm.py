@@ -1,6 +1,7 @@
 """Port parity for the cold-start module (``repro_torch.serve.prewarm``) and
 the engine's prewarm contract, after the reference's ``tests/test_prewarm.py``
-(the cases that need no mesh, slotted layout or prefix cache).
+(the cases that need no mesh or slotted layout; prefix caching and suspend
+run through the same graphed decode, ``tests/test_torch_prefix.py``).
 
 On the CPU an entry point runs its function directly, with the same shape
 keys, static-buffer copies and capture accounting as on the card, so what

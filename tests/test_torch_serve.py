@@ -178,8 +178,6 @@ def test_idle_rows_write_only_the_trash_block():
 
 @pytest.mark.parametrize("kw,msg", [
     (dict(kv="slotted"), "slotted"),
-    (dict(prefix_cache=True), "prefix_cache"),
-    (dict(preempt="suspend"), "suspend"),
     (dict(spec=SpecConfig(draft="skip"), mesh=object()), "mesh"),
     (dict(mesh=object()), "mesh"),
 ])
