@@ -126,7 +126,31 @@ steady tick and the graph pool's bytes.
    for llama and deepseek: non-sharing, prefix and prefix + suspend tokens
    exactly equal, each equal to its eager engine's; for deepseek no decode
    route over expert capacity.
-9. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
+9. The slotted layout, the sequential oracle and ``forward`` / ``loss_fn``
+   (run after phase 8, on phase 3's model; every slotted engine graphed,
+   prewarmed with its trace's prompt lengths, strict, and against its
+   eager engine, a flip failing the phase).  9a (the reference's
+   BENCH_2 question, phase 3's trace): ``serve_sequential`` (fixed
+   batches over slotted rows, each forward a graph) against the
+   continuous paged fused engine, tokens/s in the order sequential,
+   continuous, continuous, sequential, decode steps and occupancy of
+   each; hard: 62 sequential decode steps (2 batches x 31), the oracle
+   graphed = eager.
+   9b (BENCH_4): paged against slotted at equal usable KV bytes (the
+   benchmark's rule at full width: 16 short ragged requests spanning 64
+   positions, a budget of 8 requests' blocks, slotted rows of 256 that it
+   holds 2 of); hard: paged in fewer ticks.  9c (BENCH_3): the slotted
+   engine over dense against compressed weights, decode steps against 9a's
+   oracle; hard: the 0.5625 stream ratio.  9d (BENCH_5): 9b's paged
+   trace with the gather read against the fused kernel.  Then ``forward``
+   on [2, 128] tokens, compressed: the kernel route (nm_xwt) within 0.25
+   of the reference route, ``loss_fn``'s loss for both.  The sequential,
+   slotted and forward paths' launch counts (nm_spmv decode steps x 16 x
+   7, nm_xwt prefills x 16 x 7, paged_gqa_decode none).  Hard check, for
+   llama and deepseek after their phases: full width, 4 layers, float32,
+   2 slots: slotted = paged = sequential tokens, each graphed = eager,
+   ``forward`` within 1e-3 of the reference route.
+10. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
    device line last.  The total time is printed on the ``[done]`` line.
 """
 
@@ -264,6 +288,10 @@ def nm_f32_bound_ms(nbytes: float, cols: int, rows: int, k: int, nnz: int):
 
 def gib(nbytes: float) -> str:
     return f"{nbytes / 2 ** 30:.2f} GiB"
+
+
+def mib(nbytes: float) -> str:
+    return f"{nbytes / 2 ** 20:.1f} MiB"
 
 
 # ------------------------------------------------------------------ phase 1
@@ -1484,7 +1512,7 @@ def check_graphed(torch, model, cfg, kw, reqs, eng, wall, again_wall,
                                                        busy) if b is not None)))
 
 
-def phase_serve(torch):
+def phase_serve(torch, card):
     from repro_torch.configs import get_config
     from repro_torch.models import init_model
     cfg = get_config("llama3.2-1b")
@@ -1520,15 +1548,17 @@ def phase_serve(torch):
                                "phase 5")
     del eng
     prefix_launches = phase_prefix(torch, model, cfg, kw)
+    slotted_launches = phase_slotted(torch, model, cfg, kw, card)
     del model
     torch.cuda.empty_cache()
     check_spec_exact(torch, "llama3.2-1b", spec, "paged_gqa_verify",
                      "phase 5")
     check_onehot_exact(torch)
     check_prefix_exact(torch, "llama3.2-1b")
+    check_slotted_exact(torch, "llama3.2-1b")
     return {"llama3.2-1b": launches, "llama3.2-1b onehot": onehot_launches,
             "llama3.2-1b spec": spec_launches,
-            "llama3.2-1b prefix": prefix_launches}
+            "llama3.2-1b prefix": prefix_launches, **slotted_launches}
 
 
 def coldstart(torch, model, cfg, kw):
@@ -2071,6 +2101,7 @@ def phase_serve_deepseek(torch):
     check_spec_exact(torch, "deepseek-v2-lite-16b", spec, "paged_mla_verify",
                      "phase 6")
     check_prefix_exact(torch, "deepseek-v2-lite-16b")
+    check_slotted_exact(torch, "deepseek-v2-lite-16b")
     return {"deepseek-v2-lite-16b": launches,
             "deepseek-v2-lite-16b spec": spec_launches}
 
@@ -2211,6 +2242,338 @@ def check_reference_route(torch, model, cfg, reqs, tol, phase,
     if worst > tol:
         raise SystemExit(f"{phase}: kernel route disagrees with the reference "
                          f"route beyond tolerance")
+
+
+# ------------------------------------------------------------------ phase 9
+
+# 9b's trace, the shape of ``benchmarks/serve_paged.py`` at full width:
+# short ragged requests that all span 64 positions (4 blocks of 16), a
+# budget of 8 such requests' blocks, and slotted rows of max_len 256 (16
+# blocks) that the same bytes hold only 2 of
+PAGED_PROMPTS = (40, 44, 48, 52)
+PAGED_GENS = (25, 21, 17, 13)
+PAGED_MAX_LEN = 256
+PAGED_SLOTS = 8
+SEQ_PATH = ("nm_spmv", "nm_xwt")
+
+
+def slotted_run(torch, model, cfg, kw, reqs, what):
+    """The slotted engine ``kw`` as every slotted run is measured: graphed,
+    prewarmed with the trace's prompt lengths, strict; launch counts
+    zeroed just before the run and read just after; then its eager engine
+    on the same trace, tokens and counters compared (hard: a flip fails).
+    Returns (engine, wall, launches, eager engine, eager wall)."""
+    from repro_torch import kernels
+    from repro_torch.serve import ServeEngine
+    out = []
+    for ekw in (dict(kw, strict_prewarm=True), eager(kw)):
+        eng = ServeEngine(model, cfg, **ekw)
+        eng.prewarm(prompt_lens=sorted({r.prompt_len for r in reqs}))
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        out += [eng, time.perf_counter() - t0,
+                {k.name: k.launches for k in kernels.all_kernels()}]
+    eng, wall, launches, ref, ref_wall, _ = out
+    st = eng.stats()
+    differ = compare_tokens(torch, ref, reqs, eng.results, f"{what} eager",
+                            "eager", "graphed")
+    moved = moved_counters(st, ref.stats())
+    if (differ or moved or not eng.graphs or st["mid_serve_compiles"]
+            or eng.kv != "slotted"):
+        raise SystemExit(f"{what}: the graphed slotted engine differs from "
+                         f"its eager engine in {differ} requests, counters "
+                         f"{moved}, or captured mid-serve "
+                         f"({st['mid_serve_compiles']:.0f})")
+    return eng, wall, launches, ref, ref_wall
+
+
+def sequential_run(torch, runner, reqs, n_slots, max_len):
+    """``FixedBatch.serve_sequential`` timed, synchronised -> (results,
+    stats, wall seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, st = runner.serve_sequential(reqs, n_slots, max_len)
+    torch.cuda.synchronize()
+    return res, st, time.perf_counter() - t0
+
+
+def check_path(launches, path, what, **exact):
+    """Every kernel of ``path`` launched in the run, and each of ``exact``
+    exactly that many times."""
+    bad = [k for k in path if launches[k] <= 0]
+    bad += [f"{k} {launches[k]} != {n}" for k, n in exact.items()
+            if launches[k] != n]
+    if bad:
+        raise SystemExit(f"{what}: path kernels that never launched or "
+                         f"launched off count: {bad} ({launches})")
+
+
+def seq_occupancy(reqs, n_slots, steps):
+    """The fixed batch's mean occupancy: a request of budget g is a live
+    row for g - 1 of its batch's decode steps (the benchmark's rule)."""
+    return sum(r.max_new_tokens - 1 for r in reqs) / max(n_slots * steps, 1)
+
+
+def phase_slotted(torch, model, cfg, kw, card):
+    """Phase 9 on phase 3's full-width llama3.2-1b (bf16; compressed 2:4
+    at engine init, or once up front for the oracle and ``forward``)."""
+    from repro_torch import kernels
+    from repro_torch.models import convert_to_compressed, forward, loss_fn
+    from repro_torch.serve import ServeEngine, synthetic_request, \
+        synthetic_trace
+    from repro_torch.serve.sequential import FixedBatch
+    import math
+
+    import numpy as np
+    t_phase = time.perf_counter()
+    log(f"[phase 9] slotted layout, sequential oracle, forward / loss_fn: "
+        f"{cfg.name} full width on {card}")
+    ccfg = cfg.replace(sparsity=dataclasses.replace(cfg.sparsity,
+                                                    mode="compressed"))
+    cmodel = convert_to_compressed(model, cfg)
+    path = {}
+
+    # ---- 9a serve_throughput: the sequential oracle against the engine
+    reqs = synthetic_trace(cfg, n_requests=16, prompt_len=128,
+                           gen_lens=[16, 32], seed=0)
+    n, max_len = kw["n_slots"], kw["max_len"]
+    runner = FixedBatch(cmodel, ccfg, device="cuda")
+    runner.serve_sequential(reqs[:n], n, max_len)   # captures, not counted
+    kernels.reset_launch_counts()
+    seq, sst, seq_wall = sequential_run(torch, runner, reqs, n, max_len)
+    path["sequential"] = {k.name: k.launches for k in kernels.all_kernels()}
+    steps = int(sst["decode_steps"])
+    check_path(path["sequential"], SEQ_PATH, "phase 9a sequential",
+               nm_spmv=steps * cfg.n_layers * LINEARS_PER_LAYER,
+               nm_xwt=2 * cfg.n_layers * LINEARS_PER_LAYER,
+               paged_gqa_decode=0)
+    eager_seq, _, eager_wall = sequential_run(
+        torch, FixedBatch(cmodel, ccfg, device="cuda", graphs=False), reqs,
+        n, max_len)
+    if compare_tokens(torch, _Results(eager_seq, cmodel, ccfg), reqs, seq,
+                      "phase 9a sequential eager", "eager", "graphed"):
+        raise SystemExit("phase 9a: the graphed oracle's tokens differ from "
+                         "its eager run's")
+    cont, cont_wall = timed_run(torch, model, cfg, kw, reqs)
+    cont2, cont2_wall = timed_run(torch, model, cfg, kw, reqs)
+    _, sst2, seq2_wall = sequential_run(torch, runner, reqs, n, max_len)
+    cs = cont.stats()
+    tokens = sum(r.max_new_tokens for r in reqs)
+    if steps != 62 or cs["tokens"] != tokens:
+        raise SystemExit(f"phase 9a: expected 62 sequential decode steps "
+                         f"and {tokens} tokens, got {steps} / {cs['tokens']}")
+    log(f"[9a serve_throughput] {cfg.name}, 16 x 128 prompt, gen 16/32, "
+        f"{n} slots, graphed: sequential (slotted, fixed batches) "
+        f"{tokens / seq_wall:.1f} / {tokens / seq2_wall:.1f} tokens/s, "
+        f"{steps} decode steps, occupancy "
+        f"{seq_occupancy(reqs, n, steps):.3f} (eager {tokens / eager_wall:.1f}"
+        f" tokens/s, {sst['graphs']:.0f} graphs); continuous (paged, fused) "
+        f"{tokens / cont_wall:.1f} / {tokens / cont2_wall:.1f} tokens/s, "
+        f"{int(cs['decode_steps'])} decode steps, occupancy "
+        f"{cs['occupancy']:.3f}; continuous / sequential "
+        f"{(seq_wall + seq2_wall) / (cont_wall + cont2_wall):.2f}x tokens/s,"
+        f" {steps / cs['decode_steps']:.2f}x fewer steps (order: sequential, "
+        f"continuous, continuous, sequential)")
+    compare_tokens(torch, cont, reqs, seq, f"phase 9a {cfg.name}",
+                   "continuous", "sequential")
+
+    # ---- 9b serve_paged: paged against slotted at equal usable KV bytes
+    rng = np.random.default_rng(0)
+    preqs = [synthetic_request(cfg, rng, rid=i,
+                               prompt_len=PAGED_PROMPTS[i % 4],
+                               max_new_tokens=PAGED_GENS[i % 4])
+             for i in range(16)]
+    bsz = kw["block_size"]
+    span = max(p + g - 1 for p, g in zip(PAGED_PROMPTS, PAGED_GENS))
+    budget = PAGED_SLOTS * -(-span // bsz)
+    rows = budget // -(-PAGED_MAX_LEN // bsz)
+    skw = dict(n_slots=rows, max_len=PAGED_MAX_LEN, compressed=True,
+               device="cuda")
+    sl, sl_wall, path["slotted"], _, sl_ewall = slotted_run(
+        torch, model, cfg, skw, preqs, "phase 9b slotted")
+    check_path(path["slotted"], SEQ_PATH, "phase 9b slotted",
+               nm_spmv=sl.decode_steps * cfg.n_layers * LINEARS_PER_LAYER,
+               nm_xwt=len(preqs) * cfg.n_layers * LINEARS_PER_LAYER,
+               paged_gqa_decode=0)
+    pkw = dict(kw, n_slots=PAGED_SLOTS, max_len=PAGED_MAX_LEN,
+               n_blocks=budget + 1)
+    pg, pg_wall, _, _, pg_ewall = prefix_run(torch, model, cfg, pkw, preqs,
+                                             "phase 9b paged")
+    ss, ps = sl.stats(), pg.stats()
+    log(f"[9b serve_paged] {cfg.name}, 16 requests of prompt "
+        f"{PAGED_PROMPTS} / gen {PAGED_GENS} (span {span}), equal usable KV "
+        f"{budget} blocks of {bsz} = {budget * bsz} positions: slotted "
+        f"{rows} rows x {PAGED_MAX_LEN}, ticks {int(ss['ticks'])}, peak KV "
+        f"{mib(ss['kv_bytes_resident'])} (preallocated), prefill lengths "
+        f"{sorted(sl.prefill_lengths)}, occupancy {ss['occupancy']:.3f}, "
+        f"{ss['tokens'] / sl_wall:.1f} tokens/s (eager "
+        f"{ss['tokens'] / sl_ewall:.1f}); paged {PAGED_SLOTS} slots, ticks "
+        f"{int(ps['ticks'])}, peak KV {mib(ps['kv_bytes_peak'])} of "
+        f"{mib(ps['kv_bytes_capacity'])}, prefill lengths "
+        f"{sorted(pg.prefill_lengths)} (buckets {pg.prefill_buckets}), "
+        f"preemptions {int(ps['preemptions'])}, occupancy "
+        f"{ps['occupancy']:.3f}, {ps['tokens'] / pg_wall:.1f} tokens/s "
+        f"(eager {ps['tokens'] / pg_ewall:.1f}); paged / slotted ticks "
+        f"{ps['ticks'] / ss['ticks']:.3f}")
+    if ps["ticks"] >= ss["ticks"] or ss["kv_bytes_resident"] != \
+            ps["kv_bytes_capacity"]:
+        raise SystemExit(f"phase 9b: paged should finish in fewer ticks at "
+                         f"equal KV bytes: {ps} against {ss}")
+    compare_tokens(torch, pg, preqs, sl.results, f"phase 9b {cfg.name}",
+                   "paged", "slotted")
+
+    # ---- 9c serve_compressed: dense against compressed weights, slotted
+    runs = {}
+    for name, comp in (("dense", False), ("compressed", True)):
+        runs[name] = slotted_run(
+            torch, model, cfg, dict(kw, kv="slotted", attn="gather",
+                                    compressed=comp, prewarm=False,
+                                    strict_prewarm=False), reqs,
+            f"phase 9c {name}")
+    (de, de_wall), (ce, ce_wall) = ((runs[k][0], runs[k][1])
+                                    for k in ("dense", "compressed"))
+    ds, cst = de.stats(), ce.stats()
+    ratio = cst["weight_stream_bytes"] / ds["weight_stream_bytes"]
+    # N/M of the values plus ceil(log2 M) index bits per kept value
+    sp = cfg.sparsity
+    want = sp.n / sp.m * (1 + (sp.m - 1).bit_length()
+                          / torch.finfo(cfg.tdtype()).bits)
+    log(f"[9c serve_compressed] {cfg.name}, 9a's trace, slotted engine, "
+        f"graphed: weight stream per decode step dense "
+        f"{ds['weight_stream_bytes'] / 1e9:.4f} GB, compressed "
+        f"{cst['weight_stream_bytes'] / 1e9:.4f} GB (ratio {ratio:.4f}, "
+        f"N:M formula {want:.4f}); "
+        f"tokens/s dense {ds['tokens'] / de_wall:.1f}, compressed "
+        f"{cst['tokens'] / ce_wall:.1f}; decode steps "
+        f"{int(ds['decode_steps'])} / {int(cst['decode_steps'])} against the "
+        f"sequential oracle's {steps}; nm_spmv launches dense "
+        f"{runs['dense'][2]['nm_spmv']}, compressed "
+        f"{runs['compressed'][2]['nm_spmv']}")
+    if abs(ratio - want) > 1e-9 or runs["compressed"][2]["nm_spmv"] <= 0:
+        raise SystemExit(f"phase 9c: expected the {want} stream ratio and "
+                         f"the compressed engine on nm_spmv: {cst}")
+    compare_tokens(torch, ce, reqs, de.results, f"phase 9c {cfg.name}",
+                   "compressed", "dense")
+
+    # ---- 9d serve_paged_attn: the gather read against the fused kernel
+    gt, gt_wall, glaunch, _, _ = prefix_run(
+        torch, model, cfg, dict(pkw, attn="gather"), preqs,
+        "phase 9d gather")
+    log(f"[9d serve_paged_attn] {cfg.name}, 9b's paged trace, graphed: "
+        f"fused {ps['tokens'] / pg_wall:.1f} tokens/s, gather "
+        f"{gt.stats()['tokens'] / gt_wall:.1f} tokens/s (gather / fused "
+        f"{pg_wall / gt_wall:.3f}x); paged_gqa_decode launches with gather "
+        f"{glaunch['paged_gqa_decode']}")
+    if glaunch["paged_gqa_decode"]:
+        raise SystemExit("phase 9d: the gather read launched the fused "
+                         "kernel")
+    compare_tokens(torch, gt, preqs, pg.results, f"phase 9d {cfg.name}",
+                   "gather", "fused")
+
+    # ---- forward / loss_fn at full width, kernel route against reference
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (2, 128), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    ref_cfg = ccfg.replace(sparsity=dataclasses.replace(ccfg.sparsity,
+                                                        impl="ref"))
+    kernels.reset_launch_counts()
+    logits, _ = forward(cmodel, ccfg, batch)
+    torch.cuda.synchronize()
+    path["forward"] = {k.name: k.launches for k in kernels.all_kernels()}
+    check_path(path["forward"], ("nm_xwt",), "phase 9 forward",
+               nm_xwt=cfg.n_layers * LINEARS_PER_LAYER, nm_spmv=0)
+    want, _ = forward(cmodel, ref_cfg, batch)
+    worst = float((logits - want).abs().max())
+    loss_k, loss_r = (float(loss_fn(cmodel, c, batch)[1]["loss"])
+                      for c in (ccfg, ref_cfg))
+    log(f"[forward] {cfg.name} forward [2, 128] compressed: logits "
+        f"{tuple(logits.shape)} {str(logits.dtype).replace('torch.', '')}, "
+        f"kernel route (nm_xwt) vs reference route (impl=ref) max |dlogit| "
+        f"{worst:.3e} (tol {LOGIT_ATOL}); loss_fn loss {loss_k:.6f} / "
+        f"{loss_r:.6f} (ln vocab {math.log(cfg.vocab):.3f})")
+    if (worst > LOGIT_ATOL or not bool(torch.isfinite(logits).all())
+            or not math.isfinite(loss_k)):
+        raise SystemExit("phase 9: forward's kernel route disagrees with the "
+                         "reference route beyond tolerance")
+    del logits, want, cmodel, runner
+    log(f"[time] phase 9 {time.perf_counter() - t_phase:.1f}s")
+    return {f"{cfg.name} {p}": c for p, c in path.items()}
+
+
+class _Results:
+    """The oracle's results dressed as an engine for ``compare_tokens``."""
+
+    def __init__(self, results, model, cfg):
+        self.results, self.model, self.cfg = results, model, cfg
+
+
+def check_slotted_exact(torch, arch):
+    """Hard check at full width, 4 layers, float32, 2 slots: the slotted
+    engine, the paged engine and the sequential oracle emit the same
+    tokens, each equal to its eager run's, and ``forward``'s kernel route
+    is within 1e-3 of the reference route.  Prompts are a prefill bucket
+    (the paged engine prefills them whole, as the others do).  deepseek:
+    equal budgets (every run batches the same rows) and prompts of 4, so
+    no batch can route more than the expert-capacity floor of 8 to one
+    expert and no route drops anywhere."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_model
+    from repro_torch.serve import synthetic_trace
+    from repro_torch.serve.sequential import FixedBatch
+    cfg = get_config(arch)
+    cfg = cfg.replace(n_layers=4, dtype="float32", sparsity=dataclasses.replace(
+        cfg.sparsity, mode="compressed"))
+    model = init_model(cfg, seed=1, device="cuda")
+    moe = cfg.n_experts > 0
+    plen, gens = (4, [12]) if moe else (32, [12, 9])
+    reqs = synthetic_trace(cfg, n_requests=4, prompt_len=plen,
+                           gen_lens=gens, seed=11)
+    max_len = plen + 12
+    sl, _, _, _, _ = slotted_run(torch, model, cfg, dict(
+        n_slots=2, max_len=max_len, compressed=True, device="cuda"), reqs,
+        f"phase 9 exact check {arch} slotted")
+    pg, _, _, _, _ = prefix_run(torch, model, cfg, graphed(dict(
+        n_slots=2, max_len=max_len, compressed=True, kv="paged",
+        attn="fused", block_size=16, device="cuda")), reqs,
+        f"phase 9 exact check {arch} paged")
+    seq = {}
+    for graphs in (True, False):
+        seq[graphs], _ = FixedBatch(model, cfg, device="cuda",
+                                    graphs=graphs).serve_sequential(
+            reqs, 2, max_len)
+    differ = (compare_tokens(torch, pg, reqs, sl.results,
+                             f"phase 9 exact check {arch}", "paged",
+                             "slotted")
+              + compare_tokens(torch, _Results(seq[True], model, cfg), reqs,
+                               sl.results, f"phase 9 exact check {arch}",
+                               "sequential", "slotted")
+              + compare_tokens(torch, _Results(seq[False], model, cfg), reqs,
+                               seq[True], f"phase 9 exact check {arch}",
+                               "sequential eager", "sequential graphed"))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 32), generator=gen,
+                                     device="cuda")}
+    ref_cfg = cfg.replace(sparsity=dataclasses.replace(cfg.sparsity,
+                                                       impl="ref"))
+    (lk, aux_k), (lr, aux_r) = (forward(model, c, batch)
+                                for c in (cfg, ref_cfg))
+    worst = float((lk - lr).abs().max())
+    log(f"[slotted] {arch} exact check (4 layers, float32, 2 slots, "
+        f"prompt {plen}, gen {gens}): slotted = paged = sequential tokens in "
+        f"{len(reqs) * 3 - differ}/{len(reqs) * 3} comparisons, each graphed "
+        f"= eager; forward [2, 32] kernel vs reference route max |dlogit| "
+        f"{worst:.3e} (tol {LOGIT_ATOL_F32}), moe_aux {float(aux_k):.6f} / "
+        f"{float(aux_r):.6f}")
+    if differ or worst > LOGIT_ATOL_F32:
+        raise SystemExit(f"phase 9: float32 slotted, paged and sequential "
+                         f"tokens differ in {differ} requests, or forward "
+                         f"is off by {worst:.3e} ({arch})")
+    del sl, pg, model
+    torch.cuda.empty_cache()
 
 
 # device kernel symbol -> label (first match wins); each family's one
@@ -2383,7 +2746,7 @@ def main() -> int:
     rows["nm_spmm"]["max_abs_err"] = max(rows["nm_spmm"]["max_abs_err"],
                                          spmm_err)
     rows["nm_xwt"]["at_cnn"] = cnn_rows["nm_xwt"]
-    by_path = {**phase_serve(torch), **phase_serve_deepseek(torch),
+    by_path = {**phase_serve(torch, card), **phase_serve_deepseek(torch),
                **flash_path, **cnn_path}
     # the packed variant serves no path of its own: its launches are those
     # of the CNN phase, where it runs on every layer the reference can pack

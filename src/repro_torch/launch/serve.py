@@ -3,8 +3,11 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --scheduler continuous --weights compressed --kv paged --attn fused
 
-runs the continuous-batching engine on the card (``--device cuda``, the
-default; ``--device cpu`` runs the plain path); ``--arch
+runs the continuous-batching engine over the paged pool on the card
+(``--device cuda``, the default; ``--device cpu`` runs the plain path).
+The defaults are the reference's: ``--scheduler sequential --kv slotted
+--attn gather``, the fixed-batch oracle (``serve.sequential``); ``--scheduler
+continuous --kv slotted`` is the engine over the slotted layout.  ``--arch
 deepseek-v2-lite-16b`` serves the MoE family with MLA attention; ``--spec``
 adds self-speculative decoding (``--spec-k`` drafts per verify, ``--draft
 rerank|skip``).  ``--prefix-cache`` shares cached prompt prefixes across
@@ -31,9 +34,9 @@ import time
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.models import init_model
-from repro_torch.serve import (ServeEngine, SpecConfig, shared_prefix_trace,
-                               synthetic_trace)
+from repro_torch.models import convert_to_compressed, init_model
+from repro_torch.serve import (ServeEngine, SpecConfig, serve_sequential,
+                               shared_prefix_trace, synthetic_trace)
 from repro_torch.serve.engine import not_ported
 from repro_torch.serve.prewarm import enable_compile_cache
 
@@ -42,7 +45,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--scheduler", default="continuous",
+    ap.add_argument("--scheduler", default="sequential",
                     choices=["sequential", "continuous"])
     ap.add_argument("--slots", "--batch", dest="slots", type=int, default=4)
     ap.add_argument("--requests", type=int, default=0,
@@ -57,8 +60,14 @@ def main(argv=None) -> None:
                          "shape, plain on the CPU; 'ref' pins the oracle)")
     ap.add_argument("--weights", default="compressed",
                     choices=["dense", "compressed"])
-    ap.add_argument("--kv", default="paged", choices=["slotted", "paged"])
-    ap.add_argument("--attn", default="fused", choices=["gather", "fused"])
+    ap.add_argument("--kv", default="slotted", choices=["slotted", "paged"],
+                    help="'paged' serves through the block-table KV pool "
+                         "(continuous scheduler only); 'slotted' is the "
+                         "whole-row oracle layout")
+    ap.add_argument("--attn", default="gather", choices=["gather", "fused"],
+                    help="paged decode attention read: 'fused' walks the "
+                         "block table inside the kernel, 'gather' is the "
+                         "oracle read (requires --kv paged for 'fused')")
     ap.add_argument("--block-size", type=int, default=8)
     ap.add_argument("--blocks", type=int, default=0,
                     help="physical block count incl. the trash block "
@@ -100,11 +109,34 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.scheduler == "sequential":
-        raise not_ported("--scheduler sequential", "slotted-cache/sequential-oracle")
-    if args.spec and args.draft == "rerank" and args.weights != "compressed":
-        raise SystemExit("--draft rerank re-ranks the compressed pool: use "
-                         "--weights compressed (or --draft skip)")
+    continuous = args.scheduler == "continuous"
+    if (args.prefix_cache or args.preempt != "replay") and (
+            args.kv != "paged" or not continuous):
+        raise SystemExit("--prefix-cache/--preempt suspend require --kv paged "
+                         "with --scheduler continuous (both operate on the "
+                         "block pool)")
+    if args.tp and not continuous:
+        raise SystemExit("--tp requires --scheduler continuous (the "
+                         "sequential oracle is single-device by design)")
+    if args.spec:
+        if args.kv != "paged" or not continuous:
+            raise SystemExit("--spec requires --kv paged with --scheduler "
+                             "continuous (speculative rollback rewinds the "
+                             "block table)")
+        if args.draft == "rerank" and args.weights != "compressed":
+            raise SystemExit("--draft rerank re-ranks the compressed pool: "
+                             "use --weights compressed (or --draft skip)")
+    if args.prewarm and not continuous:
+        raise SystemExit("--prewarm requires --scheduler continuous (the "
+                         "sequential oracle has no enumerable shape set)")
+    if not continuous:
+        if args.kv == "paged":
+            raise SystemExit("--kv paged requires --scheduler continuous "
+                             "(the sequential oracle is slotted by design)")
+        if args.attn == "fused":
+            raise SystemExit("--attn fused requires --kv paged with "
+                             "--scheduler continuous (the fused kernel reads "
+                             "through the block table)")
     if args.tp:
         raise not_ported("--tp", "distribution")
     if args.compile_cache is not None:
@@ -132,9 +164,21 @@ def main(argv=None) -> None:
                                prompt_len=args.prompt_len, gen_lens=gen_lens,
                                seed=args.seed,
                                arrival_every=args.arrival_every)
+    max_len = args.prompt_len + max(gen_lens)
+    if not continuous:
+        if args.weights == "compressed":
+            model = convert_to_compressed(model, cfg)
+            cfg = cfg.replace(sparsity=dataclasses.replace(
+                cfg.sparsity, mode="compressed"))
+        results, stats = serve_sequential(model, cfg, reqs, args.slots,
+                                          max_len=max_len, device=args.device)
+        toks = sum(len(r.tokens) for r in results.values())
+        print(f"sequential[{args.weights}]: {toks} tokens in "
+              f"{int(stats['decode_steps'])} decode steps")
+        print("sample:", results[min(results)].tokens[:12].tolist())
+        return
     eng = ServeEngine(model, cfg, n_slots=args.slots,
-                      max_len=args.prompt_len + max(gen_lens),
-                      compressed=args.weights == "compressed", kv=args.kv,
+                      max_len=max_len, compressed=args.weights == "compressed", kv=args.kv,
                       block_size=args.block_size,
                       n_blocks=args.blocks or None, attn=args.attn,
                       prefix_cache=args.prefix_cache, preempt=args.preempt,
@@ -165,11 +209,12 @@ def main(argv=None) -> None:
           f"({int(st['weight_stream_bytes'])} B/step), "
           f"{int(st['preemptions'])} preemptions, "
           f"{int(st['prefill_calls'])} prefills")
-    print(f"paged pool: {int(st['kv_bytes_peak'])} B KV peak of "
-          f"{int(st['kv_bytes_capacity'])} B capacity, "
-          f"{int(st['prefill_compiles'])} prefill shapes, "
-          f"{int(st['preemptions'])} preemptions "
-          f"({args.preempt}: {int(st['swap_outs'])} swap-outs)")
+    if args.kv == "paged":
+        print(f"paged pool: {int(st['kv_bytes_peak'])} B KV peak of "
+              f"{int(st['kv_bytes_capacity'])} B capacity, "
+              f"{int(st['prefill_compiles'])} prefill shapes, "
+              f"{int(st['preemptions'])} preemptions "
+              f"({args.preempt}: {int(st['swap_outs'])} swap-outs)")
     if args.prefix_cache:
         print(f"prefix cache: {int(st['prefix_hits'])} hits / "
               f"{int(st['prefill_calls'])} prefills, "

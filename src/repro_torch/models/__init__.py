@@ -5,11 +5,12 @@ the sparse CNN layers (convolution as an N:M GEMM)."""
 from repro_torch.models.config import ArchConfig, param_count
 from repro_torch.models.transformer import (DenseLM, MoELM,
                                             convert_to_compressed,
-                                            decode_step, init_caches,
-                                            init_model, make_draft, prefill,
-                                            verify_step, weight_stream_bytes)
+                                            decode_step, forward, init_caches,
+                                            init_model, loss_fn, make_draft,
+                                            prefill, verify_step,
+                                            weight_stream_bytes)
 
 __all__ = ["ArchConfig", "param_count", "DenseLM", "MoELM",
-           "convert_to_compressed",
-           "decode_step", "init_caches", "init_model", "make_draft",
-           "prefill", "verify_step", "weight_stream_bytes"]
+           "convert_to_compressed", "decode_step", "forward", "init_caches",
+           "init_model", "loss_fn", "make_draft", "prefill", "verify_step",
+           "weight_stream_bytes"]

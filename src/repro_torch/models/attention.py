@@ -18,7 +18,14 @@ K/V, decode runs absorbed in the latent space (``wuk`` folded into the
 query, ``wuv`` applied to the latent context).  Decode writes the new
 token's cache entries into the pool **in place** (``_paged_write_span``);
 the reference returned a new pool instead.
-Cross-attention and the slotted (ring-buffer) decode cache are not ported
+
+Without a block table, decode runs against the slotted caches (one row per
+slot, [B, max_len, ...] per layer; the fixed-batch oracle and
+``ServeEngine(kv="slotted")``): one token per row written in place at its
+position (``_ring_write``: GQA's cache is a ring of its length, whose slot
+j holds position ``pos - ((pos - j) mod L)``), then the gather read's
+score chain over the whole row.  The position is a 0-d tensor (every row
+at one position) or a per-row [B] vector.  Cross-attention is not ported
 yet.
 """
 
@@ -236,6 +243,57 @@ def _rope(positions: torch.Tensor, s: int, dim: int, cfg: ArchConfig):
     return rope_angles(positions, dim, cfg.rope_theta)
 
 
+def _ring_write(cache, updates, cache_pos):
+    """Slotted decode write, in place: ``updates[name]`` [B, 1, ...] lands
+    at sequence slot ``cache_pos % L`` of each batch row of ``cache[name]``
+    [B, L, ...].  ``cache_pos`` is a 0-d tensor (the fixed batch, every
+    row at one position) or int32 [B] (each row at its own).  For L ==
+    max_len the ring is the plain append-at-pos cache."""
+    for name, val in updates.items():
+        c = cache[name]
+        if val.shape[1] != 1:
+            raise ValueError(f"slotted decode writes one token per row, got "
+                             f"a span of {val.shape[1]}")
+        b = c.shape[0]
+        slot = (cache_pos.reshape(-1).long() % c.shape[1]).expand(b)
+        c[torch.arange(b, device=c.device), slot] = val[:, 0].to(c.dtype)
+    return cache
+
+
+def _ring_valid(cache_pos: torch.Tensor, length: int,
+                window: Optional[int] = None) -> torch.Tensor:
+    """[B or 1, 1, L] read mask of a slotted decode: slot j of a length-L
+    ring holds absolute position ``pos - ((pos - j) mod L)``; a negative
+    one marks a slot not yet written, and a window keeps the last
+    ``window`` positions."""
+    idx = torch.arange(length, device=cache_pos.device)[None, :]
+    posb = cache_pos.reshape(-1, 1).long()
+    abs_pos = posb - torch.remainder(posb - idx, length)
+    valid = abs_pos >= 0
+    if window is not None:
+        valid &= abs_pos > posb - window
+    return valid[:, None, :]
+
+
+def _gqa_read(q: torch.Tensor, reads: Dict[str, torch.Tensor],
+              valid: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Attention of q [B, S, H, hd] over K/V rows in position order
+    (``reads`` {"k", "v"} [B, L, kv, hd]) under the [B, S, L] mask
+    ``valid``, in f32 (softcap, masked softmax) -> [B, S, H, hd] f32.  The
+    gather read of the paged pool and the slotted ring share it."""
+    b, s, h, hd = q.shape
+    kv = reads["k"].shape[2]
+    qg = q.reshape(b, s, kv, h // kv, hd)
+    sc = torch.einsum("bshgd,blhd->bshgl", qg.float(),
+                      reads["k"].float()) * hd ** -0.5
+    sc = softcap(sc, cfg.softcap_attn)
+    sc = torch.where(valid[:, :, None, None, :], sc,
+                     torch.full_like(sc, _NEG))
+    pr = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bshgl,blhd->bshgd", pr, reads["v"].float())
+    return o.reshape(b, s, h, hd)
+
+
 def gqa_apply(p: GQA, x: torch.Tensor, cfg: ArchConfig, *,
               positions: torch.Tensor, window: Optional[int] = None,
               cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -247,7 +305,9 @@ def gqa_apply(p: GQA, x: torch.Tensor, cfg: ArchConfig, *,
     and ``block_table`` are given, with ``cache_pos`` the per-slot [B]
     position vector: one token per slot (S == 1), or a verify span of S
     tokens at positions ``cache_pos .. cache_pos + S - 1``; ``step`` is the
-    forward's ``paged_step`` (else computed here).  Returns (y, new_kv)."""
+    forward's ``paged_step`` (else computed here).  Slotted decode when
+    ``cache`` comes without a table: one token per row into the ring.
+    Returns (y, new_kv)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd()
     sp = cfg.sparsity
@@ -269,9 +329,11 @@ def gqa_apply(p: GQA, x: torch.Tensor, cfg: ArchConfig, *,
                               kv_chunk=cfg.kv_chunk)
         new_kv = {"k": k, "v": v} if return_kv else None
     elif block_table is None:
-        raise NotImplementedError(
-            "slotted decode caches come with a later slice of the port; "
-            "decode here is paged")
+        # slotted ring buffer: write at pos % L, then the gather read's
+        # score chain over the whole row, masked by the ring's validity
+        new_kv = _ring_write(cache, {"k": k, "v": v}, cache_pos)
+        o = _gqa_read(q, new_kv, _ring_valid(cache_pos, cache["k"].shape[1],
+                                             window), cfg).to(x.dtype)
     elif cfg.attn_impl == "fused":
         # write through the table, then the kernel walks the table itself —
         # the pool is never copied into position order.  A verify span
@@ -290,16 +352,8 @@ def gqa_apply(p: GQA, x: torch.Tensor, cfg: ArchConfig, *,
     elif cfg.attn_impl == "gather":
         new_kv, reads, length = _paged_update_span(
             cache, {"k": k, "v": v}, block_table, cache_pos, step.cells)
-        qg = q.reshape(b, s, kv, h // kv, hd)
-        sc = torch.einsum("bshgd,blhd->bshgl", qg.float(),
-                          reads["k"].float()) * hd ** -0.5
-        sc = softcap(sc, cfg.softcap_attn)
-        valid = _span_valid(cache_pos, s, length, window)
-        sc = torch.where(valid[:, :, None, None, :], sc,
-                         torch.full_like(sc, _NEG))
-        pr = torch.softmax(sc, dim=-1)
-        o = torch.einsum("bshgl,blhd->bshgd", pr, reads["v"].float())
-        o = o.reshape(b, s, h, hd).to(x.dtype)
+        o = _gqa_read(q, reads, _span_valid(cache_pos, s, length, window),
+                      cfg).to(x.dtype)
     else:
         raise ValueError(f"attn_impl must be 'gather' or 'fused', got "
                          f"{cfg.attn_impl!r}")
@@ -372,7 +426,8 @@ def mla_apply(p: MLA, x: torch.Tensor, cfg: ArchConfig, *,
     ``cache_pos`` the per-slot [B] position vector: one token per slot
     (S == 1), or a verify span of S tokens at positions ``cache_pos ..
     cache_pos + S - 1``; ``step`` is the forward's ``paged_step`` (else
-    computed here).  Returns (y, new_kv)."""
+    computed here).  Slotted decode when ``cache`` comes without a table:
+    one token per row, written at its position.  Returns (y, new_kv)."""
     b, s, _ = x.shape
     h, nd, rd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     vd, r = cfg.v_head_dim, cfg.kv_lora
@@ -394,14 +449,12 @@ def mla_apply(p: MLA, x: torch.Tensor, cfg: ArchConfig, *,
         o = chunked_attention(q, k, vv, causal=True, scale=scale,
                               q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
         new_kv = {"ckv": ckv, "kpe": kpe} if return_kv else None
-    elif block_table is None:
-        raise NotImplementedError(
-            "slotted decode caches come with a later slice of the port; "
-            "decode here is paged")
     else:
         # absorbed decode in the latent space: the cache stays [kv_lora +
         # rope] per token (MLA's memory win).  S == 1 is one token per
-        # slot; S > 1 a verify span whose offset i masks to idx <= pos + i
+        # slot; S > 1 a verify span whose offset i masks to idx <= pos + i.
+        # Slotted caches (no block table) take one token per row, written
+        # at its position, and read through the gather chain
         wuk3 = _dense_weight(p.wuk, cfg).reshape(h, nd, r)
         wuv3 = _dense_weight(p.wuv, cfg).reshape(h, vd, r)
         # the kernels read dense rows; this einsum returns a permuted
@@ -410,7 +463,21 @@ def mla_apply(p: MLA, x: torch.Tensor, cfg: ArchConfig, *,
                             wuk3.float()).contiguous()
         qp = qpe.float().contiguous()
         upd = {"ckv": ckv, "kpe": kpe}
-        if cfg.attn_impl == "fused":
+        if block_table is None or cfg.attn_impl == "gather":
+            if block_table is None:
+                new_kv = reads = _ring_write(cache, upd, cache_pos)
+                length = cache["ckv"].shape[1]
+            else:
+                new_kv, reads, length = _paged_update_span(
+                    cache, upd, block_table, cache_pos, step.cells)
+            cc = reads["ckv"].float()
+            sc = (torch.einsum("bshr,blr->bshl", qlat, cc)
+                  + torch.einsum("bshd,bld->bshl", qp, reads["kpe"].float()))
+            sc = sc * scale
+            sc = torch.where(_span_valid(cache_pos, s, length)[:, :, None, :],
+                             sc, torch.full_like(sc, _NEG))
+            ov = torch.einsum("bshl,blr->bshr", torch.softmax(sc, dim=-1), cc)
+        elif cfg.attn_impl == "fused":
             # write through the table, then the kernel walks it: scores,
             # softmax and the latent context never leave the kernel
             new_kv = _paged_write_span(cache, upd, block_table, cache_pos,
@@ -422,16 +489,6 @@ def mla_apply(p: MLA, x: torch.Tensor, cfg: ArchConfig, *,
             else:
                 ov = paged_mla_verify(qlat, qp, new_kv["ckv"], new_kv["kpe"],
                                       block_table, step.kv_len, scale=scale)
-        elif cfg.attn_impl == "gather":
-            new_kv, reads, length = _paged_update_span(
-                cache, upd, block_table, cache_pos, step.cells)
-            cc = reads["ckv"].float()
-            sc = (torch.einsum("bshr,blr->bshl", qlat, cc)
-                  + torch.einsum("bshd,bld->bshl", qp, reads["kpe"].float()))
-            sc = sc * scale
-            sc = torch.where(_span_valid(cache_pos, s, length)[:, :, None, :],
-                             sc, torch.full_like(sc, _NEG))
-            ov = torch.einsum("bshl,blr->bshr", torch.softmax(sc, dim=-1), cc)
         else:
             raise ValueError(f"attn_impl must be 'gather' or 'fused', got "
                              f"{cfg.attn_impl!r}")

@@ -129,6 +129,18 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 ACTIVATIONS = {"silu": F.silu}     # gelu arrives with the families using it
 
 
+# ------------------------------------------------------------ losses / sampling
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_id: int = -1) -> torch.Tensor:
+    """Mean token NLL in f32; labels == ignore_id are masked out."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long().clamp_min(0)[..., None])[..., 0]
+    mask = (labels != ignore_id).float()
+    return torch.sum((lse - gold) * mask) / torch.clamp_min(mask.sum(), 1.0)
+
+
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     """argmax over the vocab (first maximal index on ties, as the
     reference)."""

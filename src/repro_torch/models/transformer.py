@@ -6,13 +6,15 @@ holds one ``DenseBlock`` module per layer, a ``MoELM`` its
 ``first_dense_layers`` dense blocks then its ``MoEBlock``s, and the stack
 is a Python loop.  A block's attention is GQA, or MLA when ``cfg.mla``.
 Decode caches keep the reference's stacked layout, one tensor per leaf with
-the layer axis first (paged pools: GQA {"k", "v"} [L, n_blocks, block_size,
-kv, hd], MLA {"ckv", "kpe"} [L, n_blocks, block_size, kv_lora | rope]),
-and each layer reads and writes its slice in place.
+the layer axis first (slotted: GQA {"k", "v"} [L, B, max_len, kv, hd], MLA
+{"ckv", "kpe"} [L, B, max_len, kv_lora | rope]; paged pools: [L, n_blocks,
+block_size, ...]), and each layer reads and writes its slice in place.
 
 Public API (family-dispatched):
   init_model(cfg, seed, device)                  -> DenseLM | MoELM
   init_caches(cfg, batch, max_len, device)       -> {"k", "v"} | {"ckv", "kpe"}
+  forward(model, cfg, batch)                     -> (logits [B, S, V], moe_aux)
+  loss_fn(model, cfg, batch, aux_weight)         -> (loss, {"loss", "moe_aux"})
   prefill(model, cfg, batch, logit_pos)          -> (logits [B, V], caches)
   decode_step(model, cfg, caches, tokens, pos, block_table, attn_impl,
               layers)                            -> (logits [B, V], caches)
@@ -39,9 +41,10 @@ from repro_torch.core.layers import SparseLinear
 from repro_torch.core.sparse_matmul import nm_rerank
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
-from repro_torch.models.common import (Embedding, RMSNorm, embed_apply,
-                                       embed_init, linear_weight_bytes,
-                                       lm_head_apply, rms_norm, rms_norm_init)
+from repro_torch.models.common import (Embedding, RMSNorm, cross_entropy,
+                                       embed_apply, embed_init,
+                                       linear_weight_bytes, lm_head_apply,
+                                       rms_norm, rms_norm_init)
 from repro_torch.models.config import ArchConfig
 
 
@@ -251,27 +254,59 @@ def prefill(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     return logits, caches
 
 
+def forward(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
+    """Full-sequence forward over ``batch["tokens"]`` [B, S], no caches ->
+    (logits [B, S, V] f32, moe_aux): the MoE load-balance loss summed over
+    the MoE blocks and divided by their count (0 for the dense family), as
+    the reference's."""
+    _check_family(cfg)
+    x = embed_apply(p.embed, batch["tokens"])
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_moe = 0
+    for lp in p.blocks():
+        if isinstance(lp, MoEBlock):
+            x, _, a = _moe_block_apply(lp, x, cfg, positions=positions)
+            aux = aux + a
+            n_moe += 1
+        else:
+            x, _ = _dense_block_apply(lp, x, cfg, positions=positions)
+    x = _norm(p.lnf, x, cfg)
+    return lm_head_apply(p.embed, x, cfg.softcap_final), aux / max(n_moe, 1)
+
+
+def loss_fn(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            aux_weight: float = 0.01):
+    """Next-token loss over ``batch`` ({"tokens", "labels"} [B, S]) ->
+    (loss + aux_weight * moe_aux, {"loss", "moe_aux"})."""
+    logits, aux = forward(p, cfg, batch)
+    loss = cross_entropy(logits, batch["labels"])
+    return loss + aux_weight * aux, {"loss": loss, "moe_aux": aux}
+
+
 def decode_step(p: LM, cfg: ArchConfig, caches: Dict[str, torch.Tensor],
                 tokens: torch.Tensor, pos: torch.Tensor,
                 block_table: Optional[torch.Tensor] = None,
                 attn_impl: Optional[str] = None,
                 layers: Optional[Sequence[int]] = None):
-    """One token per slot: tokens [B], pos int32 [B] per-slot positions,
-    block_table int32 [B, max_blocks] over the paged pools ({"k", "v"} or
-    {"ckv", "kpe"}, [L, n_blocks, block_size, ...]) -> (logits [B, V] f32,
-    caches).
+    """One token per slot: tokens [B] -> (logits [B, V] f32, caches).
 
-    The pools are updated **in place** (the returned ``caches`` is the
+    With ``block_table`` (int32 [B, max_blocks]) the caches are the paged
+    pools ({"k", "v"} or {"ckv", "kpe"}, [L, n_blocks, block_size, ...])
+    and ``pos`` is the int32 [B] per-slot position vector.  Without it they
+    are the slotted caches of ``init_caches`` ([L, B, max_len, ...]) and
+    ``pos`` is a 0-d tensor (the fixed batch: every row at one position)
+    or the int32 [B] vector (the engine: each row at its own).
+
+    The caches are updated **in place** (the returned ``caches`` is the
     argument).  ``attn_impl`` ('gather' | 'fused') overrides
-    ``cfg.attn_impl`` for the paged read.  ``layers`` maps block i to pool
-    layer ``layers[i]`` (a skip draft's ``cache_idx``); by default block i
-    uses pool layer i."""
+    ``cfg.attn_impl`` for the paged read (slotted caches have one read).
+    ``layers`` maps block i to cache layer ``layers[i]`` (a skip draft's
+    ``cache_idx``); by default block i uses cache layer i."""
     _check_family(cfg)
-    if block_table is None:
-        raise NotImplementedError("slotted decode caches come with a later "
-                                  "slice of the port; pass a block_table")
-    logits = _paged_forward(p, cfg, caches, tokens[:, None], pos,
-                            block_table, attn_impl, layers)
+    logits = _cached_forward(p, cfg, caches, tokens[:, None], pos,
+                             block_table, attn_impl, layers)
     return logits[:, 0], caches
 
 
@@ -291,23 +326,24 @@ def verify_step(p: LM, cfg: ArchConfig, caches: Dict[str, torch.Tensor],
     if block_table is None:
         raise ValueError("verify_step requires a block_table (the span "
                          "write/read is paged-only)")
-    logits = _paged_forward(p, cfg, caches, tokens, pos, block_table,
-                            attn_impl)
+    logits = _cached_forward(p, cfg, caches, tokens, pos, block_table,
+                             attn_impl)
     return logits, caches
 
 
-def _paged_forward(p: LM, cfg: ArchConfig, caches, tokens, pos, block_table,
-                   attn_impl, layers=None):
-    """Every block over tokens [B, S] at per-slot positions ``pos`` against
-    the paged pools (updated in place; block i on pool layer ``layers[i]``,
-    or i) -> f32 logits [B, S, V].  The RoPE angles, kv_len and the span
-    write's cells are computed once here (``attn.paged_step``) and shared
-    by every block."""
+def _cached_forward(p: LM, cfg: ArchConfig, caches, tokens, pos, block_table,
+                    attn_impl, layers=None):
+    """Every block over tokens [B, S] at positions ``pos`` against the
+    decode caches (updated in place; block i on cache layer ``layers[i]``,
+    or i) -> f32 logits [B, S, V].  Over the paged pools the RoPE angles,
+    kv_len and the span write's cells are computed once here
+    (``attn.paged_step``) and shared by every block."""
     if attn_impl is not None and attn_impl != cfg.attn_impl:
         cfg = cfg.replace(attn_impl=attn_impl)
     x = embed_apply(p.embed, tokens)
-    step = attn.paged_step(cfg, pos, tokens.shape[1], block_table,
-                           next(iter(caches.values())).shape[2])
+    step = None if block_table is None else attn.paged_step(
+        cfg, pos, tokens.shape[1], block_table,
+        next(iter(caches.values())).shape[2])
     for i, lp in enumerate(p.blocks()):
         li = i if layers is None else int(layers[i])
         layer_cache = {name: leaf[li] for name, leaf in caches.items()}

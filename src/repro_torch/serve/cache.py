@@ -7,13 +7,20 @@ longer than the buffer degrades to a truncated context instead of a shape
 error.  The function is pure: it returns new tensors and leaves ``caches``
 untouched, so a zero template can be re-seeded for every request.  The
 dense and MoE families are ported (the MoE prefill returns its dense and
-MoE stacks apart, and they are concatenated along the layer axis here); the
-slotted ``scatter_slot`` comes with the slotted layout.
+MoE stacks apart, and they are concatenated along the layer axis here).
+
+``scatter_slot`` writes a batch-1 cache tree into batch index ``slot`` of
+an n-slot pool tree (the slotted engine's admission).  The slot axis is
+found structurally, per leaf: the one axis where the pool's shape differs
+from the single request's.  ``scatter_slot`` is pure, as the reference's;
+``scatter_slot_`` writes the pool in place, which is what the engine uses:
+its CUDA graphs hold the pool tensors by address, so the pool is never
+rebound.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -45,3 +52,52 @@ def seed_decode_caches(cfg, caches: Dict[str, torch.Tensor],
         raise NotImplementedError(f"cache seeding for family {cfg.family!r} "
                                   f"comes with that family's port")
     return {f: _seed_leaf(caches[f], pf[f], src_len) for f in caches}
+
+
+Tree = Union[torch.Tensor, Dict[str, "Tree"]]
+
+
+def _slot_view(dst: torch.Tensor, src: torch.Tensor,
+               slot: int) -> torch.Tensor:
+    """The part of pool leaf ``dst`` that single-request leaf ``src`` fills:
+    all of it when the shapes agree (one slot), else the index ``slot`` of
+    the one axis where they differ."""
+    if dst.shape == src.shape:
+        return dst
+    diff = [i for i, (a, b) in enumerate(zip(dst.shape, src.shape))
+            if a != b]
+    if dst.dim() != src.dim() or len(diff) != 1:
+        raise ValueError(
+            f"scatter_slot: cannot locate the slot axis between pool leaf "
+            f"{tuple(dst.shape)} and single-request leaf {tuple(src.shape)} "
+            f"(expected identical shapes except one axis)")
+    return dst.narrow(diff[0], slot, 1)
+
+
+def _leaf_pairs(pool: Tree, single: Tree):
+    if isinstance(pool, dict):
+        return [pair for name in pool
+                for pair in _leaf_pairs(pool[name], single[name])]
+    return [(pool, single)]
+
+
+def scatter_slot_(pool: Tree, single: Tree, slot: int) -> Tree:
+    """Write ``single`` (a batch-1 cache tree) into batch index ``slot`` of
+    ``pool`` **in place**, cast to the pool's dtypes; returns ``pool``.  A
+    leaf pair whose shapes differ in rank or in more than one axis cannot
+    come from one cache layout and raises ``ValueError`` before any leaf
+    is written."""
+    views = [(_slot_view(dst, src, slot), src)
+             for dst, src in _leaf_pairs(pool, single)]
+    for view, src in views:
+        view.copy_(src)
+    return pool
+
+
+def scatter_slot(pool: Tree, single: Tree, slot: int) -> Tree:
+    """``scatter_slot_`` on a copy: a new tree, ``pool`` left untouched (the
+    reference's pure form)."""
+    if isinstance(pool, dict):
+        return {name: scatter_slot(pool[name], single[name], slot)
+                for name in pool}
+    return scatter_slot_(pool.clone(), single, slot)

@@ -1,28 +1,33 @@
-"""Continuous-batching serve engine over the paged KV pool (counterpart of
-``repro.serve.engine``).
+"""Continuous-batching serve engine over the slotted or the paged KV cache
+(counterpart of ``repro.serve.engine``).
 
-The engine owns a ``BlockPool`` and a per-slot position vector and
+The engine owns a decode-cache pool and a per-slot position vector and
 interleaves two operations:
 
 * **prefill-on-admission** — when the scheduler places a queued request in
-  a free slot (and the pool has blocks for it), the engine prefills that
-  request alone (batch 1) at a bucketed length and writes the caches into
-  the slot's blocks (``BlockPool.seed``).  Token prompts bucket DOWN and
+  a free slot, the engine prefills that request alone (batch 1) and
+  installs its caches: ``kv="slotted"`` (the default, as in the reference)
+  seeds a one-row cache from the prefill and writes it into the slot's row
+  of the pool (``cache.scatter_slot_``, in place); ``kv="paged"`` prefills
+  at a bucketed length and writes the caches into the slot's blocks
+  (``BlockPool.seed``).  Token prompts bucket DOWN and
   feed the remaining prompt tokens through the batched decode step as
   *forced* tokens (exact: decode recomputes the K/V the full prefill would
   have written); a prompt shorter than the smallest bucket buckets UP with
   right padding and reads its logits at ``prompt_len - 1``.
 * **batched decode** — one ``decode_step`` per tick over every slot with
-  the per-slot position vector; decode reads K/V through the block table
+  the per-slot position vector.  Slotted rows write and read their own
+  row (an idle row keeps its stale token and position and writes its own
+  dead row).  Paged decode reads K/V through the block table
   (``attn="fused"``: the ``paged_gqa_decode`` / ``paged_mla_decode`` kernel
-  walks it in-kernel; ``"gather"``: the oracle read).  The dense (GQA) and
-  MoE (MLA) families are served; in the MoE family idle rows and prompt
-  padding are tokens like any other and compete for expert capacity, as in
-  the reference.  Idle rows carry position 0, token 0 and
-  an all-trash table row, so they write the trash block and their logits
-  are never read.
+  walks it in-kernel; ``"gather"``: the oracle read); idle paged rows carry
+  position 0, token 0 and an all-trash table row, so they write the trash
+  block.  Idle rows' logits are never read.  The dense (GQA) and MoE (MLA)
+  families are served; in the MoE family idle rows and prompt padding are
+  tokens like any other and compete for expert capacity, as in the
+  reference.
 
-Blocks are appended lazily (one every ``block_size`` ticks per slot); when
+The rest of this header is the paged pool's.  Blocks are appended lazily (one every ``block_size`` ticks per slot); when
 the pool runs dry the newest-admitted request is preempted back to the
 queue front.  ``preempt="replay"`` (the default, the oracle) replays it
 from prefill on readmission (greedy decode makes the replay
@@ -63,14 +68,17 @@ bookkeeping; the per-call host arrays (tokens, positions, block tables,
 prompts) are copied into the entry's static buffers.  ``prewarm=True``
 captures the closed shape set (``executable_shapes()``) before the first
 admission; a lazy engine captures a shape at first use, which counts as a
-mid-serve compile (``strict_prewarm=True`` raises on one).
+mid-serve compile (``strict_prewarm=True`` raises on one).  The slotted
+engine prefills at each prompt's own length, a shape set no config bounds:
+``prewarm(prompt_lens=...)`` captures the lengths a trace will bring, and
+under ``strict_prewarm=True`` any other length raises.
 ``graphs=False`` runs every forward eagerly, the oracle (the counterpart
 of the reference under ``jax.disable_jit()``); the CPU always does.
 ``compile_cache=`` names the kernel build directory
 (``serve.prewarm.enable_compile_cache``).
 
-Not ported yet (the constructor raises ``NotImplementedError``): the
-slotted layout and tensor-parallel meshes.
+Not ported yet (the constructor raises ``NotImplementedError``):
+tensor-parallel meshes.
 """
 
 from __future__ import annotations
@@ -84,9 +92,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import (convert_to_compressed, decode_step,
-                                make_draft, prefill, verify_step,
+                                init_caches, make_draft, prefill, verify_step,
                                 weight_stream_bytes)
 from repro_torch.models.common import greedy_sample
+from repro_torch.serve.cache import scatter_slot_, seed_decode_caches
 from repro_torch.serve.paged import (TRASH_BLOCK, BlockPool, SwapState,
                                      default_buckets)
 from repro_torch.serve.prefix import PrefixIndex
@@ -129,11 +138,13 @@ class ServeEngine:
 
     ``compressed=True`` converts the model to the compressed N:M serving
     format at init (``models.convert_to_compressed``) and serves from it.
-    ``block_size`` / ``n_blocks`` / ``prefill_buckets`` configure the paged
-    pool; ``attn`` picks the paged read ('fused' kernel or 'gather'
-    oracle); ``spec`` turns on self-speculative decoding;
-    ``prefix_cache=True`` shares cached prompt prefixes across requests;
-    ``preempt`` is ``"replay"`` or ``"suspend"``;
+    ``kv="slotted"`` (the default) keeps one ``max_len`` row per slot, the
+    token-equality oracle; ``kv="paged"`` serves from the block pool of
+    ``serve.paged``, and the rest are its options: ``block_size`` /
+    ``n_blocks`` / ``prefill_buckets`` configure it; ``attn`` picks the
+    paged read ('fused' kernel or 'gather' oracle); ``spec`` turns on
+    self-speculative decoding; ``prefix_cache=True`` shares cached prompt
+    prefixes across requests; ``preempt`` is ``"replay"`` or ``"suspend"``;
     ``debug_invariants=True`` cross-checks the block tables before every
     decode tick.  ``device`` defaults to ``cuda`` and raises when no card is
     present.
@@ -146,7 +157,7 @@ class ServeEngine:
     kernels are built and loaded from."""
 
     def __init__(self, model, cfg, n_slots: int, max_len: int,
-                 compressed: bool = False, kv: str = "paged",
+                 compressed: bool = False, kv: str = "slotted",
                  block_size: int = 4, n_blocks: Optional[int] = None,
                  prefill_buckets: Optional[Sequence[int]] = None,
                  attn: str = "gather", prefix_cache: bool = False,
@@ -156,15 +167,25 @@ class ServeEngine:
                  strict_prewarm: bool = False, graphs: Optional[bool] = None,
                  device="cuda"):
         t_init = time.perf_counter()
-        if kv == "slotted":
-            raise not_ported("kv='slotted'", "slotted-cache/sequential-oracle")
-        if kv != "paged":
-            raise ValueError(f"kv must be 'paged', got {kv!r}")
+        if kv not in ("slotted", "paged"):
+            raise ValueError(f"kv must be 'slotted' or 'paged', got {kv!r}")
         if attn not in ("gather", "fused"):
             raise ValueError(f"attn must be 'gather' or 'fused', got {attn!r}")
+        if attn == "fused" and kv != "paged":
+            raise ValueError("attn='fused' requires kv='paged' (the fused "
+                             "kernel reads through the block table; the "
+                             "slotted layout has none)")
         if preempt not in ("replay", "suspend"):
             raise ValueError(f"preempt must be 'replay' or 'suspend', "
                              f"got {preempt!r}")
+        if prefix_cache and kv != "paged":
+            raise ValueError("prefix_cache=True requires kv='paged' (prefix "
+                             "hits share physical blocks through the block "
+                             "table; the slotted layout has none)")
+        if spec is not None and kv != "paged":
+            raise ValueError("spec= requires kv='paged' (speculative "
+                             "rollback rewinds the block table; the "
+                             "slotted layout has none)")
         if mesh is not None:
             raise not_ported("mesh= (tensor-parallel serving)", "distribution")
         if (spec is not None and spec.draft == "rerank" and not compressed
@@ -194,6 +215,7 @@ class ServeEngine:
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
+        self.kv = kv
         self.attn = attn
         self.preempt_mode = preempt
         self.debug_invariants = debug_invariants
@@ -227,14 +249,21 @@ class ServeEngine:
                 model, cfg, kind=spec.draft, stride=spec.stride)
             self.draft_stream = weight_stream_bytes(self._draft,
                                                     self._draft_cfg)
-        self.pool = BlockPool(cfg, n_slots, max_len, block_size, n_blocks,
-                              device=self.device)
         self.index = PrefixIndex() if prefix_cache else None
-        # max_len always rides in the bucket set so every admissible prompt
-        # lands in a bucket
-        self._prefill_buckets = tuple(sorted(set(
-            prefill_buckets if prefill_buckets is not None
-            else default_buckets(max_len)) | {max_len}))
+        if kv == "paged":
+            self.pool = BlockPool(cfg, n_slots, max_len, block_size,
+                                  n_blocks, device=self.device)
+            self.caches = self.pool.caches
+            # max_len always rides in the bucket set so every admissible
+            # prompt lands in a bucket
+            self._prefill_buckets = tuple(sorted(set(
+                prefill_buckets if prefill_buckets is not None
+                else default_buckets(max_len)) | {max_len}))
+        else:
+            self.pool = None
+            self.caches = init_caches(cfg, n_slots, max_len,
+                                      device=self.device)
+            self._prefill_buckets = ()
         self._make_entries()
         self._exec_shapes = None
         self._tick_wall: List[float] = []
@@ -259,7 +288,7 @@ class ServeEngine:
             self.graph_pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(self.device)
         model, cfg, attn = self.model, self.cfg, self.attn
-        caches = self.pool.caches
+        caches = self.caches
 
         def entry(name, fn):
             self.entries[name] = GraphEntry(
@@ -268,7 +297,7 @@ class ServeEngine:
                 stream=self._stream, fixed=lambda: list(caches.values()))
             return self.entries[name]
 
-        def decode(tok, pos, tbl):
+        def decode(tok, pos, tbl=None):
             logits, _ = decode_step(model, cfg, caches, tok, pos, tbl,
                                     attn_impl=attn)
             return greedy_sample(logits)
@@ -305,14 +334,17 @@ class ServeEngine:
     def executable_shapes(self) -> Dict[str, object]:
         """The complete captured-shape universe of this engine config, the
         one source admission (``_plan`` buckets via ``prefill_buckets``),
-        ``prewarm()`` and ``stats()`` (``executables_expected``) read: one
-        pool-shaped graph each for decode (and propose / verify under
-        ``spec=``), plus one prefill graph per bucket.  The bucket set
+        ``prewarm()`` and ``stats()`` (``executables_expected``) read.
+        Paged: one pool-shaped graph each for decode (and propose / verify
+        under ``spec=``), plus one prefill graph per bucket; the bucket set
         contains ``max_len``, so every admissible prompt lands in a bucket
-        and the set is closed."""
+        and the set is closed.  Slotted: the decode graph; prefill takes
+        each prompt's own length, which no config bounds
+        (``prewarm(prompt_lens=...)`` takes a trace's lengths)."""
         if self._exec_shapes is None:
-            entries: Dict[str, int] = {
-                "decode": 1, "prefill": len(self._prefill_buckets)}
+            entries: Dict[str, int] = {"decode": 1}
+            if self.pool is not None:
+                entries["prefill"] = len(self._prefill_buckets)
             if self._spec is not None:
                 entries["propose"] = 1
                 entries["verify"] = 1
@@ -328,18 +360,20 @@ class ServeEngine:
         admitted (``GraphEntry.capture`` per shape, on abstract per-call
         arguments; without graphs, set up each shape's static buffers).
         Idempotent: shapes already built are skipped.  ``prompt_lens``
-        adds explicit prefill lengths, as in the reference."""
+        adds explicit prefill lengths, as in the reference: the only way to
+        prewarm slotted prefill, whose shape set is per-prompt."""
         t0 = time.perf_counter()
         shapes = self.executable_shapes()
-        n, tw = self.n_slots, self.pool.table_width
+        n = self.n_slots
         tok = abstract((n,), torch.long)
         pos = abstract((n,), torch.int32)
-        tbl = abstract((n, tw), torch.int32)
-        self._decode.capture(tok, pos, tbl, label="decode")
+        tbl = (abstract((n, self.pool.table_width), torch.int32),
+               ) if self.pool is not None else ()
+        self._decode.capture(tok, pos, *tbl, label="decode")
         if self._spec is not None:
             k = self._spec.k
-            self._propose.capture(tok, pos, tbl, label=f"propose@k{k}")
-            self._verify.capture(abstract((n, k + 1), torch.long), pos, tbl,
+            self._propose.capture(tok, pos, *tbl, label=f"propose@k{k}")
+            self._verify.capture(abstract((n, k + 1), torch.long), pos, *tbl,
                                  label=f"verify@k{k}")
         for b in sorted(set(shapes["prefill_buckets"]) | set(prompt_lens)):
             self._prefill.capture(abstract_batch(self.cfg, b),
@@ -364,11 +398,13 @@ class ServeEngine:
                               f"{req.max_new_tokens} exceeds pool max_len "
                               f"{self.max_len}")
             return
-        need = self.pool.blocks_for(req.prompt_len + req.max_new_tokens - 1)
-        if need > self.pool.usable_blocks:
-            self._reject(req, f"needs {need} blocks, pool has "
-                              f"{self.pool.usable_blocks} usable")
-            return
+        if self.pool is not None:
+            need = self.pool.blocks_for(
+                req.prompt_len + req.max_new_tokens - 1)
+            if need > self.pool.usable_blocks:
+                self._reject(req, f"needs {need} blocks, pool has "
+                                  f"{self.pool.usable_blocks} usable")
+                return
         self.scheduler.submit(req)
 
     def _reject(self, req: Request, reason: str) -> None:
@@ -460,6 +496,8 @@ class ServeEngine:
         out (the blocks the fits-gate sized against are gone): the request
         is requeued at the queue front and the caller stops admitting this
         tick."""
+        if self.pool is None:
+            return self._admit_slotted(slot, req, now)
         if req.rid in self._suspended:
             return self._resume(slot, req)
         plen = req.prompt_len
@@ -509,6 +547,28 @@ class ServeEngine:
             self._retire(slot, now)
         return True
 
+    def _admit_slotted(self, slot: int, req: Request, now: int) -> bool:
+        """Prefill ``req`` alone at its own length, seed a one-row decode
+        cache from it and write that row into ``slot`` in place (the
+        graphs hold the pool by address)."""
+        plen = req.prompt_len
+        self.prefill_lengths.add(plen)
+        self.prefill_calls += 1
+        first, pf = self._prefill(batch_prompt(req.inputs),
+                                  torch.tensor(plen - 1, dtype=torch.long))
+        single = init_caches(self.cfg, 1, self.max_len, device=self.device)
+        scatter_slot_(self.caches, seed_decode_caches(self.cfg, single, pf),
+                      slot)
+        first = int(first[0])
+        self._slots[slot] = _SlotState(req=req, tokens=[first],
+                                       admitted_at=now)
+        self.pos[slot] = plen
+        self.tok[slot] = first
+        self.active[slot] = True
+        if req.max_new_tokens <= 1:          # satisfied by prefill alone
+            self._retire(slot, now)
+        return True
+
     def _retire(self, slot: int, now: int) -> None:
         st = self._slots.pop(slot)
         self.results[st.req.rid] = RequestResult(
@@ -516,6 +576,8 @@ class ServeEngine:
             admitted_at=st.admitted_at, finished_at=now)
         self.scheduler.release(slot)
         self.active[slot] = False
+        if self.pool is None:
+            return                           # the row stays, stale, unread
         if self._prefix_cacheable():
             # register the prompt's (token -> block) mapping BEFORE the slot
             # drops its references: the index pins the blocks, so the
@@ -608,6 +670,10 @@ class ServeEngine:
         if self._spec is not None:
             self._spec_step(now)
             return
+        if self.pool is None:
+            self.scheduler.record_occupancy()
+            self._decode_tick(list(self._slots), (self.tok, self.pos), now)
+            return
         self._prepare_slots()
         if not self._slots:
             return                           # everything was preempted
@@ -615,14 +681,14 @@ class ServeEngine:
         if self.debug_invariants:
             self.check_invariants(
                 active_pos={s: int(self.pos[s]) for s in self._slots})
-        self._decode_tick(list(self._slots), self.tok, self.pos,
-                          self.pool.table, now)
+        self._decode_tick(list(self._slots),
+                          (self.tok, self.pos, self.pool.table), now)
 
-    def _decode_tick(self, slots, tok, pos, tbl, now: int) -> None:
-        """One decode forward over the host arrays (token ids, positions,
-        block table), then advance ``slots`` (in the order given) by the
-        token it emitted or their next prompt token."""
-        nxt = self._decode(*_host(tok, pos, tbl)).cpu().numpy()
+    def _decode_tick(self, slots, arrays, now: int) -> None:
+        """One decode forward over the host arrays (token ids, positions
+        and, paged, the block table), then advance ``slots`` (in the order
+        given) by the token it emitted or their next prompt token."""
+        nxt = self._decode(*_host(*arrays)).cpu().numpy()
         self.decode_steps += 1
         for slot in slots:
             st = self._slots[slot]
@@ -691,7 +757,7 @@ class ServeEngine:
                 else int(self.pos[s]) for s in self._slots})
         if plain:
             self.scheduler.record_occupancy()
-            self._decode_tick(sorted(plain), *self._masked(plain), now)
+            self._decode_tick(sorted(plain), self._masked(plain), now)
         if not spec_set:
             return
         span = np.zeros((self.n_slots, k + 1), np.int32)
@@ -751,11 +817,18 @@ class ServeEngine:
             self.submit(r)
         t = 0
         while self.scheduler.has_work():
-            while True:
-                pairs = self.scheduler.admit(
-                    t, fits=lambda r: self._fits(r, t), limit=1)
-                if not pairs or not self._admit(pairs[0][0], pairs[0][1], t):
-                    break
+            if self.pool is None:
+                for slot, req in self.scheduler.admit(t):
+                    self._admit(slot, req, t)
+            else:
+                # one at a time: each admission allocates blocks, and the
+                # next fits-check must see the shrunken free list
+                while True:
+                    pairs = self.scheduler.admit(
+                        t, fits=lambda r: self._fits(r, t), limit=1)
+                    if not pairs or not self._admit(pairs[0][0], pairs[0][1],
+                                                    t):
+                        break
             if self.active.any():
                 t0 = time.perf_counter()
                 self.step(t)
@@ -810,6 +883,19 @@ class ServeEngine:
             "weight_stream_bytes": float(ws["stream_bytes"]),
             "dense_weight_bytes": float(ws["dense_bytes"]),
             "weight_stream_ratio": float(ws["ratio"]),
+        }
+        if self.pool is None:
+            # the slotted layout preallocates every row: resident is its
+            # capacity; leaves with a sequence axis are the KV stream, any
+            # other slot-indexed state reports apart (none in the ported
+            # families), as the paged split does
+            seq = _seq_leaves(self.cfg)
+            out["kv_bytes_resident"] = float(sum(
+                _nbytes(t) for n, t in self.caches.items() if n in seq))
+            out["kv_state_bytes"] = float(sum(
+                _nbytes(t) for n, t in self.caches.items() if n not in seq))
+            return out
+        out.update({
             "kv_block_bytes": float(self.pool.bytes_per_block),
             "kv_bytes_peak": float(self.pool.peak_blocks
                                    * self.pool.bytes_per_block),
@@ -828,7 +914,7 @@ class ServeEngine:
             "index_blocks": float(self.index.blocks if self.index else 0),
             "index_tokens": float(self.index.cached_tokens
                                   if self.index else 0),
-        }
+        })
         if self._spec is not None:
             # acceptance = share of drafted tokens the target kept;
             # steps_saved = target passes the non-speculative engine would
@@ -847,6 +933,18 @@ class ServeEngine:
                 "draft_stream_bytes": float(
                     self.draft_stream["stream_bytes"])})
         return out
+
+
+def _seq_leaves(cfg) -> set:
+    """Names of the cache leaves with a sequence axis: those whose shape
+    moves with ``max_len`` (probed on abstract caches)."""
+    a = init_caches(cfg, 1, 1, device="meta")
+    b = init_caches(cfg, 1, 2, device="meta")
+    return {n for n in a if a[n].shape != b[n].shape}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _host(*arrays: np.ndarray):

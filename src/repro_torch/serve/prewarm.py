@@ -15,7 +15,10 @@ replace them by one graph replay:
   eager warm-up on a side stream (every host sync in it raises, through
   ``torch.cuda.set_sync_debug_mode("error")``), then captures the function
   into a ``torch.cuda.CUDAGraph`` from the engine's one memory pool.  A
-  call copies its per-call arguments into the static buffers and replays.
+  call copies its per-call arguments into the static buffers and replays;
+  the call that builds a shape is its own warm-up and returns the
+  warm-up's results, so it runs once (an abstract prewarm warms up on
+  zeros).
   Tensors the function reads and writes in place (the engine's KV pools)
   are captured by address: every replay checks that their ``data_ptr()``s
   are still the captured ones and raises if one moved.  Without graphs
@@ -242,12 +245,17 @@ class GraphEntry:
     def __call__(self, *args):
         key = _shape_key(args)
         exe = self._exe.get(key)
+        self.calls += 1
         if exe is None:
-            exe = self._build(key, args, _describe(args),
-                              "serve" if self.log.serving else "init")
+            exe, out = self._build(key, args, _describe(args),
+                                   "serve" if self.log.serving else "init")
+            if exe.graph is not None:
+                # the call ran once, in the capture's warm-up on its own
+                # arguments: a replay now would run it a second time
+                leaves, spec = _flatten(out)
+                return _unflatten(spec, [t.clone() for t in leaves])
         else:
             self.warm_calls += 1
-        self.calls += 1
         leaves, _ = _flatten(args)
         for buf, leaf in zip(exe.static, leaves):
             buf.copy_(leaf, non_blocking=True)
@@ -264,26 +272,35 @@ class GraphEntry:
             kernel.launches += n
         return exe.out
 
-    def _build(self, key, args, label: str, phase: str) -> _Executable:
+    def _build(self, key, args, label: str, phase: str):
+        """Build ``args``'s shape key -> (executable, the warm-up's
+        outputs: None without graphs)."""
         leaves, spec = _flatten(args)
         static = [torch.zeros(tuple(leaf.shape), dtype=leaf.dtype,
                               device=self.device) for leaf in leaves]
+        # a concrete call warms up on its own arguments (the warm-up is
+        # the call): a decode over the slotted caches has no trash row, and
+        # zeros would write position 0 of every live row
+        for buf, leaf in zip(static, leaves):
+            if leaf.device.type != "meta":
+                buf.copy_(leaf)
         exe = _Executable(spec, static)
         t0 = time.perf_counter()
-        warm = 0.0
+        warm, out = 0.0, None
         if self.graphs:
-            warm = self._capture(exe)
+            warm, out = self._capture(exe)
         self._exe[key] = exe
         self.n_compiles += 1
         self.log.record(CompileEvent(
             entry=self.name, label=label, phase=phase,
             seconds=time.perf_counter() - t0, trace_seconds=warm))
-        return exe
+        return exe, out
 
-    def _capture(self, exe: _Executable) -> float:
-        """Warm up on the side stream (static inputs are zeros: token 0 at
-        position 0 through an all-trash table, what idle slots run), then
-        capture.  Returns the warm-up's seconds."""
+    def _capture(self, exe: _Executable):
+        """Warm up on the side stream (static inputs hold the call's
+        arguments, or zeros for an abstract prewarm: token 0 at position 0,
+        through an all-trash table on the paged pool), then capture.
+        Returns (the warm-up's seconds, its outputs)."""
         args = _unflatten(exe.spec, exe.static)
         side = self.stream
         side.wait_stream(torch.cuda.current_stream(self.device))
@@ -292,7 +309,7 @@ class GraphEntry:
         # stream (the split-K arrival counters, cuBLAS's workspace), so
         # nothing grows inside the capture; a host sync here raises
         with torch.cuda.stream(side), _sync_debug_error():
-            self.fn(*args)
+            out = self.fn(*args)
         side.synchronize()
         warm = time.perf_counter() - t0
         graph = torch.cuda.CUDAGraph()
@@ -302,7 +319,7 @@ class GraphEntry:
         exe.graph = graph
         exe.launches = dict(launched)
         exe.ptrs = tuple(t.data_ptr() for t in self.fixed())
-        return warm
+        return warm, out
 
 
 def batch_prompt(inputs: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:

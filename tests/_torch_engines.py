@@ -1,0 +1,123 @@
+"""Helpers shared by the port's engine-against-reference test files (not a
+test module: pytest collects nothing here).
+
+* ``pair(arch, compressed)``: (reference cfg, reference params, port cfg,
+  port model) at smoke size, f32, the reference's jax.random weights carried
+  over through ``repro_torch.convert``; cached per process.
+* ``one_thread``: an autouse fixture for the files that import it.  Smoke
+  tensors gain nothing from torch's intra-op threads, which spin on every
+  core while the suite's other workers share them, so those files run
+  their torch ops on one thread (restored after each test);
+  ``single_thread`` does the same around a block.
+* ``ragged`` builds a trace of per-request prompt lengths and budgets;
+  ``spec_engines`` runs the reference speculative engine, the port's and
+  the port's non-speculative engine on one such trace.
+"""
+
+import contextlib
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget
+from repro.models import convert_to_compressed as jconvert
+from repro.models import init_model as jinit
+from repro.serve import ServeEngine as JEngine
+from repro.serve import SpecConfig as JSpec
+from repro.serve import synthetic_request as jrequest
+from repro_torch.configs import get_config as tget
+from repro_torch.convert import from_reference_params
+from repro_torch.serve import ServeEngine, SpecConfig, synthetic_request
+
+LLAMA, DEEPSEEK = "llama3.2-1b", "deepseek-v2-lite-16b"
+_CACHE = {}
+
+
+@contextlib.contextmanager
+def single_thread():
+    """torch's intra-op threads off inside the block (restored after), for
+    module-scoped fixtures, which run outside ``one_thread``."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    with single_thread():
+        yield
+
+
+def pair(arch, compressed=False):
+    """(reference cfg, reference params, port cfg, port model), smoke size,
+    f32, the same weights in both."""
+    key = (arch, compressed)
+    if key not in _CACHE:
+        if arch not in _CACHE:     # jitted: eager init takes seconds
+            jc = jget(arch, smoke=True)
+            _CACHE[arch] = jax.jit(lambda k: jinit(k, jc)[0])(
+                jax.random.PRNGKey(0))
+        jc, tc = jget(arch, smoke=True), tget(arch, smoke=True)
+        params = _CACHE[arch]
+        if compressed:
+            jc = jc.replace(sparsity=dataclasses.replace(
+                jc.sparsity, mode="compressed"))
+            tc = tc.replace(sparsity=dataclasses.replace(
+                tc.sparsity, mode="compressed"))
+            params = jax.jit(jconvert, static_argnums=(1,))(params, jc)
+        model = from_reference_params(jax.tree.map(np.asarray, params), tc,
+                                      device="cpu")
+        _CACHE[key] = (jc, params, tc, model)
+    return _CACHE[key]
+
+
+def ragged(cfg, plens, gens, seed, make, spec=None):
+    """Requests of prompt lengths ``plens`` and budgets ``gens`` drawn by
+    ``make`` (the reference's or the port's ``synthetic_request``) from one
+    seeded generator; ``spec`` sets each request's speculation opt-in."""
+    rng = np.random.default_rng(seed)
+    reqs = [make(cfg, rng, rid=i, prompt_len=p, max_new_tokens=g)
+            for i, (p, g) in enumerate(zip(plens, gens))]
+    for r, on in zip(reqs, spec or ()):
+        r.spec = on
+    return reqs
+
+
+SPEC_KEYS = ("decode_steps", "tokens", "prefill_calls", "preemptions",
+             "spec_proposed", "spec_accepted", "spec_steps_saved",
+             "draft_steps", "draft_stream_bytes")
+
+
+def spec_engines(arch, draft, plens, gens, seed, spec_on=None, **pool):
+    """Token streams and stats of the reference spec engine, the port's
+    spec engine and the port's non-spec engine on one trace (n_slots 2,
+    k 3; prompts bucket down, so prompt catch-up rides the verify span).
+    Returns (reference, port, port non-spec) as (results, stats) pairs."""
+    jc, params, tc, model = pair(arch)
+    kw = dict(n_slots=2, max_len=24, kv="paged", block_size=4,
+              compressed=True, **pool)
+    jeng = JEngine(params, jc, attn="gather", spec=JSpec(k=3, draft=draft),
+                   **kw)
+    jres = jeng.run(ragged(jc, plens, gens, seed, jrequest, spec_on))
+    out = [(jres, jeng.stats())]
+    for spec in (SpecConfig(k=3, draft=draft), None):
+        teng = ServeEngine(model, tc, attn="fused", spec=spec,
+                           debug_invariants=True, device="cpu", **kw)
+        tres = teng.run(ragged(tc, plens, gens, seed, synthetic_request,
+                               spec_on))
+        assert teng.pool.free_blocks == teng.pool.usable_blocks
+        out.append((tres, teng.stats()))
+    return out
+
+
+def assert_same_tokens(a, b, what):
+    assert sorted(a) == sorted(b)
+    for rid in a:
+        np.testing.assert_array_equal(a[rid].tokens, b[rid].tokens,
+                                      err_msg=f"{what} rid {rid}")

@@ -1,8 +1,9 @@
 """Card-only: each CUDA kernel of the port against its plain version, on
 the device, in float32 and bfloat16 (the verify kernels also against
 decode launches, bit for bit), plus the fused engines (llama GQA,
-deepseek MLA + MoE) against the gather oracle and the speculative engines
-against the plain ones.  Marked ``cuda``; each test
+deepseek MLA + MoE) against the gather oracle, the speculative engines
+against the plain ones, and the graphed engines (paged and slotted) and
+the graphed sequential oracle against their eager runs.  Marked ``cuda``; each test
 skips (with a reason) where torch sees no card.  Run on the card with
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -452,8 +453,8 @@ def _engine_vs_oracle(arch, attn_kernel):
     model = init_model(cfg, seed=0, device="cuda")
     reqs = synthetic_trace(cfg, n_requests=5, prompt_len=9,
                            gen_lens=[4, 7], seed=1)
-    kw = dict(n_slots=2, max_len=16, compressed=True, block_size=4,
-              n_blocks=7, device="cuda")
+    kw = dict(n_slots=2, max_len=16, compressed=True, kv="paged",
+              block_size=4, n_blocks=7, device="cuda")
     kernels.reset_launch_counts()
     fused = ServeEngine(model, cfg, attn="fused", debug_invariants=True,
                         **kw)
@@ -494,8 +495,8 @@ def test_spec_engine_matches_plain_engine_on_the_card(arch, draft,
     model = init_model(cfg, seed=0, device="cuda")
     reqs = synthetic_trace(cfg, n_requests=4, prompt_len=11,
                            gen_lens=[6, 9], seed=2)
-    kw = dict(n_slots=2, max_len=24, compressed=True, block_size=4,
-              attn="fused", device="cuda")
+    kw = dict(n_slots=2, max_len=24, compressed=True, kv="paged",
+              block_size=4, attn="fused", device="cuda")
     want = ServeEngine(model, cfg, **kw).run(reqs)
     kernels.reset_launch_counts()
     eng = ServeEngine(model, cfg, spec=SpecConfig(k=3, draft=draft),
@@ -526,8 +527,9 @@ def test_graphed_engine_equals_eager_engine(arch, draft):
     model = init_model(cfg, seed=0, device="cuda")
     reqs = synthetic_trace(cfg, n_requests=5, prompt_len=9,
                            gen_lens=[4, 7], seed=1)
-    kw = dict(n_slots=2, max_len=24, compressed=True, block_size=4,
-              attn="fused", device="cuda", prewarm=True, strict_prewarm=True,
+    kw = dict(n_slots=2, max_len=24, compressed=True, kv="paged",
+              block_size=4, attn="fused", device="cuda", prewarm=True,
+              strict_prewarm=True,
               spec=draft and SpecConfig(k=3, draft=draft))
     runs = {}
     for graphs in (False, True):
@@ -561,7 +563,7 @@ def test_graphed_prefix_suspend_engine_equals_eager_engine():
     model = init_model(cfg, seed=0, device="cuda")
     reqs = shared_prefix_trace(cfg, n_requests=8, prefix_len=6, suffix_len=2,
                                gen_lens=[3, 5], seed=1, n_prefixes=2)
-    kw = dict(n_slots=3, max_len=16, n_blocks=7, block_size=4,
+    kw = dict(n_slots=3, max_len=16, kv="paged", n_blocks=7, block_size=4,
               prefill_buckets=(4, 8), compressed=True, attn="fused",
               prefix_cache=True, preempt="suspend", debug_invariants=True,
               device="cuda", prewarm=True, strict_prewarm=True)
@@ -584,6 +586,83 @@ def test_graphed_prefix_suspend_engine_equals_eager_engine():
     assert gs["cow_copies"] > 0 and gs["swap_outs"] > 0
     assert gs["swap_ins"] == gs["swap_outs"] == gs["preemptions"]
     assert gs["mid_serve_compiles"] == 0
+
+
+def test_graphed_slotted_engine_equals_eager_engine():
+    """Smoke-size f32 llama at 2 layers on the card over the slotted
+    layout, prewarmed with the trace's prompt lengths and strict, and
+    lazy (each shape captured at first use): more requests than slots, so
+    admissions scatter rows into the pool between replays; tokens,
+    counters and launches equal the eager engine's, and the pool tensors
+    the decode graph captured never moved."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.serve import ServeEngine, synthetic_request
+    cfg = get_config("llama3.2-1b", smoke=True).replace(n_layers=2)
+    model = init_model(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(1)
+    reqs = [synthetic_request(cfg, rng, rid=i, prompt_len=p,
+                              max_new_tokens=g)
+            for i, (p, g) in enumerate(zip([6, 9, 4, 9, 6], [4, 7, 3, 5, 6]))]
+    kw = dict(n_slots=2, max_len=16, compressed=True, device="cuda")
+    runs = {}
+    for name, graphs, warm in (("eager", False, True), ("graphed", True, True),
+                               ("lazy", True, False)):
+        eng = ServeEngine(model, cfg, graphs=graphs, strict_prewarm=warm,
+                          **kw)
+        if warm:
+            eng.prewarm(prompt_lens=[r.prompt_len for r in reqs])
+        assert eng.kv == "slotted" and eng.graphs is graphs
+        ptrs = [t.data_ptr() for t in eng.caches.values()]
+        kernels.reset_launch_counts()
+        res = eng.run(reqs)
+        torch.cuda.synchronize()
+        assert [t.data_ptr() for t in eng.caches.values()] == ptrs
+        runs[name] = (res, eng.stats(),
+                      {k.name: k.launches for k in kernels.all_kernels()})
+    want, ws, wl = runs["eager"]
+    for name in ("graphed", "lazy"):
+        # the lazy engine captures mid-serve, its live rows in the pool:
+        # each capture's first call runs once, as the warm-up
+        got, gs, gl = runs[name]
+        for r in reqs:
+            np.testing.assert_array_equal(got[r.rid].tokens,
+                                          want[r.rid].tokens, err_msg=name)
+        for key in ("tokens", "ticks", "decode_steps", "prefill_calls"):
+            assert gs[key] == ws[key], (name, key)
+        assert gl == wl and gl["nm_spmv"] > 0 and gl["nm_xwt"] > 0, name
+    assert runs["graphed"][1]["mid_serve_compiles"] == 0
+    assert runs["lazy"][1]["mid_serve_compiles"] == 4   # decode + 3 lengths
+
+
+def test_graphed_sequential_decode_equals_eager_across_positions():
+    """The fixed-batch oracle's decode graph reads its position from a
+    static input: graphed tokens equal eager ones at every position (a
+    position baked into the capture would rewrite one slot and diverge),
+    over two batches of one size that reuse the graph and its caches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.serve import serve_sequential, synthetic_trace
+    from repro_torch.serve.sequential import FixedBatch
+    cfg = get_config("llama3.2-1b", smoke=True).replace(n_layers=2)
+    model = init_model(cfg, seed=0, device="cuda")
+    reqs = synthetic_trace(cfg, n_requests=4, prompt_len=7,
+                           gen_lens=[9, 6], seed=2)
+    runs = {g: serve_sequential(model, cfg, reqs, n_slots=2, max_len=16,
+                                device="cuda", graphs=g)
+            for g in (False, True)}
+    (want, ws), (got, gs) = runs[False], runs[True]
+    for r in reqs:
+        np.testing.assert_array_equal(got[r.rid].tokens, want[r.rid].tokens)
+    assert gs["decode_steps"] == ws["decode_steps"] == 16
+    assert gs["graphs"] == 2                  # one prefill, one decode shape
+    fb = FixedBatch(model, cfg, device="cuda")
+    assert fb.graphs
+    fb.run(reqs[:2], max_len=16)
+    ptrs = [t.data_ptr() for t in fb.caches[2, 16].values()]
+    fb.run(reqs[2:], max_len=16)
+    assert [t.data_ptr() for t in fb.caches[2, 16].values()] == ptrs
 
 
 def test_capture_over_a_syncing_function_raises():
@@ -612,9 +691,9 @@ def test_graph_replay_raises_when_a_captured_pool_moved():
                        pool=torch.cuda.graph_pool_handle(),
                        stream=torch.cuda.Stream(),
                        fixed=lambda: [pool["k"]])
-    out = entry(torch.ones(4))           # captured at first use, replayed
+    out = entry(torch.ones(4))           # captured at first use
     torch.cuda.synchronize()
-    assert out.tolist() == [2.0] * 4     # the warm-up's add ran on zeros
+    assert out.tolist() == [2.0] * 4     # the call ran once, as the warm-up
     assert entry(torch.ones(4)).tolist() == [4.0] * 4
     pool["k"] = torch.zeros(4, device="cuda")
     with pytest.raises(RuntimeError, match="moved"):

@@ -34,6 +34,7 @@ from repro.models.ffn import moe_apply as jmoe  # noqa: E402
 from repro.serve import ServeEngine as JEngine  # noqa: E402
 from repro.serve import synthetic_trace as jtrace  # noqa: E402
 from repro.serve.cache import seed_decode_caches as jseed  # noqa: E402
+from _torch_engines import one_thread  # noqa: E402,F401
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.convert import from_reference_params, to_torch  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -435,7 +436,8 @@ def test_engine_token_streams_equal_reference(monkeypatch):
 
 def test_cli_serves_deepseek_on_cpu(capsys):
     tlaunch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                  "--slots", "2", "--requests", "3", "--prompt-len", "6",
+                  "--scheduler", "continuous", "--kv", "paged",
+                  "--attn", "fused", "--slots", "2", "--requests", "3", "--prompt-len", "6",
                   "--gen-mix", "2,4", "--block-size", "4"])
     out = capsys.readouterr().out
     assert "continuous[compressed,paged,fused] on cpu: 8 tokens" in out

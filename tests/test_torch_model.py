@@ -21,6 +21,7 @@ from repro.models import init_model as jinit  # noqa: E402
 from repro.models import prefill as jprefill  # noqa: E402
 from repro.models import weight_stream_bytes as jstream  # noqa: E402
 from repro.models.common import lm_head_apply as jhead  # noqa: E402
+from _torch_engines import one_thread  # noqa: E402,F401
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.convert import from_reference_params, to_torch  # noqa: E402

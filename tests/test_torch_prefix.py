@@ -363,7 +363,8 @@ def _kw(arch, flags, port: bool):
 
 def _port_run(arch, flags, reqs=None):
     _, _, tc, model = _pair(arch)
-    eng = ServeEngine(model, tc, attn="fused", debug_invariants=True,
+    eng = ServeEngine(model, tc, kv="paged", attn="fused",
+                      debug_invariants=True,
                       device="cpu", **_kw(arch, flags, True))
     eng.run(reqs or shared_prefix_trace(tc, **TRACE))
     eng.check_invariants()
@@ -424,8 +425,9 @@ def test_strict_prewarm_serves_prefix_and_suspend_with_no_capture():
     trace with the tokens of the lazy engine."""
     _, _, tc, model = _pair(LLAMA)
     kw = _kw(LLAMA, CASES["prefix_suspend"], True)
-    eng = ServeEngine(model, tc, attn="fused", device="cpu", prewarm=True,
-                      strict_prewarm=True, debug_invariants=True, **kw)
+    eng = ServeEngine(model, tc, kv="paged", attn="fused", device="cpu",
+                      prewarm=True, strict_prewarm=True,
+                      debug_invariants=True, **kw)
     eng.run(shared_prefix_trace(tc, **TRACE))
     lazy = _cached(LLAMA, "prefix_suspend")
     st = eng.stats()
@@ -433,7 +435,7 @@ def test_strict_prewarm_serves_prefix_and_suspend_with_no_capture():
     assert st["mid_serve_compiles"] == 0
     assert st["prefix_hits"] > 0 and st["swap_outs"] > 0
     assert eng.executable_shapes() == ServeEngine(
-        model, tc, device="cpu", **_kw(LLAMA, TIGHT, True)
+        model, tc, kv="paged", device="cpu", **_kw(LLAMA, TIGHT, True)
     ).executable_shapes()
 
 
@@ -494,7 +496,7 @@ def test_admission_backs_out_when_fits_match_disappears():
                               max_new_tokens=2)]
     kw = dict(n_slots=2, max_len=16, block_size=4, n_blocks=4)
     base = _port_run(LLAMA, kw, [dataclasses.replace(r) for r in reqs])
-    eng = ServeEngine(model, tc, compressed=True, attn="fused",
+    eng = ServeEngine(model, tc, compressed=True, kv="paged", attn="fused",
                       prefix_cache=True, device="cpu", **kw)
     faked, orig = [], eng._match
 
@@ -536,7 +538,7 @@ def test_preempt_mid_catchup_preserves_tokens(mode):
               prefill_buckets=(4, 8, 16), compressed=True)
     full = _port_run(LLAMA, dict(kw, n_blocks=None),
                      synthetic_trace(tc, **args))
-    eng = ServeEngine(model, tc, attn="fused", preempt=mode,
+    eng = ServeEngine(model, tc, kv="paged", attn="fused", preempt=mode,
                       debug_invariants=True, device="cpu", **kw)
     pending, orig = [], eng._preempt
 
@@ -556,7 +558,8 @@ def test_preempt_mid_catchup_preserves_tokens(mode):
 
 def test_cli_serves_prefix_cache_and_suspend_on_cpu(capsys):
     tlaunch.main(["--arch", LLAMA, "--smoke", "--device", "cpu",
-                  "--slots", "2", "--requests", "6", "--prompt-len", "8",
+                  "--scheduler", "continuous", "--kv", "paged",
+                  "--attn", "fused", "--slots", "2", "--requests", "6", "--prompt-len", "8",
                   "--gen-mix", "2,4", "--block-size", "4", "--blocks", "6",
                   "--prefix-cache", "--prefix-mix", "2",
                   "--preempt", "suspend"])

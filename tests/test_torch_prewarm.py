@@ -6,11 +6,9 @@ run through the same graphed decode, ``tests/test_torch_prefix.py``).
 On the CPU an entry point runs its function directly, with the same shape
 keys, static-buffer copies and capture accounting as on the card, so what
 is checked here is everything but capture and replay (those are card
-tests in ``tests/test_torch_cuda.py``):
-* a strict prewarmed engine (any mid-serve capture raises) serves a mixed
-  trace (bucket-down and pad-up prompts, speculation with per-request
-  opt-outs) with the tokens of the lazy port engine and of the reference
-  engine (smoke configs, f32, the reference's weights carried over);
+tests in ``tests/test_torch_cuda.py``; the strict prewarmed engine
+against the lazy and the reference engine is in
+``tests/test_torch_prewarm_engine.py``):
 * ``prewarm()`` is idempotent; strict mode raises on a lazy engine;
 * ``executable_shapes()`` equals the reference engine's;
 * the counters account for every entry point; ``abstract_batch`` keys the
@@ -26,16 +24,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
-from repro.configs import get_config as jget  # noqa: E402
-from repro.models import init_model as jinit  # noqa: E402
 from repro.serve import ServeEngine as JEngine  # noqa: E402
 from repro.serve import SpecConfig as JSpec  # noqa: E402
-from repro.serve import synthetic_request as jrequest  # noqa: E402
-from repro_torch.configs import get_config as tget  # noqa: E402
-from repro_torch.convert import from_reference_params  # noqa: E402
+from _torch_engines import DEEPSEEK, LLAMA, one_thread  # noqa: E402,F401
+from _torch_engines import pair as _pair  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.launch import serve as tlaunch  # noqa: E402
 from repro_torch.models import decode_step, prefill, verify_step  # noqa: E402
@@ -47,21 +41,7 @@ from repro_torch.serve.prewarm import (CompileLog, GraphEntry,  # noqa: E402
                                        _shape_key, abstract, abstract_batch,
                                        batch_prompt, enable_compile_cache)
 
-LLAMA, DEEPSEEK = "llama3.2-1b", "deepseek-v2-lite-16b"
 CPU = torch.device("cpu")
-_PAIRS = {}
-
-
-def _pair(arch):
-    """(reference cfg, reference params, port cfg, port model): smoke size,
-    f32, the same weights in both."""
-    if arch not in _PAIRS:
-        jc, tc = jget(arch, smoke=True), tget(arch, smoke=True)
-        params = jax.jit(lambda k: jinit(k, jc)[0])(jax.random.PRNGKey(0))
-        model = from_reference_params(jax.tree.map(np.asarray, params), tc,
-                                      device="cpu")
-        _PAIRS[arch] = (jc, params, tc, model)
-    return _PAIRS[arch]
 
 
 def _trace(cfg, plens, gens, make, seed=5, spec_off=()):
@@ -80,56 +60,13 @@ def _tokens(results):
 
 # ------------------------------------------------------- zero-capture serving
 
-# prompts 3 (pads up to bucket 4) and 7, 5, 6 (bucket down to 4, then the
-# rest replays as forced decode through the verify span; one prefill shape
-# keeps the reference's compiles few); rid 1 opts out of speculation so the
-# plain-decode row runs in the same ticks
-MIXED = dict(plens=[3, 7, 5, 6], gens=[5, 4, 6, 3], spec_off=(1,))
-SPEC_KEYS = ("decode_steps", "tokens", "prefill_calls", "preemptions",
-             "spec_proposed", "spec_accepted", "spec_steps_saved",
-             "draft_steps")
-
-
-@pytest.mark.parametrize("arch,draft,compressed", [
-    (LLAMA, "rerank", True), (DEEPSEEK, "skip", False)])
-def test_strict_prewarmed_engine_matches_lazy_and_reference(arch, draft,
-                                                            compressed):
-    """The tentpole: a strict prewarmed engine (a mid-serve capture would
-    raise) emits the lazy engine's tokens and the reference engine's, with
-    every entry point covered before the first admission.  (deepseek
-    serves its masked weights: the reference's compression pass over the
-    expert stacks would take most of this file's time.)"""
-    jc, params, tc, model = _pair(arch)
-    kw = dict(n_slots=3, max_len=24, kv="paged", block_size=4,
-              compressed=compressed)
-    jeng = JEngine(params, jc, attn="gather", spec=JSpec(k=2, draft=draft),
-                   **kw)
-    want = jeng.run(_trace(jc, make=jrequest, **MIXED))
-    spec = SpecConfig(k=2, draft=draft)
-    lazy = ServeEngine(model, tc, attn="fused", spec=spec, device="cpu",
-                       **kw)
-    r0 = lazy.run(_trace(tc, make=synthetic_request, **MIXED))
-    eng = ServeEngine(model, tc, attn="fused", spec=spec, device="cpu",
-                      prewarm=True, strict_prewarm=True, **kw)
-    r1 = eng.run(_trace(tc, make=synthetic_request, **MIXED))
-    assert _tokens(r1) == _tokens(r0) == _tokens(want)
-    st, js = eng.stats(), jeng.stats()
-    for key in SPEC_KEYS:
-        assert st[key] == lazy.stats()[key] == js[key], key
-    assert st["mid_serve_compiles"] == 0
-    assert st["prewarmed_executables"] == st["executables_expected"] > 0
-    assert st["warm_calls"] > 0 and not eng.graphs
-    assert st["spec_proposed"] > 0        # the trace really speculates
-    assert lazy.stats()["mid_serve_compiles"] > 0
-
-
 def test_prewarm_is_idempotent_and_covers_replayed_trace():
     """A second prewarm() builds nothing new, and a second trace over other
     admissible lengths still hits only prewarmed shapes."""
     _, _, tc, model = _pair(LLAMA)
-    eng = ServeEngine(model, tc, n_slots=2, max_len=20, block_size=4,
-                      compressed=True, attn="fused", device="cpu",
-                      prewarm=True, strict_prewarm=True)
+    eng = ServeEngine(model, tc, n_slots=2, max_len=20, kv="paged",
+                      block_size=4, compressed=True, attn="fused",
+                      device="cpu", prewarm=True, strict_prewarm=True)
     before = eng.stats()["prewarmed_executables"]
     eng.prewarm()
     assert eng.stats()["prewarmed_executables"] == before
@@ -141,8 +78,8 @@ def test_prewarm_is_idempotent_and_covers_replayed_trace():
 
 def test_strict_mode_raises_on_lazy_engine():
     _, _, tc, model = _pair(LLAMA)
-    eng = ServeEngine(model, tc, n_slots=2, max_len=16, block_size=4,
-                      device="cpu", strict_prewarm=True)
+    eng = ServeEngine(model, tc, n_slots=2, max_len=16, kv="paged",
+                      block_size=4, device="cpu", strict_prewarm=True)
     with pytest.raises(RuntimeError, match="mid-serve compile"):
         eng.run(_trace(tc, [5], [4], synthetic_request))
 
@@ -174,9 +111,9 @@ def test_compile_counters_account_every_entry_point():
     """A lazy spec engine's bill: one decode, propose and verify shape and
     one prefill shape per admitted bucket, all mid-serve."""
     _, _, tc, model = _pair(LLAMA)
-    eng = ServeEngine(model, tc, n_slots=2, max_len=20, block_size=4,
-                      compressed=True, attn="fused", device="cpu",
-                      spec=SpecConfig(k=2, draft="rerank"))
+    eng = ServeEngine(model, tc, n_slots=2, max_len=20, kv="paged",
+                      block_size=4, compressed=True, attn="fused",
+                      device="cpu", spec=SpecConfig(k=2, draft="rerank"))
     # rid 1 opts out of speculation so the plain-decode row runs too
     eng.run(_trace(tc, [5, 9], [4, 5], synthetic_request, spec_off=(1,)))
     st = eng.stats()
@@ -205,8 +142,9 @@ def test_abstract_batch_matches_admitted_shapes():
         lp = torch.tensor(b - 1, dtype=torch.long)
         assert (_shape_key((abstract_batch(tc, b), abstract((), torch.long)))
                 == _shape_key((batch_prompt({"tokens": toks}), lp)))
-    eng = ServeEngine(model, tc, n_slots=2, max_len=16, block_size=4,
-                      device="cpu", prewarm=True, strict_prewarm=True)
+    eng = ServeEngine(model, tc, n_slots=2, max_len=16, kv="paged",
+                      block_size=4, device="cpu", prewarm=True,
+                      strict_prewarm=True)
     eng.run(_trace(tc, [6, 13, 2], [3, 3, 2], synthetic_request))
     assert eng.stats()["mid_serve_compiles"] == 0
 
@@ -337,8 +275,10 @@ def test_expert_counts_equal_bincount(e, n):
 def test_cli_prewarm_prints_the_compile_line(capsys, tmp_path, monkeypatch):
     monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)   # restored
     tlaunch.main(["--arch", LLAMA, "--smoke", "--device", "cpu",
-                  "--slots", "2", "--requests", "3", "--prompt-len", "6",
-                  "--gen-mix", "2,4", "--block-size", "4", "--prewarm",
+                  "--scheduler", "continuous", "--kv", "paged",
+                  "--attn", "fused", "--slots", "2", "--requests", "3",
+                  "--prompt-len", "6", "--gen-mix", "2,4", "--block-size",
+                  "4", "--prewarm",
                   "--compile-cache", str(tmp_path)])
     out = capsys.readouterr().out
     assert f"compile cache: {tmp_path}" in out

@@ -18,6 +18,7 @@ from repro.models import init_model as jinit  # noqa: E402
 from repro.serve import ServeEngine as JEngine  # noqa: E402
 from repro.serve import synthetic_trace as jtrace  # noqa: E402
 from repro.serve.paged import default_buckets as jbuckets  # noqa: E402
+from _torch_engines import one_thread  # noqa: E402,F401
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.convert import from_reference_params  # noqa: E402
 from repro_torch.launch import serve as tlaunch  # noqa: E402
@@ -177,8 +178,7 @@ def test_idle_rows_write_only_the_trash_block():
 
 
 @pytest.mark.parametrize("kw,msg", [
-    (dict(kv="slotted"), "slotted"),
-    (dict(spec=SpecConfig(draft="skip"), mesh=object()), "mesh"),
+    (dict(kv="paged", spec=SpecConfig(draft="skip"), mesh=object()), "mesh"),
     (dict(mesh=object()), "mesh"),
 ])
 def test_unported_engine_features_raise(kw, msg):
@@ -188,11 +188,14 @@ def test_unported_engine_features_raise(kw, msg):
 
 
 def test_cli_serves_on_cpu(capsys):
-    tlaunch.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
-                  "--slots", "2", "--requests", "3", "--prompt-len", "6",
-                  "--gen-mix", "2,4", "--block-size", "4"])
+    args = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu", "--slots",
+            "2", "--requests", "3", "--prompt-len", "6", "--gen-mix", "2,4"]
+    tlaunch.main(args + ["--scheduler", "continuous", "--kv", "paged",
+                         "--attn", "fused", "--block-size", "4"])
     out = capsys.readouterr().out
     assert "continuous[compressed,paged,fused] on cpu: 8 tokens" in out
-    with pytest.raises(NotImplementedError, match="sequential"):
-        tlaunch.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
-                      "--scheduler", "sequential"])
+    tlaunch.main(args + ["--scheduler", "sequential"])
+    out = capsys.readouterr().out.splitlines()
+    # the reference's output: the sequential line, then the sample
+    assert out[0] == "sequential[compressed]: 8 tokens in 4 decode steps"
+    assert out[1].startswith("sample: [")

@@ -3,7 +3,9 @@ the span write, the verify attention (plain versions of the two verify
 kernels), ``verify_step``, ``BlockPool.rollback`` and the speculative
 engine, each against the reference (llama3.2-1b and deepseek-v2-lite-16b
 smoke configs, f32, the reference's jax.random weights carried over through
-repro_torch.convert, inputs drawn with numpy).
+repro_torch.convert, inputs drawn with numpy).  The engine's token streams
+against the reference engine's are in ``tests/test_torch_spec_engine.py``
+and ``tests/test_torch_spec_demotion.py``.
 
 Tolerances: re-ranking, span writes, pool bookkeeping and token streams are
 exact.  Verify attention: 1e-5 in f32 (sums in other orders over a few
@@ -21,26 +23,23 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from repro.configs import get_config as jget  # noqa: E402
 from repro.core.sparse_matmul import nm_rerank as jrerank  # noqa: E402
 from repro.core.sparsity import compress as jcompress  # noqa: E402
 from repro.kernels.flash_attention import paged_gqa_verify as jgqa_verify  # noqa: E402
 from repro.kernels.flash_attention import paged_mla_verify as jmla_verify  # noqa: E402
-from repro.models import convert_to_compressed as jconvert  # noqa: E402
-from repro.models import init_model as jinit  # noqa: E402
 from repro.models import make_draft as jmake_draft  # noqa: E402
 from repro.models import prefill as jprefill  # noqa: E402
 from repro.models import verify_step as jverify  # noqa: E402
 from repro.models import weight_stream_bytes as jstream  # noqa: E402
 from repro.models.attention import _paged_write_span as jwrite_span  # noqa: E402
 from repro.serve import BlockPool as JPool  # noqa: E402
-from repro.serve import ServeEngine as JEngine  # noqa: E402
 from repro.serve import SpecConfig as JSpec  # noqa: E402
-from repro.serve import synthetic_request as jrequest  # noqa: E402
 from repro.serve.speculative import accept_greedy as jaccept  # noqa: E402
 from repro.serve.speculative import draft_propose_k as jpropose  # noqa: E402
-from repro_torch.configs import get_config as tget  # noqa: E402
-from repro_torch.convert import from_reference_params, to_torch  # noqa: E402
+from _torch_engines import DEEPSEEK, LLAMA, one_thread  # noqa: E402,F401
+from _torch_engines import pair as _pair  # noqa: E402
+from _torch_engines import ragged as _ragged  # noqa: E402
+from repro_torch.convert import to_torch  # noqa: E402
 from repro_torch.core.sparse_matmul import nm_rerank  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     paged_gqa_decode_plain, paged_gqa_verify_plain, paged_mla_decode_plain,
@@ -57,33 +56,9 @@ from repro_torch.serve import engine as engine_mod  # noqa: E402
 TOL = dict(rtol=1e-4, atol=1e-4)
 ATTN_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
             "bfloat16": dict(rtol=2e-2, atol=2e-2)}
-LLAMA, DEEPSEEK = "llama3.2-1b", "deepseek-v2-lite-16b"
 _CACHE = {}
 _jverify_jit = jax.jit(jverify, static_argnums=(1,),
                        static_argnames=("attn_impl",))
-
-
-def _pair(arch, compressed=False):
-    """(reference cfg, reference params, port cfg, port model), smoke size,
-    f32, the same weights in both."""
-    key = (arch, compressed)
-    if key not in _CACHE:
-        if arch not in _CACHE:     # jitted: eager init takes seconds
-            jc = jget(arch, smoke=True)
-            _CACHE[arch] = jax.jit(lambda k: jinit(k, jc)[0])(
-                jax.random.PRNGKey(0))
-        jc, tc = jget(arch, smoke=True), tget(arch, smoke=True)
-        params = _CACHE[arch]
-        if compressed:
-            jc = jc.replace(sparsity=dataclasses.replace(
-                jc.sparsity, mode="compressed"))
-            tc = tc.replace(sparsity=dataclasses.replace(
-                tc.sparsity, mode="compressed"))
-            params = jax.jit(jconvert, static_argnums=(1,))(params, jc)
-        model = from_reference_params(jax.tree.map(np.asarray, params), tc,
-                                      device="cpu")
-        _CACHE[key] = (jc, params, tc, model)
-    return _CACHE[key]
 
 
 # ------------------------------------------------------------- nm_rerank
@@ -549,98 +524,13 @@ def test_check_invariants_covers_the_whole_span_window():
 
 # ----------------------------------------------------------------- engine
 
-def _ragged(cfg, plens, gens, seed, make, spec=None):
-    rng = np.random.default_rng(seed)
-    reqs = [make(cfg, rng, rid=i, prompt_len=p, max_new_tokens=g)
-            for i, (p, g) in enumerate(zip(plens, gens))]
-    for r, on in zip(reqs, spec or ()):
-        r.spec = on
-    return reqs
-
-
-SPEC_KEYS = ("decode_steps", "tokens", "prefill_calls", "preemptions",
-             "spec_proposed", "spec_accepted", "spec_steps_saved",
-             "draft_steps", "draft_stream_bytes")
-
-
-def _engines(arch, draft, plens, gens, seed, spec_on=None, **pool):
-    """Token streams and stats of the reference spec engine, the port's
-    spec engine and the port's non-spec engine on one trace (n_slots 2,
-    k 3; prompts bucket down, so prompt catch-up rides the verify span).
-    Returns (reference, port, port non-spec) as (results, stats) pairs."""
-    jc, params, tc, model = _pair(arch)
-    kw = dict(n_slots=2, max_len=24, kv="paged", block_size=4,
-              compressed=True, **pool)
-    jeng = JEngine(params, jc, attn="gather", spec=JSpec(k=3, draft=draft),
-                   **kw)
-    jres = jeng.run(_ragged(jc, plens, gens, seed, jrequest, spec_on))
-    out = [(jres, jeng.stats())]
-    for spec in (SpecConfig(k=3, draft=draft), None):
-        teng = ServeEngine(model, tc, attn="fused", spec=spec,
-                           debug_invariants=True, device="cpu", **kw)
-        tres = teng.run(_ragged(tc, plens, gens, seed, synthetic_request,
-                                spec_on))
-        assert teng.pool.free_blocks == teng.pool.usable_blocks
-        out.append((tres, teng.stats()))
-    return out
-
-
-def _assert_same_tokens(a, b, what):
-    assert sorted(a) == sorted(b)
-    for rid in a:
-        np.testing.assert_array_equal(a[rid].tokens, b[rid].tokens,
-                                      err_msg=f"{what} rid {rid}")
-
-
-@pytest.mark.parametrize("arch,draft", [(LLAMA, "rerank"), (LLAMA, "skip"),
-                                        (DEEPSEEK, "skip")])
-def test_engine_spec_matches_reference(arch, draft):
-    """Token streams and every spec counter equal the reference spec
-    engine's, and the tokens equal the port's non-spec engine's in fewer
-    target passes.  At 2 slots x 4 span tokens the MoE verify batch stays
-    under the expert-capacity floor, so no route drops."""
-    (jres, js), (tres, ts), (pres, ps) = _engines(
-        arch, draft, plens=[6, 11, 4, 7], gens=[8, 6, 9, 7], seed=7)
-    _assert_same_tokens(jres, tres, "reference vs port")
-    _assert_same_tokens(pres, tres, "port non-spec vs spec")
-    for key in SPEC_KEYS:
-        assert ts[key] == js[key], key
-    assert ts["spec_steps_saved"] > 0
-    assert ts["decode_steps"] < ps["decode_steps"]
-
-
-def test_engine_spec_override_and_demotion_match_reference(monkeypatch):
-    """Half the requests opt out (``Request.spec=False``) and ride the
-    plain forward in the same ticks; the pool (7 usable blocks for 2 slots
-    of up to 6) is small enough that speculating slots get demoted to a
-    1-wide span, and a preemption follows.  Still equal to the reference
-    and to the non-spec engine."""
-    demoted = []
-    orig = ServeEngine._prepare_slots
-
-    def watch(self, spec_set=None):
-        before = set(spec_set or ())
-        orig(self, spec_set)
-        demoted.extend(before - set(spec_set or ()))
-    monkeypatch.setattr(ServeEngine, "_prepare_slots", watch)
-    (jres, js), (tres, ts), (pres, _) = _engines(
-        LLAMA, "skip", plens=[9, 13, 6, 12, 8], gens=[11, 9, 10, 8, 12],
-        seed=5, spec_on=[None, False, True, False, None], n_blocks=8)
-    _assert_same_tokens(jres, tres, "reference vs port")
-    _assert_same_tokens(pres, tres, "port non-spec vs spec")
-    for key in SPEC_KEYS:
-        assert ts[key] == js[key], key
-    assert demoted, "trace no longer forces a demotion"
-    assert ts["preemptions"] > 0 and ts["spec_proposed"] > 0
-
-
 def test_engine_spec_validation():
     _, _, tc, model = _pair(LLAMA)
     with pytest.raises(ValueError, match="rerank"):
-        ServeEngine(model, tc, n_slots=1, max_len=8, device="cpu",
-                    spec=SpecConfig(draft="rerank"))
-    eng = ServeEngine(model, tc, n_slots=1, max_len=8, device="cpu",
-                      spec=SpecConfig(draft="skip"))
+        ServeEngine(model, tc, n_slots=1, max_len=8, kv="paged",
+                    device="cpu", spec=SpecConfig(draft="rerank"))
+    eng = ServeEngine(model, tc, n_slots=1, max_len=8, kv="paged",
+                      device="cpu", spec=SpecConfig(draft="skip"))
     assert eng.stats()["spec_proposed"] == 0.0
 
 
@@ -670,19 +560,22 @@ def test_verify_passes_are_the_engines_verify_calls(monkeypatch):
 
 # -------------------------------------------------------------------- CLI
 
+PAGED_CLI = ["--scheduler", "continuous", "--kv", "paged", "--attn", "fused"]
+
+
 def test_cli_serves_with_spec_on_cpu(capsys):
-    tlaunch.main(["--arch", LLAMA, "--smoke", "--device", "cpu",
+    tlaunch.main(["--arch", LLAMA, "--smoke", "--device", "cpu", *PAGED_CLI,
                   "--slots", "2", "--requests", "3", "--prompt-len", "6",
                   "--gen-mix", "2,4", "--block-size", "4", "--spec"])
     out = capsys.readouterr().out
     assert "continuous[compressed,paged,fused] on cpu: 8 tokens" in out
     assert "speculative[rerank,k=3]: acceptance" in out
     tlaunch.main(["--arch", DEEPSEEK, "--smoke", "--device", "cpu",
-                  "--slots", "2", "--requests", "2", "--prompt-len", "6",
-                  "--gen", "5", "--block-size", "4", "--spec", "--draft",
-                  "skip", "--spec-k", "2"])
+                  *PAGED_CLI, "--slots", "2", "--requests", "2",
+                  "--prompt-len", "6", "--gen", "5", "--block-size", "4",
+                  "--spec", "--draft", "skip", "--spec-k", "2"])
     out = capsys.readouterr().out
     assert "on cpu: 10 tokens" in out and "speculative[skip,k=2]" in out
     with pytest.raises(SystemExit, match="compressed"):
         tlaunch.main(["--arch", LLAMA, "--smoke", "--device", "cpu",
-                      "--weights", "dense", "--spec"])
+                      *PAGED_CLI, "--weights", "dense", "--spec"])

@@ -477,7 +477,8 @@ def coldstart(root: str) -> dict:
     run_cli = ("import sys; sys.path.insert(0, sys.argv.pop(1)); "
                "from repro_torch.launch import serve; serve.main(sys.argv[1:])")
     cmd = [sys.executable, "-c", run_cli, os.path.join(root, "src"), "--arch",
-           "llama3.2-1b", "--prewarm", "--compile-cache", cache, "--slots",
+           "llama3.2-1b", "--scheduler", "continuous", "--kv", "paged",
+           "--attn", "fused", "--prewarm", "--compile-cache", cache, "--slots",
            "8", "--requests", "8", "--prompt-len", "128", "--gen", "16",
            "--block-size", "16"]
     out = {}
