@@ -43,6 +43,13 @@ Phases (any failure exits non-zero and prints no result line):
    gemma2-9b local layer (d 256, window 4096, softcap 50, S 8192, BH 2),
    deepseek's MLA prefill (d 192, dv 128) and a q_off slice, then one
    launch per case through the entry point with the counts zeroed.
+   gemma2-9b: nm_spmv / nm_xwt at one gemma2 layer's seven linears (K
+   3584 / 14336), and paged_gqa_decode and paged_gqa_verify (S 4) at its
+   serving shape (8 slots, KVH 8, G 2, d 256, block 16, window 4096,
+   softcap 50, kv_len up to 4160: two rows past the window), f32 and
+   bf16 against their plain versions, verify against decode bit for bit;
+   SDPA, the yardstick, runs under the same window mask without the
+   softcap (it has none).
 Every serve phase (3-6, 8) runs the engine as a user would on the card:
 each entry point (decode, prefill per bucket, propose, verify) captured as
 CUDA graphs before the first admission (``prewarm=True``), any mid-serve
@@ -150,7 +157,27 @@ steady tick and the graph pool's bytes.
    llama and deepseek after their phases: full width, 4 layers, float32,
    2 slots: slotted = paged = sequential tokens, each graphed = eager,
    ``forward`` within 1e-3 of the reference route.
-10. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
+10. gemma2-9b at full width (42 layers: 21 local (window 4096) / global
+   pairs, d 3584, 16 / 8 heads of 256, d_ff 14336, vocab 256000 tied,
+   softcaps 50 / 30, bf16, 2:4 compressed as drawn).  10a: phase 3's
+   trace on the paged fused engine, graphed and prewarmed, the eager
+   engine beside it; hard: nm_spmv launched decode ticks x 42 x 7 and
+   paged_gqa_decode ticks x 42 times; the steady tick against its byte
+   floor and the ``[profile]`` line.  10c: the same trace with
+   ``SpecConfig(k=3, draft="rerank")``.  10b, the window bites: 2
+   requests of prompt 4160 + gen 32 (max_len 4224) through the paged
+   fused, paged gather and slotted (local rings of 4096) engines and the
+   sequential oracle, graphed; tokens/s, KV bytes, bf16 flips with their
+   top-2 margins.  10d, hard, float32, 4 layers, 2 slots, prompts 4160
+   and 128: slotted = paged = sequential tokens, each graphed = eager;
+   ``forward`` at position 4160 against ``prefill`` + ``decode_step`` on
+   the slotted rings and the paged pool, a verify span of 4 against 4
+   decode steps (equal greedy tokens), and the kernel route against the
+   plain route, all within 1e-3.  Then deepseek-67b and
+   mistral-large-123b at 2 layers and arctic-480b at 1 MoE layer (with
+   its dense residual), full width, bf16: eager prefill [1, 128] + 4
+   decode steps, the kernel route within 0.25 of the plain route.
+11. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
    device line last.  The total time is printed on the ``[done]`` line.
 """
 
@@ -844,6 +871,136 @@ def phase_attention(torch, F):
                 max_abs_err=worst)
 
 
+# gemma2-9b's decode attention (KVH 8, G 2, d 256, window 4096, softcap 50)
+# at 8 slots: two rows past the window, one at it, short ones (row 0, the
+# masked row of a span table, reads trash only)
+GEMMA_LENS = [1, 4160, 4100, 4096, 17, 700, 64, 2]
+GEMMA_WINDOW, GEMMA_CAP = 4096, 50.0
+
+
+def _window_mask(torch, kv_len, s, length, window):
+    """[B, 1, S, length] mask of a span under a window: offset i sees
+    positions (kv_len + i - 1 - window, kv_len + i - 1]."""
+    top = kv_len.long()[:, None] + torch.arange(s, device="cuda")
+    idx = torch.arange(length, device="cuda")[None, None, :]
+    return ((idx < top[:, :, None])
+            & (idx >= top[:, :, None] - window))[:, None]
+
+
+def phase_gemma2_attention(torch, F):
+    """paged_gqa_decode (S 1) and paged_gqa_verify (S 4) at gemma2-9b's
+    serving shape: 8 slots, KVH 8, G 2, d = dv = 256, block 16, window
+    4096, softcap 50, kv_len ``GEMMA_LENS``; f32 (the first body) and bf16
+    (the tensor-core body, ~74 / ~99 KB of shared memory a CTA) against
+    the plain versions, verify also against S decode launches bit for bit.
+    bf16 timed beside the bound (the positions each row's window reads)
+    and SDPA over the gathered K/V under the same window mask; SDPA has no
+    softcap, so it computes the uncapped function.  Returns the decode and
+    verify rows."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    lens, b, kvh, g, d, bs = GEMMA_LENS, len(GEMMA_LENS), 8, 2, 256, 16
+    win, cap, scale = GEMMA_WINDOW, GEMMA_CAP, 256 ** -0.5
+    kw = dict(scale=scale, window=win, cap=cap)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    inputs, worst, ok = {}, {1: 0.0, SPAN: 0.0}, True
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        for s in (1, SPAN):
+            tbl, nb = _span_table(torch, gen, lens, s, bs)
+            kp = torch.randn(nb, bs, kvh, d, generator=gen,
+                             device="cuda").to(dtype)
+            vp = torch.randn(nb, bs, kvh, d, generator=gen,
+                             device="cuda").to(dtype)
+            kp[0] = 1e4
+            vp[0] = 1e4
+            q = torch.randn(b, s, kvh, g, d, generator=gen,
+                            device="cuda").to(dtype)
+            inputs[dname, s] = (q, kp, vp, tbl)
+            plan = fa.gqa_plan(b, s, kvh, g, d, d, bs, tbl.shape[1], dtype)
+            if s == 1:
+                name = "paged_gqa_decode"
+                out = fa.paged_gqa_decode(q[:, 0].contiguous(), kp, vp, tbl,
+                                          kv_len, **kw)
+                want = fa.paged_gqa_decode_plain(q[:, 0].contiguous(), kp,
+                                                 vp, tbl, kv_len, **kw)
+                same = True
+            else:
+                name = "paged_gqa_verify"
+                out = fa.paged_gqa_verify(q, kp, vp, tbl, kv_len, **kw)
+                want = fa.paged_gqa_verify_plain(q, kp, vp, tbl, kv_len, **kw)
+                dec = torch.stack([fa.paged_gqa_decode(
+                    q[:, i].contiguous(), kp, vp, tbl, kv_len + i, **kw)
+                    for i in range(s)], 1)
+                same = bool(torch.equal(out, dec))
+            e, good = max_err(torch, out, want, ATTN_TOL, ATTN_TOL)
+            worst[s], ok = max(worst[s], e), ok and good and same
+            log(f"[check] {name} gemma2-9b {dname} (KVH 8, G 2, d 256, "
+                f"window {win}, cap {cap}, kv_len {lens}, {plan.body} body, "
+                f"{plan.smem} B shared memory of {fa.SMEM_LIMIT}) max_abs_err"
+                f" {e:.3e} tol {ATTN_TOL}+{ATTN_TOL}|ref|"
+                + ("" if s == 1 else
+                   f", offsets vs decode at kv_len + i "
+                   f"{'bitwise equal' if same else 'NOT bitwise'}")
+                + f" {'ok' if good and same else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 2: paged GQA attention disagrees with its "
+                         "plain version at gemma2-9b's shape")
+    rows = {}
+    for s, name in ((1, "paged_gqa_decode"), (SPAN, "paged_gqa_verify")):
+        q, kp, vp, tbl = inputs["bfloat16", s]
+        if s == 1:
+            q1 = q[:, 0].contiguous()
+
+            def run():
+                return fa.paged_gqa_decode(q1, kp, vp, tbl, kv_len, **kw)
+
+            def plain():
+                return fa.paged_gqa_decode_plain(q1, kp, vp, tbl, kv_len,
+                                                 **kw)
+        else:
+            def run():
+                return fa.paged_gqa_verify(q, kp, vp, tbl, kv_len, **kw)
+
+            def plain():
+                return fa.paged_gqa_verify_plain(q, kp, vp, tbl, kv_len,
+                                                 **kw)
+        length = tbl.shape[1] * bs
+        kr = kp[tbl.long()].reshape(b, length, kvh, d).repeat_interleave(g, 2)
+        vr = vp[tbl.long()].reshape(b, length, kvh, d).repeat_interleave(g, 2)
+        kr = kr.transpose(1, 2).contiguous()
+        vr = vr.transpose(1, 2).contiguous()
+        qq = q.permute(0, 2, 3, 1, 4).reshape(b, kvh * g, s, d)
+        mask = _window_mask(torch, kv_len, s, length, win)
+
+        def lib():
+            return F.scaled_dot_product_attention(qq, kr, vr, attn_mask=mask,
+                                                  scale=scale)
+        ms, dev = time_ms(torch, run, iters=50), device_ms(torch, run, 50)
+        plain_ms = time_ms(torch, plain, iters=5)
+        lib_ms, lib_dev = time_ms(torch, lib, iters=20), device_ms(torch,
+                                                                   lib, 20)
+        # each row reads its span's window once; offset i scores min(n + i,
+        # window) positions
+        read = sum(min(n + s - 1, win + s - 1) for n in lens)
+        seen = sum(min(n + i, win) for n in lens for i in range(s))
+        nbytes = (q.numel() * 2 + read * kvh * 2 * d * 2 + tbl.numel() * 4
+                  + b * 4 + b * s * kvh * g * d * 4)
+        bnd, by = bound_ms(nbytes, 2.0 * seen * kvh * g * 2 * d, "bfloat16")
+        log(f"[time] {name} one launch at gemma2-9b's shape (bf16, 8 slots "
+            f"x span {s}, kv_len {lens}, window {win}, cap {cap}): kernel "
+            f"{ms:.4f} ms (device {dev:.4f} ms), bound {bnd:.5f} ms ({by}, "
+            f"{nbytes / 1e6:.2f} MB), plain {plain_ms:.4f} ms, SDPA on the "
+            f"gathered K/V under the window mask, without the softcap "
+            f"(SDPA has none) {lib_ms:.4f} ms (device {lib_dev:.4f} ms)")
+        rows[name] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms,
+                          bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+                          library_device_ms=lib_dev,
+                          library_note="SDPA without the softcap",
+                          max_abs_err=worst[s])
+    return rows
+
+
 def _mla_inputs(torch, dtype, gen, lens, h=16, r=512, rd=64, bs=16):
     tbl, nb = _paged_table(torch, gen, lens, bs)
     cp = torch.randn(nb, bs, r, generator=gen, device="cuda").to(dtype)
@@ -1472,7 +1629,8 @@ def check_graphed(torch, model, cfg, kw, reqs, eng, wall, again_wall,
     plans, so the same bits are expected: a token flip is printed with the
     top-2 margin where it happened, and counters that differ where every
     token agrees fail the phase.  Tokens/s of the runs in the order eager,
-    graphed, graphed and (with ``last_eager``) eager again; the prewarm's
+    graphed, graphed (where ``again_wall`` is not None) and (with
+    ``last_eager``) eager again; the prewarm's
     seconds and graphs, mid-serve captures, first and steady tick of both
     engines, the graph pool's bytes and (``busy``: the eager and graphed
     ``profile_breakdown`` shares) the traced busy share."""
@@ -1491,12 +1649,13 @@ def check_graphed(torch, model, cfg, kw, reqs, eng, wall, again_wall,
                              f"{moved}")
         if moved:
             log(f"[graph]   counters differ with the tokens: {moved}")
-    rate = [st["tokens"] / w for w in (wall, again_wall)]
+    rate = [st["tokens"] / w for w in (wall, again_wall) if w is not None]
     erate = [e.stats()["tokens"] / w for e, w in runs]
     order = [erate[0], *rate] + erate[1:]
     es = runs[0][0].stats()
     pool = graph_pool_bytes(torch, eng)
-    log(f"[graph] {phase} {cfg.name}: tokens/s eager, graphed, graphed"
+    log(f"[graph] {phase} {cfg.name}: tokens/s eager"
+        f"{', graphed' * len(rate)}"
         f"{', eager' if last_eager else ''}: "
         f"{', '.join(f'{r:.1f}' for r in order)} (graphed / eager "
         f"{sum(rate) / sum(erate) * len(erate) / len(rate):.2f}x); prewarm "
@@ -1671,20 +1830,23 @@ def check_onehot_exact(torch):
 
 
 def phase_spec(torch, model, cfg, kw, spec, path, verify_kernel, base,
-               base_wall, phase):
+               base_wall, phase, repeat: bool = True):
     """The phase-3/4 trace through the speculative engine.  A verify pass is
     one call of the engine's verify entry (one graph replay); the verify
     kernel must launch once per layer per pass.  Tokens are compared with
-    the plain run ``base`` and with the eager speculative engine, and the
-    device busy share read from a traced run."""
+    the plain run ``base`` and with the eager speculative engine, and (with
+    ``repeat``) with a second graphed run, and the device busy share read
+    from a traced run."""
     skw = dict(kw, spec=spec)
     eng, reqs, launches, wall, first_eager = serve_run(
         torch, model, cfg, path, skw, phase)
     passes = eng.entries["verify"].calls
-    again = check_repeat(torch, model, cfg, skw, reqs, eng, phase)
-    busy = profile_breakdown(torch, model, cfg, skw)
+    again, busy = None, None
+    if repeat:
+        again = check_repeat(torch, model, cfg, skw, reqs, eng, phase)
+        busy = (None, profile_breakdown(torch, model, cfg, skw))
     check_graphed(torch, model, cfg, skw, reqs, eng, wall, again,
-                  first_eager, phase, last_eager=False, busy=(None, busy))
+                  first_eager, phase, last_eager=False, busy=busy)
     want = passes * cfg.n_layers
     if launches[verify_kernel] != want:
         raise SystemExit(f"{phase}: {verify_kernel} launched "
@@ -2677,6 +2839,366 @@ def profile_breakdown(torch, model, cfg, kw, time_calls: bool = False):
     return share
 
 
+# ----------------------------------------------------------------- phase 10
+
+# one gemma2-9b layer's seven linears (out, in): wq, wk, wv, wo, wg, wu, wd
+GEMMA_LAYER_SHAPES = [(4096, 3584), (2048, 3584), (2048, 3584), (3584, 4096),
+                      (14336, 3584), (14336, 3584), (3584, 14336)]
+GEMMA_CHECK_SHAPES = [(4096, 3584), (2048, 3584), (3584, 4096),
+                      (14336, 3584), (3584, 14336)]
+# 10b: prompts past the window (4096) by 64, not a multiple of it
+WINDOW_PROMPT, WINDOW_GEN, WINDOW_MAX_LEN = 4160, 32, 4224
+GEMMA_EXACT_PROMPTS = (4160, 4160, 128, 128)
+GEMMA_EXACT_GENS = (12, 9, 12, 9)
+
+
+def drawn_params(model, cfg) -> int:
+    """Elements of the tensors ``init_model`` drew (a compressed linear
+    counted at its dense shape): the model's real size, where
+    ``param_count`` keeps the reference's formula (a gelu MLP as 2 d d_ff,
+    though the MLP is gated)."""
+    from repro_torch.core.layers import SparseLinear
+    sp = cfg.sparsity
+    n = 0
+    for mod in model.modules():
+        if isinstance(mod, SparseLinear):
+            n += (mod.w_vals.numel() * sp.m // sp.n if mod.compressed
+                  else mod.w.numel())
+        else:
+            n += sum(t.numel() for t in mod.buffers(recurse=False))
+    return n
+
+
+def tick_floor_ms(st, cfg, kv_positions):
+    """Byte floor of one decode tick: the weight stream, the tied LM head's
+    table and the K/V the slots' windows read, over the memory rate."""
+    head = cfg.vocab * cfg.d_model * 2
+    kv = kv_positions * cfg.n_kv * cfg.hd() * 2 * 2
+    return (st["weight_stream_bytes"] + head + kv) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_gemma2(torch, card):
+    """Phase 10: full-width gemma2-9b (42 layers: 21 local (window 4096) /
+    global pairs, d 3584, 16 heads over 8 KV heads of 256, d_ff 14336,
+    vocab 256000 tied, softcaps 50 / 30, bf16, 2:4 compressed as drawn)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.models.config import param_count
+    from repro_torch.serve import ServeEngine, SpecConfig, synthetic_trace
+    from repro_torch.serve.sequential import FixedBatch
+    t_phase = time.perf_counter()
+    cfg = get_config("gemma2-9b")
+    cfg = cfg.replace(sparsity=dataclasses.replace(cfg.sparsity,
+                                                   mode="compressed"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[phase 10] init {cfg.name}: {cfg.n_layers}L ({cfg.n_layers // 2} "
+        f"local / global pairs, window {cfg.window}) d{cfg.d_model} "
+        f"{cfg.n_heads}H/{cfg.n_kv}KV hd {cfg.hd()} d_ff {cfg.d_ff} vocab "
+        f"{cfg.vocab} tied, softcaps {cfg.softcap_attn} / "
+        f"{cfg.softcap_final}, {cfg.dtype}, 2:4 compressed as drawn: "
+        f"{drawn_params(model, cfg) / 1e9:.3f} B drawn parameters "
+        f"(param_count's formula {param_count(cfg) / 1e9:.3f} B) in "
+        f"{time.perf_counter() - t0:.1f}s; resident "
+        f"{gib(torch.cuda.memory_allocated())}, peak "
+        f"{gib(torch.cuda.max_memory_allocated())} on {card}")
+    path = {}
+
+    # ---- 10a: phase 3's trace on the paged fused engine
+    kw = graphed(dict(n_slots=8, max_len=128 + 32, compressed=True,
+                      kv="paged", attn="fused", block_size=16,
+                      device="cuda"))
+    eng, reqs, launches, wall, first_eager = serve_run(
+        torch, model, cfg, LLAMA_PATH, kw, "phase 10a")
+    path[cfg.name] = launches
+    ticks = eng.decode_steps
+    check_path(launches, LLAMA_PATH, "phase 10a",
+               nm_spmv=ticks * cfg.n_layers * LINEARS_PER_LAYER,
+               paged_gqa_decode=ticks * cfg.n_layers)
+    again = check_repeat(torch, model, cfg, kw, reqs, eng, "phase 10a")
+    busy = profile_breakdown(torch, model, cfg, kw)
+    check_graphed(torch, model, cfg, kw, reqs, eng, wall, again,
+                  first_eager, "phase 10a", last_eager=False,
+                  busy=(None, busy))
+    st = eng.stats()
+    # a steady tick of 8 slots reads at most 8 x 160 positions per layer
+    floor = tick_floor_ms(st, cfg, 8 * 160 * cfg.n_layers)
+    log(f"[10a] {cfg.name}: {st['tokens'] / wall:.1f} tokens/s graphed, "
+        f"steady tick {st['steady_tick_s'] * 1e3:.2f} ms against a byte "
+        f"floor of {floor:.2f} ms (weight stream "
+        f"{st['weight_stream_bytes'] / 1e9:.3f} GB + LM head "
+        f"{cfg.vocab * cfg.d_model * 2 / 1e9:.3f} GB + K/V, at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); launches nm_spmv "
+        f"{launches['nm_spmv']} = {ticks} ticks x {cfg.n_layers} x "
+        f"{LINEARS_PER_LAYER}, paged_gqa_decode "
+        f"{launches['paged_gqa_decode']} = {ticks} x {cfg.n_layers}, "
+        f"nm_xwt {launches['nm_xwt']}")
+
+    log(f"[time] phase 10a {time.perf_counter() - t_phase:.1f}s")
+
+    # ---- 10c: the same trace with rerank speculation
+    spec = SpecConfig(k=SPAN - 1, draft="rerank")
+    # 10a already checked a second run and traced the tick
+    path[f"{cfg.name} spec"] = phase_spec(
+        torch, eng.model, eng.cfg, kw, spec, LLAMA_SPEC_PATH,
+        "paged_gqa_verify", eng, wall, "phase 10c", repeat=False)
+    err, same = verify_vs_decode(torch, eng.model, eng.cfg,
+                                 reqs[0].inputs["tokens"], seed=22)
+    log(f"[10c] {cfg.name} bf16, 42 layers: a verify span of {SPAN} after "
+        f"a 128-token prompt against {SPAN} decode steps on the same pool: "
+        f"max |dlogit| {err:.3e}, greedy tokens "
+        f"{'equal' if same else 'differ'} (the linears run nm_xwt in the "
+        f"span and nm_spmv in decode, each rounding to bf16)")
+    del eng, first_eager
+    free_card(torch)
+    log(f"[time] phase 10c {time.perf_counter() - t_phase:.1f}s")
+
+    # ---- 10b: the window bites (prompts of 4160 past the 4096 window)
+    wreqs = synthetic_trace(cfg, n_requests=2, prompt_len=WINDOW_PROMPT,
+                            gen_lens=[WINDOW_GEN], seed=21)
+    base = dict(n_slots=2, max_len=WINDOW_MAX_LEN, compressed=True,
+                device="cuda")
+    results, parts = {}, []
+    for name, k in (("paged fused", graphed(dict(
+                        base, kv="paged", attn="fused", block_size=16,
+                        prefill_buckets=(WINDOW_PROMPT,)))),
+                    ("paged gather", graphed(dict(
+                        base, kv="paged", attn="gather", block_size=16,
+                        prefill_buckets=(WINDOW_PROMPT,)))),
+                    ("slotted", dict(base, strict_prewarm=True))):
+        e = ServeEngine(model, cfg, **k)
+        if e.kv == "slotted":
+            e.prewarm(prompt_lens=[WINDOW_PROMPT])
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.run(wreqs)
+        torch.cuda.synchronize()
+        w = time.perf_counter() - t0
+        launched = {kk.name: kk.launches for kk in kernels.all_kernels()}
+        es = e.stats()
+        if es["mid_serve_compiles"] or es["tokens"] != 2 * WINDOW_GEN:
+            raise SystemExit(f"phase 10b {name}: {es['tokens']} tokens, "
+                             f"{es['mid_serve_compiles']} mid-serve "
+                             f"captures")
+        kv = (es["kv_bytes_resident"] if e.kv == "slotted"
+              else es["kv_bytes_peak"])
+        parts.append(f"{name} {es['tokens'] / w:.1f} tokens/s, KV {mib(kv)} "
+                     f"({'preallocated rows' if e.kv == 'slotted' else 'peak blocks'}), "
+                     f"paged_gqa_decode {launched['paged_gqa_decode']}, "
+                     f"graph pool {gib(graph_pool_bytes(torch, e) or 0)}")
+        results[name] = e.results
+        path[f"{cfg.name} window {name}"] = launched
+        ccfg = e.cfg
+        del e
+        free_card(torch)
+    runner = FixedBatch(model, ccfg, device="cuda")
+    runner.serve_sequential(wreqs, 2, WINDOW_MAX_LEN)    # captures
+    kernels.reset_launch_counts()
+    results["sequential"], _, seq_wall = sequential_run(
+        torch, runner, wreqs, 2, WINDOW_MAX_LEN)
+    path[f"{cfg.name} window sequential"] = {
+        kk.name: kk.launches for kk in kernels.all_kernels()}
+    parts.append(f"sequential {2 * WINDOW_GEN / seq_wall:.1f} tokens/s")
+    del runner
+    free_card(torch)
+    log(f"[10b window] {cfg.name}, 2 requests of prompt {WINDOW_PROMPT} "
+        f"(window {cfg.window}) + gen {WINDOW_GEN}, max_len "
+        f"{WINDOW_MAX_LEN}, graphed: " + "; ".join(parts))
+    fused = _Results(results["paged fused"], model, ccfg)
+    for name in ("paged gather", "slotted", "sequential"):
+        compare_tokens(torch, _Results(results[name], model, ccfg), wreqs,
+                       fused.results, f"phase 10b {cfg.name}", name,
+                       "paged fused")
+    del fused, model
+    free_card(torch)
+    log(f"[time] phase 10b {time.perf_counter() - t_phase:.1f}s")
+    check_gemma2_exact(torch)
+    log(f"[time] phase 10 {time.perf_counter() - t_phase:.1f}s")
+    return path
+
+
+def free_card(torch):
+    """Drop what the engines left behind (their graph pools go with them)
+    and hand the cached blocks back, so the next engine finds the card."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def verify_vs_decode(torch, model, cfg, prompt, seed: int):
+    """Prefill ``prompt`` into a one-slot paged pool, then score a verify
+    span of SPAN random tokens at the prompt's end against SPAN decode
+    steps of the same tokens (the pool restored in between), both through
+    the fused kernels -> (max |dlogit|, greedy tokens equal)."""
+    import numpy as np
+    from repro_torch.models import decode_step, prefill, verify_step
+    from repro_torch.serve import BlockPool
+    p = len(prompt)
+    toks = torch.tensor(np.asarray(prompt)[None], dtype=torch.long,
+                        device="cuda")
+    _, pf = prefill(model, cfg, {"tokens": toks})
+    pool = BlockPool(cfg, 1, p + SPAN, 16, device="cuda")
+    pool.alloc(0, pool.blocks_for(p + SPAN))
+    pool.seed(0, pf, p)
+    gen = np.random.default_rng(seed)
+    span = torch.tensor(gen.integers(0, cfg.vocab, (1, SPAN)),
+                        dtype=torch.long, device="cuda")
+    pos = torch.tensor([p], dtype=torch.int32, device="cuda")
+    saved = {n: t.clone() for n, t in pool.caches.items()}
+    lv, _ = verify_step(model, cfg, pool.caches, span, pos,
+                        pool.device_table(), attn_impl="fused")
+    for n, t in pool.caches.items():
+        t.copy_(saved[n])
+    ld = torch.stack([decode_step(model, cfg, pool.caches, span[:, i],
+                                  pos + i, pool.device_table(),
+                                  attn_impl="fused")[0]
+                      for i in range(SPAN)], 1)
+    return (float((lv - ld).abs().max()),
+            bool(torch.equal(lv.argmax(-1), ld.argmax(-1))))
+
+
+def check_gemma2_exact(torch):
+    """Phase 10d, float32 at full width and 4 layers (2 pairs), 2 slots,
+    prompts of 4160 (past the window) and 128: slotted = paged = sequential
+    tokens, each graphed = eager; ``forward``'s logits at position 4160
+    against ``prefill`` + ``decode_step`` on the slotted rings and on the
+    paged pool (fused kernel); a verify span of 4 against 4 decode steps
+    (within 1e-3, equal greedy tokens); the kernel route against the
+    plain route over prefills and 4 decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (decode_step, forward, init_caches,
+                                    init_model, prefill)
+    from repro_torch.serve import (BlockPool, seed_decode_caches,
+                                   synthetic_request)
+    from repro_torch.serve.sequential import FixedBatch
+    import numpy as np
+    cfg = get_config("gemma2-9b")
+    cfg = cfg.replace(n_layers=4, dtype="float32", sparsity=dataclasses.replace(
+        cfg.sparsity, mode="compressed"))
+    model = init_model(cfg, seed=1, device="cuda")
+    rng = np.random.default_rng(11)
+    reqs = [synthetic_request(cfg, rng, rid=i, prompt_len=p, max_new_tokens=g)
+            for i, (p, g) in enumerate(zip(GEMMA_EXACT_PROMPTS,
+                                           GEMMA_EXACT_GENS))]
+    max_len = max(GEMMA_EXACT_PROMPTS) + max(GEMMA_EXACT_GENS)
+    sl, _, _, _, _ = slotted_run(torch, model, cfg, dict(
+        n_slots=2, max_len=max_len, compressed=True, device="cuda"), reqs,
+        "phase 10d slotted")
+    sl = _Results(sl.results, model, cfg)
+    free_card(torch)
+    pg, _, _, _, _ = prefix_run(torch, model, cfg, graphed(dict(
+        n_slots=2, max_len=max_len, compressed=True, kv="paged",
+        attn="fused", block_size=16, prefill_buckets=(128, 4160),
+        device="cuda")), reqs, "phase 10d paged")
+    pg = _Results(pg.results, model, cfg)
+    free_card(torch)
+    seq = {}
+    for graphs in (True, False):
+        seq[graphs], _ = FixedBatch(model, cfg, device="cuda",
+                                    graphs=graphs).serve_sequential(
+            reqs, 2, max_len)
+        free_card(torch)
+    differ = (compare_tokens(torch, pg, reqs, sl.results,
+                             "phase 10d", "paged", "slotted")
+              + compare_tokens(torch, _Results(seq[True], model, cfg), reqs,
+                               sl.results, "phase 10d", "sequential",
+                               "slotted")
+              + compare_tokens(torch, _Results(seq[False], model, cfg), reqs,
+                               seq[True], "phase 10d", "sequential eager",
+                               "sequential graphed"))
+
+    # forward at position P against prefill + one decode step
+    p = GEMMA_EXACT_PROMPTS[0]
+    toks = torch.tensor(np.concatenate([reqs[0].inputs["tokens"],
+                                        sl.results[0].tokens[:1]])[None],
+                        dtype=torch.long, device="cuda")
+    want = forward(model, cfg, {"tokens": toks})[0][:, -1]
+    _, pf = prefill(model, cfg, {"tokens": toks[:, :p]})
+    rings = seed_decode_caches(cfg, init_caches(cfg, 1, max_len,
+                                                device="cuda"), pf)
+    pos = torch.tensor([p], dtype=torch.int32, device="cuda")
+    got_slotted, _ = decode_step(model, cfg, rings, toks[:, p], pos)
+    pool = BlockPool(cfg, 1, max_len, 16, device="cuda")
+    pool.alloc(0, pool.blocks_for(p + 1))
+    pool.seed(0, pf, p)
+    got_paged, _ = decode_step(model, cfg, pool.caches, toks[:, p], pos,
+                               pool.device_table(), attn_impl="fused")
+    fwd_err = max(float((got_slotted - want).abs().max()),
+                  float((got_paged - want).abs().max()))
+    del want, pf, rings, pool
+    free_card(torch)
+    ver_err, ver_same = verify_vs_decode(torch, model, cfg,
+                                         reqs[0].inputs["tokens"], seed=12)
+    log(f"[10d exact] {cfg.name} (4 layers, float32, 2 slots, prompts "
+        f"{GEMMA_EXACT_PROMPTS}, gen {GEMMA_EXACT_GENS}): slotted = paged = "
+        f"sequential tokens in {len(reqs) * 3 - differ}/{len(reqs) * 3} "
+        f"comparisons, each graphed = eager; forward at position {p} vs "
+        f"prefill + decode_step (slotted rings, paged fused) max |dlogit| "
+        f"{fwd_err:.3e}; verify span {SPAN} vs {SPAN} decode steps max "
+        f"|dlogit| {ver_err:.3e}, greedy tokens "
+        f"{'equal' if ver_same else 'DIFFER'} (tol {LOGIT_ATOL_F32})")
+    if (differ or fwd_err > LOGIT_ATOL_F32 or ver_err > LOGIT_ATOL_F32
+            or not ver_same):
+        raise SystemExit("phase 10d: float32 gemma2 paths disagree")
+    check_reference_route(torch, model, cfg, reqs[:2], LOGIT_ATOL_F32,
+                          "phase 10d")
+    del model
+    free_card(torch)
+
+
+# the remaining dense / MoE configs, full width, cut depth (none fits one
+# card at full depth): (arch, layers kept)
+OTHER_CONFIGS = (("deepseek-67b", 2), ("mistral-large-123b", 2),
+                 ("arctic-480b", 1))
+
+
+def check_other_configs(torch):
+    """deepseek-67b and mistral-large-123b (llama-architecture dense) at 2
+    layers and arctic-480b at 1 MoE layer (128 experts top-2 with the
+    dense-residual MLP), full width, bf16, 2:4 compressed as drawn (an
+    expert stack is drawn, compressed and dropped one at a time): eager
+    prefill [1, 128] + 4 decode steps, the kernel route against the plain
+    route within 0.25 (``check_reference_route``; arctic also prints its
+    router agreement)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ffn, init_model
+    from repro_torch.serve import synthetic_trace
+    for arch, layers in OTHER_CONFIGS:
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        cfg = full.replace(n_layers=layers, sparsity=dataclasses.replace(
+            full.sparsity, mode="compressed"))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = init_model(cfg, seed=2, device="cuda")
+        torch.cuda.synchronize()
+        log(f"[config] {arch}: d{cfg.d_model} {cfg.n_heads}H/{cfg.n_kv}KV "
+            f"hd {cfg.hd()} d_ff {cfg.d_ff} vocab {cfg.vocab}"
+            + (f", {cfg.n_experts} experts top-{cfg.top_k} + dense residual"
+               if cfg.n_experts else "")
+            + f", {cfg.dtype}; reduced: {full.n_layers} -> {layers} layers "
+            f"(full depth does not fit one card), widths as published; "
+            f"{drawn_params(model, cfg) / 1e9:.3f} B drawn parameters, init "
+            f"{time.perf_counter() - t0:.1f}s, peak "
+            f"{gib(torch.cuda.max_memory_allocated())}")
+        reqs = synthetic_trace(cfg, n_requests=1, prompt_len=128,
+                               gen_lens=[4], seed=3)
+        seen, restore = _route_log(ffn) if cfg.n_experts else (None, None)
+        try:
+            check_reference_route(torch, model, cfg, reqs, LOGIT_ATOL,
+                                  f"config {arch}", routing=seen)
+        finally:
+            if restore is not None:
+                restore()
+        del model
+        torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ main
 
 KERNEL_META = {
@@ -2729,6 +3251,12 @@ def main() -> int:
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
                                         row["max_abs_err"])
         rows[name]["at_1of4_llama_layer"] = {k: row[k] for k in TIMING_KEYS}
+    gemma_rows = phase_matmuls(torch, F, "gemma2-9b", GEMMA_CHECK_SHAPES,
+                               GEMMA_LAYER_SHAPES, GEMMA_LAYER_SHAPES, seed=9)
+    for name, row in gemma_rows.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        row["max_abs_err"])
+        rows[name]["at_gemma2_layer"] = {k: row[k] for k in TIMING_KEYS}
     rows["nm_xwt"]["at_verify_span"] = time_verify_linears(torch, F)
     rows.update(phase_packed_and_onehot(torch, F))
     spmm_err = phase_spmm_check(torch)
@@ -2736,6 +3264,10 @@ def main() -> int:
     rows["paged_mla_decode"] = phase_mla_attention(torch, F)
     rows["paged_gqa_verify"] = phase_verify_attention(torch, F)
     rows["paged_mla_verify"] = phase_mla_verify_attention(torch, F)
+    for name, row in phase_gemma2_attention(torch, F).items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        row["max_abs_err"])
+        rows[name]["at_gemma2"] = row
     t0 = time.perf_counter()
     rows["flash_attention"], flash_path = phase_flash(torch, F)
     log(f"[time] flash phase {time.perf_counter() - t0:.1f}s")
@@ -2747,7 +3279,10 @@ def main() -> int:
                                          spmm_err)
     rows["nm_xwt"]["at_cnn"] = cnn_rows["nm_xwt"]
     by_path = {**phase_serve(torch, card), **phase_serve_deepseek(torch),
-               **flash_path, **cnn_path}
+               **phase_gemma2(torch, card), **flash_path, **cnn_path}
+    t0 = time.perf_counter()
+    check_other_configs(torch)
+    log(f"[time] other configs {time.perf_counter() - t0:.1f}s")
     # the packed variant serves no path of its own: its launches are those
     # of the CNN phase, where it runs on every layer the reference can pack
     kernels_line = []

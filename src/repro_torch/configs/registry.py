@@ -12,6 +12,10 @@ from repro_torch.models.config import ArchConfig
 _MODULES: Dict[str, str] = {
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "gemma2-9b": "repro_torch.configs.gemma2_9b",
+    "deepseek-67b": "repro_torch.configs.deepseek_67b",
+    "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
 }
 
 ALL_ARCHS: List[str] = list(_MODULES)

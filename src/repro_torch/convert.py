@@ -4,7 +4,9 @@
 *as numpy arrays* (the caller maps every leaf through ``np.asarray``) and
 returns the port's ``DenseLM`` (dense family) or ``MoELM`` (MoE family:
 ``dense_layers`` and ``layers`` with MLA or GQA attention and a ``moe``
-subtree of router, stacked experts and shared MLP).  Linear leaves may be
+subtree of router, stacked experts and shared MLP; gemma2's stacked
+``pairs`` {"local", "global"} become the blocks 2i and 2i + 1, with their
+post norms ``pn1`` / ``pn2``).  Linear leaves may be
 dense ``{"w"}`` or compressed ``{"w_vals", "w_idx"}``; the stacked
 ``[L, ...]`` layer leaves are split per layer, an expert stack keeps its
 ``[E, ...]`` axis.  This is how the parity tests feed both packages the
@@ -82,8 +84,11 @@ def _mlp(f: Mapping[str, Any], device) -> MLP:
 
 
 def _dense_block(lt, cfg: ArchConfig, device) -> DenseBlock:
+    post = ((_norm(lt["pn1"], device), _norm(lt["pn2"], device))
+            if "pn1" in lt else ())
     return DenseBlock(_norm(lt["ln1"], device), _attn(lt["attn"], cfg, device),
-                      _norm(lt["ln2"], device), _mlp(lt["mlp"], device))
+                      _norm(lt["ln2"], device), _mlp(lt["mlp"], device),
+                      *post)
 
 
 def _moe_block(lt, cfg: ArchConfig, device) -> MoEBlock:
@@ -111,5 +116,11 @@ def from_reference_params(tree: Mapping[str, Any], cfg: ArchConfig,
         moe = [_moe_block(_layer(tree["layers"], i), cfg, device)
                for i in range(cfg.n_layers - nd)]
         return MoELM(embed, dense, moe, lnf)
+    if "pairs" in tree:
+        # gemma2: stacked (local, global) pairs -> blocks in depth order
+        blocks = [_dense_block(_layer(tree["pairs"][kind], i), cfg, device)
+                  for i in range(cfg.n_layers // 2)
+                  for kind in ("local", "global")]
+        return DenseLM(embed, blocks, lnf)
     return DenseLM(embed, [_dense_block(_layer(tree["layers"], i), cfg, device)
                            for i in range(cfg.n_layers)], lnf)

@@ -161,7 +161,10 @@ def gqa_plan(b: int, s: int, kvh: int, g: int, d: int, dv: int, bs: int,
     16-byte aligned operands: a CTA of 4 warps per (chunk, slot x kv head,
     group of up to 4 span rows), a warp per span row; all 4 warps copy the
     chunk, also at s = 1.  Everything else takes the first body.  The chunk
-    is the same at every s, so a row's chunks are too."""
+    is the same at every s, so a row's chunks are too.  At d = dv = 256
+    (gemma2-9b) a CTA asks 76032 B of shared memory at one span row and
+    101376 B at four, the most any shape it takes asks, within
+    ``SMEM_LIMIT``."""
     if (dtype == torch.bfloat16 and d % 16 == 0 and dv % 16 == 0
             and d <= 256 and dv <= 256 and g <= TILE and CHUNK % bs == 0
             and aligned):

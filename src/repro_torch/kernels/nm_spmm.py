@@ -190,6 +190,9 @@ def resident(plan: MmaPlan, n: int, m: int) -> int:
     return min(SMEM_LIMIT // smem_bytes(plan, n, m), 2048 // plan.threads, 32)
 
 
+SPLIT_WS_LIMIT = 256 << 20   # bytes of f32 split partials a plan may ask
+
+
 @functools.lru_cache(maxsize=4096)
 def mma_plan(rows: int, o: int, k: int, n: int, m: int, sms: int = SMS,
              decode: bool = False) -> Optional[MmaPlan]:
@@ -201,7 +204,12 @@ def mma_plan(rows: int, o: int, k: int, n: int, m: int, sms: int = SMS,
     splits s that minimises waves(s) x stages per CTA(s), waves being the
     CTAs over the card's resident slots (counted for the full ring)
     rounded up; on a tie, one that puts about 2 CTAs per SM on the card
-    (or all the slots and K allow), then the fewest splits.  ``decode``
+    (or all the slots and K allow), then the fewest splits.  A split count
+    whose f32 partial sums ([splits, rows, o]) pass ``SPLIT_WS_LIMIT`` is
+    not taken: at prefill lengths of thousands of rows the tiles fill the
+    card alone, and the waves' rounding would otherwise pick a hundred
+    splits for a few percent of modelled time and gigabytes of partials
+    (gemma2-9b's wd at 4096 rows: 112 splits, 6.1 GiB).  ``decode``
     forces the 8-row tile (the onehot body)."""
     if (n, m) not in FAST_NM or min(rows, o, k) <= 0 or k % m:
         return None
@@ -226,6 +234,8 @@ def mma_plan(rows: int, o: int, k: int, n: int, m: int, sms: int = SMS,
     for s in range(1, nst + 1):
         per = -(-nst // s)                # stages per split
         splits = -(-nst // per)
+        if splits > 1 and splits * rows * o * 4 > SPLIT_WS_LIMIT:
+            continue
         key = (-(-tiles * splits // slots) * per, tiles * splits < fill,
                splits)
         if best is None or key < best[0]:
@@ -339,6 +349,16 @@ def _f32_ring(wm: int, wn: int, n: int, m: int) -> Optional[F32Plan]:
     return plan if f32_smem_bytes(plan, n, m) <= SMEM_LIMIT else None
 
 
+# K columns one CTA of the split-TF32 body accumulates.  The tensor cores
+# add each mma's products into the f32 accumulator with a drift that grows
+# with the chain: against the exact f32 product, four f32 gemma2-9b layers
+# (logits of magnitude ~19) moved by 2.9e-3 with all of K 14336 in one
+# CTA and by 1.03e-3 with at most 1024 columns (chip runs on an H100);
+# longer K is split, and the reduce kernel adds the splits' partials in
+# IEEE f32.
+F32_MAX_KPER = 512
+
+
 @functools.lru_cache(maxsize=4096)
 def f32_plan(rows: int, cols: int, k: int, n: int, m: int,
              sms: int = SMS) -> Optional[F32Plan]:
@@ -347,11 +367,12 @@ def f32_plan(rows: int, cols: int, k: int, n: int, m: int,
     function of the shape and the SM count, not of the index format or the
     orientation.  The row tile pads the rows least (``f32_row_tile``;
     a smaller one where no tile of it fits the shared memory); the column
-    tile and the K splits (whole 64-column steps) are the ones with
-    the least ``f32_cost`` among those that put at least 0.9 x min(SMs,
-    the most CTAs the shape allows) CTAs on the card, on a tie the fewer
-    splits, then the wider tile; the ring is the deepest that lets two
-    CTAs share an SM (``_f32_ring``)."""
+    tile and the K splits (whole 64-column steps, at most
+    ``F32_MAX_KPER`` columns each) are the ones with the least
+    ``f32_cost`` among those that put at least 0.9 x min(SMs, the most
+    CTAs the shape allows) CTAs on the card, on a tie the fewer splits,
+    then the wider tile; the ring is the deepest that lets two CTAs share
+    an SM (``_f32_ring``)."""
     if min(rows, cols, k) <= 0 or k % m or BK % m or not 0 < n < m:
         return None
     nst = -(-k // BK)
@@ -365,6 +386,8 @@ def f32_plan(rows: int, cols: int, k: int, n: int, m: int,
                 continue
             for s in range(1, nst + 1):
                 per = -(-nst // s)
+                if BK * per > F32_MAX_KPER:
+                    continue
                 plans.append(ring._replace(splits=-(-nst // per),
                                            kper=BK * per))
         if plans:

@@ -8,7 +8,10 @@ runs the continuous-batching engine over the paged pool on the card
 The defaults are the reference's: ``--scheduler sequential --kv slotted
 --attn gather``, the fixed-batch oracle (``serve.sequential``); ``--scheduler
 continuous --kv slotted`` is the engine over the slotted layout.  ``--arch
-deepseek-v2-lite-16b`` serves the MoE family with MLA attention; ``--spec``
+deepseek-v2-lite-16b`` serves the MoE family with MLA attention, ``--arch
+gemma2-9b`` the local / global windowed pairs with softcaps and post norms
+(its slotted local layers keep rings of the window); ``deepseek-67b``,
+``mistral-large-123b`` and ``arctic-480b`` are registered too; ``--spec``
 adds self-speculative decoding (``--spec-k`` drafts per verify, ``--draft
 rerank|skip``).  ``--prefix-cache`` shares cached prompt prefixes across
 requests (the trace becomes shared-prefix: 3/4 of ``--prompt-len`` is one

@@ -49,10 +49,14 @@ _NEG = -1e30
 
 
 def _pick_chunk(s: int, want: int) -> int:
-    c = min(want, s)
-    while s % c:
-        c -= 1
-    return c
+    """The reference's chunk, the largest divisor of ``s`` up to ``want``;
+    where that is under half of ``min(want, s)`` (a length with no good
+    divisor: 4168 = 8 x 521 would run 521 x 521 chunk pairs through
+    ``chunked_attention``'s loop), ``min(want, s)``, the tail padded."""
+    c = d = min(want, s)
+    while s % d:
+        d -= 1
+    return d if 2 * d >= c else c
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -64,7 +68,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q [B, Sq, H, Dq], k [B, Sk, KVH, Dq], v [B, Sk, KVH, Dv]; H % KVH == 0
     and query head h reads kv head h // (H // KVH).  Returns [B, Sq, H, Dv]
-    in v.dtype.  The q tokens occupy positions Sk - Sq ... Sk - 1.
+    in v.dtype.  The q tokens occupy positions Sk - Sq ... Sk - 1.  A
+    (q chunk, kv chunk) pair that the causal mask or the window masks
+    everywhere is skipped: it would add p = 0 under a correction of exactly
+    1, so skipping it changes no bit.
     """
     b, sq, h, dq = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -72,27 +79,35 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     g = h // kvh
     scale = scale if scale is not None else dq ** -0.5
     cq, ck = _pick_chunk(sq, q_chunk), _pick_chunk(sk, kv_chunk)
-    nq, nk = sq // cq, sk // ck
+    nq, nk = -(-sq // cq), -(-sk // ck)
     q_off = sk - sq
     dev = q.device
+    q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, nq * cq - sq))
+    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, nk * ck - sk))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, nk * ck - sk))
     qg = q.reshape(b, nq, cq, kvh, g, dq).permute(1, 0, 3, 4, 2, 5).float()
     kc = k.reshape(b, nk, ck, kvh, dq).permute(1, 0, 3, 2, 4).float()
     vc = v.reshape(b, nk, ck, kvh, dv).permute(1, 0, 3, 2, 4).float()
     outs = []
     for qi in range(nq):
-        qpos = q_off + qi * cq + torch.arange(cq, device=dev)
+        q_lo = q_off + qi * cq
+        qpos = q_lo + torch.arange(cq, device=dev)
         m = torch.full((b, kvh, g, cq), _NEG, device=dev)
         l = torch.zeros((b, kvh, g, cq), device=dev)
         acc = torch.zeros((b, kvh, g, cq, dv), device=dev)
         for ki in range(nk):
+            if causal and ki * ck > q_lo + cq - 1:
+                continue
+            if window is not None and q_lo - (ki * ck + ck - 1) >= window:
+                continue
             kpos = ki * ck + torch.arange(ck, device=dev)
             s = torch.einsum("bhgqd,bhkd->bhgqk", qg[qi], kc[ki]) * scale
             s = softcap(s, cap)
-            mask = torch.ones((cq, ck), dtype=torch.bool, device=dev)
+            mask = (kpos < sk)[None, :].expand(cq, ck)
             if causal:
-                mask &= qpos[:, None] >= kpos[None, :]
+                mask = mask & (qpos[:, None] >= kpos[None, :])
             if window is not None:
-                mask &= qpos[:, None] - kpos[None, :] < window
+                mask = mask & (qpos[:, None] - kpos[None, :] < window)
             s = torch.where(mask, s, torch.full_like(s, _NEG))
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.where(mask, torch.exp(s - m_new[..., None]),
@@ -103,8 +118,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 "bhgqk,bhkd->bhgqd", p, vc[ki])
             m = m_new
         outs.append(acc / l.clamp_min(1e-30)[..., None])   # [b, kvh, g, cq, dv]
-    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(b, sq, h, dv)
-    return out.to(v.dtype)
+    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(b, nq * cq, h,
+                                                              dv)
+    return out[:, :sq].to(v.dtype)
 
 
 # ------------------------------------------------------------------------ GQA
@@ -127,9 +143,13 @@ def gqa_init(gen: torch.Generator, cfg: ArchConfig, dtype,
 
 
 def gqa_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype,
-                   device="cuda") -> Dict[str, torch.Tensor]:
-    """Plain (position-indexed) KV cache leaves [batch, max_len, kv, hd]."""
-    z = torch.zeros((batch, max_len, cfg.n_kv, cfg.hd()), dtype=dtype,
+                   device="cuda", window: Optional[int] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """Plain KV cache leaves [batch, length, kv, hd]: ``length`` is
+    ``max_len``, or for a windowed layer a ring of ``min(max_len,
+    window)`` positions (``_ring_write`` / ``_ring_valid``)."""
+    length = min(max_len, window) if window else max_len
+    z = torch.zeros((batch, length, cfg.n_kv, cfg.hd()), dtype=dtype,
                     device=device)
     return {"k": z, "v": z.clone()}
 

@@ -47,12 +47,17 @@ def rms_norm_init(d: int, device="cuda") -> RMSNorm:
     return RMSNorm(torch.ones(d, dtype=torch.float32, device=device))
 
 
-def rms_norm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Normalize in float32, scale, cast back to x.dtype."""
+def rms_norm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5,
+             zero_centered: bool = False) -> torch.Tensor:
+    """Normalize in float32, scale, cast back to x.dtype.  A gemma-style
+    ``zero_centered`` norm scales by ``1 + scale`` (in float32)."""
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * p.scale.float()).to(x.dtype)
+    scale = p.scale.float()
+    if zero_centered:
+        scale = 1.0 + scale
+    return (y * scale).to(x.dtype)
 
 
 # ------------------------------------------------------------------ embedding
@@ -126,7 +131,13 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
-ACTIVATIONS = {"silu": F.silu}     # gelu arrives with the families using it
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh form (the erf form differs from
+    it by ~5e-4)."""
+    return F.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS = {"silu": F.silu, "gelu": _gelu}
 
 
 # ------------------------------------------------------------ losses / sampling

@@ -1,8 +1,9 @@
 """Architecture configuration schema (counterpart of ``repro.models.config``).
 
-The port covers the dense GQA family and the MoE family with MLA attention
-(deepseek-v2-lite), so the schema carries the fields those read; the SSM /
-enc-dec fields arrive with their families.  ``reduced()`` derives the CPU
+The port covers the dense GQA family (gemma2's local / global pairs
+included) and the MoE family with GQA or MLA attention, so the schema
+carries the fields those read; the SSM / enc-dec fields arrive with their
+families.  ``reduced()`` derives the CPU
 smoke-test variant exactly as the reference does.
 """
 
@@ -32,10 +33,13 @@ class ArchConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     act: str = "silu"
-    window: Optional[int] = None
-    local_global_period: Optional[int] = None
+    window: Optional[int] = None             # sliding window (local layers)
+    local_global_period: Optional[int] = None  # gemma2: alternate local/global
     softcap_attn: Optional[float] = None
     softcap_final: Optional[float] = None
+    scale_embeds: bool = False               # gemma: x *= sqrt(d)
+    post_norms: bool = False                 # gemma2: post-sublayer norms
+    gemma_norm: bool = False                 # zero-centered RMSNorm scale
     mla: bool = False
     # paged-decode attention read: 'gather' copies each slot's blocks back
     # into position order before the math (the oracle); 'fused' walks the

@@ -70,16 +70,25 @@ class MoE(nn.Module):
         self.shared = shared
 
 
+_COMPRESS_ELEMS = 1 << 28      # weight elements compressed in one call
+
+
 def _stacked_sparse_init(gen: torch.Generator, e: int, out_dim: int,
                          in_dim: int, sp: SparsityConfig, dtype,
                          device="cuda") -> StackedLinear:
     """Stacked expert weight [E, out, in], sparse along in; compressed at
-    init under ``mode='compressed'`` (the dense stack is never kept)."""
-    w = (torch.randn((e, out_dim, in_dim), generator=gen, device=device,
-                     dtype=torch.float32) * in_dim ** -0.5).to(dtype)
+    init under ``mode='compressed'`` (the dense stack is never kept).  The
+    stack is compressed a few experts at a time: ``compress``'s rank
+    temporaries are ~16x the bytes of what it is given, which for one of
+    arctic-480b's stacks (128 x 4864 x 7168) would not fit the card."""
+    w = torch.randn((e, out_dim, in_dim), generator=gen, device=device,
+                    dtype=torch.float32).mul_(in_dim ** -0.5).to(dtype)
     if sp.applies(in_dim, out_dim) and sp.mode == "compressed":
-        spx = compress(w, sp.n, sp.m)
-        return StackedLinear(w_vals=spx.values, w_idx=spx.indices)
+        step = max(1, _COMPRESS_ELEMS // (out_dim * in_dim))
+        parts = [compress(w[i:i + step], sp.n, sp.m) for i in range(0, e, step)]
+        del w
+        return StackedLinear(w_vals=torch.cat([p.values for p in parts]),
+                             w_idx=torch.cat([p.indices for p in parts]))
     return StackedLinear(w=w)
 
 

@@ -5,14 +5,28 @@ The reference scans over stacked per-layer params; here a ``DenseLM``
 holds one ``DenseBlock`` module per layer, a ``MoELM`` its
 ``first_dense_layers`` dense blocks then its ``MoEBlock``s, and the stack
 is a Python loop.  A block's attention is GQA, or MLA when ``cfg.mla``.
-Decode caches keep the reference's stacked layout, one tensor per leaf with
-the layer axis first (slotted: GQA {"k", "v"} [L, B, max_len, kv, hd], MLA
-{"ckv", "kpe"} [L, B, max_len, kv_lora | rope]; paged pools: [L, n_blocks,
-block_size, ...]), and each layer reads and writes its slice in place.
+gemma2's local / global pairs (``cfg.local_global_period``; the reference
+scans over stacked pairs) are the same flat list: block 2i is local (its
+attention keeps the last ``cfg.window`` positions), block 2i + 1 global;
+``post_norms`` adds a norm after each sublayer, ``gemma_norm`` scales the
+norms by ``1 + scale`` and ``scale_embeds`` multiplies the embedding by
+sqrt(d) (cast to its dtype first, as the reference does).
+
+Decode caches keep the reference's stacked layout, one tensor per leaf
+with the layer axis first (slotted: GQA {"k", "v"} [L, B, max_len, kv,
+hd], MLA {"ckv", "kpe"} [L, B, max_len, kv_lora | rope]; paged pools:
+[L, n_blocks, block_size, ...]), and each layer reads and writes its slice
+in place.  gemma2's slotted caches are {"local": {"k", "v"}, "global":
+{"k", "v"}}, each [L / 2, B, ...]: a local layer keeps a ring of
+``min(max_len, window)`` positions, a global one ``max_len``.  Its paged
+pool (``init_caches(..., ring=False)``) is one [L, ...] stack like any
+other: local layers go through the block table too, the window a read
+mask.
 
 Public API (family-dispatched):
   init_model(cfg, seed, device)                  -> DenseLM | MoELM
-  init_caches(cfg, batch, max_len, device)       -> {"k", "v"} | {"ckv", "kpe"}
+  init_caches(cfg, batch, max_len, device, ring) -> {"k", "v"} | {"ckv", "kpe"}
+                                                    | {"local", "global"}
   forward(model, cfg, batch)                     -> (logits [B, S, V], moe_aux)
   loss_fn(model, cfg, batch, aux_weight)         -> (loss, {"loss", "moe_aux"})
   prefill(model, cfg, batch, logit_pos)          -> (logits [B, V], caches)
@@ -49,10 +63,16 @@ from repro_torch.models.config import ArchConfig
 
 
 class DenseBlock(nn.Module):
+    """Attention, then the gated MLP; ``pn1`` / ``pn2`` (``post_norms``)
+    normalize each sublayer's output before its residual add."""
+
     def __init__(self, ln1: RMSNorm, attn_: Union[attn.GQA, attn.MLA],
-                 ln2: RMSNorm, mlp: ffn_mod.MLP):
+                 ln2: RMSNorm, mlp: ffn_mod.MLP,
+                 pn1: Optional[RMSNorm] = None,
+                 pn2: Optional[RMSNorm] = None):
         super().__init__()
         self.ln1, self.attn, self.ln2, self.mlp = ln1, attn_, ln2, mlp
+        self.pn1, self.pn2 = pn1, pn2
 
 
 class MoEBlock(nn.Module):
@@ -103,15 +123,29 @@ LM = Union[DenseLM, MoELM]
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.local_global_period:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r}"
-            f"{' with local/global layers' if cfg.local_global_period else ''}"
-            f" comes with a later slice of the port (dense and MoE so far)")
+            f"{cfg.name}: family {cfg.family!r} comes with a later slice of "
+            f"the port (dense and MoE so far)")
 
 
 def _norm(p: RMSNorm, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    return rms_norm(p, x, cfg.norm_eps)
+    return rms_norm(p, x, cfg.norm_eps, zero_centered=cfg.gemma_norm)
+
+
+def _window(cfg: ArchConfig, i: int) -> Optional[int]:
+    """The attention window of block ``i``: gemma2's pairs are (local,
+    global), as the reference's scan body runs them."""
+    return cfg.window if cfg.local_global_period and i % 2 == 0 else None
+
+
+def _embed(p, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    x = embed_apply(p.embed, tokens)
+    if cfg.scale_embeds:
+        # sqrt(d) rounded to x's dtype first, as the reference does (59.75
+        # in bf16 at d 3584); a host scalar, so no copy to the device
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
+    return x
 
 
 def _attn_init(gen, cfg: ArchConfig, dtype, device):
@@ -126,10 +160,12 @@ def _attn_apply(p, x, cfg: ArchConfig, **kw):
 
 
 def _dense_block_init(gen, cfg: ArchConfig, dtype, device) -> DenseBlock:
+    post = ((rms_norm_init(cfg.d_model, device),
+             rms_norm_init(cfg.d_model, device)) if cfg.post_norms else ())
     return DenseBlock(rms_norm_init(cfg.d_model, device),
                       _attn_init(gen, cfg, dtype, device),
                       rms_norm_init(cfg.d_model, device),
-                      ffn_mod.mlp_init(gen, cfg, dtype, device))
+                      ffn_mod.mlp_init(gen, cfg, dtype, device), *post)
 
 
 def _dense_block_apply(p: DenseBlock, x, cfg: ArchConfig, *, positions,
@@ -140,8 +176,12 @@ def _dense_block_apply(p: DenseBlock, x, cfg: ArchConfig, *, positions,
                                positions=positions, cache=cache,
                                cache_pos=cache_pos, block_table=block_table,
                                return_kv=return_kv, step=step, **kw)
+    if p.pn1 is not None:
+        a = _norm(p.pn1, a, cfg)
     x = x + a
     h = ffn_mod.mlp_apply(p.mlp, _norm(p.ln2, x, cfg), cfg)
+    if p.pn2 is not None:
+        h = _norm(p.pn2, h, cfg)
     return x + h, new_cache
 
 
@@ -169,12 +209,12 @@ def _moe_block_apply(p: MoEBlock, x, cfg: ArchConfig, *, positions,
     return x + h, new_cache, aux
 
 
-def _block_apply(p, x, cfg: ArchConfig, **kw):
+def _block_apply(p, x, cfg: ArchConfig, window=None, **kw):
     """One block of either kind -> (x, new_cache); the MoE aux loss is a
-    training signal and is dropped here."""
+    training signal and is dropped here (MoE blocks have no window)."""
     if isinstance(p, MoEBlock):
         return _moe_block_apply(p, x, cfg, **kw)[:2]
-    return _dense_block_apply(p, x, cfg, **kw)
+    return _dense_block_apply(p, x, cfg, window=window, **kw)
 
 
 def init_model(cfg: ArchConfig, seed: int = 0, device="cuda") -> LM:
@@ -201,16 +241,42 @@ def init_model(cfg: ArchConfig, seed: int = 0, device="cuda") -> LM:
     return DenseLM(embed, blocks, lnf)
 
 
-def init_caches(cfg: ArchConfig, batch: int, max_len: int, device="cuda"
-                ) -> Dict[str, torch.Tensor]:
+def init_caches(cfg: ArchConfig, batch: int, max_len: int, device="cuda",
+                ring: bool = True) -> Dict[str, torch.Tensor]:
     """Plain-layout decode caches, one leaf per name with the layer axis
     first: GQA {"k", "v"} [L, batch, max_len, kv, hd], MLA {"ckv", "kpe"}
-    [L, batch, max_len, kv_lora | qk_rope_dim]."""
+    [L, batch, max_len, kv_lora | qk_rope_dim].  gemma2 (local / global
+    pairs) gets {"local": {"k", "v"}, "global": {"k", "v"}}, each [L / 2,
+    ...], the local layers a ring of ``min(max_len, window)`` positions,
+    as the reference's; ``ring=False`` lifts the window: every layer gets
+    ``max_len`` positions in one [L, ...] stack (the paged pool's layout and
+    its staging's, where the window is a read mask)."""
     _check_family(cfg)
+    dtype = cfg.tdtype()
+
+    def stack(one, n):
+        return {name: z.unsqueeze(0).repeat((n,) + (1,) * z.dim())
+                for name, z in one.items()}
+
+    if cfg.local_global_period and ring:
+        half = cfg.n_layers // 2
+        return {"local": stack(attn.gqa_cache_init(
+                    cfg, batch, max_len, dtype, device, window=cfg.window),
+                    half),
+                "global": stack(attn.gqa_cache_init(
+                    cfg, batch, max_len, dtype, device), half)}
     init = attn.mla_cache_init if cfg.mla else attn.gqa_cache_init
-    one = init(cfg, batch, max_len, cfg.tdtype(), device)
-    return {name: z.unsqueeze(0).repeat((cfg.n_layers,) + (1,) * z.dim())
-            for name, z in one.items()}
+    return stack(init(cfg, batch, max_len, dtype, device), cfg.n_layers)
+
+
+def _layer_cache(caches, li: int) -> Dict[str, torch.Tensor]:
+    """Cache layer ``li``'s leaves (views, written in place): slice ``li``
+    of every [L, ...] leaf, or for gemma2's slotted pairs slice ``li // 2``
+    of the local (even ``li``) or global (odd) leaves."""
+    if "local" in caches:
+        kind = caches["local" if li % 2 == 0 else "global"]
+        return {name: leaf[li // 2] for name, leaf in kind.items()}
+    return {name: leaf[li] for name, leaf in caches.items()}
 
 
 def prefill(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
@@ -220,20 +286,23 @@ def prefill(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     last, or ``logit_pos`` (the bucketed-prefill hook for right-padded
     prompts): an int, or an integer tensor of one element on the model's
     device, read there (so one CUDA graph per bucket serves every
-    position, as the reference lowers it to a traced int32 scalar).  Caches are stacked [L, B, S, ...] leaves ({"k", "v"} or
-    {"ckv", "kpe"}); the MoE family returns them per stack as the reference
-    does, {"dense": ..., "moe": ...} ("dense" only with first_dense_layers)."""
+    position, as the reference lowers it to a traced int32 scalar).
+    Caches are stacked [L, B, S, ...] leaves ({"k", "v"} or {"ckv",
+    "kpe"}; gemma2's too, local and global layers in depth order, each at
+    every position: ``seed_decode_caches`` cuts the local rings); the MoE
+    family returns them per stack as the reference does, {"dense": ...,
+    "moe": ...} ("dense" only with first_dense_layers)."""
     _check_family(cfg)
-    x = embed_apply(p.embed, batch["tokens"])
+    x = _embed(p, cfg, batch["tokens"])
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
 
     def run(blocks) -> Dict[str, torch.Tensor]:
         nonlocal x
         kvs = []
-        for lp in blocks:
-            x, kv = _block_apply(lp, x, cfg, positions=positions,
-                                 return_kv=True)
+        for i, lp in enumerate(blocks):
+            x, kv = _block_apply(lp, x, cfg, window=_window(cfg, i),
+                                 positions=positions, return_kv=True)
             kvs.append(kv)
         return {name: torch.stack([kv[name] for kv in kvs])
                 for name in kvs[0]}
@@ -260,18 +329,19 @@ def forward(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
     the MoE blocks and divided by their count (0 for the dense family), as
     the reference's."""
     _check_family(cfg)
-    x = embed_apply(p.embed, batch["tokens"])
+    x = _embed(p, cfg, batch["tokens"])
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n_moe = 0
-    for lp in p.blocks():
+    for i, lp in enumerate(p.blocks()):
         if isinstance(lp, MoEBlock):
             x, _, a = _moe_block_apply(lp, x, cfg, positions=positions)
             aux = aux + a
             n_moe += 1
         else:
-            x, _ = _dense_block_apply(lp, x, cfg, positions=positions)
+            x, _ = _dense_block_apply(lp, x, cfg, positions=positions,
+                                      window=_window(cfg, i))
     x = _norm(p.lnf, x, cfg)
     return lm_head_apply(p.embed, x, cfg.softcap_final), aux / max(n_moe, 1)
 
@@ -340,16 +410,15 @@ def _cached_forward(p: LM, cfg: ArchConfig, caches, tokens, pos, block_table,
     (``attn.paged_step``) and shared by every block."""
     if attn_impl is not None and attn_impl != cfg.attn_impl:
         cfg = cfg.replace(attn_impl=attn_impl)
-    x = embed_apply(p.embed, tokens)
+    x = _embed(p, cfg, tokens)
     step = None if block_table is None else attn.paged_step(
         cfg, pos, tokens.shape[1], block_table,
         next(iter(caches.values())).shape[2])
     for i, lp in enumerate(p.blocks()):
         li = i if layers is None else int(layers[i])
-        layer_cache = {name: leaf[li] for name, leaf in caches.items()}
-        x, _ = _block_apply(lp, x, cfg, positions=pos, cache=layer_cache,
-                            cache_pos=pos, block_table=block_table,
-                            step=step)
+        x, _ = _block_apply(lp, x, cfg, window=_window(cfg, i), positions=pos,
+                            cache=_layer_cache(caches, li), cache_pos=pos,
+                            block_table=block_table, step=step)
     x = _norm(p.lnf, x, cfg)
     return lm_head_apply(p.embed, x, cfg.softcap_final)
 

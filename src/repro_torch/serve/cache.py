@@ -4,10 +4,18 @@
 (length = prompt) into decode buffers of length ``max_len``.  Every leaf
 length-clips to ``min(src, dst)`` keeping the *last* positions, so a prompt
 longer than the buffer degrades to a truncated context instead of a shape
-error.  The function is pure: it returns new tensors and leaves ``caches``
-untouched, so a zero template can be re-seeded for every request.  The
-dense and MoE families are ported (the MoE prefill returns its dense and
-MoE stacks apart, and they are concatenated along the layer axis here).
+error.  A kept position ``p`` lands at index ``p mod L`` of a length-L
+buffer: the ring layout the slotted read assumes (``_ring_valid``: slot j
+holds position ``pos - ((pos - j) mod L)``), and the plain one while the
+prompt fits.  The reference copies the last L positions to indices
+0..L-1 instead, which breaks a windowed (gemma2 local) ring when the
+prompt is longer than the window and not a multiple of it; the port
+differs there on purpose.  The function is pure: it returns new tensors
+and leaves ``caches`` untouched, so a zero template can be re-seeded for
+every request.  The dense and MoE families are ported (the MoE prefill
+returns its dense and MoE stacks apart, and they are concatenated along
+the layer axis here; gemma2's flat prefill stack is cut into its local
+and global layers when the caches keep them apart).
 
 ``scatter_slot`` writes a batch-1 cache tree into batch index ``slot`` of
 an n-slot pool tree (the slotted engine's admission).  The slot axis is
@@ -15,42 +23,46 @@ found structurally, per leaf: the one axis where the pool's shape differs
 from the single request's.  ``scatter_slot`` is pure, as the reference's;
 ``scatter_slot_`` writes the pool in place, which is what the engine uses:
 its CUDA graphs hold the pool tensors by address, so the pool is never
-rebound.
+rebound.  ``leaves`` lists a cache tree's tensors in a fixed order.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import torch
 
 
 def _seed_leaf(dst: torch.Tensor, src: torch.Tensor,
                src_len: Optional[int]) -> torch.Tensor:
-    """Copy of ``dst`` ([stack, batch, seq, ...]) whose first
-    min(src, dst) positions hold ``src``'s last ones; ``src_len`` first
+    """Copy of ``dst`` ([stack, batch, L, ...]) holding ``src``'s last
+    min(src, L) positions, position p at index p mod L; ``src_len`` first
     clips the source to its first src_len positions (bucketed prefill:
     the tail is padding and never lands in a decode cache)."""
     if src_len is not None:
         src = src[:, :, :src_len]
-    ln = min(src.shape[2], dst.shape[2])
+    n, length = src.shape[2], dst.shape[2]
+    ln = min(n, length)
     out = dst.clone()
-    out[:, :, :ln] = src[:, :, src.shape[2] - ln:].to(dst.dtype)
+    idx = torch.arange(n - ln, n, device=dst.device) % length
+    out[:, :, idx] = src[:, :, n - ln:].to(dst.dtype)
     return out
 
 
-def seed_decode_caches(cfg, caches: Dict[str, torch.Tensor],
-                       pf: Dict[str, torch.Tensor],
-                       src_len: Optional[int] = None
-                       ) -> Dict[str, torch.Tensor]:
+def seed_decode_caches(cfg, caches, pf: Dict[str, torch.Tensor],
+                       src_len: Optional[int] = None):
     """Prefill caches ``pf`` -> decode buffers shaped like ``caches``
-    (from ``init_caches``); returns a new dict."""
+    (from ``init_caches``); returns a new tree."""
     if cfg.family == "moe":
         parts = ([pf["dense"]] if cfg.first_dense_layers else []) + [pf["moe"]]
         pf = {f: torch.cat([part[f] for part in parts]) for f in parts[0]}
     elif cfg.family != "dense":
         raise NotImplementedError(f"cache seeding for family {cfg.family!r} "
                                   f"comes with that family's port")
+    if "local" in caches:       # gemma2's pairs: layers 2i local, 2i+1 global
+        return {kind: {f: _seed_leaf(caches[kind][f], pf[f][first::2],
+                                     src_len) for f in caches[kind]}
+                for kind, first in (("local", 0), ("global", 1))}
     return {f: _seed_leaf(caches[f], pf[f], src_len) for f in caches}
 
 
@@ -72,6 +84,13 @@ def _slot_view(dst: torch.Tensor, src: torch.Tensor,
             f"{tuple(dst.shape)} and single-request leaf {tuple(src.shape)} "
             f"(expected identical shapes except one axis)")
     return dst.narrow(diff[0], slot, 1)
+
+
+def leaves(tree: Tree) -> List[torch.Tensor]:
+    """A cache tree's tensors, depth first in key order."""
+    if isinstance(tree, dict):
+        return [leaf for name in tree for leaf in leaves(tree[name])]
+    return [tree]
 
 
 def _leaf_pairs(pool: Tree, single: Tree):

@@ -95,7 +95,8 @@ from repro_torch.models import (convert_to_compressed, decode_step,
                                 init_caches, make_draft, prefill, verify_step,
                                 weight_stream_bytes)
 from repro_torch.models.common import greedy_sample
-from repro_torch.serve.cache import scatter_slot_, seed_decode_caches
+from repro_torch.serve.cache import (leaves, scatter_slot_,
+                                     seed_decode_caches)
 from repro_torch.serve.paged import (TRASH_BLOCK, BlockPool, SwapState,
                                      default_buckets)
 from repro_torch.serve.prefix import PrefixIndex
@@ -294,7 +295,7 @@ class ServeEngine:
             self.entries[name] = GraphEntry(
                 name, fn, device=self.device, graphs=self.graphs,
                 log=self._compile_log, pool=self.graph_pool,
-                stream=self._stream, fixed=lambda: list(caches.values()))
+                stream=self._stream, fixed=lambda: leaves(caches))
             return self.entries[name]
 
         def decode(tok, pos, tbl=None):
@@ -890,10 +891,11 @@ class ServeEngine:
             # other slot-indexed state reports apart (none in the ported
             # families), as the paged split does
             seq = _seq_leaves(self.cfg)
+            nbytes = [_nbytes(t) for t in leaves(self.caches)]
             out["kv_bytes_resident"] = float(sum(
-                _nbytes(t) for n, t in self.caches.items() if n in seq))
+                n for n, s in zip(nbytes, seq) if s))
             out["kv_state_bytes"] = float(sum(
-                _nbytes(t) for n, t in self.caches.items() if n not in seq))
+                n for n, s in zip(nbytes, seq) if not s))
             return out
         out.update({
             "kv_block_bytes": float(self.pool.bytes_per_block),
@@ -935,12 +937,12 @@ class ServeEngine:
         return out
 
 
-def _seq_leaves(cfg) -> set:
-    """Names of the cache leaves with a sequence axis: those whose shape
-    moves with ``max_len`` (probed on abstract caches)."""
-    a = init_caches(cfg, 1, 1, device="meta")
-    b = init_caches(cfg, 1, 2, device="meta")
-    return {n for n in a if a[n].shape != b[n].shape}
+def _seq_leaves(cfg) -> List[bool]:
+    """Per cache leaf (in ``leaves`` order): does it have a sequence axis,
+    a shape that moves with ``max_len`` (probed on abstract caches)."""
+    a = leaves(init_caches(cfg, 1, 1, device="meta"))
+    b = leaves(init_caches(cfg, 1, 2, device="meta"))
+    return [x.shape != y.shape for x, y in zip(a, b)]
 
 
 def _nbytes(t: torch.Tensor) -> int:

@@ -4,8 +4,10 @@
 Every attention-cache leaf is a pool of fixed-size blocks, GQA's
 ``{"k", "v"} [L, n_blocks, block_size, kv, hd]`` or MLA's latent
 ``{"ckv", "kpe"} [L, n_blocks, block_size, kv_lora | qk_rope_dim]`` (torch
-tensors on the device; the leaves are found by probing ``init_caches``, so
-any family's layout is taken as it is) and each
+tensors on the device; the leaves are found by probing ``init_caches``
+with the window lifted, so any family's layout is taken as it is, and
+gemma2's local layers share the one [L, ...] stack with its global ones:
+their window is a read mask over the table) and each
 slot owns an int32 block table (host numpy) mapping logical position ``p``
 to physical block ``table[slot, p // block_size]``.  Block 0 is the reserved
 *trash* block: idle batch rows keep writing there, and a freed slot's table
@@ -119,8 +121,9 @@ class BlockPool:
         if self.n_blocks < 2:
             raise ValueError("need at least 2 blocks (one is reserved trash)")
         # plain-layout leaves are [L, batch, seq, ...]: the (batch, seq) axes
-        # become (n_blocks, block_size)
-        probe = init_caches(cfg, 1, 1, device="meta")
+        # become (n_blocks, block_size); windowed layers keep every position
+        # (ring=False), the window is a read mask
+        probe = init_caches(cfg, 1, 1, device="meta", ring=False)
         self.caches: Dict[str, torch.Tensor] = {
             name: torch.zeros((leaf.shape[0], self.n_blocks, block_size)
                               + tuple(leaf.shape[3:]), dtype=leaf.dtype,
@@ -403,11 +406,13 @@ class BlockPool:
 
     def make_staging(self) -> Dict[str, torch.Tensor]:
         """The batch-1 plain-layout zero template the prefill caches are
-        seeded into before they are cut into blocks (built once)."""
+        seeded into before they are cut into blocks (built once).  The
+        window is lifted, as the reference's staging lifts it: a local
+        layer's ring would be shorter than the table span."""
         if self._staging is None:
             length = self.table_width * self.block_size
             self._staging = init_caches(self.cfg, 1, length,
-                                        device=self.device)
+                                        device=self.device, ring=False)
         return self._staging
 
     def seed(self, slot: int, pf: Dict[str, torch.Tensor],

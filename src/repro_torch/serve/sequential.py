@@ -30,7 +30,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import decode_step, init_caches, prefill
 from repro_torch.models.common import greedy_sample
-from repro_torch.serve.cache import seed_decode_caches
+from repro_torch.serve.cache import leaves, seed_decode_caches
 from repro_torch.serve.prewarm import CompileLog, GraphEntry, abstract
 from repro_torch.serve.request import Request, RequestResult
 
@@ -85,7 +85,7 @@ class FixedBatch:
                 logits, _ = decode_step(model, cfg, caches, tok.long(), pos)
                 return greedy_sample(logits)
             entry = self._entry("decode", decode,
-                                fixed=lambda: list(caches.values()))
+                                fixed=lambda: leaves(caches))
             # captured before any batch is seeded: the warm-up writes
             # token 0 at position 0 of every row
             entry.capture(abstract((batch,), torch.int32),
@@ -121,10 +121,11 @@ class FixedBatch:
         t0 = time.perf_counter()
         first, pf = self._prefill(batch)
         # seed in place: the decode graph holds these tensors by address
-        for leaf in caches.values():
+        for leaf in leaves(caches):
             leaf.zero_()
-        for name, leaf in seed_decode_caches(self.cfg, caches, pf).items():
-            caches[name].copy_(leaf)
+        for leaf, seeded in zip(leaves(caches), leaves(
+                seed_decode_caches(self.cfg, caches, pf))):
+            leaf.copy_(seeded)
         tok = first.clone()
         _sync(self.device)
         t_prefill = time.perf_counter() - t0

@@ -20,6 +20,7 @@ SERVE_LENS = [1, 16, 17, 64, 100, 128, 145, 160]   # chip_smoke's 8 slots
 SPANS = [1, 2, 4, 5, 7]
 LLAMA = dict(kvh=8, g=4, d=64, dv=64)               # llama3.2-1b attention
 DEEPSEEK = dict(h=16, r=512, rd=64)                 # deepseek-v2-lite MLA
+GEMMA2 = dict(kvh=8, g=2, d=256, dv=256)            # gemma2-9b attention
 
 
 def _gqa(b, s, bs, tw, dtype=BF, **kw):
@@ -92,6 +93,25 @@ def test_shared_memory_fits_at_model_widths(dtype, bs, s):
     for tw in (10, 264):
         for p in (_gqa(8, s, bs, tw, dtype), _mla(8, s, bs, tw, dtype)):
             assert 0 < p.smem <= fa.SMEM_LIMIT == 232448
+
+
+@pytest.mark.parametrize("s", SPANS)
+def test_gemma2_width_takes_the_tensor_cores_within_shared_memory(s):
+    """gemma2-9b (KVH 8, G 2, d = dv = 256) at block 16 over a 4224-position
+    table: the tensor-core body, which asks 2 B x (64 x 264 for K, 64 x
+    264 for V, rows x 16 x 264 for the queries): 76032 B at one span row,
+    101376 B at four, against the 232448 B a CTA may opt in to (the
+    launcher opts in above 48 KB).  f32 takes the first body."""
+    p = _gqa(8, s, 16, 264, **GEMMA2)
+    rows = -(-s // -(-s // fa.GQA_SPAN_ROWS))
+    assert p.body == "tc" and p.rows == rows
+    assert p.smem == 2 * (64 * 264 * 2 + rows * 16 * 264)
+    assert p.smem <= fa.SMEM_LIMIT == 232448
+    assert {1: 76032, 4: 101376}.get(s, p.smem) == p.smem
+    assert p.grid == (fa.table_chunks(264, 16), 8 * 8, -(-s // rows)) \
+        == (66, 64, -(-s // rows))
+    f = _gqa(8, s, 16, 264, dtype=F32, **GEMMA2)
+    assert f.body == "first" and f.smem <= fa.SMEM_LIMIT
 
 
 def _live_ctas(plan, lens, s, tw, bs, heads=1):

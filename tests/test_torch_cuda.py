@@ -344,6 +344,44 @@ def test_paged_gqa_kernel_edges(dtype, bs, s, case):
         q[:, i].contiguous(), kp, vp, tbl, kv_len + i, **kw), s)
 
 
+# gemma2-9b's serving rows: two past the window (4096), one at it, short
+# ones, and a row of trash blocks only
+GEMMA2_LENS = [4160, 4100, 4096, 1, 17, 700, 2, 64]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 4])
+def test_paged_gqa_kernel_at_gemma2_width(dtype, s):
+    """gemma2-9b's decode (S 1) and verify (S 4) attention: KVH 8, G 2,
+    d = dv = 256, block 16, window 4096, softcap 50 (bf16 takes the
+    tensor-core body, ~74-99 KB of shared memory a CTA).  Within 2e-4 of
+    the plain version, the same bits twice, and offset i bit-equal to
+    decode at kv_len + i."""
+    from repro_torch.kernels import flash_attention as mod
+    b, kvh, g, d = len(GEMMA2_LENS), 8, 2, 256
+    gen = torch.Generator(device="cuda").manual_seed(300 + s)
+    tbl, nb = _span_table(gen, GEMMA2_LENS, s, 16)
+    tbl[3] = 0
+    kp = torch.randn(nb, 16, kvh, d, generator=gen, device="cuda").to(dtype)
+    vp = torch.randn(nb, 16, kvh, d, generator=gen, device="cuda").to(dtype)
+    kp[0] = 1e4
+    vp[0] = 1e4
+    q = torch.randn(b, s, kvh, g, d, generator=gen, device="cuda").to(dtype)
+    kv_len = torch.tensor(GEMMA2_LENS, dtype=torch.int32, device="cuda")
+    kw = dict(scale=d ** -0.5, window=4096, cap=50.0)
+    assert mod.gqa_plan(b, s, kvh, g, d, d, 16, tbl.shape[1], dtype).body \
+        == ("tc" if dtype == torch.bfloat16 else "first")
+
+    def launch():
+        return mod.paged_gqa_verify(q, kp, vp, tbl, kv_len, **kw)
+    out = launch()
+    want = mod.paged_gqa_verify_plain(q, kp, vp, tbl, kv_len, **kw)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+    _against_decode_and_twice(out, launch, lambda i: mod.paged_gqa_decode(
+        q[:, i].contiguous(), kp, vp, tbl, kv_len + i, **kw), s)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bs", [8, 16, 32])
 @pytest.mark.parametrize("s", [1, 2, 4, 5, 7])
@@ -437,7 +475,8 @@ def test_span_write_duplicate_cells_take_the_last_writer_on_the_card():
         assert torch.equal(got.cpu(), want)
 
 
-def _engine_vs_oracle(arch, attn_kernel):
+def _engine_vs_oracle(arch, attn_kernel, prompt_len=9, max_len=16,
+                     n_blocks=7):
     """Smoke-size f32 engine on the card: the kernel route (spmv, xwt and
     the fused attention kernel of the family) emits the same tokens as the
     impl='ref' + gather oracle route, under a replay preemption, and each
@@ -451,10 +490,10 @@ def _engine_vs_oracle(arch, attn_kernel):
     from repro_torch.serve import ServeEngine, synthetic_trace
     cfg = get_config(arch, smoke=True)
     model = init_model(cfg, seed=0, device="cuda")
-    reqs = synthetic_trace(cfg, n_requests=5, prompt_len=9,
+    reqs = synthetic_trace(cfg, n_requests=5, prompt_len=prompt_len,
                            gen_lens=[4, 7], seed=1)
-    kw = dict(n_slots=2, max_len=16, compressed=True, kv="paged",
-              block_size=4, n_blocks=7, device="cuda")
+    kw = dict(n_slots=2, max_len=max_len, compressed=True, kv="paged",
+              block_size=4, n_blocks=n_blocks, device="cuda")
     kernels.reset_launch_counts()
     fused = ServeEngine(model, cfg, attn="fused", debug_invariants=True,
                         **kw)
@@ -476,6 +515,13 @@ def test_fused_engine_matches_gather_oracle_on_the_card():
 
 def test_fused_mla_moe_engine_matches_gather_oracle_on_the_card():
     _engine_vs_oracle("deepseek-v2-lite-16b", "MLA_KERNEL")
+
+
+def test_fused_gemma2_engine_matches_gather_oracle_on_the_card():
+    """Prompts of 36 past the smoke window (32): the local layers' window
+    and the softcap inside the kernel."""
+    _engine_vs_oracle("gemma2-9b", "KERNEL", prompt_len=36, max_len=48,
+                      n_blocks=20)
 
 
 @pytest.mark.parametrize("arch,draft,attn_kernel", [

@@ -107,21 +107,39 @@ def _most(rows, cols, k):
 def test_cnn_and_serving_shapes_fill_the_card(key):
     """Every CNN layer at batch 1 and 32 and every serving shape puts at
     least ~one wave of CTAs on the 132 SMs, or all that K and the tiles
-    allow; and no other plan of the row tile that fills as well has a
+    allow; and no other plan of the row tile that fills as well (and
+    accumulates at most ``F32_MAX_KPER`` columns of K a CTA) has a
     smaller modelled time."""
     rows, cols, k = SHAPES[key]
     p, k = _plan(rows, cols, k)
     assert p.ctas(rows, cols) >= 0.9 * min(SMS, _most(rows, cols, k))
+    assert p.kper <= nm_spmm.F32_MAX_KPER == 512
     best = nm_spmm.f32_cost(p, rows, cols, 2, 4, SMS)
     nst = -(-k // 64)
     for wm, wn in nm_spmm.F32_TILES[p.row_tile]:
         for s in range(1, nst + 1):
             per = -(-nst // s)
+            if 64 * per > nm_spmm.F32_MAX_KPER:
+                continue
             q = p._replace(wm=wm, wn=wn, splits=-(-nst // per),
                            kper=64 * per)
             if q.ctas(rows, cols) >= 0.9 * min(SMS, _most(rows, cols, k)):
                 assert nm_spmm.f32_cost(q, rows, cols, 2, 4, SMS) \
                     >= best - 1e-12
+
+
+@pytest.mark.parametrize("rows", [128, 4160, 8320])
+@pytest.mark.parametrize("o,k", [(4096, 3584), (3584, 14336),
+                                 (14336, 3584)])
+def test_long_k_splits_into_short_accumulation_chains(rows, o, k):
+    """gemma2-9b's f32 linears (K 3584 and 14336) at a verify span, a
+    4160-token prefill and the oracle's 2 x 4160: no CTA accumulates more
+    than 512 columns of K (the tensor cores' f32 accumulation drifts with
+    the chain; one CTA over all 14336 moved four layers' logits by 2.9e-3
+    on the card), and the splits cover K once."""
+    p = nm_spmm.f32_plan(o, rows, k, 2, 4, sms=SMS)
+    assert p.kper <= 512 and p.splits * p.kper >= k
+    assert (p.splits - 1) * p.kper < k
 
 
 def test_deep_k_at_batch_1_splits_k():

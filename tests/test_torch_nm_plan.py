@@ -126,6 +126,35 @@ def test_splits_fill_the_resident_slots_where_k_allows(rows, o, k, decode):
         assert -(-q_ctas // slots) * q_per >= cost
 
 
+# one gemma2-9b layer's linears (O, K)
+GEMMA2 = [(4096, 3584), (2048, 3584), (3584, 4096), (14336, 3584),
+          (3584, 14336)]
+
+
+@pytest.mark.parametrize("o,k", GEMMA2)
+@pytest.mark.parametrize("rows", [128, 4096, 4160, 8320])
+def test_split_partials_stay_within_their_limit(o, k, rows):
+    """gemma2-9b's prefill shapes (a 4096 bucket, a 4160 prompt, the
+    oracle's 2 x 4160): the f32 split partials stay within
+    SPLIT_WS_LIMIT (without it the waves' rounding picked 112 splits,
+    6.1 GiB, for wd at 4096 rows, and the oracle's 8320 rows ran the card
+    out of memory), and among the split counts under it none does better
+    in waves x stages per CTA."""
+    p, slots, most = _fill(rows, o, k, False)
+    assert p.splits == 1 or \
+        p.splits * rows * o * 4 <= nm_spmm.SPLIT_WS_LIMIT == 256 << 20
+    nst = -(-k // (64 * p.ss))
+    ctas = p.ctas(rows, o)
+    cost = -(-ctas // slots) * (p.kper // (64 * p.ss))
+    for s in range(1, nst + 1):
+        q_per = -(-nst // s)
+        q_splits = -(-nst // q_per)
+        if q_splits > 1 and q_splits * rows * o * 4 > nm_spmm.SPLIT_WS_LIMIT:
+            continue
+        q_ctas = ctas // p.splits * q_splits
+        assert -(-q_ctas // slots) * q_per >= cost
+
+
 @pytest.mark.parametrize("o,k", MODEL)
 @pytest.mark.parametrize("rows,decode", [(8, True), (32, False),
                                          (128, False)])
