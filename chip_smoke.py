@@ -49,7 +49,12 @@ Phases (any failure exits non-zero and prints no result line):
    softcap 50, kv_len up to 4160: two rows past the window), f32 and
    bf16 against their plain versions, verify against decode bit for bit;
    SDPA, the yardstick, runs under the same window mask without the
-   softcap (it has none).
+   softcap (it has none).  falcon-mamba-7b and zamba2-7b: nm_spmv /
+   nm_xwt at one falcon layer's four linears (x_proj's 288 rows,
+   dt_proj's K 256) and one zamba2 Mamba2 layer's two (in_proj's 14576
+   rows), checked with the shared block's shapes, and paged_gqa_decode at
+   zamba2's shared block (KVH 32, G 1, d 112, window 4096, no softcap);
+   ``[scan]`` times the plain-torch recurrence of one layer of each.
 Every serve phase (3-6, 8) runs the engine as a user would on the card:
 each entry point (decode, prefill per bucket, propose, verify) captured as
 CUDA graphs before the first admission (``prewarm=True``), any mid-serve
@@ -79,11 +84,12 @@ steady tick and the graph pool's bytes.
    layers x 7) and the gather one none; tokens compared with phase 3's;
    hard check: full width, 4 layers, float32, 2 slots: onehot tokens
    exactly equal to gather tokens, and each equal to its eager engine's.
-4. Serve deepseek-v2-lite-16b: full width (27 layers = 1 dense + 26 MoE,
-   d 2048, 16 heads, MLA kv_lora 512 / rope 64 / v 128, 64 routed experts
-   top-6 + 2 shared of hidden 1408, dense d_ff 10944, vocab 102400, bf16,
-   2:4 compressed at init; random weights from a seed), the same engine
-   and trace.  nm_spmv, nm_xwt and paged_mla_decode must launch, the
+4. Serve deepseek-v2-lite-16b: full width at ``DEEPSEEK_SERVE_LAYERS``
+   (9) of its 27 layers (1 dense + 8 MoE; cut to keep the run's time
+   with phase 11), d 2048, 16 heads, MLA kv_lora 512 / rope 64 / v 128,
+   64 routed experts top-6 + 2 shared of hidden 1408, dense d_ff 10944,
+   vocab 102400, bf16, 2:4 compressed at init, random weights from a
+   seed; the same engine and trace.  nm_spmv, nm_xwt and paged_mla_decode must launch, the
    latter once per layer per decode tick.  The reference-route check runs
    at full width and reduced depth (1 dense + 3 MoE layers) in float32,
    where no bf16 near-tie can flip a router between the routes, and also
@@ -157,12 +163,13 @@ steady tick and the graph pool's bytes.
    llama and deepseek after their phases: full width, 4 layers, float32,
    2 slots: slotted = paged = sequential tokens, each graphed = eager,
    ``forward`` within 1e-3 of the reference route.
-10. gemma2-9b at full width (42 layers: 21 local (window 4096) / global
-   pairs, d 3584, 16 / 8 heads of 256, d_ff 14336, vocab 256000 tied,
-   softcaps 50 / 30, bf16, 2:4 compressed as drawn).  10a: phase 3's
-   trace on the paged fused engine, graphed and prewarmed, the eager
-   engine beside it; hard: nm_spmv launched decode ticks x 42 x 7 and
-   paged_gqa_decode ticks x 42 times; the steady tick against its byte
+10. gemma2-9b at full width and ``GEMMA_SERVE_LAYERS`` (8) of its 42
+   layers (4 local (window 4096) / global pairs; cut to keep the run's
+   time with phase 11), d 3584, 16 / 8 heads of 256, d_ff 14336, vocab
+   256000 tied, softcaps 50 / 30, bf16, 2:4 compressed as drawn.  10a:
+   phase 3's trace on the paged fused engine, graphed and prewarmed, the
+   eager engine beside it; hard: nm_spmv launched decode ticks x 8 x 7
+   and paged_gqa_decode ticks x 8 times; the steady tick against its byte
    floor and the ``[profile]`` line.  10c: the same trace with
    ``SpecConfig(k=3, draft="rerank")``.  10b, the window bites: 2
    requests of prompt 4160 + gen 32 (max_len 4224) through the paged
@@ -177,7 +184,30 @@ steady tick and the graph pool's bytes.
    mistral-large-123b at 2 layers and arctic-480b at 1 MoE layer (with
    its dense residual), full width, bf16: eager prefill [1, 128] + 4
    decode steps, the kernel route within 0.25 of the plain route.
-11. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
+11. The SSM and hybrid families at full width and depth, bf16, 2:4
+   compressed as drawn: 11a falcon-mamba-7b (64 Mamba1 layers, d 4096,
+   d_inner 8192, state 16, vocab 65024), 11b zamba2-7b (81 Mamba2 layers:
+   13 groups of 6, each followed by the one shared attention + MLP block
+   (32 heads of 112, window 4096, d_ff 14336), and a tail of 3; state 64,
+   112 heads, vocab 32000).  Each: phase 3's trace on the paged fused
+   engine, graphed and prewarmed, the eager engine beside it, a second
+   run; hard: nm_spmv launched ticks x the tick's linears (falcon 64 x 4,
+   zamba2 81 x 2 + 13 x 7) and paged_gqa_decode ticks x 13; the steady
+   tick against its byte floor (the shared block counted at each
+   application, the state read and written), ``[profile]``; the same
+   trace on paged gather (zamba2), slotted and the sequential oracle; a
+   41-block pool, replay against suspend (the state rows swapped with the
+   blocks); zamba2's window trace (2 x prompt 4160 + 32) on paged fused /
+   gather, slotted and sequential.  11c, hard, float32 (falcon 4 layers,
+   zamba2 13: 2 groups and a tail), 2 slots, prompts 37 and 2 (below the
+   smallest bucket: replayed from the zero state; zamba2 also 4160):
+   slotted = paged = sequential, suspend = replay, each graphed = eager;
+   ``forward`` against ``prefill`` + ``decode_step`` (slotted and paged
+   fused) within 1e-3, and the kernel route against the plain route
+   within 1e-3, end to end for falcon and block by block for zamba2 (its
+   15 blocks amplify float32 rounding past 1e-3 end to end; the line
+   prints that floor).
+12. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
    device line last.  The total time is printed on the ``[done]`` line.
 """
 
@@ -228,6 +258,9 @@ LOGIT_ATOL = 0.25
 # logits agree to ~1e-5; 1e-3 leaves room and still fails on any wrong
 # kernel or a flipped router top-k set (those move logits by O(0.1)).
 LOGIT_ATOL_F32 = 1e-3
+# phases 4 and 6: 1 dense + 8 of deepseek-v2-lite's 26 MoE layers (widths
+# as published), cut from 27 when phase 11 came, to keep the run's time
+DEEPSEEK_SERVE_LAYERS = 9
 LLAMA_PATH = ("nm_spmv", "nm_xwt", "paged_gqa_decode")
 DEEPSEEK_PATH = ("nm_spmv", "nm_xwt", "paged_mla_decode")
 LLAMA_SPEC_PATH = LLAMA_PATH + ("paged_gqa_verify",)
@@ -871,11 +904,16 @@ def phase_attention(torch, F):
                 max_abs_err=worst)
 
 
-# gemma2-9b's decode attention (KVH 8, G 2, d 256, window 4096, softcap 50)
-# at 8 slots: two rows past the window, one at it, short ones (row 0, the
-# masked row of a span table, reads trash only)
-GEMMA_LENS = [1, 4160, 4100, 4096, 17, 700, 64, 2]
+# windowed decode attention at 8 slots: two rows past the window, one at
+# it, short ones (row 0, the masked row of a span table, reads trash only).
+# gemma2-9b: KVH 8, G 2, d 256, window 4096, softcap 50, decode and verify;
+# zamba2-7b's shared block: KVH 32, G 1 (multi-head), d 112, window 4096,
+# no softcap, decode only (its family takes no speculation)
+WINDOW_LENS = [1, 4160, 4100, 4096, 17, 700, 64, 2]
 GEMMA_WINDOW, GEMMA_CAP = 4096, 50.0
+WINDOW_SHAPES = {"gemma2-9b": dict(kvh=8, g=2, d=256, cap=GEMMA_CAP,
+                                   spans=(1, SPAN)),
+                 "zamba2-7b": dict(kvh=32, g=1, d=112, cap=None, spans=(1,))}
 
 
 def _window_mask(torch, kv_len, s, length, window):
@@ -887,26 +925,30 @@ def _window_mask(torch, kv_len, s, length, window):
             & (idx >= top[:, :, None] - window))[:, None]
 
 
-def phase_gemma2_attention(torch, F):
-    """paged_gqa_decode (S 1) and paged_gqa_verify (S 4) at gemma2-9b's
-    serving shape: 8 slots, KVH 8, G 2, d = dv = 256, block 16, window
-    4096, softcap 50, kv_len ``GEMMA_LENS``; f32 (the first body) and bf16
-    (the tensor-core body, ~74 / ~99 KB of shared memory a CTA) against
-    the plain versions, verify also against S decode launches bit for bit.
-    bf16 timed beside the bound (the positions each row's window reads)
-    and SDPA over the gathered K/V under the same window mask; SDPA has no
-    softcap, so it computes the uncapped function.  Returns the decode and
-    verify rows."""
+def phase_window_attention(torch, F, model):
+    """paged_gqa_decode (S 1) and, where the model speculates,
+    paged_gqa_verify (S 4) at ``model``'s serving shape
+    (``WINDOW_SHAPES``): 8 slots, block 16, window 4096, kv_len
+    ``WINDOW_LENS``; f32 (the first body) and bf16 (the tensor-core body)
+    against the plain versions, verify also against S decode launches bit
+    for bit.  bf16 timed beside the bound (the positions each row's window
+    reads) and SDPA over the gathered K/V under the same window mask; SDPA
+    has no softcap, so with one it computes the uncapped function.
+    Returns the decode (and verify) rows."""
     from repro_torch.kernels import flash_attention as fa
+    shape = WINDOW_SHAPES[model]
     gen = torch.Generator(device="cuda").manual_seed(12)
-    lens, b, kvh, g, d, bs = GEMMA_LENS, len(GEMMA_LENS), 8, 2, 256, 16
-    win, cap, scale = GEMMA_WINDOW, GEMMA_CAP, 256 ** -0.5
+    lens, b, bs = WINDOW_LENS, len(WINDOW_LENS), 16
+    kvh, g, d, cap = shape["kvh"], shape["g"], shape["d"], shape["cap"]
+    win, scale = GEMMA_WINDOW, d ** -0.5
+    what = (f"KVH {kvh}, G {g}, d {d}, window {win}"
+            + (f", cap {cap}" if cap is not None else ", no cap"))
     kw = dict(scale=scale, window=win, cap=cap)
     kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    inputs, worst, ok = {}, {1: 0.0, SPAN: 0.0}, True
+    inputs, worst, ok = {}, {s: 0.0 for s in shape["spans"]}, True
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
-        for s in (1, SPAN):
+        for s in shape["spans"]:
             tbl, nb = _span_table(torch, gen, lens, s, bs)
             kp = torch.randn(nb, bs, kvh, d, generator=gen,
                              device="cuda").to(dtype)
@@ -935,19 +977,20 @@ def phase_gemma2_attention(torch, F):
                 same = bool(torch.equal(out, dec))
             e, good = max_err(torch, out, want, ATTN_TOL, ATTN_TOL)
             worst[s], ok = max(worst[s], e), ok and good and same
-            log(f"[check] {name} gemma2-9b {dname} (KVH 8, G 2, d 256, "
-                f"window {win}, cap {cap}, kv_len {lens}, {plan.body} body, "
-                f"{plan.smem} B shared memory of {fa.SMEM_LIMIT}) max_abs_err"
-                f" {e:.3e} tol {ATTN_TOL}+{ATTN_TOL}|ref|"
+            log(f"[check] {name} {model} {dname} ({what}, kv_len {lens}, "
+                f"{plan.body} body, {plan.smem} B shared memory of "
+                f"{fa.SMEM_LIMIT}) max_abs_err {e:.3e} tol "
+                f"{ATTN_TOL}+{ATTN_TOL}|ref|"
                 + ("" if s == 1 else
                    f", offsets vs decode at kv_len + i "
                    f"{'bitwise equal' if same else 'NOT bitwise'}")
                 + f" {'ok' if good and same else 'FAIL'}")
     if not ok:
-        raise SystemExit("phase 2: paged GQA attention disagrees with its "
-                         "plain version at gemma2-9b's shape")
+        raise SystemExit(f"phase 2: paged GQA attention disagrees with its "
+                         f"plain version at {model}'s shape")
     rows = {}
-    for s, name in ((1, "paged_gqa_decode"), (SPAN, "paged_gqa_verify")):
+    for s in shape["spans"]:
+        name = "paged_gqa_decode" if s == 1 else "paged_gqa_verify"
         q, kp, vp, tbl = inputs["bfloat16", s]
         if s == 1:
             q1 = q[:, 0].contiguous()
@@ -987,17 +1030,19 @@ def phase_gemma2_attention(torch, F):
         nbytes = (q.numel() * 2 + read * kvh * 2 * d * 2 + tbl.numel() * 4
                   + b * 4 + b * s * kvh * g * d * 4)
         bnd, by = bound_ms(nbytes, 2.0 * seen * kvh * g * 2 * d, "bfloat16")
-        log(f"[time] {name} one launch at gemma2-9b's shape (bf16, 8 slots "
-            f"x span {s}, kv_len {lens}, window {win}, cap {cap}): kernel "
-            f"{ms:.4f} ms (device {dev:.4f} ms), bound {bnd:.5f} ms ({by}, "
-            f"{nbytes / 1e6:.2f} MB), plain {plain_ms:.4f} ms, SDPA on the "
-            f"gathered K/V under the window mask, without the softcap "
-            f"(SDPA has none) {lib_ms:.4f} ms (device {lib_dev:.4f} ms)")
+        sdpa = ("SDPA on the gathered K/V under the window mask"
+                + (", without the softcap (SDPA has none)"
+                   if cap is not None else ""))
+        log(f"[time] {name} one launch at {model}'s shape (bf16, 8 slots x "
+            f"span {s}, {what}, kv_len {lens}): kernel {ms:.4f} ms (device "
+            f"{dev:.4f} ms), bound {bnd:.5f} ms ({by}, {nbytes / 1e6:.2f} "
+            f"MB), plain {plain_ms:.4f} ms, {sdpa} {lib_ms:.4f} ms (device "
+            f"{lib_dev:.4f} ms)")
         rows[name] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms,
                           bound_ms=bnd, bound_by=by, library_ms=lib_ms,
-                          library_device_ms=lib_dev,
-                          library_note="SDPA without the softcap",
-                          max_abs_err=worst[s])
+                          library_device_ms=lib_dev, max_abs_err=worst[s])
+        if cap is not None:
+            rows[name]["library_note"] = "SDPA without the softcap"
     return rows
 
 
@@ -2210,13 +2255,15 @@ def check_prefix_exact(torch, arch):
 
 
 def phase_serve_deepseek(torch):
-    """Full-width deepseek-v2-lite-16b, compressed as it is drawn (the
-    dense bf16 model, ~31 GB, never exists at once)."""
+    """Full-width deepseek-v2-lite-16b at ``DEEPSEEK_SERVE_LAYERS`` of its
+    27 layers, compressed as it is drawn (the dense bf16 model, ~31 GB at
+    full depth, never exists at once)."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_model
     from repro_torch.models.config import param_count
     cfg = get_config("deepseek-v2-lite-16b")
-    cfg = cfg.replace(sparsity=dataclasses.replace(cfg.sparsity,
+    cfg = cfg.replace(n_layers=DEEPSEEK_SERVE_LAYERS,
+                      sparsity=dataclasses.replace(cfg.sparsity,
                                                    mode="compressed"))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2846,6 +2893,9 @@ GEMMA_LAYER_SHAPES = [(4096, 3584), (2048, 3584), (2048, 3584), (3584, 4096),
                       (14336, 3584), (14336, 3584), (3584, 14336)]
 GEMMA_CHECK_SHAPES = [(4096, 3584), (2048, 3584), (3584, 4096),
                       (14336, 3584), (3584, 14336)]
+# phase 10's depth: 4 of gemma2-9b's 21 local / global pairs (widths as
+# published), cut from 42 layers when phase 11 came, to keep the run's time
+GEMMA_SERVE_LAYERS = 8
 # 10b: prompts past the window (4096) by 64, not a multiple of it
 WINDOW_PROMPT, WINDOW_GEN, WINDOW_MAX_LEN = 4160, 32, 4224
 GEMMA_EXACT_PROMPTS = (4160, 4160, 128, 128)
@@ -2878,9 +2928,10 @@ def tick_floor_ms(st, cfg, kv_positions):
 
 
 def phase_gemma2(torch, card):
-    """Phase 10: full-width gemma2-9b (42 layers: 21 local (window 4096) /
-    global pairs, d 3584, 16 heads over 8 KV heads of 256, d_ff 14336,
-    vocab 256000 tied, softcaps 50 / 30, bf16, 2:4 compressed as drawn)."""
+    """Phase 10: full-width gemma2-9b at ``GEMMA_SERVE_LAYERS`` of its 42
+    layers (local (window 4096) / global pairs, d 3584, 16 heads over 8 KV
+    heads of 256, d_ff 14336, vocab 256000 tied, softcaps 50 / 30, bf16,
+    2:4 compressed as drawn)."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.models import init_model
@@ -2889,7 +2940,8 @@ def phase_gemma2(torch, card):
     from repro_torch.serve.sequential import FixedBatch
     t_phase = time.perf_counter()
     cfg = get_config("gemma2-9b")
-    cfg = cfg.replace(sparsity=dataclasses.replace(cfg.sparsity,
+    cfg = cfg.replace(n_layers=GEMMA_SERVE_LAYERS,
+                      sparsity=dataclasses.replace(cfg.sparsity,
                                                    mode="compressed"))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2948,8 +3000,9 @@ def phase_gemma2(torch, card):
         "paged_gqa_verify", eng, wall, "phase 10c", repeat=False)
     err, same = verify_vs_decode(torch, eng.model, eng.cfg,
                                  reqs[0].inputs["tokens"], seed=22)
-    log(f"[10c] {cfg.name} bf16, 42 layers: a verify span of {SPAN} after "
-        f"a 128-token prompt against {SPAN} decode steps on the same pool: "
+    log(f"[10c] {cfg.name} bf16, {cfg.n_layers} layers: a verify span of "
+        f"{SPAN} after a 128-token prompt against {SPAN} decode steps on the "
+        f"same pool: "
         f"max |dlogit| {err:.3e}, greedy tokens "
         f"{'equal' if same else 'differ'} (the linears run nm_xwt in the "
         f"span and nm_spmv in decode, each rounding to bf16)")
@@ -3199,6 +3252,570 @@ def check_other_configs(torch):
         torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- phase 11
+
+# one falcon-mamba-7b layer's linears (out, in): in_proj, x_proj (dt_rank +
+# 2 state = 288 rows), dt_proj (K = dt_rank 256, with a bias), out_proj
+FALCON_LAYER_SHAPES = [(16384, 4096), (288, 8192), (8192, 256), (4096, 8192)]
+# one zamba2-7b Mamba2 layer's in_proj (2 d_inner + 2 state + 112 heads =
+# 14576 rows) and out_proj; checked with the shared block's linears
+ZAMBA_LAYER_SHAPES = [(14576, 3584), (3584, 7168)]
+ZAMBA_CHECK_SHAPES = ZAMBA_LAYER_SHAPES + [(3584, 3584), (14336, 3584),
+                                           (3584, 14336)]
+SSM_PATH = ("nm_spmv", "nm_xwt")
+HYBRID_PATH = ("nm_spmv", "nm_xwt", "paged_gqa_decode")
+# 11c: f32 at full width; prompts 37 (bucket 32 + catch-up) and 2 (no
+# prefill: the zero state), in fixed batches of 2; zamba2 also 4160, past
+# its shared block's window
+SSM_EXACT_PROMPTS = {"falcon-mamba-7b": (37, 37, 2, 2),
+                     "zamba2-7b": (4160, 4160, 37, 37, 2, 2)}
+SSM_EXACT_GENS = (12, 9)
+SSM_EXACT_LAYERS = {"falcon-mamba-7b": 4, "zamba2-7b": 13}
+
+
+def ssm_linears_per_tick(model) -> int:
+    """N:M linears a decode tick runs: each Mamba block's (Mamba1 four,
+    Mamba2 two), and the shared block's seven at each application."""
+    from repro_torch.core.layers import SparseLinear
+    from repro_torch.models.ssm import Mamba1, Mamba2
+    mixers = [m for m in model.modules() if isinstance(m, (Mamba1, Mamba2))]
+    per = sum(1 for m in mixers[0].modules() if isinstance(m, SparseLinear))
+    shared = getattr(model, "shared", None)
+    uses = len(getattr(model, "groups", ()))
+    return len(mixers) * per + (uses * LINEARS_PER_LAYER if shared else 0)
+
+
+def ssm_tick_floor(eng, cfg, kv_positions):
+    """Byte floor of one decode tick (ms, and its parts in bytes): the
+    weight stream with the hybrid's shared block read at each application
+    (``weight_stream_bytes`` counts it once), the tied LM head's table, the
+    recurrent state read and written (f32 ``h`` and the conv tails of
+    every slot) and the shared block's K/V over ``kv_positions``."""
+    from repro_torch.models import weight_stream_bytes
+    st = eng.stats()
+    weights = st["weight_stream_bytes"]
+    shared = getattr(eng.model, "shared", None)
+    if shared is not None:
+        weights += ((len(eng.model.groups) - 1)
+                    * weight_stream_bytes(shared, eng.cfg)["stream_bytes"])
+    head = cfg.vocab * cfg.d_model * 2
+    state = 2 * st["kv_state_bytes"]
+    kv = kv_positions * cfg.n_kv * cfg.hd() * 2 * 2 if shared is not None \
+        else 0
+    parts = dict(weights=weights, head=head, state=state, kv=kv)
+    return sum(parts.values()) / HBM_BYTES_PER_S * 1e3, parts
+
+
+def time_scan(torch, cfg):
+    """``[scan]``: device ms of the plain-torch recurrence at ``cfg``'s full
+    width, one layer: the prefill scan (Mamba1's chunked log-depth scan /
+    Mamba2's SSD chunks) at S 128 for one prompt (the engine's admission)
+    and a batch of 8 (the oracle), and one decode step of 8 slots (the
+    state read and written in place), with the bytes a step must move."""
+    from repro_torch.models import ssm
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    di, st = cfg.dinner(), cfg.ssm_state
+    f32 = dict(device="cuda", dtype=torch.float32)
+    out = {}
+    for b, s in ((1, 128), (8, 128)) + (((1, 4160),)
+                                        if cfg.mamba_version == 2 else ()):
+        dt = torch.rand(b, s, di if cfg.mamba_version == 1
+                        else cfg.nheads_ssm(), generator=gen, **f32) * 0.1
+        bm = torch.randn(b, s, st, generator=gen, **f32)
+        cm = torch.randn(b, s, st, generator=gen, **f32)
+        if cfg.mamba_version == 1:
+            xs = torch.randn(b, s, di, generator=gen, **f32)
+            a = -torch.rand(di, st, generator=gen, **f32)
+
+            def run():
+                return ssm.mamba1_scan(dt, bm, cm, xs, a, cfg.ssm_chunk)
+        else:
+            nh = cfg.nheads_ssm()
+            xs = torch.randn(b, s, nh, di // nh, generator=gen, **f32)
+            a = -torch.rand(nh, generator=gen, **f32)
+
+            def run():
+                return ssm.mamba2_ssd(xs, dt, bm, cm, a, cfg.ssm_chunk)
+        out[f"prefill B{b} S{s}"] = device_ms(torch, run, 5)
+    b = 8
+    if cfg.mamba_version == 1:
+        h = torch.zeros(b, di, st, **f32)
+        args = (torch.rand(b, di, generator=gen, **f32) * 0.1,
+                torch.randn(b, di, generator=gen, **f32),
+                torch.randn(b, st, generator=gen, **f32),
+                torch.randn(b, st, generator=gen, **f32),
+                -torch.rand(di, st, generator=gen, **f32))
+        step = ssm.mamba1_step
+    else:
+        nh = cfg.nheads_ssm()
+        h = torch.zeros(b, nh, di // nh, st, **f32)
+        args = (torch.rand(b, nh, generator=gen, **f32) * 0.1,
+                torch.randn(b, nh, di // nh, generator=gen, **f32),
+                torch.randn(b, st, generator=gen, **f32),
+                torch.randn(b, st, generator=gen, **f32),
+                -torch.rand(nh, generator=gen, **f32))
+        step = ssm.mamba2_step
+    out["decode step B8"] = device_ms(torch, lambda: step(h, *args), 20)
+    bnd, _ = bound_ms(2 * h.numel() * 4, 0, "float32")
+    log(f"[scan] {cfg.name} one layer's recurrence (plain torch, f32, d_inner"
+        f" {di}, state {st}, chunk {cfg.ssm_chunk}), device ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+        + f"; the decode step's bound (h read and written, "
+          f"{2 * h.numel() * 4 / 1e6:.1f} MB) {bnd:.4f} ms")
+
+
+def serve_state_family(torch, card, arch, phase):
+    """Phase 11a (falcon-mamba-7b) / 11b (zamba2-7b) at full width and
+    depth, bf16, 2:4 compressed as drawn: phase 3's trace on the paged
+    fused engine (graphed, prewarmed, the eager engine beside it, a second
+    graphed run for determinism, the traced busy share); hard: nm_spmv
+    launched ticks x the tick's linears, paged_gqa_decode ticks x the
+    shared block's applications.  The same trace on the paged gather
+    engine (zamba2), the slotted engine and the sequential oracle; a
+    small pool under ``preempt="suspend"`` against ``"replay"``; for
+    zamba2 the window trace (2 x prompt 4160 + 32) on paged fused /
+    gather, slotted and sequential.  These other paths run graphed only
+    (11c holds each graphed = eager in float32); bf16 flips are printed
+    with their top-2 margins."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.models.config import param_count
+    from repro_torch.serve import synthetic_trace
+    from repro_torch.serve.sequential import FixedBatch
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    cfg = cfg.replace(sparsity=dataclasses.replace(cfg.sparsity,
+                                                   mode="compressed"))
+    hybrid = cfg.family == "hybrid"
+    path_kernels = HYBRID_PATH if hybrid else SSM_PATH
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    shape = (f"Mamba1 d_inner {cfg.dinner()} state {cfg.ssm_state} dt_rank "
+             f"{cfg.dtrank()}" if not hybrid else
+             f"{len(model.groups)} groups of {cfg.attn_period} Mamba2 + tail "
+             f"{len(model.tail)} (d_inner {cfg.dinner()}, state "
+             f"{cfg.ssm_state}, {cfg.nheads_ssm()} heads), one shared "
+             f"attention + MLP block ({cfg.n_heads}H/{cfg.n_kv}KV of "
+             f"{cfg.hd()}, d_ff {cfg.d_ff}, window {cfg.window})")
+    log(f"[phase {phase}] init {cfg.name}: {cfg.n_layers}L d{cfg.d_model} "
+        f"{shape}, conv {cfg.conv_kernel}, chunk {cfg.ssm_chunk}, vocab "
+        f"{cfg.vocab}, {cfg.dtype}, 2:4 compressed as drawn: "
+        f"{drawn_params(model, cfg) / 1e9:.3f} B drawn parameters "
+        f"(param_count {param_count(cfg) / 1e9:.3f} B) in "
+        f"{time.perf_counter() - t0:.1f}s; resident "
+        f"{gib(torch.cuda.memory_allocated())}, peak "
+        f"{gib(torch.cuda.max_memory_allocated())} on {card}")
+    time_scan(torch, cfg)
+    per_tick = ssm_linears_per_tick(model)
+    uses = len(getattr(model, "groups", ()))
+    path = {}
+
+    # ---- phase 3's trace on the paged fused engine
+    base = dict(n_slots=8, max_len=128 + 32, compressed=True, device="cuda")
+    kw = graphed(dict(base, kv="paged", attn="fused", block_size=16))
+    eng, reqs, launches, wall, first_eager = serve_run(
+        torch, model, cfg, path_kernels, kw, f"phase {phase}")
+    path[cfg.name] = launches
+    ticks = eng.decode_steps
+    exact = dict(nm_spmv=ticks * per_tick)
+    if hybrid:
+        exact["paged_gqa_decode"] = ticks * uses
+    check_path(launches, path_kernels, f"phase {phase}", **exact)
+    again = check_repeat(torch, model, cfg, kw, reqs, eng, f"phase {phase}")
+    busy = profile_breakdown(torch, model, cfg, kw)
+    check_graphed(torch, model, cfg, kw, reqs, eng, wall, again,
+                  first_eager, f"phase {phase}", last_eager=False,
+                  busy=(None, busy))
+    st = eng.stats()
+    floor, parts = ssm_tick_floor(eng, cfg, 8 * 160 * uses)
+    log(f"[{phase}] {cfg.name}: {st['tokens'] / wall:.1f} tokens/s graphed, "
+        f"steady tick {st['steady_tick_s'] * 1e3:.2f} ms against a byte "
+        f"floor of {floor:.2f} ms ("
+        + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in parts.items())
+        + f", at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); launches nm_spmv "
+        f"{launches['nm_spmv']} = {ticks} ticks x {per_tick}"
+        + (f", paged_gqa_decode {launches['paged_gqa_decode']} = {ticks} x "
+           f"{uses}" if hybrid else "")
+        + f", nm_xwt {launches['nm_xwt']}; state "
+        f"{mib(st['kv_state_bytes'])}, KV peak {mib(st['kv_bytes_peak'])}")
+    log(f"[time] phase {phase} paged {time.perf_counter() - t_phase:.1f}s")
+    results = {"paged fused": eng.results}
+    ccfg = eng.cfg
+    del eng, first_eager
+    free_card(torch)
+
+    # ---- the same trace: paged gather (hybrid), slotted, sequential
+    rates = [f"paged fused {st['tokens'] / wall:.1f}"]
+    if hybrid:
+        g, gwall, glaunch = graphed_run(torch, model, cfg,
+                                        dict(kw, attn="gather"), reqs,
+                                        f"phase {phase} gather")
+        results["paged gather"] = g.results
+        path[f"{cfg.name} gather"] = glaunch
+        rates.append(f"paged gather {g.stats()['tokens'] / gwall:.1f}")
+        del g
+    sl, swall, slaunch = graphed_run(
+        torch, model, cfg, dict(base, strict_prewarm=True), reqs,
+        f"phase {phase} slotted")
+    results["slotted"] = sl.results
+    path[f"{cfg.name} slotted"] = slaunch
+    rates.append(f"slotted {sl.stats()['tokens'] / swall:.1f}")
+    del sl
+    free_card(torch)
+    runner = FixedBatch(model, ccfg, device="cuda")
+    runner.serve_sequential(reqs, 8, base["max_len"])      # captures
+    kernels.reset_launch_counts()
+    results["sequential"], sst, seq_wall = sequential_run(
+        torch, runner, reqs, 8, base["max_len"])
+    path[f"{cfg.name} sequential"] = {
+        k.name: k.launches for k in kernels.all_kernels()}
+    seq_tokens = sum(len(r.tokens) for r in results["sequential"].values())
+    rates.append(f"sequential {seq_tokens / seq_wall:.1f}")
+    del runner
+    free_card(torch)
+    log(f"[{phase} paths] {cfg.name}, phase 3's trace, graphed tokens/s: "
+        + "; ".join(rates))
+    fused = _Results(results["paged fused"], model, ccfg)
+    for name in results:
+        if name != "paged fused":
+            compare_tokens(torch, _Results(results[name], model, ccfg), reqs,
+                           fused.results, f"phase {phase} {cfg.name}", name,
+                           "paged fused")
+    log(f"[time] phase {phase} paths {time.perf_counter() - t_phase:.1f}s")
+
+    # ---- a small pool: replay against suspend (the state rows swapped)
+    skw = dict(kw, n_blocks=41)
+    rep, rep_wall, _ = graphed_run(torch, model, cfg, skw, reqs,
+                                   f"phase {phase} replay")
+    swaps = {}
+    sus, sus_wall, _ = graphed_run(torch, model, cfg,
+                                   dict(skw, preempt="suspend"), reqs,
+                                   f"phase {phase} suspend", swaps=swaps)
+    rs, ss = rep.stats(), sus.stats()
+    if (rs["preemptions"] <= 0 or ss["preemptions"] <= 0
+            or not ss["swap_outs"] == ss["swap_ins"] == ss["preemptions"]
+            or ss["swap_bytes_resident"] or ss["ticks"] > rs["ticks"]):
+        raise SystemExit(f"phase {phase}: expected preemptions in both runs,"
+                         f" swap-outs = swap-ins = preemptions, nothing left"
+                         f" on the host and suspend ticks <= replay ticks; "
+                         f"replay {rs}, suspend {ss}")
+    out_ms, out_b = zip(*swaps["out"])
+    in_ms, _ = zip(*swaps["in"])
+    log(f"[{phase} suspend] {cfg.name}: pool 41 blocks of 16; preemptions "
+        f"replay {int(rs['preemptions'])} / suspend {int(ss['preemptions'])};"
+        f" swap_out {sum(out_ms) / len(out_ms):.3f} ms mean for "
+        f"{sum(out_b) / len(out_b) / 2 ** 20:.1f} MiB (state rows + blocks),"
+        f" swap_in {sum(in_ms) / len(in_ms):.3f} ms mean (CUDA events "
+        f"between replays); ticks replay {int(rs['ticks'])} / suspend "
+        f"{int(ss['ticks'])}; graphed tokens/s replay "
+        f"{rs['tokens'] / rep_wall:.1f} / suspend "
+        f"{ss['tokens'] / sus_wall:.1f}")
+    compare_tokens(torch, sus, reqs, rep.results,
+                   f"phase {phase} {cfg.name}", "suspend", "replay")
+    compare_tokens(torch, rep, reqs, fused.results,
+                   f"phase {phase} {cfg.name}", "replay", "paged fused")
+    del rep, sus, fused
+    free_card(torch)
+    log(f"[time] phase {phase} suspend {time.perf_counter() - t_phase:.1f}s")
+    if hybrid:
+        path.update(window_paths(torch, model, ccfg, f"phase {phase}"))
+    del model
+    free_card(torch)
+    log(f"[time] phase {phase} {time.perf_counter() - t_phase:.1f}s")
+    return path
+
+
+def graphed_run(torch, model, cfg, kw, reqs, what, swaps=None):
+    """The graphed engine ``kw`` over ``reqs`` alone (no eager twin: the
+    float32 checks of 11c hold these paths graphed = eager), launch counts
+    zeroed just before and read just after (``swaps``: a dict its swap
+    times fill).  Hard: no mid-serve capture, every request served, the
+    pool's invariants and every block back.  Returns (engine, wall,
+    launches)."""
+    from repro_torch import kernels
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(model, cfg, **kw)
+    if eng.pool is None:        # slotted: prefill shapes are the prompts'
+        eng.prewarm(prompt_lens=sorted({r.prompt_len for r in reqs}))
+    if swaps is not None:
+        swaps.update(time_swaps(torch, eng.pool))
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.all_kernels()}
+    st = eng.stats()
+    used = 0
+    if eng.pool is not None:
+        eng.check_invariants()
+        used = eng.pool.used_blocks
+    if (st["mid_serve_compiles"] or used or not eng.graphs
+            or st["tokens"] != sum(r.max_new_tokens for r in reqs)):
+        raise SystemExit(f"{what}: {st['mid_serve_compiles']:.0f} mid-serve "
+                         f"captures, {used} blocks still used, "
+                         f"{st['tokens']:.0f} tokens")
+    return eng, wall, launches
+
+
+def window_paths(torch, model, cfg, phase):
+    """2 requests of prompt 4160 (past the 4096 window) + gen 32 through
+    the paged fused and gather engines, the slotted engine (rings of the
+    window) and the sequential oracle, graphed; tokens/s, KV bytes,
+    paged_gqa_decode launches, flips printed with their margins."""
+    from repro_torch import kernels
+    from repro_torch.serve import ServeEngine, synthetic_trace
+    from repro_torch.serve.sequential import FixedBatch
+    wreqs = synthetic_trace(cfg, n_requests=2, prompt_len=WINDOW_PROMPT,
+                            gen_lens=[WINDOW_GEN], seed=21)
+    base = dict(n_slots=2, max_len=WINDOW_MAX_LEN, compressed=True,
+                device="cuda")
+    results, parts, path = {}, [], {}
+    for name, k in (("paged fused", graphed(dict(
+                        base, kv="paged", attn="fused", block_size=16,
+                        prefill_buckets=(WINDOW_PROMPT,)))),
+                    ("paged gather", graphed(dict(
+                        base, kv="paged", attn="gather", block_size=16,
+                        prefill_buckets=(WINDOW_PROMPT,)))),
+                    ("slotted", dict(base, strict_prewarm=True))):
+        e = ServeEngine(model, cfg, **k)
+        if e.kv == "slotted":
+            e.prewarm(prompt_lens=[WINDOW_PROMPT])
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.run(wreqs)
+        torch.cuda.synchronize()
+        w = time.perf_counter() - t0
+        launched = {kk.name: kk.launches for kk in kernels.all_kernels()}
+        es = e.stats()
+        if es["mid_serve_compiles"] or es["tokens"] != 2 * WINDOW_GEN:
+            raise SystemExit(f"{phase} window {name}: {es['tokens']} tokens,"
+                             f" {es['mid_serve_compiles']} mid-serve "
+                             f"captures")
+        kv = (es["kv_bytes_resident"] if e.kv == "slotted"
+              else es["kv_bytes_peak"])
+        parts.append(f"{name} {es['tokens'] / w:.1f} tokens/s, KV {mib(kv)} "
+                     f"+ state {mib(es['kv_state_bytes'])}, paged_gqa_decode"
+                     f" {launched['paged_gqa_decode']}")
+        results[name] = e.results
+        path[f"{cfg.name} window {name}"] = launched
+        del e
+        free_card(torch)
+    runner = FixedBatch(model, cfg, device="cuda")
+    runner.serve_sequential(wreqs, 2, WINDOW_MAX_LEN)    # captures
+    kernels.reset_launch_counts()
+    results["sequential"], _, seq_wall = sequential_run(
+        torch, runner, wreqs, 2, WINDOW_MAX_LEN)
+    path[f"{cfg.name} window sequential"] = {
+        kk.name: kk.launches for kk in kernels.all_kernels()}
+    parts.append(f"sequential {2 * WINDOW_GEN / seq_wall:.1f} tokens/s")
+    del runner
+    free_card(torch)
+    log(f"[{phase.split()[-1]} window] {cfg.name}, 2 requests of prompt "
+        f"{WINDOW_PROMPT} (window {cfg.window}) + gen {WINDOW_GEN}, max_len "
+        f"{WINDOW_MAX_LEN}, graphed: " + "; ".join(parts))
+    for name in ("paged gather", "slotted", "sequential"):
+        compare_tokens(torch, _Results(results[name], model, cfg), wreqs,
+                       results["paged fused"], f"{phase} window {cfg.name}",
+                       name, "paged fused")
+    return path
+
+
+def state_blocks(model):
+    """(kind, block) of an SSM or hybrid model in depth order: its Mamba
+    blocks, and the shared block at each of its applications."""
+    from repro_torch.models import SSMLM
+    if isinstance(model, SSMLM):
+        return [("mamba", b) for b in model.layers]
+    out = []
+    for group in model.groups:
+        out += [("mamba", b) for b in group] + [("shared", model.shared)]
+    return out + [("mamba", b) for b in model.tail]
+
+
+def check_block_route(torch, model, cfg, prompt, tol, phase):
+    """The kernel route against the plain route (impl='ref') block by block
+    over one prompt: each block of the kernel route runs on the plain
+    route's input to it, and its output must be within ``tol`` of the plain
+    route's.  Then both routes free-running, and the plain route again on
+    an input moved by 1e-7 relative: how far the model's own float32
+    rounding moves its logits, the floor under any end-to-end comparison.
+    (A deep hybrid amplifies a block's rounding through its decay
+    cumsums; ``check_reference_route`` compares end to end.)"""
+    from repro_torch.models import transformer
+    from repro_torch.models.common import lm_head_apply
+    ref = cfg.replace(sparsity=dataclasses.replace(cfg.sparsity, impl="ref"))
+    toks = torch.tensor(prompt[None], dtype=torch.long, device="cuda")
+    pos = torch.arange(toks.shape[1], device="cuda")[None]
+
+    def apply(kind, block, x, c):
+        if kind == "mamba":
+            return transformer._ssm_block_apply(block, x, c)[0]
+        return transformer._dense_block_apply(block, x, c, positions=pos,
+                                              window=c.window)[0]
+
+    def logits(x):
+        return lm_head_apply(model.embed, transformer._norm(
+            model.lnf, x[:, -1:], cfg))
+
+    x0 = model.embed.emb[toks]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    moved = x0 * (1 + 1e-7 * torch.randn(x0.shape, generator=gen,
+                                         device="cuda"))
+    xk = xr = x0
+    local = []
+    for kind, block in state_blocks(model):
+        out = apply(kind, block, xr, ref)
+        local.append(float((apply(kind, block, xr, cfg) - out).abs().max()))
+        xk, xr = apply(kind, block, xk, cfg), out
+        moved = apply(kind, block, moved, ref)
+    free = float((logits(xk) - logits(xr)).abs().max())
+    floor = float((logits(moved) - logits(xr)).abs().max())
+    log(f"[ref] {cfg.name} ({cfg.n_layers}L, {cfg.dtype}, prompt "
+        f"{toks.shape[1]}) kernel route vs plain route block by block "
+        f"(each on the plain route's input): max |dx| {max(local):.3e} "
+        f"(tol {tol}) over {len(local)} blocks; free-running logits "
+        f"{free:.3e}, the plain route's own under a 1e-7 relative input "
+        f"move {floor:.3e}")
+    if max(local) > tol:
+        raise SystemExit(f"{phase}: a block of the kernel route disagrees "
+                         f"with the plain route beyond tolerance")
+
+
+def check_ssm_exact(torch, arch):
+    """Phase 11c, float32 at full width and cut depth (falcon 4 layers,
+    zamba2 13: 2 groups and a tail of 1), 2 slots: slotted = paged =
+    sequential tokens, each graphed = eager, suspend = replay on a pool
+    that preempts; ``forward``'s logits at the first prompt's end against
+    ``prefill`` + ``decode_step`` on the slotted caches and on the paged
+    pool (fused kernel); the kernel route against the plain route over
+    prefills and 4 decode steps (falcon), or block by block over the 4160
+    prompt (zamba2, whose 15 blocks amplify float32 rounding past 1e-3
+    end to end: ``check_block_route``); all within 1e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (decode_step, forward, init_caches,
+                                    init_model, prefill)
+    from repro_torch.serve import (BlockPool, seed_decode_caches,
+                                   synthetic_request)
+    from repro_torch.serve.sequential import FixedBatch
+    import numpy as np
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    cfg = cfg.replace(n_layers=SSM_EXACT_LAYERS[arch], dtype="float32",
+                      sparsity=dataclasses.replace(cfg.sparsity,
+                                                   mode="compressed"))
+    model = init_model(cfg, seed=1, device="cuda")
+    prompts = SSM_EXACT_PROMPTS[arch]
+    rng = np.random.default_rng(11)
+    reqs = [synthetic_request(cfg, rng, rid=i, prompt_len=p,
+                              max_new_tokens=SSM_EXACT_GENS[i % 2])
+            for i, p in enumerate(prompts)]
+    max_len = max(prompts) + max(SSM_EXACT_GENS)
+    buckets = tuple(sorted({32, 128} | ({4160} if max(prompts) > 128
+                                         else set())))
+    base = dict(n_slots=2, max_len=max_len, compressed=True, device="cuda")
+    sl, _, _, _, _ = slotted_run(torch, model, cfg, base, reqs,
+                                 f"phase 11c {arch} slotted")
+    sl = _Results(sl.results, model, cfg)
+    free_card(torch)
+    pkw = graphed(dict(base, kv="paged", attn="fused", block_size=16,
+                       prefill_buckets=buckets))
+    pg, _, _, _, _ = prefix_run(torch, model, cfg, pkw, reqs,
+                                f"phase 11c {arch} paged")
+    pg = _Results(pg.results, model, cfg)
+    free_card(torch)
+    seq = {}
+    for graphs in (True, False):
+        seq[graphs], _ = FixedBatch(model, cfg, device="cuda",
+                                    graphs=graphs).serve_sequential(
+            reqs, 2, max_len)
+        free_card(torch)
+    # replay against suspend on a pool too small for two requests of 37 +
+    # 12 (3 blocks each at the end, 2 at admission; 4 usable)
+    small = [r for r in reqs if r.prompt_len < 128]
+    skw = dict(pkw, max_len=49, n_blocks=5, prefill_buckets=(4, 32))
+    rep, _, _, _, _ = prefix_run(torch, model, cfg, skw, small,
+                                 f"phase 11c {arch} replay")
+    sus, _, _, _, _ = prefix_run(torch, model, cfg,
+                                 dict(skw, preempt="suspend"), small,
+                                 f"phase 11c {arch} suspend")
+    preempted = (rep.stats()["preemptions"], sus.stats()["preemptions"])
+    differ = (compare_tokens(torch, pg, reqs, sl.results, "phase 11c",
+                             "paged", "slotted")
+              + compare_tokens(torch, _Results(seq[True], model, cfg), reqs,
+                               sl.results, "phase 11c", "sequential",
+                               "slotted")
+              + compare_tokens(torch, _Results(seq[False], model, cfg), reqs,
+                               seq[True], "phase 11c", "sequential eager",
+                               "sequential graphed")
+              + compare_tokens(torch, sus, small, rep.results, "phase 11c",
+                               "suspend", "replay")
+              + compare_tokens(torch, rep, small, sl.results, "phase 11c",
+                               "replay", "slotted"))
+    del rep, sus
+    free_card(torch)
+
+    # forward at the first prompt's end against prefill + one decode step
+    p = prompts[0]
+    toks = torch.tensor(np.concatenate([reqs[0].inputs["tokens"],
+                                        sl.results[0].tokens[:1]])[None],
+                        dtype=torch.long, device="cuda")
+    want = forward(model, cfg, {"tokens": toks})[0][:, -1]
+    _, pf = prefill(model, cfg, {"tokens": toks[:, :p]})
+    slotted = seed_decode_caches(cfg, init_caches(cfg, 1, max_len,
+                                                  device="cuda"), pf)
+    pos = torch.tensor([p], dtype=torch.int32, device="cuda")
+    got_slotted, _ = decode_step(model, cfg, slotted, toks[:, p], pos)
+    pool = BlockPool(cfg, 1, max_len, 16, device="cuda")
+    pool.alloc(0, pool.blocks_for(p + 1))
+    pool.seed(0, pf, p)
+    got_paged, _ = decode_step(model, cfg, pool.caches, toks[:, p], pos,
+                               pool.device_table(), attn_impl="fused")
+    fwd_err = max(float((got_slotted - want).abs().max()),
+                  float((got_paged - want).abs().max()))
+    del want, pf, slotted, pool
+    free_card(torch)
+    n = len(reqs) * 3 + len(small) * 2
+    log(f"[11c exact] {arch} ({cfg.n_layers} layers, float32, 2 slots, "
+        f"prompts {prompts}, gen {SSM_EXACT_GENS}): slotted = paged = "
+        f"sequential, suspend = replay = slotted tokens in {n - differ}/{n} "
+        f"comparisons (preemptions replay / suspend {preempted}), each "
+        f"graphed = eager; forward at position {p} vs prefill + decode_step "
+        f"(slotted, paged fused) max |dlogit| {fwd_err:.3e} (tol "
+        f"{LOGIT_ATOL_F32}); {time.perf_counter() - t0:.1f}s")
+    if differ or fwd_err > LOGIT_ATOL_F32 or min(preempted) <= 0:
+        raise SystemExit(f"phase 11c: float32 {arch} paths disagree (or the "
+                         f"small pool did not preempt)")
+    if cfg.family == "ssm":
+        check_reference_route(torch, model, cfg, reqs[:2], LOGIT_ATOL_F32,
+                              "phase 11c")
+    else:
+        check_block_route(torch, model, cfg, reqs[0].inputs["tokens"],
+                          LOGIT_ATOL_F32, "phase 11c")
+    del model
+    free_card(torch)
+
+
+def phase_ssm(torch, card):
+    """Phase 11: falcon-mamba-7b (11a) and zamba2-7b (11b) at full width
+    and depth, then the float32 checks (11c).  Returns the launches by
+    path."""
+    t0 = time.perf_counter()
+    path = {}
+    for arch, phase in (("falcon-mamba-7b", "11a"), ("zamba2-7b", "11b")):
+        path.update(serve_state_family(torch, card, arch, phase))
+    for arch in ("falcon-mamba-7b", "zamba2-7b"):
+        check_ssm_exact(torch, arch)
+    log(f"[time] phase 11 {time.perf_counter() - t0:.1f}s")
+    return path
+
+
 # ------------------------------------------------------------------ main
 
 KERNEL_META = {
@@ -3257,6 +3874,15 @@ def main() -> int:
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
                                         row["max_abs_err"])
         rows[name]["at_gemma2_layer"] = {k: row[k] for k in TIMING_KEYS}
+    for model, check, layer, seed in (
+            ("falcon-mamba-7b", FALCON_LAYER_SHAPES, FALCON_LAYER_SHAPES, 13),
+            ("zamba2-7b", ZAMBA_CHECK_SHAPES, ZAMBA_LAYER_SHAPES, 15)):
+        for name, row in phase_matmuls(torch, F, model, check, layer, layer,
+                                       seed=seed).items():
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                            row["max_abs_err"])
+            rows[name][f"at_{model.split('-')[0]}_layer"] = {
+                k: row[k] for k in TIMING_KEYS}
     rows["nm_xwt"]["at_verify_span"] = time_verify_linears(torch, F)
     rows.update(phase_packed_and_onehot(torch, F))
     spmm_err = phase_spmm_check(torch)
@@ -3264,10 +3890,12 @@ def main() -> int:
     rows["paged_mla_decode"] = phase_mla_attention(torch, F)
     rows["paged_gqa_verify"] = phase_verify_attention(torch, F)
     rows["paged_mla_verify"] = phase_mla_verify_attention(torch, F)
-    for name, row in phase_gemma2_attention(torch, F).items():
-        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
-                                        row["max_abs_err"])
-        rows[name]["at_gemma2"] = row
+    for model in WINDOW_SHAPES:
+        for name, row in phase_window_attention(torch, F, model).items():
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                            row["max_abs_err"])
+            rows[name][f"at_{model.split('-')[0]}"] = row
+    log(f"[time] phases 1-2 {time.perf_counter() - t_start:.1f}s")
     t0 = time.perf_counter()
     rows["flash_attention"], flash_path = phase_flash(torch, F)
     log(f"[time] flash phase {time.perf_counter() - t0:.1f}s")
@@ -3278,11 +3906,18 @@ def main() -> int:
     rows["nm_spmm"]["max_abs_err"] = max(rows["nm_spmm"]["max_abs_err"],
                                          spmm_err)
     rows["nm_xwt"]["at_cnn"] = cnn_rows["nm_xwt"]
-    by_path = {**phase_serve(torch, card), **phase_serve_deepseek(torch),
-               **phase_gemma2(torch, card), **flash_path, **cnn_path}
+    by_path = {**flash_path, **cnn_path}
+    for name, phase in (("llama phases 3-9", phase_serve),
+                        ("deepseek phases 4, 6",
+                         lambda torch, card: phase_serve_deepseek(torch)),
+                        ("gemma2 phase 10", phase_gemma2)):
+        t0 = time.perf_counter()
+        by_path.update(phase(torch, card))
+        log(f"[time] {name} {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     check_other_configs(torch)
     log(f"[time] other configs {time.perf_counter() - t0:.1f}s")
+    by_path.update(phase_ssm(torch, card))
     # the packed variant serves no path of its own: its launches are those
     # of the CNN phase, where it runs on every layer the reference can pack
     kernels_line = []

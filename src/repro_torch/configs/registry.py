@@ -16,6 +16,8 @@ _MODULES: Dict[str, str] = {
     "deepseek-67b": "repro_torch.configs.deepseek_67b",
     "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
     "arctic-480b": "repro_torch.configs.arctic_480b",
+    "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 ALL_ARCHS: List[str] = list(_MODULES)

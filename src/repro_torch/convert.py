@@ -6,10 +6,15 @@ returns the port's ``DenseLM`` (dense family) or ``MoELM`` (MoE family:
 ``dense_layers`` and ``layers`` with MLA or GQA attention and a ``moe``
 subtree of router, stacked experts and shared MLP; gemma2's stacked
 ``pairs`` {"local", "global"} become the blocks 2i and 2i + 1, with their
-post norms ``pn1`` / ``pn2``).  Linear leaves may be
-dense ``{"w"}`` or compressed ``{"w_vals", "w_idx"}``; the stacked
-``[L, ...]`` layer leaves are split per layer, an expert stack keeps its
-``[E, ...]`` axis.  This is how the parity tests feed both packages the
+post norms ``pn1`` / ``pn2``), ``SSMLM`` (the SSM family: stacked Mamba1
+``layers``) or ``HybridLM`` (the hybrid family: ``groups`` stacked
+[G, P, ...], the one ``shared`` dense block, a ``tail`` [T, ...]).
+Linear leaves may be dense ``{"w"}`` or compressed ``{"w_vals",
+"w_idx"}``; the stacked
+``[L, ...]`` layer leaves are split per layer (a group stack per group
+and member), an expert stack keeps its ``[E, ...]`` axis; a mixer's
+conv, ``A_log``, ``D`` and ``dt_bias`` stay f32, ``dt_proj`` keeps its
+bias.  This is how the parity tests feed both packages the
 same weights (their random generators cannot agree).
 ``from_reference_nmsparse`` carries one reference ``NMSparse`` (a CNN
 layer's weights, say) the same way.
@@ -29,8 +34,10 @@ from repro_torch.models.attention import GQA, MLA
 from repro_torch.models.common import Embedding, RMSNorm
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.ffn import MLP, MoE
-from repro_torch.models.transformer import (LM, DenseBlock, DenseLM, MoEBlock,
-                                            MoELM, _check_family)
+from repro_torch.models.ssm import Mamba1, Mamba2
+from repro_torch.models.transformer import (LM, DenseBlock, DenseLM,
+                                            HybridLM, MoEBlock, MoELM,
+                                            SSMBlock, SSMLM, _check_family)
 
 
 def to_torch(a: np.ndarray, device="cuda") -> torch.Tensor:
@@ -62,10 +69,11 @@ def _linear(tree: Mapping[str, np.ndarray], device,
     return cls(**kw)
 
 
-def _layer(tree: Mapping[str, Any], i: int) -> Dict[str, Any]:
-    """Slice layer ``i`` out of a stacked [L, ...] subtree."""
+def _layer(tree: Mapping[str, Any], *i: int) -> Dict[str, Any]:
+    """Slice layer ``i`` out of a stacked [L, ...] subtree (``g, j`` out
+    of a [G, P, ...] one)."""
     if isinstance(tree, Mapping):
-        return {k: _layer(v, i) for k, v in tree.items()}
+        return {k: _layer(v, *i) for k, v in tree.items()}
     return tree[i]
 
 
@@ -101,14 +109,46 @@ def _moe_block(lt, cfg: ArchConfig, device) -> MoEBlock:
                     _mlp(lt["mlp"], device) if "mlp" in lt else None)
 
 
+def _ssm_block(lt, cfg: ArchConfig, device) -> SSMBlock:
+    mt = lt["mixer"]
+    f32 = {k: to_torch(mt[k], device)
+           for k in ("conv_w", "conv_b", "A_log", "D", "dt_bias") if k in mt}
+    if cfg.mamba_version == 1:
+        mixer = Mamba1(*(_linear(mt[k], device)
+                         for k in ("in_proj", "x_proj", "dt_proj",
+                                   "out_proj")), **f32)
+    else:
+        mixer = Mamba2(_linear(mt["in_proj"], device),
+                       _linear(mt["out_proj"], device),
+                       _norm(mt["norm"], device), **f32)
+    return SSMBlock(_norm(lt["ln"], device), mixer)
+
+
 def from_reference_params(tree: Mapping[str, Any], cfg: ArchConfig,
                           device="cuda") -> LM:
-    """Reference dense- or MoE-family parameter tree (numpy leaves) -> the
-    port's model."""
+    """Reference dense-, MoE-, SSM- or hybrid-family parameter tree (numpy
+    leaves) -> the port's model."""
     _check_family(cfg)
     device = resolve_device(device)
     embed = Embedding(to_torch(tree["embed"]["emb"], device))
     lnf = _norm(tree["lnf"], device)
+    if cfg.family == "ssm":
+        return SSMLM(embed, [_ssm_block(_layer(tree["layers"], i), cfg,
+                                        device)
+                             for i in range(cfg.n_layers)], lnf)
+    if cfg.family == "hybrid":
+        groups = []
+        if "groups" in tree:
+            g, per = np.shape(tree["groups"]["ln"]["scale"])[:2]
+            groups = [[_ssm_block(_layer(tree["groups"], i, j), cfg, device)
+                       for j in range(per)] for i in range(g)]
+        tail = []
+        if "tail" in tree:
+            tail = [_ssm_block(_layer(tree["tail"], i), cfg, device)
+                    for i in range(np.shape(tree["tail"]["ln"]["scale"])[0])]
+        shared = (_dense_block(tree["shared"], cfg, device)
+                  if "shared" in tree else None)
+        return HybridLM(embed, groups, shared, tail, lnf)
     if cfg.family == "moe":
         nd = cfg.first_dense_layers
         dense = [_dense_block(_layer(tree["dense_layers"], i), cfg, device)

@@ -10,8 +10,12 @@ The defaults are the reference's: ``--scheduler sequential --kv slotted
 continuous --kv slotted`` is the engine over the slotted layout.  ``--arch
 deepseek-v2-lite-16b`` serves the MoE family with MLA attention, ``--arch
 gemma2-9b`` the local / global windowed pairs with softcaps and post norms
-(its slotted local layers keep rings of the window); ``deepseek-67b``,
-``mistral-large-123b`` and ``arctic-480b`` are registered too; ``--spec``
+(its slotted local layers keep rings of the window), ``--arch
+falcon-mamba-7b`` the SSM family (Mamba1) and ``--arch zamba2-7b`` the
+hybrid (Mamba2 groups with one shared windowed attention block; both keep
+their recurrent state one row per slot, so they take no ``--spec`` and no
+prefix hit); ``deepseek-67b``, ``mistral-large-123b`` and ``arctic-480b``
+are registered too; ``--spec``
 adds self-speculative decoding (``--spec-k`` drafts per verify, ``--draft
 rerank|skip``).  ``--prefix-cache`` shares cached prompt prefixes across
 requests (the trace becomes shared-prefix: 3/4 of ``--prompt-len`` is one

@@ -1,16 +1,19 @@
-"""Model substrate of the port: the dense GQA family and the MoE family
-with MLA attention, every projection a SparseLinear; ``models.cnn`` holds
-the sparse CNN layers (convolution as an N:M GEMM)."""
+"""Model substrate of the port: the dense GQA family, the MoE family with
+MLA attention, the SSM family (Mamba1) and the hybrid family (Mamba2 with
+a shared attention block), every projection a SparseLinear;
+``models.cnn`` holds the sparse CNN layers (convolution as an N:M
+GEMM)."""
 
 from repro_torch.models.config import ArchConfig, param_count
-from repro_torch.models.transformer import (DenseLM, MoELM,
+from repro_torch.models.transformer import (DenseLM, HybridLM, MoELM, SSMLM,
                                             convert_to_compressed,
                                             decode_step, forward, init_caches,
                                             init_model, loss_fn, make_draft,
                                             prefill, verify_step,
                                             weight_stream_bytes)
 
-__all__ = ["ArchConfig", "param_count", "DenseLM", "MoELM",
+__all__ = ["ArchConfig", "param_count", "DenseLM", "HybridLM", "MoELM",
+           "SSMLM",
            "convert_to_compressed", "decode_step", "forward", "init_caches",
            "init_model", "loss_fn", "make_draft", "prefill", "verify_step",
            "weight_stream_bytes"]

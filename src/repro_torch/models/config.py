@@ -1,9 +1,10 @@
 """Architecture configuration schema (counterpart of ``repro.models.config``).
 
 The port covers the dense GQA family (gemma2's local / global pairs
-included) and the MoE family with GQA or MLA attention, so the schema
-carries the fields those read; the SSM / enc-dec fields arrive with their
-families.  ``reduced()`` derives the CPU
+included), the MoE family with GQA or MLA attention, the SSM family
+(Mamba1) and the hybrid family (Mamba2 groups with a shared attention
+block), so the schema carries the fields those read; the enc-dec fields
+arrive with their family.  ``reduced()`` derives the CPU
 smoke-test variant exactly as the reference does.
 """
 
@@ -20,7 +21,7 @@ from repro_torch.core.sparse_matmul import SparsityConfig
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense | moe
+    family: str                      # dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -57,16 +58,36 @@ class ArchConfig:
     dense_residual: bool = False             # arctic: dense MLP in parallel
     first_dense_layers: int = 0              # ds-v2: layer 0 dense
     capacity_factor: float = 1.25
+    # --- SSM ---
+    ssm_state: int = 0
+    d_inner: Optional[int] = None            # default 2*d_model
+    conv_kernel: int = 4
+    dt_rank: Optional[int] = None            # mamba1; default ceil(d/16)
+    mamba_version: int = 1
+    ssm_heads: Optional[int] = None          # mamba2
+    attn_period: int = 0                     # zamba2: shared attn every k
     input_mode: str = "tokens"               # tokens (this slice)
     sparsity: SparsityConfig = dataclasses.field(default_factory=SparsityConfig)
     dtype: str = "bfloat16"
     q_chunk: int = 512
     kv_chunk: int = 1024
+    ssm_chunk: int = 64
 
     def hd(self) -> int:
         if self.head_dim:
             return self.head_dim
         return self.d_model // self.n_heads if self.n_heads else 0
+
+    def dinner(self) -> int:
+        return self.d_inner or 2 * self.d_model
+
+    def dtrank(self) -> int:
+        return self.dt_rank or -(-self.d_model // 16)
+
+    def nheads_ssm(self) -> int:
+        """Mamba2's head count (the reference's ``ssm_heads or
+        d_inner // 64``)."""
+        return self.ssm_heads or self.dinner() // 64
 
     def tdtype(self) -> torch.dtype:
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
@@ -85,13 +106,18 @@ class ArchConfig:
             vocab=512,
             head_dim=64,
             dtype="float32",
-            q_chunk=64, kv_chunk=64,
+            q_chunk=64, kv_chunk=64, ssm_chunk=16,
             sparsity=dataclasses.replace(self.sparsity, min_dim=64),
         )
         if self.n_experts:
             kw.update(n_experts=8, top_k=min(self.top_k, 2),
                       moe_dff=128 if self.moe_dff else None,
                       first_dense_layers=min(self.first_dense_layers, 1))
+        if self.ssm_state:
+            kw.update(ssm_state=8, d_inner=512,
+                      ssm_heads=8 if self.ssm_heads else None,
+                      dt_rank=16 if self.mamba_version == 1 else None,
+                      attn_period=2 if self.attn_period else 0)
         if self.mla:
             kw.update(kv_lora=64, qk_nope_dim=32, qk_rope_dim=16, v_head_dim=32)
         if self.window:
@@ -102,9 +128,10 @@ class ArchConfig:
 
 
 def param_count(cfg: ArchConfig, active_only: bool = False) -> int:
-    """Parameters of a dense- or MoE-family model (embeddings counted twice
-    unless tied).  ``active_only`` counts the experts one token runs
-    (top_k routed + shared) instead of all of them."""
+    """Parameters of a model by the reference's formula (embeddings counted
+    twice unless tied).  ``active_only`` counts the experts one token runs
+    (top_k routed + shared) instead of all of them.  The hybrid family
+    counts its shared attention block once."""
     d, dff, L = cfg.d_model, cfg.d_ff, cfg.n_layers
     hd, H, KV = cfg.hd(), cfg.n_heads, cfg.n_kv
     total = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
@@ -123,6 +150,20 @@ def param_count(cfg: ArchConfig, active_only: bool = False) -> int:
 
     if cfg.family == "dense":
         return int(total + L * (attn_params() + mlp_params(dff)))
+    if cfg.family == "ssm":
+        di, st, dtr = cfg.dinner(), cfg.ssm_state, cfg.dtrank()
+        per = (d * 2 * di + di * cfg.conv_kernel + di * (dtr + 2 * st)
+               + dtr * di + di * st + di + di * d)
+        return int(total + L * per)
+    if cfg.family == "hybrid":
+        di, st, nh = cfg.dinner(), cfg.ssm_state, cfg.nheads_ssm()
+        # mamba2 block: packed in_proj (x, z, B, C, dt) + conv + out_proj
+        per = (d * (2 * di + 2 * st + nh) + di * cfg.conv_kernel
+               + 3 * nh + di + di * d)
+        total += L * per
+        if cfg.attn_period:
+            total += attn_params() + mlp_params(dff)   # shared block (once)
+        return int(total)
     if cfg.family != "moe":
         raise NotImplementedError(f"param_count for family {cfg.family!r} "
                                   f"comes with that family's port")

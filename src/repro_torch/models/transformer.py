@@ -1,5 +1,5 @@
-"""Model assembly for the dense and MoE families (counterpart of the dense
-and MoE parts of ``repro.models.transformer``).
+"""Model assembly for the dense, MoE, SSM and hybrid families (counterpart
+of ``repro.models.transformer`` less the enc-dec family).
 
 The reference scans over stacked per-layer params; here a ``DenseLM``
 holds one ``DenseBlock`` module per layer, a ``MoELM`` its
@@ -23,10 +23,24 @@ pool (``init_caches(..., ring=False)``) is one [L, ...] stack like any
 other: local layers go through the block table too, the window a read
 mask.
 
+The SSM family (falcon-mamba, ``SSMLM``) is a flat list of Mamba1
+blocks; the hybrid (zamba2, ``HybridLM``) holds ``groups`` of
+``attn_period`` Mamba2 blocks, **one** shared ``DenseBlock`` applied after
+every group (attention over ``cfg.window``), and a ``tail`` of the
+remaining blocks.  Their caches keep the reference's layout: SSM {"h",
+"conv"} [L, B, ...]; hybrid {"groups": {"h", "conv"} [G, P, B, ...],
+"attn": {"k", "v"} [G, B, len, ...] (one KV cache per application of
+the shared block), "tail": {"h", "conv"} [T, B, ...]}.  The state leaves
+have no sequence axis: in the paged pool they stay one row per slot,
+and only "attn" goes through the block table.
+
 Public API (family-dispatched):
-  init_model(cfg, seed, device)                  -> DenseLM | MoELM
+  init_model(cfg, seed, device)                  -> DenseLM | MoELM | SSMLM
+                                                    | HybridLM
   init_caches(cfg, batch, max_len, device, ring) -> {"k", "v"} | {"ckv", "kpe"}
                                                     | {"local", "global"}
+                                                    | {"h", "conv"} | {"groups",
+                                                    "attn", "tail"}
   forward(model, cfg, batch)                     -> (logits [B, S, V], moe_aux)
   loss_fn(model, cfg, batch, aux_weight)         -> (loss, {"loss", "moe_aux"})
   prefill(model, cfg, batch, logit_pos)          -> (logits [B, V], caches)
@@ -55,6 +69,7 @@ from repro_torch.core.layers import SparseLinear
 from repro_torch.core.sparse_matmul import nm_rerank
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (Embedding, RMSNorm, cross_entropy,
                                        embed_apply, embed_init,
                                        linear_weight_bytes, lm_head_apply,
@@ -119,14 +134,53 @@ class MoELM(nn.Module):
         return list(self.dense_layers) + list(self.layers)
 
 
-LM = Union[DenseLM, MoELM]
+class SSMBlock(nn.Module):
+    """Pre-norm residual around one Mamba1 or Mamba2 mixer."""
+
+    def __init__(self, ln: RMSNorm,
+                 mixer: Union[ssm_mod.Mamba1, ssm_mod.Mamba2]):
+        super().__init__()
+        self.ln, self.mixer = ln, mixer
+
+
+class SSMLM(nn.Module):
+    """Token embedding (tied LM head), Mamba1 blocks, final norm."""
+
+    def __init__(self, embed: Embedding, layers: List[SSMBlock],
+                 lnf: RMSNorm):
+        super().__init__()
+        self.embed = embed
+        self.layers = nn.ModuleList(layers)
+        self.lnf = lnf
+
+
+class HybridLM(nn.Module):
+    """Token embedding (tied LM head), ``groups`` of Mamba2 blocks each
+    followed by the one ``shared`` attention + MLP block, a ``tail`` of
+    Mamba2 blocks, final norm.  ``shared`` is one module: its weights are
+    read once per application but stored (and counted) once."""
+
+    def __init__(self, embed: Embedding, groups: List[List[SSMBlock]],
+                 shared: Optional[DenseBlock], tail: List[SSMBlock],
+                 lnf: RMSNorm):
+        super().__init__()
+        self.embed = embed
+        self.groups = nn.ModuleList(nn.ModuleList(g) for g in groups)
+        self.shared = shared
+        self.tail = nn.ModuleList(tail)
+        self.lnf = lnf
+
+
+LM = Union[DenseLM, MoELM, SSMLM, HybridLM]
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+STATE_FAMILIES = ("ssm", "hybrid")
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} comes with a later slice of "
-            f"the port (dense and MoE so far)")
+            f"the port (dense, MoE, SSM and hybrid so far)")
 
 
 def _norm(p: RMSNorm, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -217,6 +271,136 @@ def _block_apply(p, x, cfg: ArchConfig, window=None, **kw):
     return _dense_block_apply(p, x, cfg, window=window, **kw)
 
 
+def _ssm_block_init(gen, cfg: ArchConfig, dtype, device) -> SSMBlock:
+    init = ssm_mod.mamba1_init if cfg.mamba_version == 1 else \
+        ssm_mod.mamba2_init
+    return SSMBlock(rms_norm_init(cfg.d_model, device),
+                    init(gen, cfg, dtype, device))
+
+
+def _ssm_block_apply(p: SSMBlock, x, cfg: ArchConfig, cache=None,
+                     return_state=False):
+    mix = ssm_mod.mamba1_apply if cfg.mamba_version == 1 else \
+        ssm_mod.mamba2_apply
+    y, state = mix(p.mixer, _norm(p.ln, x, cfg), cfg, cache=cache,
+                   return_state=return_state)
+    return x + y, state
+
+
+def _hybrid_layout(cfg: ArchConfig):
+    """(groups, period, tail) of the hybrid stack, as the reference splits
+    ``n_layers``: ``n_layers // period`` groups, the rest a tail."""
+    period = cfg.attn_period or cfg.n_layers
+    groups = cfg.n_layers // period
+    return groups, period, cfg.n_layers - groups * period
+
+
+def _state_cache_init(cfg: ArchConfig, batch: int, dtype, device):
+    init = ssm_mod.mamba1_cache_init if cfg.mamba_version == 1 else \
+        ssm_mod.mamba2_cache_init
+    return init(cfg, batch, dtype, device)
+
+
+def _stacked(one: Dict[str, torch.Tensor], *lead: int
+             ) -> Dict[str, torch.Tensor]:
+    return {name: z.reshape((1,) * len(lead) + tuple(z.shape))
+            .repeat(tuple(lead) + (1,) * z.dim()).contiguous()
+            for name, z in one.items()}
+
+
+def _sub(tree: Dict[str, torch.Tensor], *idx: int) -> Dict[str, torch.Tensor]:
+    """One layer's views of stacked leaves (written in place)."""
+    return {name: leaf[idx] for name, leaf in tree.items()}
+
+
+def _state_stack(p: LM, cfg: ArchConfig, x, positions, return_state: bool):
+    """The SSM or hybrid stack over x [B, S, d] without caches -> (x before
+    the final norm, the prefill caches when ``return_state``: SSM {"h",
+    "conv"} [L, B, ...]; hybrid {"groups": [G, P, B, ...], "attn": {"k",
+    "v"} [G, B, S, ...], "tail": [T, B, ...]})."""
+
+    def run(blocks):
+        nonlocal x
+        states = []
+        for lp in blocks:
+            x, st = _ssm_block_apply(lp, x, cfg, return_state=return_state)
+            states.append(st)
+        return states
+
+    def stack(states):
+        return {name: torch.stack([st[name] for st in states])
+                for name in states[0]}
+
+    if isinstance(p, SSMLM):
+        states = run(p.layers)
+        return x, (stack(states) if return_state else None)
+    caches, gstates, kvs = {}, [], []
+    for group in p.groups:
+        gstates.append(run(group))
+        x, kv = _dense_block_apply(p.shared, x, cfg, positions=positions,
+                                   window=cfg.window, return_kv=return_state)
+        kvs.append(kv)
+    if return_state and gstates:
+        per_group = [stack(g) for g in gstates]
+        caches["groups"] = {name: torch.stack([g[name] for g in per_group])
+                            for name in per_group[0]}
+        caches["attn"] = {name: torch.stack([kv[name] for kv in kvs])
+                          for name in kvs[0]}
+    tail = run(p.tail)
+    if return_state and tail:
+        caches["tail"] = stack(tail)
+    return x, (caches if return_state else None)
+
+
+def _state_cached(p: LM, cfg: ArchConfig, caches, x, pos, block_table,
+                  layers=None):
+    """The SSM or hybrid stack over one token per slot against the decode
+    caches (updated in place) -> x before the final norm.  Mamba block i
+    of an ``SSMLM`` uses cache layer ``layers[i]`` (a skip draft's
+    ``cache_idx``), or i.  The shared block's application g reads and
+    writes its own KV cache ``caches["attn"]`` [g] (slotted rings, or the
+    paged pool through ``block_table``)."""
+    if isinstance(p, SSMLM):
+        for i, lp in enumerate(p.layers):
+            li = i if layers is None else int(layers[i])
+            x, _ = _ssm_block_apply(lp, x, cfg, cache=_sub(caches, li))
+        return x
+    step = None
+    if block_table is not None and len(p.groups):
+        step = attn.paged_step(cfg, pos, x.shape[1], block_table,
+                               caches["attn"]["k"].shape[2])
+    for g, group in enumerate(p.groups):
+        for j, lp in enumerate(group):
+            x, _ = _ssm_block_apply(lp, x, cfg,
+                                    cache=_sub(caches["groups"], g, j))
+        x, _ = _dense_block_apply(p.shared, x, cfg, positions=pos,
+                                  window=cfg.window,
+                                  cache=_sub(caches["attn"], g),
+                                  cache_pos=pos, block_table=block_table,
+                                  step=step)
+    for t, lp in enumerate(p.tail):
+        x, _ = _ssm_block_apply(lp, x, cfg, cache=_sub(caches["tail"], t))
+    return x
+
+
+def _state_caches(cfg: ArchConfig, batch: int, max_len: int, device,
+                  ring: bool) -> Dict[str, object]:
+    dtype = cfg.tdtype()
+    one = _state_cache_init(cfg, batch, dtype, device)
+    if cfg.family == "ssm":
+        return _stacked(one, cfg.n_layers)
+    groups, period, rem = _hybrid_layout(cfg)
+    caches: Dict[str, object] = {}
+    if groups:
+        caches["groups"] = _stacked(one, groups, period)
+        caches["attn"] = _stacked(attn.gqa_cache_init(
+            cfg, batch, max_len, dtype, device,
+            window=cfg.window if ring else None), groups)
+    if rem:
+        caches["tail"] = _stacked(one, rem)
+    return caches
+
+
 def init_model(cfg: ArchConfig, seed: int = 0, device="cuda") -> LM:
     """Random weights from one ``torch.Generator`` seeded with ``seed`` on
     ``device`` (numbers differ from the reference's jax.random init; parity
@@ -230,6 +414,17 @@ def init_model(cfg: ArchConfig, seed: int = 0, device="cuda") -> LM:
     dtype = cfg.tdtype()
     embed = embed_init(gen, cfg.vocab, cfg.d_model, dtype, device)
     lnf = rms_norm_init(cfg.d_model, device)
+    if cfg.family == "ssm":
+        return SSMLM(embed, [_ssm_block_init(gen, cfg, dtype, device)
+                             for _ in range(cfg.n_layers)], lnf)
+    if cfg.family == "hybrid":
+        groups, period, rem = _hybrid_layout(cfg)
+        blocks = [[_ssm_block_init(gen, cfg, dtype, device)
+                   for _ in range(period)] for _ in range(groups)]
+        shared = _dense_block_init(gen, cfg, dtype, device) if groups \
+            else None
+        tail = [_ssm_block_init(gen, cfg, dtype, device) for _ in range(rem)]
+        return HybridLM(embed, blocks, shared, tail, lnf)
     if cfg.family == "moe":
         nd = cfg.first_dense_layers
         dense = [_dense_block_init(gen, cfg, dtype, device) for _ in range(nd)]
@@ -250,8 +445,13 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, device="cuda",
     ...], the local layers a ring of ``min(max_len, window)`` positions,
     as the reference's; ``ring=False`` lifts the window: every layer gets
     ``max_len`` positions in one [L, ...] stack (the paged pool's layout and
-    its staging's, where the window is a read mask)."""
+    its staging's, where the window is a read mask).  The SSM and hybrid
+    families get the reference's layouts (module docstring); the hybrid's
+    "attn" caches are rings of the window, or ``max_len`` without
+    ``ring``."""
     _check_family(cfg)
+    if cfg.family in STATE_FAMILIES:
+        return _state_caches(cfg, batch, max_len, device, ring)
     dtype = cfg.tdtype()
 
     def stack(one, n):
@@ -291,7 +491,9 @@ def prefill(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     "kpe"}; gemma2's too, local and global layers in depth order, each at
     every position: ``seed_decode_caches`` cuts the local rings); the MoE
     family returns them per stack as the reference does, {"dense": ...,
-    "moe": ...} ("dense" only with first_dense_layers)."""
+    "moe": ...} ("dense" only with first_dense_layers).  The SSM family
+    returns its final state {"h", "conv"} [L, B, ...], the hybrid
+    {"groups": ..., "attn": {"k", "v"} [G, B, S, ...], "tail": ...}."""
     _check_family(cfg)
     x = _embed(p, cfg, batch["tokens"])
     b, s = x.shape[:2]
@@ -307,7 +509,9 @@ def prefill(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
         return {name: torch.stack([kv[name] for kv in kvs])
                 for name in kvs[0]}
 
-    if isinstance(p, MoELM):
+    if isinstance(p, (SSMLM, HybridLM)):
+        x, caches = _state_stack(p, cfg, x, positions, return_state=True)
+    elif isinstance(p, MoELM):
         caches = {"dense": run(p.dense_layers)} if len(p.dense_layers) else {}
         caches["moe"] = run(p.layers)
     else:
@@ -326,22 +530,25 @@ def prefill(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
 def forward(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
     """Full-sequence forward over ``batch["tokens"]`` [B, S], no caches ->
     (logits [B, S, V] f32, moe_aux): the MoE load-balance loss summed over
-    the MoE blocks and divided by their count (0 for the dense family), as
-    the reference's."""
+    the MoE blocks and divided by their count (0 for the other families),
+    as the reference's."""
     _check_family(cfg)
     x = _embed(p, cfg, batch["tokens"])
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n_moe = 0
-    for i, lp in enumerate(p.blocks()):
-        if isinstance(lp, MoEBlock):
-            x, _, a = _moe_block_apply(lp, x, cfg, positions=positions)
-            aux = aux + a
-            n_moe += 1
-        else:
-            x, _ = _dense_block_apply(lp, x, cfg, positions=positions,
-                                      window=_window(cfg, i))
+    if isinstance(p, (SSMLM, HybridLM)):
+        x, _ = _state_stack(p, cfg, x, positions, return_state=False)
+    else:
+        for i, lp in enumerate(p.blocks()):
+            if isinstance(lp, MoEBlock):
+                x, _, a = _moe_block_apply(lp, x, cfg, positions=positions)
+                aux = aux + a
+                n_moe += 1
+            else:
+                x, _ = _dense_block_apply(lp, x, cfg, positions=positions,
+                                          window=_window(cfg, i))
     x = _norm(p.lnf, x, cfg)
     return lm_head_apply(p.embed, x, cfg.softcap_final), aux / max(n_moe, 1)
 
@@ -373,7 +580,9 @@ def decode_step(p: LM, cfg: ArchConfig, caches: Dict[str, torch.Tensor],
     argument).  ``attn_impl`` ('gather' | 'fused') overrides
     ``cfg.attn_impl`` for the paged read (slotted caches have one read).
     ``layers`` maps block i to cache layer ``layers[i]`` (a skip draft's
-    ``cache_idx``); by default block i uses cache layer i."""
+    ``cache_idx``); by default block i uses cache layer i.  The SSM and
+    hybrid families update their state rows in place, whatever ``pos``;
+    only the hybrid's shared attention reads ``pos`` and the table."""
     _check_family(cfg)
     logits = _cached_forward(p, cfg, caches, tokens[:, None], pos,
                              block_table, attn_impl, layers)
@@ -391,8 +600,14 @@ def verify_step(p: LM, cfg: ArchConfig, caches: Dict[str, torch.Tensor],
     at offset i are the next-token distribution after ``tokens[r, :i + 1]``,
     what S sequential ``decode_step`` calls would give: the span's K/V are
     written first (in place) and query offset i reads positions <= pos + i
-    only.  Needs the paged pool (``block_table``)."""
+    only.  Needs the paged pool (``block_table``) and a family whose every
+    cache leaf lives behind it: a recurrent state cannot score a span and
+    roll back, so the SSM and hybrid families raise ``ValueError``."""
     _check_family(cfg)
+    if cfg.family in STATE_FAMILIES:
+        raise ValueError(f"verify_step needs every cache leaf behind the "
+                         f"block table; {cfg.family!r} keeps slot-indexed "
+                         f"recurrent state")
     if block_table is None:
         raise ValueError("verify_step requires a block_table (the span "
                          "write/read is paged-only)")
@@ -411,6 +626,10 @@ def _cached_forward(p: LM, cfg: ArchConfig, caches, tokens, pos, block_table,
     if attn_impl is not None and attn_impl != cfg.attn_impl:
         cfg = cfg.replace(attn_impl=attn_impl)
     x = _embed(p, cfg, tokens)
+    if isinstance(p, (SSMLM, HybridLM)):
+        x = _state_cached(p, cfg, caches, x, pos, block_table, layers)
+        return lm_head_apply(p.embed, _norm(p.lnf, x, cfg),
+                             cfg.softcap_final)
     step = None if block_table is None else attn.paged_step(
         cfg, pos, tokens.shape[1], block_table,
         next(iter(caches.values())).shape[2])
@@ -463,10 +682,12 @@ def make_draft(p: LM, cfg: ArchConfig, kind: str = "rerank",
     uncompressed leaves are the target's own tensors.  ``cache_idx`` is
     None: the draft has every layer.  Needs a compressed model (n > 1).
 
-    ``kind="skip"``: keeps every ``stride``-th block of the dense or MoE
-    stack (the ``first_dense_layers`` always); its blocks are the target's
-    own modules.  ``cache_idx`` (int32) names the target cache layers the
-    draft's layers read and write.
+    ``kind="skip"``: keeps every ``stride``-th block of a plain stacked
+    ``layers`` family (dense, MoE, SSM; the ``first_dense_layers`` always);
+    its blocks are the target's own modules.  ``cache_idx`` (int32) names
+    the target cache layers the draft's layers read and write.  gemma2's
+    pairs and the hybrid's groups raise ``ValueError``, as in the
+    reference.
 
     Neither view copies a shared tensor."""
     if kind == "rerank":
@@ -487,7 +708,7 @@ def make_draft(p: LM, cfg: ArchConfig, kind: str = "rerank",
         dcfg = cfg.replace(sparsity=dataclasses.replace(sp, n=1))
         return _map_linears(p, rerank), dcfg, None
     if kind == "skip":
-        if cfg.family not in ("dense", "moe") or cfg.local_global_period:
+        if isinstance(p, HybridLM) or cfg.local_global_period:
             raise ValueError(
                 f"skip draft needs a plain stacked 'layers' family "
                 f"(dense/MoE); {cfg.family!r} does not qualify")
@@ -509,9 +730,11 @@ def weight_stream_bytes(p: LM, cfg: ArchConfig) -> Dict[str, float]:
     once, so per-step traffic is the sum of their stored bytes — values
     plus packed ceil(log2 M)-bit indices for converted leaves, the dense
     weight otherwise (embedding, norms and the MoE router excluded on both
-    sides).  An expert stack counts as one linear of E x its bytes.  The
-    ``*_linears`` counts are per layer (the reference counts a stacked
-    [L, ...] leaf once)."""
+    sides).  An expert stack counts as one linear of E x its bytes, and
+    the hybrid's shared block once (as the reference walks its params;
+    a decode tick reads it once per application).  The ``*_linears``
+    counts are per layer (the reference counts a stacked [L, ...] leaf
+    once)."""
     tot = {"dense_bytes": 0, "stream_bytes": 0,
            "compressed_linears": 0, "dense_linears": 0}
     for lin in _linears(p):

@@ -15,7 +15,11 @@ and leaves ``caches`` untouched, so a zero template can be re-seeded for
 every request.  The dense and MoE families are ported (the MoE prefill
 returns its dense and MoE stacks apart, and they are concatenated along
 the layer axis here; gemma2's flat prefill stack is cut into its local
-and global layers when the caches keep them apart).
+and global layers when the caches keep them apart), and so are the SSM
+family, whose state is position-free and is copied as prefill left it
+(a copy: decode writes the state in place, and must not write the
+prefill's), and the hybrid, whose "groups" / "tail" state is copied so
+and whose "attn" caches are seeded as any other KV leaf.
 
 ``scatter_slot`` writes a batch-1 cache tree into batch index ``slot`` of
 an n-slot pool tree (the slotted engine's admission).  The slot axis is
@@ -56,6 +60,14 @@ def seed_decode_caches(cfg, caches, pf: Dict[str, torch.Tensor],
     if cfg.family == "moe":
         parts = ([pf["dense"]] if cfg.first_dense_layers else []) + [pf["moe"]]
         pf = {f: torch.cat([part[f] for part in parts]) for f in parts[0]}
+    elif cfg.family == "ssm":
+        # the state is position-free; copied, as decode writes it in place
+        return {f: pf[f].clone() for f in caches}
+    elif cfg.family == "hybrid":
+        return {kind: ({f: _seed_leaf(caches[kind][f], pf[kind][f], src_len)
+                        for f in caches[kind]} if kind == "attn"
+                       else {f: pf[kind][f].clone() for f in caches[kind]})
+                for kind in caches}
     elif cfg.family != "dense":
         raise NotImplementedError(f"cache seeding for family {cfg.family!r} "
                                   f"comes with that family's port")

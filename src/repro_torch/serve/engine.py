@@ -22,10 +22,17 @@ interleaves two operations:
   (``attn="fused"``: the ``paged_gqa_decode`` / ``paged_mla_decode`` kernel
   walks it in-kernel; ``"gather"``: the oracle read); idle paged rows carry
   position 0, token 0 and an all-trash table row, so they write the trash
-  block.  Idle rows' logits are never read.  The dense (GQA) and MoE (MLA)
-  families are served; in the MoE family idle rows and prompt padding are
-  tokens like any other and compete for expert capacity, as in the
-  reference.
+  block.  Idle rows' logits are never read.  The dense (GQA), MoE (MLA),
+  SSM and hybrid families are served; in the MoE family idle rows and
+  prompt padding are tokens like any other and compete for expert
+  capacity, as in the reference.  The SSM and hybrid families keep their
+  recurrent state (and conv tails) slot-indexed, one row per slot in
+  either layout: an idle row advances its own stale row, which admission
+  overwrites.  Their token prompts still bucket down (the forced decode
+  advances the state exactly), but a prompt shorter than the smallest
+  bucket starts from the zero state and replays whole (``_plan``), and
+  they take neither prefix hits nor ``spec=`` (the state cannot be
+  shared by table or rolled back; ``ValueError``, as the reference).
 
 The rest of this header is the paged pool's.  Blocks are appended lazily (one every ``block_size`` ticks per slot); when
 the pool runs dry the newest-admitted request is preempted back to the
@@ -243,18 +250,16 @@ class ServeEngine:
         self.spec_accepted = 0               # draft tokens the target kept
         self.steps_saved = 0                 # target passes avoided
         self.draft_steps = 0                 # draft decode steps run
-        if spec is not None:
-            # the draft is a view of the served model: shared embedding,
-            # norms and router, re-ranked or strided linears
-            self._draft, self._draft_cfg, self._cache_idx = make_draft(
-                model, cfg, kind=spec.draft, stride=spec.stride)
-            self.draft_stream = weight_stream_bytes(self._draft,
-                                                    self._draft_cfg)
         self.index = PrefixIndex() if prefix_cache else None
         if kv == "paged":
             self.pool = BlockPool(cfg, n_slots, max_len, block_size,
                                   n_blocks, device=self.device)
             self.caches = self.pool.caches
+            if spec is not None and self.pool.state:
+                raise ValueError(
+                    "spec= requires every cache leaf behind the block "
+                    "table (slot-indexed state — SSM, conv tails, cross "
+                    "K/V — cannot be rolled back by table rewind)")
             # max_len always rides in the bucket set so every admissible
             # prompt lands in a bucket
             self._prefill_buckets = tuple(sorted(set(
@@ -265,6 +270,13 @@ class ServeEngine:
             self.caches = init_caches(cfg, n_slots, max_len,
                                       device=self.device)
             self._prefill_buckets = ()
+        if spec is not None:
+            # the draft is a view of the served model: shared embedding,
+            # norms and router, re-ranked or strided linears
+            self._draft, self._draft_cfg, self._cache_idx = make_draft(
+                model, cfg, kind=spec.draft, stride=spec.stride)
+            self.draft_stream = weight_stream_bytes(self._draft,
+                                                    self._draft_cfg)
         self._make_entries()
         self._exec_shapes = None
         self._tick_wall: List[float] = []
@@ -419,11 +431,19 @@ class ServeEngine:
     def _plan(self, req: Request) -> "tuple[int, bool]":
         """Bucketed prefill plan ``(prefill_len, pad_up)``: the largest
         bucket <= prompt_len (the rest replays as forced decode), else the
-        smallest bucket >= prompt_len with right padding."""
+        smallest bucket >= prompt_len with right padding.  Right padding
+        is causal-safe for attention but runs through a recurrence and
+        changes its state, so a family with slot-indexed state (SSM,
+        hybrid) plans no prefill for such a prompt (``(0, False)``): the
+        slot starts from the zero state and the whole prompt replays as
+        forced decode, exact and within the graph set.  (The reference
+        pads up there and seeds the padded state.)"""
         plen = req.prompt_len
         downs = [b for b in self.prefill_buckets if b <= plen]
         if downs:
             return max(downs), False
+        if self.pool.state:
+            return 0, False
         ups = [b for b in self.prefill_buckets if b >= plen]
         if ups:
             return min(ups), True
@@ -526,12 +546,15 @@ class ServeEngine:
             # holds: requeue at the front, retry once blocks come back
             self.scheduler.preempt(slot)
             return False
-        prompt = toks[:pb] if not pad_up else np.pad(toks, (0, pb - plen))
-        self.prefill_lengths.add(pb)
-        self.prefill_calls += 1
-        lp = torch.tensor((plen if pad_up else pb) - 1, dtype=torch.long)
-        first, pf = self._prefill(batch_prompt({"tokens": prompt}), lp)
-        self.pool.seed(slot, pf, n_seed)
+        if pb:
+            prompt = toks[:pb] if not pad_up else np.pad(toks, (0, pb - plen))
+            self.prefill_lengths.add(pb)
+            self.prefill_calls += 1
+            lp = torch.tensor((plen if pad_up else pb) - 1, dtype=torch.long)
+            first, pf = self._prefill(batch_prompt({"tokens": prompt}), lp)
+            self.pool.seed(slot, pf, n_seed)
+        else:                                # no prefill: from zero state
+            self.pool.clear_state(slot)
         if n_seed >= plen:                   # prompt fully prefilled
             first = int(first[0])
             st = _SlotState(req=req, tokens=[first], admitted_at=now)
@@ -887,9 +910,9 @@ class ServeEngine:
         }
         if self.pool is None:
             # the slotted layout preallocates every row: resident is its
-            # capacity; leaves with a sequence axis are the KV stream, any
-            # other slot-indexed state reports apart (none in the ported
-            # families), as the paged split does
+            # capacity; leaves with a sequence axis are the KV stream, the
+            # slot-indexed state (SSM state, conv tails) reports apart, as
+            # the paged split does
             seq = _seq_leaves(self.cfg)
             nbytes = [_nbytes(t) for t in leaves(self.caches)]
             out["kv_bytes_resident"] = float(sum(

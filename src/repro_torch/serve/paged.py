@@ -7,7 +7,11 @@ Every attention-cache leaf is a pool of fixed-size blocks, GQA's
 tensors on the device; the leaves are found by probing ``init_caches``
 with the window lifted, so any family's layout is taken as it is, and
 gemma2's local layers share the one [L, ...] stack with its global ones:
-their window is a read mask over the table) and each
+their window is a read mask over the table).  A leaf whose shape does not
+move with the probe's length has no sequence axis (an SSM state, a conv
+tail): it stays **slot-indexed**, one row per slot on the axis where the
+batch probe moved, and the cache tree keeps the family's nesting (the
+hybrid's {"groups", "attn", "tail"}: only "attn" is paged).  Each
 slot owns an int32 block table (host numpy) mapping logical position ``p``
 to physical block ``table[slot, p // block_size]``.  Block 0 is the reserved
 *trash* block: idle batch rows keep writing there, and a freed slot's table
@@ -48,8 +52,10 @@ Invariants (``check_invariants``):
 rejected tail's blocks return to the free heap); it refuses a block whose
 refcount is not 1, since the engine copies a shared span before any draft
 write.  Slot-indexed leaves (``state``, one row per slot: SSM state, conv
-tails) ride ``swap_out`` / ``swap_in`` as the reference's do; the ported
-families keep all their state behind the table, so ``state`` is empty.
+tails) are written by ``seed`` (or zeroed by ``clear_state``) and ride
+``swap_out`` / ``swap_in`` as the reference's do; the dense and MoE
+families keep all their state behind the table, so their ``state`` is
+empty.
 """
 
 from __future__ import annotations
@@ -62,7 +68,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import init_caches
-from repro_torch.serve.cache import seed_decode_caches
+from repro_torch.serve.cache import leaves, seed_decode_caches
 
 TRASH_BLOCK = 0
 
@@ -83,9 +89,10 @@ class SwapState:
     """One suspended slot's resident cache state, on the host.
 
     ``paged`` holds one ``[L, n_blocks, block_size, ...]`` tensor per paged
-    leaf (the slot's owned blocks, in table order); ``state`` one slot row
-    per slot-indexed leaf.  ``swap_in`` restores both bit-exact into freshly
-    allocated blocks / the target slot's row."""
+    leaf (the slot's owned blocks, in table order); ``state`` the slot's
+    row of each slot-indexed leaf (its slot axis kept, of length 1).
+    ``swap_in`` restores both bit-exact into freshly allocated blocks / the
+    target slot's row."""
 
     n_blocks: int
     paged: List[torch.Tensor]
@@ -100,8 +107,10 @@ class SwapState:
 class BlockPool:
     """Paged decode-cache pool with per-slot block tables.
 
-    ``self.caches`` holds the device pools; the block table is host numpy
-    (tiny, mutated every tick) and ships to the device per decode step."""
+    ``self.caches`` holds the device pools, in the family's cache tree
+    (``paged`` lists its paged leaves, ``state`` its slot-indexed ones,
+    ``state_axes`` their slot axes); the block table is host numpy (tiny,
+    mutated every tick) and ships to the device per decode step."""
 
     def __init__(self, cfg, n_slots: int, max_len: int, block_size: int,
                  n_blocks: Optional[int] = None, device="cuda"):
@@ -120,17 +129,13 @@ class BlockPool:
                          else n_slots * self.table_width + 1)
         if self.n_blocks < 2:
             raise ValueError("need at least 2 blocks (one is reserved trash)")
-        # plain-layout leaves are [L, batch, seq, ...]: the (batch, seq) axes
-        # become (n_blocks, block_size); windowed layers keep every position
-        # (ring=False), the window is a read mask
-        probe = init_caches(cfg, 1, 1, device="meta", ring=False)
-        self.caches: Dict[str, torch.Tensor] = {
-            name: torch.zeros((leaf.shape[0], self.n_blocks, block_size)
-                              + tuple(leaf.shape[3:]), dtype=leaf.dtype,
-                              device=self.device)
-            for name, leaf in probe.items()}
-        # slot-indexed leaves [n_slots, ...]: none in the ported families
-        self.state: Dict[str, torch.Tensor] = {}
+        self.paged: List[torch.Tensor] = []
+        self.state: List[torch.Tensor] = []
+        self.state_axes: List[int] = []
+        self.caches = self._layout(
+            init_caches(cfg, 1, 1, device="meta", ring=False),
+            init_caches(cfg, 1, 2, device="meta", ring=False),
+            init_caches(cfg, 2, 1, device="meta", ring=False))
         self._staging = None                 # built lazily on first seed
         self.table = np.zeros((n_slots, self.table_width), np.int32)
         self._free: List[int] = list(range(1, self.n_blocks))
@@ -139,6 +144,43 @@ class BlockPool:
         self.ref = np.zeros(self.n_blocks, np.int32)   # trash stays 0
         self.peak_blocks = 0
         self.cow_copies = 0
+
+    def _layout(self, one, longer, wider):
+        """The pool tree from three probes of the plain layout (length 1,
+        length 2, batch 2; windows lifted).  A leaf that moves with the
+        length is [L, batch, seq, ...]: its (batch, seq) axes become
+        (n_blocks, block_size).  Any other is slot-indexed: the axis that
+        moves with the batch becomes ``n_slots``."""
+        if isinstance(one, dict):
+            return {name: self._layout(one[name], longer[name], wider[name])
+                    for name in one}
+
+        def moved(other):
+            return [i for i, (x, y) in enumerate(zip(one.shape, other.shape))
+                    if x != y]
+        seq = moved(longer)
+        if seq:
+            if seq != [2]:
+                raise ValueError(f"paged layout: a leaf with a sequence axis "
+                                 f"must be [L, batch, seq, ...], got "
+                                 f"{tuple(one.shape)} moving in {seq}")
+            leaf = torch.zeros((one.shape[0], self.n_blocks, self.block_size)
+                               + tuple(one.shape[3:]), dtype=one.dtype,
+                               device=self.device)
+            self.paged.append(leaf)
+            return leaf
+        (ax,) = moved(wider)
+        shape = list(one.shape)
+        shape[ax] = self.n_slots
+        leaf = torch.zeros(shape, dtype=one.dtype, device=self.device)
+        self.state.append(leaf)
+        self.state_axes.append(ax)
+        return leaf
+
+    def _rows(self, slot: int):
+        """(leaf, its row of ``slot``) of every slot-indexed leaf."""
+        return [(leaf, leaf.narrow(ax, slot, 1))
+                for leaf, ax in zip(self.state, self.state_axes)]
 
     # ------------------------------------------------------------ accounting
 
@@ -162,13 +204,12 @@ class BlockPool:
     @property
     def bytes_per_block(self) -> int:
         return sum(leaf.numel() * leaf.element_size() // self.n_blocks
-                   for leaf in self.caches.values())
+                   for leaf in self.paged)
 
     @property
     def state_bytes(self) -> int:
         """Bytes of the slot-indexed (non-paged) leaves."""
-        return sum(leaf.numel() * leaf.element_size()
-                   for leaf in self.state.values())
+        return sum(leaf.numel() * leaf.element_size() for leaf in self.state)
 
     def resident_bytes(self) -> int:
         """KV bytes actually backing live requests (allocated blocks only)."""
@@ -297,7 +338,7 @@ class BlockPool:
             return False
         new = heapq.heappop(self._free)
         self.ref[new] = 1
-        for pool in self.caches.values():
+        for pool in self.paged:
             pool[:, new].copy_(pool[:, old])
         self.table[slot, idx] = new
         self._owned[slot][idx] = new
@@ -317,8 +358,9 @@ class BlockPool:
         prompt length."""
         owned = list(self._owned[slot])
         idx = torch.as_tensor(owned, dtype=torch.long, device=self.device)
-        paged = [pool[:, idx].cpu() for pool in self.caches.values()]
-        state = [leaf[slot].cpu() for leaf in self.state.values()]
+        paged = [pool[:, idx].cpu() for pool in self.paged]
+        # a copy also on the CPU, where .cpu() would return the live row
+        state = [row.to("cpu", copy=True) for _, row in self._rows(slot)]
         self.free(slot)
         return SwapState(n_blocks=len(owned), paged=paged, state=state)
 
@@ -336,10 +378,10 @@ class BlockPool:
             return False
         idx = torch.as_tensor(self._owned[slot], dtype=torch.long,
                               device=self.device)
-        for pool, host in zip(self.caches.values(), swap.paged):
+        for pool, host in zip(self.paged, swap.paged):
             pool[:, idx] = host.to(self.device)
-        for leaf, host in zip(self.state.values(), swap.state):
-            leaf[slot] = host.to(self.device)
+        for (_, row), host in zip(self._rows(slot), swap.state):
+            row.copy_(host)
         return True
 
     def check_invariants(
@@ -415,11 +457,12 @@ class BlockPool:
                                         device=self.device, ring=False)
         return self._staging
 
-    def seed(self, slot: int, pf: Dict[str, torch.Tensor],
-             n_positions: int) -> None:
+    def seed(self, slot: int, pf, n_positions: int) -> None:
         """Write the first ``n_positions`` positions of prefill caches ``pf``
         (batch 1) into ``slot``'s blocks, in place (whole blocks: the tail
-        of the last one is zeros).  The table must already back them."""
+        of the last one is zeros), and the prefill's state into the slot's
+        row of every slot-indexed leaf.  The table must already back the
+        positions."""
         nb = self.blocks_for(n_positions)
         if nb > len(self._owned[slot]):
             raise RuntimeError(
@@ -429,11 +472,23 @@ class BlockPool:
                                      src_len=n_positions)
         pids = torch.as_tensor(self.table[slot, :nb], dtype=torch.long,
                                device=self.device)
-        for name, pool in self.caches.items():
-            sl = staging[name][:, 0]                       # [L, T*bs, ...]
+        rows = iter(self._rows(slot))
+        paged = {id(t) for t in self.paged}
+        for pool, src in zip(leaves(self.caches), leaves(staging)):
+            if id(pool) not in paged:
+                next(rows)[1].copy_(src)
+                continue
+            sl = src[:, 0]                                 # [L, T*bs, ...]
             blocks = sl.reshape((sl.shape[0], self.table_width,
                                  self.block_size) + tuple(sl.shape[2:]))
             pool[:, pids] = blocks[:, :nb].to(pool.dtype)
+
+    def clear_state(self, slot: int) -> None:
+        """Zero ``slot``'s row of every slot-indexed leaf, in place: the
+        state of an empty prompt, from which a prompt decodes entirely
+        through forced tokens."""
+        for _, row in self._rows(slot):
+            row.zero_()
 
     def device_table(self) -> torch.Tensor:
         return torch.tensor(self.table, device=self.device)

@@ -12,6 +12,10 @@ test module: pytest collects nothing here).
 * ``ragged`` builds a trace of per-request prompt lengths and budgets;
   ``spec_engines`` runs the reference speculative engine, the port's and
   the port's non-speculative engine on one such trace.
+* ``ref_engine`` / ``port_engine`` run the reference's or the port's
+  engine over ``trace(cfg)`` (the reference's cached per process, run on
+  one thread); ``make`` picks the reference's or the port's request
+  function for a config.
 """
 
 import contextlib
@@ -87,6 +91,40 @@ def ragged(cfg, plens, gens, seed, make, spec=None):
     for r, on in zip(reqs, spec or ()):
         r.spec = on
     return reqs
+
+
+def make(cfg, reference, port):
+    """``reference`` for a reference config (it has ``jdtype``), else
+    ``port``: one trace function serves both packages."""
+    return reference if hasattr(cfg, "jdtype") else port
+
+
+_REF = {}
+
+
+def ref_engine(arch, trace, **kw):
+    """The reference engine (``pair(arch)``'s weights) after running
+    ``trace(cfg)``; cached per (arch, trace, options)."""
+    key = (arch, trace.__name__, tuple(sorted(kw.items())))
+    if key not in _REF:
+        jc, params, _, _ = pair(arch)
+        with single_thread():
+            eng = JEngine(params, jc, **kw)
+            eng.run(trace(jc))
+        _REF[key] = eng
+    return _REF[key]
+
+
+def port_engine(arch, trace, **kw):
+    """The port's engine on the CPU after running ``trace(cfg)``; a paged
+    one has its invariants checked and every block back."""
+    _, _, tc, model = pair(arch)
+    eng = ServeEngine(model, tc, device="cpu", **kw)
+    eng.run(trace(tc))
+    if eng.pool is not None:
+        eng.check_invariants()
+        assert eng.pool.free_blocks == eng.pool.usable_blocks
+    return eng
 
 
 SPEC_KEYS = ("decode_steps", "tokens", "prefill_calls", "preemptions",

@@ -21,6 +21,7 @@ SPANS = [1, 2, 4, 5, 7]
 LLAMA = dict(kvh=8, g=4, d=64, dv=64)               # llama3.2-1b attention
 DEEPSEEK = dict(h=16, r=512, rd=64)                 # deepseek-v2-lite MLA
 GEMMA2 = dict(kvh=8, g=2, d=256, dv=256)            # gemma2-9b attention
+ZAMBA2 = dict(kvh=32, g=1, d=112, dv=112)           # zamba2-7b shared block
 
 
 def _gqa(b, s, bs, tw, dtype=BF, **kw):
@@ -112,6 +113,23 @@ def test_gemma2_width_takes_the_tensor_cores_within_shared_memory(s):
         == (66, 64, -(-s // rows))
     f = _gqa(8, s, 16, 264, dtype=F32, **GEMMA2)
     assert f.body == "first" and f.smem <= fa.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("tw", [10, 264])
+def test_zamba2_width_takes_the_tensor_cores_within_shared_memory(tw):
+    """zamba2-7b's shared block (32 KV heads of d 112, G 1: multi-head) in
+    decode at block 16, over a short table and a 4224-position one (a
+    4160 prompt + 64): the tensor-core body (d a multiple of 16), one span
+    row, asking 2 B x (64 x 120 for K, 64 x 120 for V, 16 x 120 for the
+    query tile, of which G 1 fills one row) = 34560 B; a CTA per chunk x
+    slot x head.  f32 takes the first body."""
+    p = _gqa(8, 1, 16, tw, **ZAMBA2)
+    assert p.body == "tc" and p.rows == 1 and p.threads == 128
+    assert p.smem == 2 * (64 * 120 * 2 + 16 * 120) == 34560
+    assert p.grid == (fa.table_chunks(tw, 16), 8 * 32, 1)
+    assert p.grid[0] == {10: 3, 264: 66}[tw]
+    f = _gqa(8, 1, 16, tw, dtype=F32, **ZAMBA2)
+    assert f.body == "first" and 0 < f.smem <= fa.SMEM_LIMIT
 
 
 def _live_ctas(plan, lens, s, tw, bs, heads=1):

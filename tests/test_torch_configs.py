@@ -30,7 +30,8 @@ from repro_torch.models import (decode_step, forward, init_caches,  # noqa: E402
 from repro_torch.models.config import ArchConfig, param_count  # noqa: E402
 from repro_torch.serve import seed_decode_caches  # noqa: E402
 
-NEW = ["gemma2-9b", "deepseek-67b", "mistral-large-123b", "arctic-480b"]
+NEW = ["gemma2-9b", "deepseek-67b", "mistral-large-123b", "arctic-480b",
+       "falcon-mamba-7b", "zamba2-7b"]
 ARCTIC = "arctic-480b"
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -38,7 +39,7 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 def test_registry_holds_the_new_archs():
     assert set(NEW) <= set(ALL_ARCHS)
     with pytest.raises(KeyError, match="not yet ported"):
-        tget("zamba2-7b")
+        tget("whisper-small")
 
 
 @pytest.mark.parametrize("smoke", [False, True])

@@ -19,6 +19,12 @@ LLAMA = [(2048, 2048), (512, 2048), (8192, 2048), (2048, 8192)]
 DEEPSEEK = [(3072, 2048), (576, 2048), (2048, 2048), (2816, 2048),
             (2048, 2816), (2048, 512), (10944, 2048), (2048, 10944)]
 MODEL = sorted(set(LLAMA + DEEPSEEK))
+# falcon-mamba-7b's in / x / dt / out projections (x_proj's 288 rows and
+# zamba2-7b's 14576 are not multiples of a tile; dt_proj's K is 256) and
+# zamba2-7b's Mamba2 in / out and shared attention + MLP linears
+SSM = [(16384, 4096), (288, 8192), (8192, 256), (4096, 8192),
+       (14576, 3584), (3584, 7168), (3584, 3584), (14336, 3584),
+       (3584, 14336)]
 # CNN GEMMs as nm_xwt sees them (rows = spatial, O = C_out, K rounded up
 # to M as the layer pads it), bf16 case
 CNN = sorted({(sp, co, -(-k // 4) * 4) for layers in CNN_LAYER_GEMMS.values()
@@ -26,10 +32,27 @@ CNN = sorted({(sp, co, -(-k // 4) * 4) for layers in CNN_LAYER_GEMMS.values()
 RAGGED = [(37, 200, 136), (129, 72, 1028), (5, 300, 520), (33, 96, 2052),
           (1, 64, 64), (130, 96, 520)]
 
-CASES = ([(r, o, k, False) for o, k in MODEL for r in (1, 8, 32, 128)]
-         + [(8, o, k, True) for o, k in MODEL]
+CASES = ([(r, o, k, False) for o, k in MODEL + SSM
+          for r in (1, 8, 32, 128)]
+         + [(8, o, k, True) for o, k in MODEL + SSM]
          + [(r, o, k, False) for r, o, k in CNN + RAGGED]
          + [(r, o, k, True) for r, o, k in RAGGED if r <= 8])
+
+
+@pytest.mark.parametrize("rows", [1, 8, 128, 4160])
+@pytest.mark.parametrize("o", [288, 14576])
+def test_ragged_last_tile_covers_the_output_rows(o, rows):
+    """x_proj's 288 and zamba2's in_proj 14576 rows: the grid's last
+    column tile starts inside O; where the tile does not divide O (the
+    wide prefill tiles) it ends past it, and the kernel's row guard, not
+    the grid, trims it (the card holds the result against the plain
+    version, chip_smoke phase 2)."""
+    k = 8192 if o == 288 else 3584
+    p = _plan(rows, o, k, rows == 8)
+    gx, _, _ = p.grid(rows, o)
+    assert (gx - 1) * p.col_tile < o <= gx * p.col_tile
+    if rows >= 128:
+        assert o % p.col_tile
 
 
 def _plan(rows, o, k, decode, n=2, m=4):
@@ -131,7 +154,7 @@ GEMMA2 = [(4096, 3584), (2048, 3584), (3584, 4096), (14336, 3584),
           (3584, 14336)]
 
 
-@pytest.mark.parametrize("o,k", GEMMA2)
+@pytest.mark.parametrize("o,k", GEMMA2 + SSM[4:])
 @pytest.mark.parametrize("rows", [128, 4096, 4160, 8320])
 def test_split_partials_stay_within_their_limit(o, k, rows):
     """gemma2-9b's prefill shapes (a 4096 bucket, a 4160 prompt, the
@@ -155,7 +178,7 @@ def test_split_partials_stay_within_their_limit(o, k, rows):
         assert -(-q_ctas // slots) * q_per >= cost
 
 
-@pytest.mark.parametrize("o,k", MODEL)
+@pytest.mark.parametrize("o,k", MODEL + SSM)
 @pytest.mark.parametrize("rows,decode", [(8, True), (32, False),
                                          (128, False)])
 def test_model_shapes_put_about_two_ctas_per_sm(o, k, rows, decode):

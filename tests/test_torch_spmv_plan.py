@@ -20,7 +20,13 @@ LLAMA = [(2048, 2048), (512, 2048), (512, 2048), (2048, 2048),
          (8192, 2048), (8192, 2048), (2048, 8192)]
 DEEPSEEK = [(3072, 2048), (576, 2048), (2048, 512), (2048, 2048),
             (2816, 2048), (2048, 2816), (10944, 2048), (2048, 10944)]
-MODEL = sorted(set(LLAMA + DEEPSEEK))
+# falcon-mamba-7b's in / x / dt / out projections (x_proj's 288 rows,
+# dt_proj's K 256) and zamba2-7b's Mamba2 in (14576 rows) / out and shared
+# attention + MLP linears
+SSM = [(16384, 4096), (288, 8192), (8192, 256), (4096, 8192),
+       (14576, 3584), (3584, 7168), (3584, 3584), (14336, 3584),
+       (3584, 14336)]
+MODEL = sorted(set(LLAMA + DEEPSEEK + SSM))
 RAGGED = [(200, 1032), (96, 8192), (72, 1028), (5, 64), (1, 2048)]
 NM = [(2, 4), (1, 4), (1, 2), (2, 8), (4, 8), (1, 16), (3, 4), (5, 7)]
 
@@ -54,7 +60,8 @@ def test_gather_splits_cover_k_exactly(o, k, nm):
 @pytest.mark.parametrize("o,k", [(1, 2048), (5, 2048), (8, 2048),
                                  (9, 2048), (200, 1032), (512, 2048),
                                  (576, 2048), (2048, 2048), (2816, 2048),
-                                 (8192, 2048), (10944, 2048), (2048, 512)])
+                                 (8192, 2048), (10944, 2048), (2048, 512),
+                                 (288, 8192), (8192, 256), (14576, 3584)])
 @pytest.mark.parametrize("b", [1, 8, 9])
 def test_gather_rows_cover_o_once(b, o, k):
     """A CTA takes 8 / kw row groups of 4 rows per pass, kw warps on each
@@ -92,8 +99,9 @@ def test_gather_batch_groups(b):
 @pytest.mark.parametrize("o,k", MODEL)
 @pytest.mark.parametrize("b", [1, 8, 9])
 def test_gather_fills_every_sm_at_model_shapes(b, o, k, nm):
-    """Every llama and deepseek decode linear at B 1, 8 and 9, at 2:4 and
-    the rerank draft's 1:4, puts at least one CTA on each of the 132 SMs."""
+    """Every llama, deepseek, falcon-mamba and zamba2 decode linear at B 1,
+    8 and 9, at 2:4 and the rerank draft's 1:4, puts at least one CTA on
+    each of the 132 SMs."""
     n, m = nm
     _, p = _plan(b, o, k, n, m)
     assert p.total(b) >= SMS
