@@ -55,6 +55,14 @@ Phases (any failure exits non-zero and prints no result line):
    rows), checked with the shared block's shapes, and paged_gqa_decode at
    zamba2's shared block (KVH 32, G 1, d 112, window 4096, no softcap);
    ``[scan]`` times the plain-torch recurrence of one layer of each.
+   whisper-small and qwen2-vl-7b: nm_spmv at one whisper decoder layer's
+   nine linears (K 768; B 8) and nm_xwt at one encoder layer's seven at
+   its 1500 frames (a ragged last row tile), nm_spmv / nm_xwt at one
+   qwen2-vl layer's seven (k / v 512 rows, wd's K 18944), the q / k / v
+   projections with a nonzero bias through ``linear_apply`` (kernel
+   route against plain route), and paged_gqa_decode at whisper's decoder
+   (KVH 12, G 1, d 64) and paged_gqa_decode / paged_gqa_verify at
+   qwen2-vl's (KVH 4, G 7, d 128), no window, kv_len up to 2100.
 Every serve phase (3-6, 8) runs the engine as a user would on the card:
 each entry point (decode, prefill per bucket, propose, verify) captured as
 CUDA graphs before the first admission (``prewarm=True``), any mid-serve
@@ -85,8 +93,8 @@ steady tick and the graph pool's bytes.
    hard check: full width, 4 layers, float32, 2 slots: onehot tokens
    exactly equal to gather tokens, and each equal to its eager engine's.
 4. Serve deepseek-v2-lite-16b: full width at ``DEEPSEEK_SERVE_LAYERS``
-   (9) of its 27 layers (1 dense + 8 MoE; cut to keep the run's time
-   with phase 11), d 2048, 16 heads, MLA kv_lora 512 / rope 64 / v 128,
+   (5) of its 27 layers (1 dense + 4 MoE; cut to keep the run's time
+   with phases 11 and 12), d 2048, 16 heads, MLA kv_lora 512 / rope 64 / v 128,
    64 routed experts top-6 + 2 shared of hidden 1408, dense d_ff 10944,
    vocab 102400, bf16, 2:4 compressed at init, random weights from a
    seed; the same engine and trace.  nm_spmv, nm_xwt and paged_mla_decode must launch, the
@@ -184,12 +192,13 @@ steady tick and the graph pool's bytes.
    mistral-large-123b at 2 layers and arctic-480b at 1 MoE layer (with
    its dense residual), full width, bf16: eager prefill [1, 128] + 4
    decode steps, the kernel route within 0.25 of the plain route.
-11. The SSM and hybrid families at full width and depth, bf16, 2:4
-   compressed as drawn: 11a falcon-mamba-7b (64 Mamba1 layers, d 4096,
-   d_inner 8192, state 16, vocab 65024), 11b zamba2-7b (81 Mamba2 layers:
-   13 groups of 6, each followed by the one shared attention + MLP block
-   (32 heads of 112, window 4096, d_ff 14336), and a tail of 3; state 64,
-   112 heads, vocab 32000).  Each: phase 3's trace on the paged fused
+11. The SSM and hybrid families at full width and ``SSM_SERVE_LAYERS``
+   depth (cut when phase 12 came, to keep the run's time), bf16, 2:4
+   compressed as drawn: 11a falcon-mamba-7b (32 of its 64 Mamba1 layers,
+   d 4096, d_inner 8192, state 16, vocab 65024), 11b zamba2-7b (27 of its
+   81 Mamba2 layers: 4 of its 13 groups of 6, each followed by the one
+   shared attention + MLP block (32 heads of 112, window 4096, d_ff
+   14336), and the tail of 3; state 64, 112 heads, vocab 32000).  Each: phase 3's trace on the paged fused
    engine, graphed and prewarmed, the eager engine beside it, a second
    run; hard: nm_spmv launched ticks x the tick's linears (falcon 64 x 4,
    zamba2 81 x 2 + 13 x 7) and paged_gqa_decode ticks x 13; the steady
@@ -207,7 +216,30 @@ steady tick and the graph pool's bytes.
    within 1e-3, end to end for falcon and block by block for zamba2 (its
    15 blocks amplify float32 rounding past 1e-3 end to end; the line
    prints that floor).
-12. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
+12. The last two families at full width and depth, bf16, 2:4 compressed
+   as drawn, qkv biases drawn nonzero (N(0, 0.5^2); the models zero
+   them, as the reference does): 12a whisper-small (12 encoder + 12
+   decoder layers, d 768, 12 heads of 64, d_ff 3072 gelu, vocab 51865;
+   each request 128 tokens + 1500 encoder frames), 12b qwen2-vl-7b (28
+   layers, d 3584, 28 / 4 heads of 128, d_ff 18944, vocab 152064;
+   embeddings prompts of one drawn length in 100-128 per fixed batch of
+   8, padded up to the 128 bucket).  Each: phase 3's trace on the paged
+   fused engine, graphed and prewarmed, the eager engine beside it, a
+   second run; hard: nm_spmv launched ticks x the tick's linears (whisper
+   12 x 9: no cross wk / wv; qwen2-vl 28 x 7), paged_gqa_decode ticks x
+   layers, nm_xwt admissions x every linear (whisper 216, qwen2-vl 196);
+   the steady tick against its byte floor (whisper's counts every slot's
+   cross K/V), ``[profile]``; the same trace on paged gather, slotted,
+   the sequential oracle and ``prefix_cache=True`` (hard: no hit); a
+   41-block pool, replay against suspend (whisper's cross K/V rows
+   swapped with the blocks); qwen2-vl's rerank speculation, whisper's
+   ``spec=`` raising ``ValueError``.  12c, hard, float32 (whisper at full
+   depth, qwen2-vl 4 layers), 2 slots, prompts 37 and 2 (padded up:
+   whisper's 2, both of qwen2-vl's): slotted = paged = sequential,
+   suspend = replay (qwen2-vl: spec = plain), each graphed = eager;
+   ``forward`` against ``prefill`` + ``decode_step`` (slotted and paged
+   fused) and the kernel route against the plain route, within 1e-3.
+13. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
    device line last.  The total time is printed on the ``[done]`` line.
 """
 
@@ -258,9 +290,10 @@ LOGIT_ATOL = 0.25
 # logits agree to ~1e-5; 1e-3 leaves room and still fails on any wrong
 # kernel or a flipped router top-k set (those move logits by O(0.1)).
 LOGIT_ATOL_F32 = 1e-3
-# phases 4 and 6: 1 dense + 8 of deepseek-v2-lite's 26 MoE layers (widths
-# as published), cut from 27 when phase 11 came, to keep the run's time
-DEEPSEEK_SERVE_LAYERS = 9
+# phases 4 and 6: 1 dense + 4 of deepseek-v2-lite's 26 MoE layers (widths
+# as published), cut from 27 to 9 when phase 11 came and to 5 when phase
+# 12 came, to keep the run's time
+DEEPSEEK_SERVE_LAYERS = 5
 LLAMA_PATH = ("nm_spmv", "nm_xwt", "paged_gqa_decode")
 DEEPSEEK_PATH = ("nm_spmv", "nm_xwt", "paged_mla_decode")
 LLAMA_SPEC_PATH = LLAMA_PATH + ("paged_gqa_verify",)
@@ -388,11 +421,12 @@ def _compressed(torch, o, k, dtype, gen, n=N):
 
 
 def phase_matmuls(torch, F, model: str, check_shapes, spmv_layer,
-                  xwt_layer, seed: int, n: int = N):
+                  xwt_layer, seed: int, n: int = N, xwt_rows: int = 128):
     """nm_spmv (decode) and nm_xwt (prefill) against their plain versions
-    at ``check_shapes``; timings over one layer's linears in bf16
-    (``spmv_layer`` at B 8, ``xwt_layer`` at S 128), at ``n``:4.  A layer's
-    compressed weights are tens of MB, near or above the 50 MB L2."""
+    at ``check_shapes`` (nm_xwt at S 4, 32, 128 and ``xwt_rows``); timings
+    over one layer's linears in bf16 (``spmv_layer`` at B 8, ``xwt_layer``
+    at S ``xwt_rows``), at ``n``:4.  A layer's compressed weights are tens
+    of MB, near or above the 50 MB L2."""
     from repro_torch.core.sparsity import decompress
     from repro_torch.kernels import nm_spmm, nm_spmv
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -419,7 +453,8 @@ def phase_matmuls(torch, F, model: str, check_shapes, spmv_layer,
                     f"max_abs_err {e:.3e} tol {atol}+{rtol}|ref| "
                     f"{'same bits twice' if same else 'OTHER BITS twice'} "
                     f"{'ok' if good and same else 'FAIL'}")
-            for s in (4, 32, 128):   # 32: the verify span
+            # 32: the verify span; whisper's encoder runs its 1500 frames
+            for s in sorted({4, 32, 128, xwt_rows}):
                 x = torch.randn(s, k, generator=gen, device="cuda").to(dtype)
                 e, good = max_err(torch, nm_spmm.nm_xwt(x, sp.values, sp.indices, n, M),
                                   nm_spmm.nm_xwt_plain(x, sp.values, sp.indices, n, M),
@@ -438,7 +473,7 @@ def phase_matmuls(torch, F, model: str, check_shapes, spmv_layer,
     for name, fn, plain, b, shapes in (
             ("nm_spmv", nm_spmv.nm_spmv, nm_spmv.nm_spmv_plain, 8,
              spmv_layer),
-            ("nm_xwt", nm_spmm.nm_xwt, nm_spmm.nm_xwt_plain, 128,
+            ("nm_xwt", nm_spmm.nm_xwt, nm_spmm.nm_xwt_plain, xwt_rows,
              xwt_layer)):
         layer = [_compressed(torch, o, k, torch.bfloat16, gen, n)
                  for o, k in shapes]
@@ -904,44 +939,60 @@ def phase_attention(torch, F):
                 max_abs_err=worst)
 
 
-# windowed decode attention at 8 slots: two rows past the window, one at
-# it, short ones (row 0, the masked row of a span table, reads trash only).
-# gemma2-9b: KVH 8, G 2, d 256, window 4096, softcap 50, decode and verify;
-# zamba2-7b's shared block: KVH 32, G 1 (multi-head), d 112, window 4096,
-# no softcap, decode only (its family takes no speculation)
+# paged GQA at 8 slots, each model's serving shape.  Windowed: two rows
+# past the window, one at it, short ones (row 0, the masked row of a span
+# table, reads trash only).  gemma2-9b: KVH 8, G 2, d 256, window 4096,
+# softcap 50, decode and verify; zamba2-7b's shared block: KVH 32, G 1
+# (multi-head), d 112, window 4096, no softcap, decode only (its family
+# takes no speculation).  No window, ``LONG_LENS`` (up to 2100): whisper-
+# small's decoder self-attention (KVH 12, G 1, d 64, decode only: no
+# speculation) and qwen2-vl-7b's (KVH 4, G 7: 7 of an mma tile's 16 rows,
+# 28 rows a kv head at span 4; d 128), decode and verify
 WINDOW_LENS = [1, 4160, 4100, 4096, 17, 700, 64, 2]
 GEMMA_WINDOW, GEMMA_CAP = 4096, 50.0
-WINDOW_SHAPES = {"gemma2-9b": dict(kvh=8, g=2, d=256, cap=GEMMA_CAP,
-                                   spans=(1, SPAN)),
-                 "zamba2-7b": dict(kvh=32, g=1, d=112, cap=None, spans=(1,))}
+LONG_LENS = [1, 2100, 1000, 17, 16, 15, 64, 65]
+ATTN_SHAPES = {"gemma2-9b": dict(kvh=8, g=2, d=256, cap=GEMMA_CAP,
+                                 spans=(1, SPAN), window=GEMMA_WINDOW,
+                                 lens=WINDOW_LENS),
+               "zamba2-7b": dict(kvh=32, g=1, d=112, cap=None, spans=(1,),
+                                 window=GEMMA_WINDOW, lens=WINDOW_LENS),
+               "whisper-small": dict(kvh=12, g=1, d=64, cap=None, spans=(1,),
+                                     window=None, lens=LONG_LENS),
+               "qwen2-vl-7b": dict(kvh=4, g=7, d=128, cap=None,
+                                   spans=(1, SPAN), window=None,
+                                   lens=LONG_LENS)}
 
 
 def _window_mask(torch, kv_len, s, length, window):
-    """[B, 1, S, length] mask of a span under a window: offset i sees
+    """[B, 1, S, length] mask of a span (under a window): offset i sees
     positions (kv_len + i - 1 - window, kv_len + i - 1]."""
     top = kv_len.long()[:, None] + torch.arange(s, device="cuda")
     idx = torch.arange(length, device="cuda")[None, None, :]
-    return ((idx < top[:, :, None])
-            & (idx >= top[:, :, None] - window))[:, None]
+    mask = idx < top[:, :, None]
+    if window is not None:
+        mask &= idx >= top[:, :, None] - window
+    return mask[:, None]
 
 
 def phase_window_attention(torch, F, model):
     """paged_gqa_decode (S 1) and, where the model speculates,
-    paged_gqa_verify (S 4) at ``model``'s serving shape
-    (``WINDOW_SHAPES``): 8 slots, block 16, window 4096, kv_len
-    ``WINDOW_LENS``; f32 (the first body) and bf16 (the tensor-core body)
-    against the plain versions, verify also against S decode launches bit
-    for bit.  bf16 timed beside the bound (the positions each row's window
-    reads) and SDPA over the gathered K/V under the same window mask; SDPA
-    has no softcap, so with one it computes the uncapped function.
-    Returns the decode (and verify) rows."""
+    paged_gqa_verify (S 4) at ``model``'s serving shape (``ATTN_SHAPES``):
+    8 slots, block 16, its window (or none) and kv_len; f32 (the first
+    body) and bf16 (the tensor-core body) against the plain versions,
+    verify also against S decode launches bit for bit.  bf16 timed beside
+    the bound (the positions each row's window reads) and SDPA over the
+    gathered K/V under the same mask; SDPA has no softcap, so with one it
+    computes the uncapped function.  Returns the decode (and verify)
+    rows."""
     from repro_torch.kernels import flash_attention as fa
-    shape = WINDOW_SHAPES[model]
+    shape = ATTN_SHAPES[model]
     gen = torch.Generator(device="cuda").manual_seed(12)
-    lens, b, bs = WINDOW_LENS, len(WINDOW_LENS), 16
+    lens, bs = shape["lens"], 16
+    b = len(lens)
     kvh, g, d, cap = shape["kvh"], shape["g"], shape["d"], shape["cap"]
-    win, scale = GEMMA_WINDOW, d ** -0.5
-    what = (f"KVH {kvh}, G {g}, d {d}, window {win}"
+    win, scale = shape["window"], d ** -0.5
+    what = (f"KVH {kvh}, G {g}, d {d}, "
+            + (f"window {win}" if win is not None else "no window")
             + (f", cap {cap}" if cap is not None else ", no cap"))
     kw = dict(scale=scale, window=win, cap=cap)
     kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -1025,12 +1076,13 @@ def phase_window_attention(torch, F, model):
                                                                    lib, 20)
         # each row reads its span's window once; offset i scores min(n + i,
         # window) positions
-        read = sum(min(n + s - 1, win + s - 1) for n in lens)
-        seen = sum(min(n + i, win) for n in lens for i in range(s))
+        lim = win if win is not None else max(lens) + s
+        read = sum(min(n + s - 1, lim + s - 1) for n in lens)
+        seen = sum(min(n + i, lim) for n in lens for i in range(s))
         nbytes = (q.numel() * 2 + read * kvh * 2 * d * 2 + tbl.numel() * 4
                   + b * 4 + b * s * kvh * g * d * 4)
         bnd, by = bound_ms(nbytes, 2.0 * seen * kvh * g * 2 * d, "bfloat16")
-        sdpa = ("SDPA on the gathered K/V under the window mask"
+        sdpa = ("SDPA on the gathered K/V under the same mask"
                 + (", without the softcap (SDPA has none)"
                    if cap is not None else ""))
         log(f"[time] {name} one launch at {model}'s shape (bf16, 8 slots x "
@@ -1569,9 +1621,10 @@ def timed_run(torch, model, cfg, kw, reqs):
     return eng, time.perf_counter() - t0
 
 
-def serve_run(torch, model, cfg, path, kw, phase: str):
+def serve_run(torch, model, cfg, path, kw, phase: str, reqs=None):
     """The measured engine run: 16 requests of 128 prompt tokens, gen mix
-    16/32, through the graphed engine ``kw``, with every launch count
+    16/32 (or ``reqs``), through the graphed engine ``kw``, with every
+    launch count
     zeroed just before and read just after (the prewarm's captures happen
     before: a replay adds what its graph captured).  Before it, the same
     trace through the eager engine, the first run of the eager, graphed,
@@ -1582,8 +1635,9 @@ def serve_run(torch, model, cfg, path, kw, phase: str):
     # warm-up (first-call library set-up), not counted
     ServeEngine(model, cfg, **kw).run(synthetic_trace(
         cfg, n_requests=2, prompt_len=128, gen_lens=[2], seed=99))
-    reqs = synthetic_trace(cfg, n_requests=16, prompt_len=128,
-                           gen_lens=[16, 32], seed=0)
+    if reqs is None:
+        reqs = synthetic_trace(cfg, n_requests=16, prompt_len=128,
+                               gen_lens=[16, 32], seed=0)
     first_eager = timed_run(torch, model, cfg, eager(kw), reqs)
     eng = ServeEngine(model, cfg, **kw)
     kernels.reset_launch_counts()
@@ -1875,7 +1929,7 @@ def check_onehot_exact(torch):
 
 
 def phase_spec(torch, model, cfg, kw, spec, path, verify_kernel, base,
-               base_wall, phase, repeat: bool = True):
+               base_wall, phase, repeat: bool = True, reqs=None):
     """The phase-3/4 trace through the speculative engine.  A verify pass is
     one call of the engine's verify entry (one graph replay); the verify
     kernel must launch once per layer per pass.  Tokens are compared with
@@ -1884,7 +1938,7 @@ def phase_spec(torch, model, cfg, kw, spec, path, verify_kernel, base,
     from a traced run."""
     skw = dict(kw, spec=spec)
     eng, reqs, launches, wall, first_eager = serve_run(
-        torch, model, cfg, path, skw, phase)
+        torch, model, cfg, path, skw, phase, reqs)
     passes = eng.entries["verify"].calls
     again, busy = None, None
     if repeat:
@@ -1913,6 +1967,26 @@ def phase_spec(torch, model, cfg, kw, spec, path, verify_kernel, base,
     return launches
 
 
+def prompt_batch(torch, model, inputs, extra=()):
+    """A request's prompt followed by the tokens ``extra`` as a batch of one
+    on the card: the tokens appended to a token prompt, their embeddings
+    (the model's table) to an embeddings prompt; encoder frames kept."""
+    import numpy as np
+    extra = torch.tensor(np.asarray(extra, np.int64), device="cuda")
+    batch = {}
+    if "tokens" in inputs:
+        batch["tokens"] = torch.cat([torch.tensor(
+            np.asarray(inputs["tokens"], np.int64), device="cuda"), extra])[None]
+    if "embeds" in inputs:
+        batch["embeds"] = torch.cat([torch.tensor(
+            inputs["embeds"], device="cuda"),
+            model.embed.emb[extra].float()])[None]
+    if "enc_embeds" in inputs:
+        batch["enc_embeds"] = torch.tensor(inputs["enc_embeds"],
+                                           device="cuda")[None]
+    return batch
+
+
 def compare_tokens(torch, eng, reqs, base, what, label="with speculation",
                    base_label="plain") -> int:
     """Agreement of ``eng``'s token streams with ``base``; at each request's
@@ -1930,9 +2004,8 @@ def compare_tokens(torch, eng, reqs, base, what, label="with speculation",
             same_req += 1
             continue
         i = int(np.argmin(eq))
-        ctx = np.concatenate([np.asarray(r.inputs["tokens"]), a[:i]])
-        logits, _ = prefill(eng.model, eng.cfg, {"tokens": torch.tensor(
-            ctx[None], dtype=torch.long, device="cuda")})
+        logits, _ = prefill(eng.model, eng.cfg,
+                            prompt_batch(torch, eng.model, r.inputs, a[:i]))
         top = torch.topk(logits[0].float(), 2).values
         log(f"[spec]   rid {r.rid}: first divergence at token {i} ({a[i]} "
             f"{base_label}, {b[i]} {label}); plain model's top-2 logit "
@@ -2399,8 +2472,7 @@ def check_reference_route(torch, model, cfg, reqs, tol, phase,
     worst, agree, total = 0.0, 0, 0
     first = []
     for slot, req in enumerate(reqs):
-        batch = {"tokens": torch.tensor(req.inputs["tokens"][None],
-                                        dtype=torch.long, device="cuda")}
+        batch = prompt_batch(torch, model, req.inputs)
         out = {}
         for route, c in (("kernel", cfg), ("ref", ref_cfg)):
             pool = pools[route]
@@ -3271,6 +3343,10 @@ SSM_EXACT_PROMPTS = {"falcon-mamba-7b": (37, 37, 2, 2),
                      "zamba2-7b": (4160, 4160, 37, 37, 2, 2)}
 SSM_EXACT_GENS = (12, 9)
 SSM_EXACT_LAYERS = {"falcon-mamba-7b": 4, "zamba2-7b": 13}
+# 11a / 11b: falcon 32 of 64 layers, zamba2 27 of 81 (4 of 13 groups of 6
+# + the tail of 3), widths as published; cut from full depth when phase 12
+# came, to keep the run's time
+SSM_SERVE_LAYERS = {"falcon-mamba-7b": 32, "zamba2-7b": 27}
 
 
 def ssm_linears_per_tick(model) -> int:
@@ -3366,7 +3442,7 @@ def time_scan(torch, cfg):
 
 def serve_state_family(torch, card, arch, phase):
     """Phase 11a (falcon-mamba-7b) / 11b (zamba2-7b) at full width and
-    depth, bf16, 2:4 compressed as drawn: phase 3's trace on the paged
+    ``SSM_SERVE_LAYERS`` depth, bf16, 2:4 compressed as drawn: phase 3's trace on the paged
     fused engine (graphed, prewarmed, the eager engine beside it, a second
     graphed run for determinism, the traced busy share); hard: nm_spmv
     launched ticks x the tick's linears, paged_gqa_decode ticks x the
@@ -3384,9 +3460,10 @@ def serve_state_family(torch, card, arch, phase):
     from repro_torch.serve import synthetic_trace
     from repro_torch.serve.sequential import FixedBatch
     t_phase = time.perf_counter()
-    cfg = get_config(arch)
-    cfg = cfg.replace(sparsity=dataclasses.replace(cfg.sparsity,
-                                                   mode="compressed"))
+    full = get_config(arch)
+    cfg = full.replace(n_layers=SSM_SERVE_LAYERS[arch],
+                       sparsity=dataclasses.replace(full.sparsity,
+                                                    mode="compressed"))
     hybrid = cfg.family == "hybrid"
     path_kernels = HYBRID_PATH if hybrid else SSM_PATH
     torch.cuda.empty_cache()
@@ -3401,7 +3478,8 @@ def serve_state_family(torch, card, arch, phase):
              f"{cfg.ssm_state}, {cfg.nheads_ssm()} heads), one shared "
              f"attention + MLP block ({cfg.n_heads}H/{cfg.n_kv}KV of "
              f"{cfg.hd()}, d_ff {cfg.d_ff}, window {cfg.window})")
-    log(f"[phase {phase}] init {cfg.name}: {cfg.n_layers}L d{cfg.d_model} "
+    log(f"[phase {phase}] init {cfg.name}: {cfg.n_layers}L (of "
+        f"{full.n_layers}) d{cfg.d_model} "
         f"{shape}, conv {cfg.conv_kernel}, chunk {cfg.ssm_chunk}, vocab "
         f"{cfg.vocab}, {cfg.dtype}, 2:4 compressed as drawn: "
         f"{drawn_params(model, cfg) / 1e9:.3f} B drawn parameters "
@@ -3804,8 +3882,8 @@ def check_ssm_exact(torch, arch):
 
 def phase_ssm(torch, card):
     """Phase 11: falcon-mamba-7b (11a) and zamba2-7b (11b) at full width
-    and depth, then the float32 checks (11c).  Returns the launches by
-    path."""
+    and ``SSM_SERVE_LAYERS`` depth, then the float32 checks (11c).
+    Returns the launches by path."""
     t0 = time.perf_counter()
     path = {}
     for arch, phase in (("falcon-mamba-7b", "11a"), ("zamba2-7b", "11b")):
@@ -3813,6 +3891,439 @@ def phase_ssm(torch, card):
     for arch in ("falcon-mamba-7b", "zamba2-7b"):
         check_ssm_exact(torch, arch)
     log(f"[time] phase 11 {time.perf_counter() - t0:.1f}s")
+    return path
+
+
+# ----------------------------------------------------------------- phase 12
+
+# one whisper-small decoder layer's linears a decode tick runs (out, in):
+# self wq, wk, wv, wo, cross wq, wo, the MLP's wg, wu, wd; one encoder
+# layer's seven, which prefill runs at the encoder's 1500 frames (as it
+# runs the cross wk / wv); qwen2-vl-7b's seven (k / v 512 rows, wd's K
+# 18944)
+WHISPER_DEC_SHAPES = [(768, 768)] * 6 + [(3072, 768), (3072, 768),
+                                         (768, 3072)]
+WHISPER_ENC_SHAPES = [(768, 768)] * 4 + [(3072, 768), (3072, 768),
+                                         (768, 3072)]
+WHISPER_CHECK_SHAPES = [(768, 768), (3072, 768), (768, 3072)]
+ENC_FRAMES = 1500
+QWEN_LAYER_SHAPES = [(3584, 3584), (512, 3584), (512, 3584), (3584, 3584),
+                     (18944, 3584), (18944, 3584), (3584, 18944)]
+QWEN_CHECK_SHAPES = [(3584, 3584), (512, 3584), (18944, 3584),
+                     (3584, 18944)]
+ENCDEC_PATH = ("nm_spmv", "nm_xwt", "paged_gqa_decode")
+# 12b: embeddings prompts of a length drawn from 100-128 for each fixed
+# batch of 8 (the oracle's joint prefill is rectangular), so most pad up
+# to the 128 bucket
+VLM_PROMPTS = (100, 128)
+BIAS_SCALE = 0.5
+# 12c, float32 at full width: prompts 37 (whisper: bucket 32 + catch-up;
+# qwen2-vl: padded up to 49) and 2 (padded up to 4), in fixed batches of 2
+ENCDEC_EXACT_PROMPTS = (37, 37, 2, 2)
+ENCDEC_EXACT_GENS = (12, 9)
+ENCDEC_EXACT_LAYERS = {"whisper-small": 12, "qwen2-vl-7b": 4}
+
+
+def draw_biases(torch, model, seed: int) -> int:
+    """Every bias of ``model`` (the qkv biases) drawn from N(0, 0.5^2) in
+    place: ``init_model`` zeroes them, as the reference does, and a dropped
+    or misplaced bias would then not show.  Returns how many."""
+    from repro_torch.core.layers import SparseLinear
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = 0
+    for m in model.modules():
+        if isinstance(m, SparseLinear) and m.has("b"):
+            m.b.copy_(torch.randn(m.b.shape, generator=gen, device="cuda")
+                      * BIAS_SCALE)
+            n += 1
+    return n
+
+
+def check_biased_linears(torch, model: str, shapes, rows: int) -> float:
+    """The q / k / v projections of ``model`` with a nonzero bias through
+    ``linear_apply``: the kernel route (nm_spmv at B 8, nm_xwt at S
+    ``rows``) against the plain route (impl='ref'), f32 and bf16."""
+    from repro_torch.core.layers import SparseLinear, linear_apply
+    from repro_torch.core.sparse_matmul import SparsityConfig
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    worst, ok = 0.0, True
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        rtol, atol = TOL[dname]
+        for o, k in shapes:
+            sp = _compressed(torch, o, k, dtype, gen)
+            b = (torch.randn(o, generator=gen, device="cuda")
+                 * BIAS_SCALE).to(dtype)
+            lin = SparseLinear(w_vals=sp.values, w_idx=sp.indices, b=b)
+            for r in (8, rows):
+                x = torch.randn(r, k, generator=gen, device="cuda").to(dtype)
+                got = linear_apply(lin, x, SparsityConfig(
+                    n=N, m=M, mode="compressed"))
+                want = linear_apply(lin, x, SparsityConfig(
+                    n=N, m=M, mode="compressed", impl="ref"))
+                e, good = max_err(torch, got, want, rtol, atol)
+                worst, ok = max(worst, e), ok and good
+    log(f"[check] biased q/k/v linears of {model} ({shapes}, bias "
+        f"N(0, {BIAS_SCALE}^2)) kernel route vs plain route at B 8 and S "
+        f"{rows}, f32 and bf16: max_abs_err {worst:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"phase 2: a biased linear of {model} disagrees "
+                         f"with its plain route")
+    return worst
+
+
+def tick_linears(model):
+    """The N:M linears one decode tick runs: every decoder block's, less
+    the audio family's cross ``wk`` / ``wv`` (prefill runs those once per
+    request, over the encoder's frames)."""
+    from repro_torch.core.layers import SparseLinear
+    out = []
+    for blk in model.layers:
+        skip = ({id(blk.cross.wk), id(blk.cross.wv)}
+                if hasattr(blk, "cross") else set())
+        out += [m for m in blk.modules()
+                if isinstance(m, SparseLinear) and id(m) not in skip]
+    return out
+
+
+def encdec_tick_floor(model, cfg, n_slots, positions):
+    """Byte floor of one decode tick (ms, and its parts in bytes): the
+    linears the tick runs, the LM head's table, the self K/V over
+    ``positions`` a slot and, for the audio family, every slot's cross K/V
+    (enc_seq positions a layer), at the memory rate."""
+    from repro_torch.models.common import linear_weight_bytes
+    weights = sum(linear_weight_bytes(m, cfg.sparsity)[1]
+                  for m in tick_linears(model))
+    per_pos = cfg.n_layers * cfg.n_kv * cfg.hd() * 2 * 2
+    parts = dict(weights=weights, head=cfg.vocab * cfg.d_model * 2,
+                 kv=n_slots * positions * per_pos)
+    if cfg.family == "audio":
+        parts["cross"] = n_slots * cfg.enc_seq * per_pos
+    return sum(parts.values()) / HBM_BYTES_PER_S * 1e3, parts
+
+
+def vlm_trace(cfg, n_requests=16, gen_lens=(16, 32), seed=0, batch=8):
+    """Phase 3's trace shape with embeddings prompts: one length drawn from
+    ``VLM_PROMPTS`` for each fixed batch of ``batch`` requests."""
+    import numpy as np
+    from repro_torch.serve import synthetic_request
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(VLM_PROMPTS[0], VLM_PROMPTS[1] + 1,
+                        -(-n_requests // batch))
+    return [synthetic_request(cfg, rng, rid=i, prompt_len=int(lens[i // batch]),
+                              max_new_tokens=gen_lens[i % len(gen_lens)])
+            for i in range(n_requests)]
+
+
+def serve_encdec_vlm(torch, card, arch, phase):
+    """Phase 12a (whisper-small) / 12b (qwen2-vl-7b) at full width and
+    depth, bf16, 2:4 compressed as drawn, qkv biases drawn nonzero: the
+    trace (phase 3's; 12b with embeddings prompts of 100-128, padded up)
+    on the paged fused engine (graphed, prewarmed, the eager engine beside
+    it, a second graphed run for determinism, the traced busy share);
+    hard: nm_spmv launched ticks x the tick's linears, paged_gqa_decode
+    ticks x layers, nm_xwt admissions x the prefill's linears.  The same
+    trace on the paged gather engine, the slotted engine and the
+    sequential oracle; a small pool under ``preempt="suspend"`` against
+    ``"replay"``; ``prefix_cache=True`` (hard: no hit); for qwen2-vl rerank
+    speculation (``SpecConfig(k=3)``), for whisper ``spec=`` raising
+    ``ValueError``.  These other paths run graphed only (12c holds each
+    graphed = eager in float32); bf16 flips are printed with their top-2
+    margins."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.layers import SparseLinear
+    from repro_torch.models import init_model
+    from repro_torch.models.config import param_count
+    from repro_torch.serve import ServeEngine, SpecConfig
+    from repro_torch.serve.sequential import FixedBatch
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    cfg = cfg.replace(sparsity=dataclasses.replace(cfg.sparsity,
+                                                   mode="compressed"))
+    audio = cfg.family == "audio"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device="cuda")
+    biases = draw_biases(torch, model, seed=1)
+    torch.cuda.synchronize()
+    shape = (f"{cfg.enc_layers} encoder + {cfg.n_layers} decoder layers, "
+             f"enc_seq {cfg.enc_seq}" if audio else f"{cfg.n_layers}L")
+    log(f"[phase {phase}] init {cfg.name}: {shape}, d{cfg.d_model} "
+        f"{cfg.n_heads}H/{cfg.n_kv}KV of {cfg.hd()}, d_ff {cfg.d_ff} "
+        f"({cfg.act}), vocab {cfg.vocab}, rope theta {cfg.rope_theta:g}, "
+        f"input {cfg.input_mode}, {cfg.dtype}, 2:4 compressed as drawn, "
+        f"{biases} qkv biases drawn N(0, {BIAS_SCALE}^2): "
+        f"{drawn_params(model, cfg) / 1e9:.3f} B drawn parameters "
+        f"(param_count {param_count(cfg) / 1e9:.3f} B) in "
+        f"{time.perf_counter() - t0:.1f}s; resident "
+        f"{gib(torch.cuda.memory_allocated())}, peak "
+        f"{gib(torch.cuda.max_memory_allocated())} on {card}")
+    per_tick = len(tick_linears(model))
+    per_adm = sum(1 for m in model.modules() if isinstance(m, SparseLinear))
+    path = {}
+    reqs = None if audio else vlm_trace(cfg)
+
+    # ---- the trace on the paged fused engine
+    base = dict(n_slots=8, max_len=128 + 32, compressed=True, device="cuda")
+    kw = graphed(dict(base, kv="paged", attn="fused", block_size=16))
+    eng, reqs, launches, wall, first_eager = serve_run(
+        torch, model, cfg, ENCDEC_PATH, kw, f"phase {phase}", reqs)
+    path[cfg.name] = launches
+    st = eng.stats()
+    ticks, adm = eng.decode_steps, int(st["prefill_calls"])
+    check_path(launches, ENCDEC_PATH, f"phase {phase}",
+               nm_spmv=ticks * per_tick,
+               paged_gqa_decode=ticks * cfg.n_layers,
+               nm_xwt=adm * per_adm)
+    again = check_repeat(torch, model, cfg, kw, reqs, eng, f"phase {phase}")
+    busy = profile_breakdown(torch, model, cfg, kw)
+    check_graphed(torch, model, cfg, kw, reqs, eng, wall, again,
+                  first_eager, f"phase {phase}", last_eager=False,
+                  busy=(None, busy))
+    floor, parts = encdec_tick_floor(eng.model, cfg, 8, 160)
+    plens = sorted({r.prompt_len for r in reqs})
+    log(f"[{phase}] {cfg.name}: {st['tokens'] / wall:.1f} tokens/s graphed "
+        f"(prompts {plens} -> prefill lengths {sorted(eng.prefill_lengths)}"
+        f"), steady tick {st['steady_tick_s'] * 1e3:.2f} ms against a byte "
+        f"floor of {floor:.2f} ms ("
+        + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in parts.items())
+        + f", at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); busy {100 * busy:.1f}%;"
+        f" launches nm_spmv {launches['nm_spmv']} = {ticks} ticks x "
+        f"{per_tick}, paged_gqa_decode {launches['paged_gqa_decode']} = "
+        f"{ticks} x {cfg.n_layers}, nm_xwt {launches['nm_xwt']} = {adm} "
+        f"admissions x {per_adm}; KV peak {mib(st['kv_bytes_peak'])}, "
+        f"slot-indexed state {mib(st['kv_state_bytes'])}")
+    log(f"[time] phase {phase} paged {time.perf_counter() - t_phase:.1f}s")
+    results = {"paged fused": eng.results}
+    ccfg = eng.cfg
+    if audio:
+        try:
+            ServeEngine(eng.model, ccfg, spec=SpecConfig(k=SPAN - 1),
+                        **dict(kw, prewarm=False))
+        except ValueError as e:
+            log(f"[{phase} spec] {cfg.name}: spec= raises ValueError ({e})")
+        else:
+            raise SystemExit(f"phase {phase}: spec= did not raise for "
+                             f"{cfg.name}")
+    else:
+        path[f"{cfg.name} spec"] = phase_spec(
+            torch, eng.model, ccfg, kw, SpecConfig(k=SPAN - 1,
+                                                   draft="rerank"),
+            ENCDEC_PATH + ("paged_gqa_verify",), "paged_gqa_verify", eng,
+            wall, f"phase {phase} spec", repeat=False, reqs=reqs)
+    del eng, first_eager
+    free_card(torch)
+
+    # ---- the same trace: paged gather, slotted, sequential, prefix cache
+    rates = [f"paged fused {st['tokens'] / wall:.1f}"]
+    for name, k in (("paged gather", dict(kw, attn="gather")),
+                    ("slotted", dict(base, strict_prewarm=True)),
+                    ("prefix cache", dict(kw, prefix_cache=True))):
+        e, w, launched = graphed_run(torch, model, cfg, k, reqs,
+                                     f"phase {phase} {name}")
+        results[name] = e.results
+        path[f"{cfg.name} {name}"] = launched
+        rates.append(f"{name} {e.stats()['tokens'] / w:.1f}")
+        if name == "prefix cache" and (e.prefix_hits
+                                       or e.stats()["index_blocks"]):
+            raise SystemExit(f"phase {phase}: the prefix cache took "
+                             f"{e.prefix_hits} hits for {cfg.name}")
+        del e
+        free_card(torch)
+    runner = FixedBatch(model, ccfg, device="cuda")
+    runner.serve_sequential(reqs, 8, base["max_len"])      # captures
+    kernels.reset_launch_counts()
+    results["sequential"], _, seq_wall = sequential_run(
+        torch, runner, reqs, 8, base["max_len"])
+    path[f"{cfg.name} sequential"] = {
+        k.name: k.launches for k in kernels.all_kernels()}
+    seq_tokens = sum(len(r.tokens) for r in results["sequential"].values())
+    rates.append(f"sequential {seq_tokens / seq_wall:.1f}")
+    del runner
+    free_card(torch)
+    log(f"[{phase} paths] {cfg.name}, graphed tokens/s: " + "; ".join(rates)
+        + "; prefix cache hits 0")
+    fused = _Results(results["paged fused"], model, ccfg)
+    for name in results:
+        if name != "paged fused":
+            compare_tokens(torch, _Results(results[name], model, ccfg), reqs,
+                           fused.results, f"phase {phase} {cfg.name}", name,
+                           "paged fused")
+    log(f"[time] phase {phase} paths {time.perf_counter() - t_phase:.1f}s")
+
+    # ---- a small pool: replay against suspend (whisper's cross K/V rows
+    # swapped with the blocks)
+    skw = dict(kw, n_blocks=41)
+    rep, rep_wall, _ = graphed_run(torch, model, cfg, skw, reqs,
+                                   f"phase {phase} replay")
+    swaps = {}
+    sus, sus_wall, _ = graphed_run(torch, model, cfg,
+                                   dict(skw, preempt="suspend"), reqs,
+                                   f"phase {phase} suspend", swaps=swaps)
+    rs, ss = rep.stats(), sus.stats()
+    if (rs["preemptions"] <= 0 or ss["preemptions"] <= 0
+            or not ss["swap_outs"] == ss["swap_ins"] == ss["preemptions"]
+            or ss["swap_bytes_resident"] or ss["ticks"] > rs["ticks"]):
+        raise SystemExit(f"phase {phase}: expected preemptions in both runs,"
+                         f" swap-outs = swap-ins = preemptions, nothing left"
+                         f" on the host and suspend ticks <= replay ticks; "
+                         f"replay {rs}, suspend {ss}")
+    out_ms, out_b = zip(*swaps["out"])
+    in_ms, _ = zip(*swaps["in"])
+    log(f"[{phase} suspend] {cfg.name}: pool 41 blocks of 16; preemptions "
+        f"replay {int(rs['preemptions'])} / suspend {int(ss['preemptions'])};"
+        f" swap_out {sum(out_ms) / len(out_ms):.3f} ms mean for "
+        f"{sum(out_b) / len(out_b) / 2 ** 20:.1f} MiB"
+        + (" (cross K/V rows + blocks)" if audio else " (blocks)")
+        + f", swap_in {sum(in_ms) / len(in_ms):.3f} ms mean (CUDA events "
+        f"between replays); ticks replay {int(rs['ticks'])} / suspend "
+        f"{int(ss['ticks'])}; graphed tokens/s replay "
+        f"{rs['tokens'] / rep_wall:.1f} / suspend "
+        f"{ss['tokens'] / sus_wall:.1f}")
+    compare_tokens(torch, sus, reqs, rep.results,
+                   f"phase {phase} {cfg.name}", "suspend", "replay")
+    compare_tokens(torch, rep, reqs, fused.results,
+                   f"phase {phase} {cfg.name}", "replay", "paged fused")
+    del rep, sus, fused, model
+    free_card(torch)
+    log(f"[time] phase {phase} {time.perf_counter() - t_phase:.1f}s")
+    return path
+
+
+def check_encdec_vlm_exact(torch, arch):
+    """Phase 12c, float32 at full width (whisper at full depth, qwen2-vl
+    at 4 layers), qkv biases drawn nonzero, 2 slots, prompts 37 and 2
+    (pad-up: whisper's 2, both qwen2-vl's): slotted = paged = sequential
+    tokens, each graphed = eager, suspend = replay on a pool that preempts,
+    qwen2-vl's rerank speculation = plain; ``forward``'s logits at the
+    first prompt's end against ``prefill`` + ``decode_step`` on the slotted
+    caches and on the paged pool (fused kernel); the kernel route against
+    the plain route over prefills and 4 decode steps; all within 1e-3."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import (decode_step, forward, init_caches,
+                                    init_model, prefill)
+    from repro_torch.serve import (BlockPool, SpecConfig, seed_decode_caches,
+                                   synthetic_request)
+    from repro_torch.serve.sequential import FixedBatch
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    cfg = cfg.replace(n_layers=ENCDEC_EXACT_LAYERS[arch], dtype="float32",
+                      sparsity=dataclasses.replace(cfg.sparsity,
+                                                   mode="compressed"))
+    model = init_model(cfg, seed=1, device="cuda")
+    draw_biases(torch, model, seed=2)
+    rng = np.random.default_rng(11)
+    reqs = [synthetic_request(cfg, rng, rid=i, prompt_len=p,
+                              max_new_tokens=ENCDEC_EXACT_GENS[i % 2])
+            for i, p in enumerate(ENCDEC_EXACT_PROMPTS)]
+    max_len = max(ENCDEC_EXACT_PROMPTS) + max(ENCDEC_EXACT_GENS)
+    base = dict(n_slots=2, max_len=max_len, compressed=True, device="cuda")
+    sl, _, _, _, _ = slotted_run(torch, model, cfg, base, reqs,
+                                 f"phase 12c {arch} slotted")
+    sl = _Results(sl.results, model, cfg)
+    free_card(torch)
+    pkw = graphed(dict(base, kv="paged", attn="fused", block_size=16,
+                       prefill_buckets=(4, 32)))
+    pg, _, _, _, _ = prefix_run(torch, model, cfg, pkw, reqs,
+                                f"phase 12c {arch} paged")
+    pads = sorted(pg.prefill_lengths)
+    pg = _Results(pg.results, model, cfg)
+    free_card(torch)
+    seq = {}
+    for graphs in (True, False):
+        seq[graphs], _ = FixedBatch(model, cfg, device="cuda",
+                                    graphs=graphs).serve_sequential(
+            reqs, 2, max_len)
+        free_card(torch)
+    # replay against suspend: 2 requests of 20 + 14 (2 blocks each at
+    # admission, a third at position 32) over 4 usable blocks
+    small = [synthetic_request(cfg, rng, rid=10 + i, prompt_len=20,
+                               max_new_tokens=14) for i in range(2)]
+    skw = dict(pkw, max_len=34, n_blocks=5)
+    rep, _, _, _, _ = prefix_run(torch, model, cfg, skw, small,
+                                 f"phase 12c {arch} replay")
+    sus, _, _, _, _ = prefix_run(torch, model, cfg,
+                                 dict(skw, preempt="suspend"), small,
+                                 f"phase 12c {arch} suspend")
+    preempted = (rep.stats()["preemptions"], sus.stats()["preemptions"])
+    differ = (compare_tokens(torch, pg, reqs, sl.results, "phase 12c",
+                             "paged", "slotted")
+              + compare_tokens(torch, _Results(seq[True], model, cfg), reqs,
+                               sl.results, "phase 12c", "sequential",
+                               "slotted")
+              + compare_tokens(torch, _Results(seq[False], model, cfg), reqs,
+                               seq[True], "phase 12c", "sequential eager",
+                               "sequential graphed")
+              + compare_tokens(torch, sus, small, rep.results, "phase 12c",
+                               "suspend", "replay"))
+    n = len(reqs) * 3 + len(small)
+    del rep, sus
+    free_card(torch)
+    if cfg.family == "vlm":
+        sp, _, _, _, _ = prefix_run(
+            torch, model, cfg, dict(pkw, spec=SpecConfig(k=SPAN - 1)), reqs,
+            f"phase 12c {arch} spec")
+        differ += compare_tokens(torch, sp, reqs, pg.results, "phase 12c",
+                                 "spec", "plain")
+        n += len(reqs)
+        del sp
+        free_card(torch)
+
+    # forward at the first prompt's end against prefill + one decode step
+    p = ENCDEC_EXACT_PROMPTS[0]
+    tok = int(sl.results[0].tokens[0])
+    want = forward(model, cfg, prompt_batch(torch, model, reqs[0].inputs,
+                                            [tok]))[0][:, -1]
+    _, pf = prefill(model, cfg, prompt_batch(torch, model, reqs[0].inputs))
+    slotted = seed_decode_caches(cfg, init_caches(cfg, 1, max_len,
+                                                  device="cuda"), pf)
+    pos = torch.tensor([p], dtype=torch.int32, device="cuda")
+    tokt = torch.tensor([tok], dtype=torch.long, device="cuda")
+    got_slotted, _ = decode_step(model, cfg, slotted, tokt, pos)
+    pool = BlockPool(cfg, 1, max_len, 16, device="cuda")
+    pool.alloc(0, pool.blocks_for(p + 1))
+    pool.seed(0, pf, p)
+    got_paged, _ = decode_step(model, cfg, pool.caches, tokt, pos,
+                               pool.device_table(), attn_impl="fused")
+    fwd_err = max(float((got_slotted - want).abs().max()),
+                  float((got_paged - want).abs().max()))
+    del want, pf, slotted, pool
+    free_card(torch)
+    log(f"[12c exact] {arch} ({cfg.n_layers} layers"
+        + (f" + {cfg.enc_layers} encoder" if cfg.enc_layers else "")
+        + f", float32, qkv biases nonzero, 2 slots, prompts "
+        f"{ENCDEC_EXACT_PROMPTS} (paged prefill lengths {pads}), gen "
+        f"{ENCDEC_EXACT_GENS}): slotted = paged = sequential, suspend = "
+        f"replay" + (", spec = plain" if cfg.family == "vlm" else "")
+        + f" tokens in {n - differ}/{n} comparisons (preemptions replay / "
+        f"suspend {preempted}), each graphed = eager; forward at position "
+        f"{p} vs prefill + decode_step (slotted, paged fused) max |dlogit| "
+        f"{fwd_err:.3e} (tol {LOGIT_ATOL_F32}); "
+        f"{time.perf_counter() - t0:.1f}s")
+    if differ or fwd_err > LOGIT_ATOL_F32 or min(preempted) <= 0:
+        raise SystemExit(f"phase 12c: float32 {arch} paths disagree (or the "
+                         f"small pool did not preempt)")
+    check_reference_route(torch, model, cfg, reqs[:2], LOGIT_ATOL_F32,
+                          "phase 12c")
+    del model
+    free_card(torch)
+
+
+def phase_encdec_vlm(torch, card):
+    """Phase 12: whisper-small (12a) and qwen2-vl-7b (12b) at full width
+    and depth, then the float32 checks (12c).  Returns the launches by
+    path."""
+    t0 = time.perf_counter()
+    path = {}
+    for arch, phase in (("whisper-small", "12a"), ("qwen2-vl-7b", "12b")):
+        path.update(serve_encdec_vlm(torch, card, arch, phase))
+    for arch in ("whisper-small", "qwen2-vl-7b"):
+        check_encdec_vlm_exact(torch, arch)
+    log(f"[time] phase 12 {time.perf_counter() - t0:.1f}s")
     return path
 
 
@@ -3883,6 +4394,20 @@ def main() -> int:
                                             row["max_abs_err"])
             rows[name][f"at_{model.split('-')[0]}_layer"] = {
                 k: row[k] for k in TIMING_KEYS}
+    for model, check, spmv_layer, xwt_layer, seed, frames in (
+            ("whisper-small", WHISPER_CHECK_SHAPES, WHISPER_DEC_SHAPES,
+             WHISPER_ENC_SHAPES, 17, ENC_FRAMES),
+            ("qwen2-vl-7b", QWEN_CHECK_SHAPES, QWEN_LAYER_SHAPES,
+             QWEN_LAYER_SHAPES, 19, 128)):
+        for name, row in phase_matmuls(torch, F, model, check, spmv_layer,
+                                       xwt_layer, seed=seed,
+                                       xwt_rows=frames).items():
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                            row["max_abs_err"])
+            rows[name][f"at_{model.split('-')[0]}_layer"] = {
+                k: row[k] for k in TIMING_KEYS}
+        check_biased_linears(torch, model, check[:1] if model ==
+                             "whisper-small" else check[:2], frames)
     rows["nm_xwt"]["at_verify_span"] = time_verify_linears(torch, F)
     rows.update(phase_packed_and_onehot(torch, F))
     spmm_err = phase_spmm_check(torch)
@@ -3890,7 +4415,7 @@ def main() -> int:
     rows["paged_mla_decode"] = phase_mla_attention(torch, F)
     rows["paged_gqa_verify"] = phase_verify_attention(torch, F)
     rows["paged_mla_verify"] = phase_mla_verify_attention(torch, F)
-    for model in WINDOW_SHAPES:
+    for model in ATTN_SHAPES:
         for name, row in phase_window_attention(torch, F, model).items():
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
                                             row["max_abs_err"])
@@ -3918,6 +4443,7 @@ def main() -> int:
     check_other_configs(torch)
     log(f"[time] other configs {time.perf_counter() - t0:.1f}s")
     by_path.update(phase_ssm(torch, card))
+    by_path.update(phase_encdec_vlm(torch, card))
     # the packed variant serves no path of its own: its launches are those
     # of the CNN phase, where it runs on every layer the reference can pack
     kernels_line = []

@@ -1,6 +1,5 @@
 """Architecture registry: ``--arch <id>`` resolution (counterpart of
-``repro.configs.registry``).  Only the configurations this slice of the port
-serves are registered; the others arrive with their families."""
+``repro.configs.registry``): every configuration of the reference."""
 
 from __future__ import annotations
 
@@ -18,6 +17,8 @@ _MODULES: Dict[str, str] = {
     "arctic-480b": "repro_torch.configs.arctic_480b",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "whisper-small": "repro_torch.configs.whisper_small",
+    "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
 }
 
 ALL_ARCHS: List[str] = list(_MODULES)
@@ -25,7 +26,6 @@ ALL_ARCHS: List[str] = list(_MODULES)
 
 def get_config(name: str, smoke: bool = False) -> ArchConfig:
     if name not in _MODULES:
-        raise KeyError(f"unknown or not yet ported arch {name!r}; "
-                       f"ported: {ALL_ARCHS}")
+        raise KeyError(f"unknown arch {name!r}; known: {ALL_ARCHS}")
     cfg = importlib.import_module(_MODULES[name]).config()
     return cfg.reduced() if smoke else cfg

@@ -8,9 +8,12 @@ subtree of router, stacked experts and shared MLP; gemma2's stacked
 ``pairs`` {"local", "global"} become the blocks 2i and 2i + 1, with their
 post norms ``pn1`` / ``pn2``), ``SSMLM`` (the SSM family: stacked Mamba1
 ``layers``) or ``HybridLM`` (the hybrid family: ``groups`` stacked
-[G, P, ...], the one ``shared`` dense block, a ``tail`` [T, ...]).
-Linear leaves may be dense ``{"w"}`` or compressed ``{"w_vals",
-"w_idx"}``; the stacked
+[G, P, ...], the one ``shared`` dense block, a ``tail`` [T, ...]) or
+``EncDecLM`` (the audio family: stacked ``enc_layers`` and ``dec_layers``,
+a decoder layer's ``self`` / ``cross`` attention and ``mlp`` sub-trees;
+the vlm family is a ``DenseLM``).  Linear leaves may be dense ``{"w"}`` or
+compressed ``{"w_vals", "w_idx"}``, each with its bias ``b`` where it has
+one (the qkv biases); the stacked
 ``[L, ...]`` layer leaves are split per layer (a group stack per group
 and member), an expert stack keeps its ``[E, ...]`` axis; a mixer's
 conv, ``A_log``, ``D`` and ``dt_bias`` stay f32, ``dt_proj`` keeps its
@@ -35,9 +38,10 @@ from repro_torch.models.common import Embedding, RMSNorm
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.ffn import MLP, MoE
 from repro_torch.models.ssm import Mamba1, Mamba2
-from repro_torch.models.transformer import (LM, DenseBlock, DenseLM,
-                                            HybridLM, MoEBlock, MoELM,
-                                            SSMBlock, SSMLM, _check_family)
+from repro_torch.models.transformer import (LM, DecBlock, DenseBlock, DenseLM,
+                                            EncBlock, EncDecLM, HybridLM,
+                                            MoEBlock, MoELM, SSMBlock, SSMLM,
+                                            _check_family)
 
 
 def to_torch(a: np.ndarray, device="cuda") -> torch.Tensor:
@@ -124,14 +128,32 @@ def _ssm_block(lt, cfg: ArchConfig, device) -> SSMBlock:
     return SSMBlock(_norm(lt["ln"], device), mixer)
 
 
+def _enc_block(lt, cfg: ArchConfig, device) -> EncBlock:
+    return EncBlock(_norm(lt["ln1"], device), _attn(lt["attn"], cfg, device),
+                    _norm(lt["ln2"], device), _mlp(lt["mlp"], device))
+
+
+def _dec_block(lt, cfg: ArchConfig, device) -> DecBlock:
+    return DecBlock(_norm(lt["ln1"], device), _attn(lt["self"], cfg, device),
+                    _norm(lt["ln2"], device), _attn(lt["cross"], cfg, device),
+                    _norm(lt["ln3"], device), _mlp(lt["mlp"], device))
+
+
 def from_reference_params(tree: Mapping[str, Any], cfg: ArchConfig,
                           device="cuda") -> LM:
-    """Reference dense-, MoE-, SSM- or hybrid-family parameter tree (numpy
-    leaves) -> the port's model."""
+    """Reference parameter tree of any family (numpy leaves) -> the port's
+    model."""
     _check_family(cfg)
     device = resolve_device(device)
     embed = Embedding(to_torch(tree["embed"]["emb"], device))
     lnf = _norm(tree["lnf"], device)
+    if cfg.family == "audio":
+        return EncDecLM(
+            embed, [_enc_block(_layer(tree["enc_layers"], i), cfg, device)
+                    for i in range(cfg.enc_layers)],
+            _norm(tree["enc_lnf"], device),
+            [_dec_block(_layer(tree["dec_layers"], i), cfg, device)
+             for i in range(cfg.n_layers)], lnf)
     if cfg.family == "ssm":
         return SSMLM(embed, [_ssm_block(_layer(tree["layers"], i), cfg,
                                         device)

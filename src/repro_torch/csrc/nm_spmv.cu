@@ -416,8 +416,17 @@ nm_spmv_gather_kernel(GatherArgs a) {
 
 template <typename T, int BG, int N, int M>
 int run_gather(const GatherArgs& a, dim3 grid, int smem, cudaStream_t s) {
-  static int smem_set = 48 * 1024;  // per instance, in this library
+  // per instance, in this library: the dynamic memory a launch may ask
+  // without opting in is 48 KB less the kernel's static reduction scratch
+  // (a 48 KB x slice, B 8 bf16 at K 3072, failed to launch otherwise)
+  static int smem_set = -1;
   auto* kern = nm_spmv_gather_kernel<T, BG, N, M>;
+  if (smem_set < 0) {
+    cudaFuncAttributes at;
+    const cudaError_t e = cudaFuncGetAttributes(&at, kern);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = 48 * 1024 - static_cast<int>(at.sharedSizeBytes);
+  }
   if (smem > smem_set) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -236,8 +236,12 @@ int launch(const void* q_lat, const void* q_pe, const void* ckv,
   const dim3 grid(gx, gy);
   auto run = [&](auto kern, auto tq) {
     using T = decltype(tq);
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
+    // the opt-in is needed past 48 KB less the kernel's static row state
+    cudaFuncAttributes at;
+    cudaError_t e = cudaFuncGetAttributes(&at, kern);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (smem + static_cast<int>(at.sharedSizeBytes) > 48 * 1024) {
+      e = cudaFuncSetAttribute(
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return static_cast<int>(e);
     }

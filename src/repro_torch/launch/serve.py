@@ -14,8 +14,13 @@ gemma2-9b`` the local / global windowed pairs with softcaps and post norms
 falcon-mamba-7b`` the SSM family (Mamba1) and ``--arch zamba2-7b`` the
 hybrid (Mamba2 groups with one shared windowed attention block; both keep
 their recurrent state one row per slot, so they take no ``--spec`` and no
-prefix hit); ``deepseek-67b``, ``mistral-large-123b`` and ``arctic-480b``
-are registered too; ``--spec``
+prefix hit), ``--arch whisper-small`` the audio family (an encoder-decoder:
+each request carries encoder frames beside its tokens, whose cross K/V
+stay one row per slot, so it takes no ``--spec``) and ``--arch
+qwen2-vl-7b`` the vlm family (prompts of precomputed embeddings,
+prefilled at the bucket above their length); for both ``--prefix-cache``
+raises, its shared-prefix trace being token-only; ``deepseek-67b``, ``mistral-large-123b``
+and ``arctic-480b`` are registered too; ``--spec``
 adds self-speculative decoding (``--spec-k`` drafts per verify, ``--draft
 rerank|skip``).  ``--prefix-cache`` shares cached prompt prefixes across
 requests (the trace becomes shared-prefix: 3/4 of ``--prompt-len`` is one

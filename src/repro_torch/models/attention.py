@@ -1,5 +1,5 @@
-"""GQA and MLA attention and their paged KV caches (counterpart of the GQA
-and MLA parts of ``repro.models.attention``).
+"""GQA, MLA and cross-attention and their paged KV caches (counterpart of
+``repro.models.attention``).
 
 Prefill runs ``chunked_attention``, a plain-torch online-softmax attention
 over (q_chunk, kv_chunk) tiles.  Decode is one token per slot against the
@@ -25,8 +25,14 @@ slot, [B, max_len, ...] per layer; the fixed-batch oracle and
 position (``_ring_write``: GQA's cache is a ring of its length, whose slot
 j holds position ``pos - ((pos - j) mod L)``), then the gather read's
 score chain over the whole row.  The position is a 0-d tensor (every row
-at one position) or a per-row [B] vector.  Cross-attention is not ported
-yet.
+at one position) or a per-row [B] vector.
+
+Cross-attention (the audio family's decoder) projects its queries and
+reads the encoder's K/V [B, Se, kv, hd] through ``chunked_attention``
+without a mask, plain torch as in the reference; ``cross_kv`` projects
+the encoder output once per request.  The decode caches keep those K/V
+one row per slot (slot-indexed state beside the paged self-attention
+pool), and decode reads them, never writes them.
 """
 
 from __future__ import annotations
@@ -516,3 +522,37 @@ def mla_apply(p: MLA, x: torch.Tensor, cfg: ArchConfig, *,
 
     y = linear_apply(p.wo, o.reshape(b, s, h * vd), sp)
     return y, new_kv
+
+
+# ---------------------------------------------------------- cross-attention
+
+def cross_attn_init(gen: torch.Generator, cfg: ArchConfig, dtype,
+                    device="cuda") -> GQA:
+    return gqa_init(gen, cfg, dtype, device)
+
+
+def cross_attn_apply(p: GQA, x: torch.Tensor,
+                     enc_kv: Tuple[torch.Tensor, torch.Tensor],
+                     cfg: ArchConfig) -> torch.Tensor:
+    """Decoder cross-attention of x [B, S, d] over precomputed encoder K/V
+    [B, Se, kv, hd]: no RoPE, no mask."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.hd()
+    sp = cfg.sparsity
+    q = linear_apply(p.wq, x, sp).reshape(b, s, h, hd)
+    k, v = enc_kv
+    o = chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
+                          kv_chunk=cfg.kv_chunk)
+    return linear_apply(p.wo, o.reshape(b, s, h * hd), sp)
+
+
+def cross_kv(p: GQA, enc_out: torch.Tensor, cfg: ArchConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V [B, Se, kv, hd] from the encoder output (once
+    per request)."""
+    b, se, _ = enc_out.shape
+    kv, hd = cfg.n_kv, cfg.hd()
+    sp = cfg.sparsity
+    k = linear_apply(p.wk, enc_out, sp).reshape(b, se, kv, hd)
+    v = linear_apply(p.wv, enc_out, sp).reshape(b, se, kv, hd)
+    return k, v

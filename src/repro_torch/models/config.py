@@ -1,11 +1,12 @@
 """Architecture configuration schema (counterpart of ``repro.models.config``).
 
-The port covers the dense GQA family (gemma2's local / global pairs
-included), the MoE family with GQA or MLA attention, the SSM family
-(Mamba1) and the hybrid family (Mamba2 groups with a shared attention
-block), so the schema carries the fields those read; the enc-dec fields
-arrive with their family.  ``reduced()`` derives the CPU
-smoke-test variant exactly as the reference does.
+The port covers every family of the reference: the dense GQA family
+(gemma2's local / global pairs included), the vlm family (dense blocks
+over precomputed embeddings), the MoE family with GQA or MLA attention,
+the SSM family (Mamba1), the hybrid family (Mamba2 groups with a shared
+attention block) and the audio family (an encoder-decoder with
+cross-attention).  ``reduced()`` derives the CPU smoke-test variant
+exactly as the reference does.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from repro_torch.core.sparse_matmul import SparsityConfig
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense | moe | ssm | hybrid
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -66,7 +67,12 @@ class ArchConfig:
     mamba_version: int = 1
     ssm_heads: Optional[int] = None          # mamba2
     attn_period: int = 0                     # zamba2: shared attn every k
-    input_mode: str = "tokens"               # tokens (this slice)
+    # --- enc-dec (whisper) ---
+    enc_layers: int = 0
+    enc_seq: int = 1500
+    n_mels: int = 80
+    # --- input mode ---
+    input_mode: str = "tokens"               # tokens | embeds (vlm)
     sparsity: SparsityConfig = dataclasses.field(default_factory=SparsityConfig)
     dtype: str = "bfloat16"
     q_chunk: int = 512
@@ -120,6 +126,8 @@ class ArchConfig:
                       attn_period=2 if self.attn_period else 0)
         if self.mla:
             kw.update(kv_lora=64, qk_nope_dim=32, qk_rope_dim=16, v_head_dim=32)
+        if self.enc_layers:
+            kw.update(enc_layers=2, enc_seq=64)
         if self.window:
             kw.update(window=32)
         if self.local_global_period:
@@ -131,7 +139,9 @@ def param_count(cfg: ArchConfig, active_only: bool = False) -> int:
     """Parameters of a model by the reference's formula (embeddings counted
     twice unless tied).  ``active_only`` counts the experts one token runs
     (top_k routed + shared) instead of all of them.  The hybrid family
-    counts its shared attention block once."""
+    counts its shared attention block once; the audio family its encoder
+    and decoder blocks, one cross-attention per decoder block and the conv
+    frontend stub."""
     d, dff, L = cfg.d_model, cfg.d_ff, cfg.n_layers
     hd, H, KV = cfg.hd(), cfg.n_heads, cfg.n_kv
     total = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
@@ -148,8 +158,13 @@ def param_count(cfg: ArchConfig, active_only: bool = False) -> int:
     def mlp_params(hidden: int) -> int:
         return 3 * d * hidden if cfg.act == "silu" else 2 * d * hidden
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return int(total + L * (attn_params() + mlp_params(dff)))
+    if cfg.family == "audio":
+        total += (cfg.enc_layers + L) * (attn_params() + mlp_params(dff))
+        total += L * attn_params()                     # cross-attention
+        total += cfg.n_mels * d * 3 * 2                # conv frontend stub
+        return int(total)
     if cfg.family == "ssm":
         di, st, dtr = cfg.dinner(), cfg.ssm_state, cfg.dtrank()
         per = (d * 2 * di + di * cfg.conv_kernel + di * (dtr + 2 * st)

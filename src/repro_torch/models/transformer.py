@@ -1,5 +1,5 @@
-"""Model assembly for the dense, MoE, SSM and hybrid families (counterpart
-of ``repro.models.transformer`` less the enc-dec family).
+"""Model assembly for every family (counterpart of
+``repro.models.transformer``).
 
 The reference scans over stacked per-layer params; here a ``DenseLM``
 holds one ``DenseBlock`` module per layer, a ``MoELM`` its
@@ -34,13 +34,26 @@ the shared block), "tail": {"h", "conv"} [T, B, ...]}.  The state leaves
 have no sequence axis: in the paged pool they stay one row per slot,
 and only "attn" goes through the block table.
 
+The vlm family (qwen2-vl) is the dense family fed precomputed embeddings:
+``forward`` and ``prefill`` take ``batch["embeds"]`` [B, S, d] in place
+of tokens (``_embed_in``), and decode embeds its generated tokens.  The
+audio family (whisper, ``EncDecLM``) encodes ``batch["enc_embeds"]`` [B,
+Se, d] through ``EncBlock``s (no RoPE, no mask) and a final norm; each
+``DecBlock`` runs causal self-attention, cross-attention over its own
+projection of the encoder output, then the gated MLP, each after its own
+norm.  Its caches are {"self": {"k", "v"} [L, B, max_len, kv, hd],
+"cross_k", "cross_v": [L, B, Se, kv, hd]}: the cross K/V, written by
+prefill and only read by decode, have no sequence axis, so the paged pool
+keeps them one row per slot beside the paged "self" leaves.
+
 Public API (family-dispatched):
   init_model(cfg, seed, device)                  -> DenseLM | MoELM | SSMLM
-                                                    | HybridLM
+                                                    | HybridLM | EncDecLM
   init_caches(cfg, batch, max_len, device, ring) -> {"k", "v"} | {"ckv", "kpe"}
                                                     | {"local", "global"}
                                                     | {"h", "conv"} | {"groups",
-                                                    "attn", "tail"}
+                                                    "attn", "tail"} | {"self",
+                                                    "cross_k", "cross_v"}
   forward(model, cfg, batch)                     -> (logits [B, S, V], moe_aux)
   loss_fn(model, cfg, batch, aux_weight)         -> (loss, {"loss", "moe_aux"})
   prefill(model, cfg, batch, logit_pos)          -> (logits [B, V], caches)
@@ -171,16 +184,56 @@ class HybridLM(nn.Module):
         self.lnf = lnf
 
 
-LM = Union[DenseLM, MoELM, SSMLM, HybridLM]
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+class EncBlock(nn.Module):
+    """Encoder block: unmasked self-attention without RoPE, then the gated
+    MLP, each after its own norm."""
+
+    def __init__(self, ln1: RMSNorm, attn_: attn.GQA, ln2: RMSNorm,
+                 mlp: ffn_mod.MLP):
+        super().__init__()
+        self.ln1, self.attn, self.ln2, self.mlp = ln1, attn_, ln2, mlp
+
+
+class DecBlock(nn.Module):
+    """Decoder block: causal self-attention (``attn``, the decode caches'
+    "self"), cross-attention over the encoder's K/V, then the gated MLP,
+    each after its own norm."""
+
+    def __init__(self, ln1: RMSNorm, attn_: attn.GQA, ln2: RMSNorm,
+                 cross: attn.GQA, ln3: RMSNorm, mlp: ffn_mod.MLP):
+        super().__init__()
+        self.ln1, self.attn, self.ln2, self.cross = ln1, attn_, ln2, cross
+        self.ln3, self.mlp = ln3, mlp
+
+
+class EncDecLM(nn.Module):
+    """Token embedding (the LM head reads it, as the reference's), encoder
+    blocks with their final norm ``enc_lnf``, decoder blocks, final norm.
+    The conv frontend is a stub: the encoder takes frame embeddings."""
+
+    def __init__(self, embed: Embedding, enc_layers: List[EncBlock],
+                 enc_lnf: RMSNorm, layers: List[DecBlock], lnf: RMSNorm):
+        super().__init__()
+        self.embed = embed
+        self.enc_layers = nn.ModuleList(enc_layers)
+        self.enc_lnf = enc_lnf
+        self.layers = nn.ModuleList(layers)
+        self.lnf = lnf
+
+    def blocks(self) -> List[nn.Module]:
+        """The decoder blocks (decode cache layer i is block i)."""
+        return list(self.layers)
+
+
+LM = Union[DenseLM, MoELM, SSMLM, HybridLM, EncDecLM]
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 STATE_FAMILIES = ("ssm", "hybrid")
 
 
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} comes with a later slice of "
-            f"the port (dense, MoE, SSM and hybrid so far)")
+        raise NotImplementedError(f"{cfg.name}: unknown family "
+                                  f"{cfg.family!r}")
 
 
 def _norm(p: RMSNorm, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -194,7 +247,20 @@ def _window(cfg: ArchConfig, i: int) -> Optional[int]:
 
 
 def _embed(p, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = embed_apply(p.embed, tokens)
+    return _scaled(embed_apply(p.embed, tokens), cfg)
+
+
+def _embed_in(p, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
+              ) -> torch.Tensor:
+    """The first residual of a full-sequence pass: ``batch["embeds"]``
+    cast to the model's dtype (the vlm family's precomputed embeddings)
+    when the batch has them, else the token embedding."""
+    if "embeds" in batch:
+        return _scaled(batch["embeds"].to(cfg.tdtype()), cfg)
+    return _embed(p, cfg, batch["tokens"])
+
+
+def _scaled(x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     if cfg.scale_embeds:
         # sqrt(d) rounded to x's dtype first, as the reference does (59.75
         # in bf16 at d 3584); a host scalar, so no copy to the device
@@ -401,6 +467,58 @@ def _state_caches(cfg: ArchConfig, batch: int, max_len: int, device,
     return caches
 
 
+def _enc_block_apply(p: EncBlock, x, cfg: ArchConfig) -> torch.Tensor:
+    # unmasked self-attention without RoPE is cross-attention of x over
+    # its own K/V
+    xn = _norm(p.ln1, x, cfg)
+    x = x + attn.cross_attn_apply(p.attn, xn, attn.cross_kv(p.attn, xn, cfg),
+                                  cfg)
+    return x + ffn_mod.mlp_apply(p.mlp, _norm(p.ln2, x, cfg), cfg)
+
+
+def _dec_block_apply(p: DecBlock, x, cfg: ArchConfig, enc_kv, *, positions,
+                     cache=None, cache_pos=None, block_table=None,
+                     return_kv=False, step=None):
+    a, new_cache = attn.gqa_apply(p.attn, _norm(p.ln1, x, cfg), cfg,
+                                  positions=positions, cache=cache,
+                                  cache_pos=cache_pos,
+                                  block_table=block_table,
+                                  return_kv=return_kv, step=step)
+    x = x + a
+    x = x + attn.cross_attn_apply(p.cross, _norm(p.ln2, x, cfg), enc_kv, cfg)
+    x = x + ffn_mod.mlp_apply(p.mlp, _norm(p.ln3, x, cfg), cfg)
+    return x, new_cache
+
+
+def _encode(p: EncDecLM, cfg: ArchConfig, batch) -> torch.Tensor:
+    x = batch["enc_embeds"].to(cfg.tdtype())
+    for lp in p.enc_layers:
+        x = _enc_block_apply(lp, x, cfg)
+    return _norm(p.enc_lnf, x, cfg)
+
+
+def _encdec_stack(p: EncDecLM, cfg: ArchConfig, x, positions, batch,
+                  return_kv: bool):
+    """The decoder over x [B, S, d], each block cross-attending over its
+    projection of the encoded ``batch["enc_embeds"]`` -> (x before the
+    final norm, the prefill caches {"self": {"k", "v"} [L, B, S, ...],
+    "cross_k", "cross_v": [L, B, Se, ...]} when ``return_kv``)."""
+    enc_out = _encode(p, cfg, batch)
+    kvs, cross = [], []
+    for lp in p.layers:
+        ckv = attn.cross_kv(lp.cross, enc_out, cfg)
+        x, kv = _dec_block_apply(lp, x, cfg, ckv, positions=positions,
+                                 return_kv=return_kv)
+        kvs.append(kv)
+        cross.append(ckv)
+    if not return_kv:
+        return x, None
+    return x, {"self": {name: torch.stack([kv[name] for kv in kvs])
+                        for name in kvs[0]},
+               "cross_k": torch.stack([c[0] for c in cross]),
+               "cross_v": torch.stack([c[1] for c in cross])}
+
+
 def init_model(cfg: ArchConfig, seed: int = 0, device="cuda") -> LM:
     """Random weights from one ``torch.Generator`` seeded with ``seed`` on
     ``device`` (numbers differ from the reference's jax.random init; parity
@@ -409,8 +527,12 @@ def init_model(cfg: ArchConfig, seed: int = 0, device="cuda") -> LM:
     drawn, so the dense model never exists at once."""
     _check_family(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    # an abstract model (device "meta": shapes and dtypes, no storage,
+    # for byte and parameter counts) draws without a generator
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     dtype = cfg.tdtype()
     embed = embed_init(gen, cfg.vocab, cfg.d_model, dtype, device)
     lnf = rms_norm_init(cfg.d_model, device)
@@ -425,6 +547,21 @@ def init_model(cfg: ArchConfig, seed: int = 0, device="cuda") -> LM:
             else None
         tail = [_ssm_block_init(gen, cfg, dtype, device) for _ in range(rem)]
         return HybridLM(embed, blocks, shared, tail, lnf)
+    if cfg.family == "audio":
+        enc = [EncBlock(rms_norm_init(cfg.d_model, device),
+                        attn.gqa_init(gen, cfg, dtype, device),
+                        rms_norm_init(cfg.d_model, device),
+                        ffn_mod.mlp_init(gen, cfg, dtype, device))
+               for _ in range(cfg.enc_layers)]
+        enc_lnf = rms_norm_init(cfg.d_model, device)
+        dec = [DecBlock(rms_norm_init(cfg.d_model, device),
+                        attn.gqa_init(gen, cfg, dtype, device),
+                        rms_norm_init(cfg.d_model, device),
+                        attn.cross_attn_init(gen, cfg, dtype, device),
+                        rms_norm_init(cfg.d_model, device),
+                        ffn_mod.mlp_init(gen, cfg, dtype, device))
+               for _ in range(cfg.n_layers)]
+        return EncDecLM(embed, enc, enc_lnf, dec, lnf)
     if cfg.family == "moe":
         nd = cfg.first_dense_layers
         dense = [_dense_block_init(gen, cfg, dtype, device) for _ in range(nd)]
@@ -448,7 +585,8 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, device="cuda",
     its staging's, where the window is a read mask).  The SSM and hybrid
     families get the reference's layouts (module docstring); the hybrid's
     "attn" caches are rings of the window, or ``max_len`` without
-    ``ring``."""
+    ``ring``.  The audio family gets {"self": {"k", "v"} [L, batch,
+    max_len, kv, hd], "cross_k", "cross_v": [L, batch, enc_seq, kv, hd]}."""
     _check_family(cfg)
     if cfg.family in STATE_FAMILIES:
         return _state_caches(cfg, batch, max_len, device, ring)
@@ -457,6 +595,13 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, device="cuda",
     def stack(one, n):
         return {name: z.unsqueeze(0).repeat((n,) + (1,) * z.dim())
                 for name, z in one.items()}
+
+    if cfg.family == "audio":
+        cross = torch.zeros((cfg.n_layers, batch, cfg.enc_seq, cfg.n_kv,
+                             cfg.hd()), dtype=dtype, device=device)
+        return {"self": stack(attn.gqa_cache_init(cfg, batch, max_len, dtype,
+                                                  device), cfg.n_layers),
+                "cross_k": cross, "cross_v": cross.clone()}
 
     if cfg.local_global_period and ring:
         half = cfg.n_layers // 2
@@ -481,7 +626,9 @@ def _layer_cache(caches, li: int) -> Dict[str, torch.Tensor]:
 
 def prefill(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             logit_pos: Union[int, torch.Tensor, None] = None):
-    """Full-sequence forward over ``batch["tokens"]`` [B, S] that returns
+    """Full-sequence forward over ``batch["tokens"]`` [B, S] (the vlm
+    family: ``batch["embeds"]`` [B, S, d]; the audio family also encodes
+    ``batch["enc_embeds"]`` [B, Se, d]) that returns
     the per-layer caches and only one position's logits [B, V] (f32): the
     last, or ``logit_pos`` (the bucketed-prefill hook for right-padded
     prompts): an int, or an integer tensor of one element on the model's
@@ -493,9 +640,11 @@ def prefill(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     family returns them per stack as the reference does, {"dense": ...,
     "moe": ...} ("dense" only with first_dense_layers).  The SSM family
     returns its final state {"h", "conv"} [L, B, ...], the hybrid
-    {"groups": ..., "attn": {"k", "v"} [G, B, S, ...], "tail": ...}."""
+    {"groups": ..., "attn": {"k", "v"} [G, B, S, ...], "tail": ...}, the
+    audio {"self": {"k", "v"} [L, B, S, ...], "cross_k", "cross_v" [L, B,
+    Se, ...]}."""
     _check_family(cfg)
-    x = _embed(p, cfg, batch["tokens"])
+    x = _embed_in(p, cfg, batch)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
 
@@ -511,6 +660,8 @@ def prefill(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
 
     if isinstance(p, (SSMLM, HybridLM)):
         x, caches = _state_stack(p, cfg, x, positions, return_state=True)
+    elif isinstance(p, EncDecLM):
+        x, caches = _encdec_stack(p, cfg, x, positions, batch, True)
     elif isinstance(p, MoELM):
         caches = {"dense": run(p.dense_layers)} if len(p.dense_layers) else {}
         caches["moe"] = run(p.layers)
@@ -528,18 +679,21 @@ def prefill(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
 
 
 def forward(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
-    """Full-sequence forward over ``batch["tokens"]`` [B, S], no caches ->
+    """Full-sequence forward over ``batch["tokens"]`` [B, S] (or the
+    ``prefill`` inputs of the vlm and audio families), no caches ->
     (logits [B, S, V] f32, moe_aux): the MoE load-balance loss summed over
     the MoE blocks and divided by their count (0 for the other families),
     as the reference's."""
     _check_family(cfg)
-    x = _embed(p, cfg, batch["tokens"])
+    x = _embed_in(p, cfg, batch)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n_moe = 0
     if isinstance(p, (SSMLM, HybridLM)):
         x, _ = _state_stack(p, cfg, x, positions, return_state=False)
+    elif isinstance(p, EncDecLM):
+        x, _ = _encdec_stack(p, cfg, x, positions, batch, False)
     else:
         for i, lp in enumerate(p.blocks()):
             if isinstance(lp, MoEBlock):
@@ -555,7 +709,8 @@ def forward(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
 
 def loss_fn(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             aux_weight: float = 0.01):
-    """Next-token loss over ``batch`` ({"tokens", "labels"} [B, S]) ->
+    """Next-token loss over ``batch`` ({"tokens", "labels"} [B, S], with
+    the vlm and audio families' inputs) ->
     (loss + aux_weight * moe_aux, {"loss", "moe_aux"})."""
     logits, aux = forward(p, cfg, batch)
     loss = cross_entropy(logits, batch["labels"])
@@ -582,7 +737,9 @@ def decode_step(p: LM, cfg: ArchConfig, caches: Dict[str, torch.Tensor],
     ``layers`` maps block i to cache layer ``layers[i]`` (a skip draft's
     ``cache_idx``); by default block i uses cache layer i.  The SSM and
     hybrid families update their state rows in place, whatever ``pos``;
-    only the hybrid's shared attention reads ``pos`` and the table."""
+    only the hybrid's shared attention reads ``pos`` and the table.  The
+    audio family's decoder reads its slots' cross K/V rows and never
+    writes them."""
     _check_family(cfg)
     logits = _cached_forward(p, cfg, caches, tokens[:, None], pos,
                              block_table, attn_impl, layers)
@@ -600,9 +757,11 @@ def verify_step(p: LM, cfg: ArchConfig, caches: Dict[str, torch.Tensor],
     at offset i are the next-token distribution after ``tokens[r, :i + 1]``,
     what S sequential ``decode_step`` calls would give: the span's K/V are
     written first (in place) and query offset i reads positions <= pos + i
-    only.  Needs the paged pool (``block_table``) and a family whose every
-    cache leaf lives behind it: a recurrent state cannot score a span and
-    roll back, so the SSM and hybrid families raise ``ValueError``."""
+    only.  Needs the paged pool (``block_table``) and a family whose
+    decode state does not move with the span: a recurrent state cannot
+    score a span and roll back, so the SSM and hybrid families raise
+    ``ValueError``; the audio family's cross K/V are only read, and it
+    verifies as the reference's does."""
     _check_family(cfg)
     if cfg.family in STATE_FAMILIES:
         raise ValueError(f"verify_step needs every cache leaf behind the "
@@ -630,14 +789,20 @@ def _cached_forward(p: LM, cfg: ArchConfig, caches, tokens, pos, block_table,
         x = _state_cached(p, cfg, caches, x, pos, block_table, layers)
         return lm_head_apply(p.embed, _norm(p.lnf, x, cfg),
                              cfg.softcap_final)
+    encdec = isinstance(p, EncDecLM)
+    kv = caches["self"] if encdec else caches
     step = None if block_table is None else attn.paged_step(
         cfg, pos, tokens.shape[1], block_table,
-        next(iter(caches.values())).shape[2])
+        next(iter(kv.values())).shape[2])
     for i, lp in enumerate(p.blocks()):
         li = i if layers is None else int(layers[i])
-        x, _ = _block_apply(lp, x, cfg, window=_window(cfg, i), positions=pos,
-                            cache=_layer_cache(caches, li), cache_pos=pos,
-                            block_table=block_table, step=step)
+        kw = dict(positions=pos, cache=_layer_cache(kv, li), cache_pos=pos,
+                  block_table=block_table, step=step)
+        if encdec:
+            x, _ = _dec_block_apply(lp, x, cfg, (caches["cross_k"][li],
+                                                 caches["cross_v"][li]), **kw)
+        else:
+            x, _ = _block_apply(lp, x, cfg, window=_window(cfg, i), **kw)
     x = _norm(p.lnf, x, cfg)
     return lm_head_apply(p.embed, x, cfg.softcap_final)
 
@@ -686,8 +851,8 @@ def make_draft(p: LM, cfg: ArchConfig, kind: str = "rerank",
     ``layers`` family (dense, MoE, SSM; the ``first_dense_layers`` always);
     its blocks are the target's own modules.  ``cache_idx`` (int32) names
     the target cache layers the draft's layers read and write.  gemma2's
-    pairs and the hybrid's groups raise ``ValueError``, as in the
-    reference.
+    pairs, the hybrid's groups and the enc-dec stacks raise
+    ``ValueError``, as in the reference.
 
     Neither view copies a shared tensor."""
     if kind == "rerank":
@@ -708,7 +873,7 @@ def make_draft(p: LM, cfg: ArchConfig, kind: str = "rerank",
         dcfg = cfg.replace(sparsity=dataclasses.replace(sp, n=1))
         return _map_linears(p, rerank), dcfg, None
     if kind == "skip":
-        if isinstance(p, HybridLM) or cfg.local_global_period:
+        if isinstance(p, (HybridLM, EncDecLM)) or cfg.local_global_period:
             raise ValueError(
                 f"skip draft needs a plain stacked 'layers' family "
                 f"(dense/MoE); {cfg.family!r} does not qualify")
@@ -732,7 +897,9 @@ def weight_stream_bytes(p: LM, cfg: ArchConfig) -> Dict[str, float]:
     weight otherwise (embedding, norms and the MoE router excluded on both
     sides).  An expert stack counts as one linear of E x its bytes, and
     the hybrid's shared block once (as the reference walks its params;
-    a decode tick reads it once per application).  The ``*_linears``
+    a decode tick reads it once per application); the audio family's
+    encoder and cross-attention ``wk`` / ``wv`` count too, as the
+    reference's walk counts them, though a decode tick reads neither.  The ``*_linears``
     counts are per layer (the reference counts a stacked [L, ...] leaf
     once)."""
     tot = {"dense_bytes": 0, "stream_bytes": 0,

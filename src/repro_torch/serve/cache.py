@@ -19,7 +19,10 @@ and global layers when the caches keep them apart), and so are the SSM
 family, whose state is position-free and is copied as prefill left it
 (a copy: decode writes the state in place, and must not write the
 prefill's), and the hybrid, whose "groups" / "tail" state is copied so
-and whose "attn" caches are seeded as any other KV leaf.
+and whose "attn" caches are seeded as any other KV leaf.  The vlm family
+seeds as the dense one; the audio family seeds its "self" K/V as any KV
+leaf and copies the prefill's cross K/V whole (the encoder's length is
+not a position).
 
 ``scatter_slot`` writes a batch-1 cache tree into batch index ``slot`` of
 an n-slot pool tree (the slotted engine's admission).  The slot axis is
@@ -68,9 +71,16 @@ def seed_decode_caches(cfg, caches, pf: Dict[str, torch.Tensor],
                         for f in caches[kind]} if kind == "attn"
                        else {f: pf[kind][f].clone() for f in caches[kind]})
                 for kind in caches}
-    elif cfg.family != "dense":
-        raise NotImplementedError(f"cache seeding for family {cfg.family!r} "
-                                  f"comes with that family's port")
+    elif cfg.family == "audio":
+        return {"self": {f: _seed_leaf(caches["self"][f], pf["self"][f],
+                                       src_len) for f in caches["self"]},
+                "cross_k": pf["cross_k"].to(caches["cross_k"].dtype,
+                                            copy=True),
+                "cross_v": pf["cross_v"].to(caches["cross_v"].dtype,
+                                            copy=True)}
+    elif cfg.family not in ("dense", "vlm"):
+        raise NotImplementedError(f"cache seeding for family "
+                                  f"{cfg.family!r}")
     if "local" in caches:       # gemma2's pairs: layers 2i local, 2i+1 global
         return {kind: {f: _seed_leaf(caches[kind][f], pf[f][first::2],
                                      src_len) for f in caches[kind]}

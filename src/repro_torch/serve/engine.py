@@ -22,10 +22,9 @@ interleaves two operations:
   (``attn="fused"``: the ``paged_gqa_decode`` / ``paged_mla_decode`` kernel
   walks it in-kernel; ``"gather"``: the oracle read); idle paged rows carry
   position 0, token 0 and an all-trash table row, so they write the trash
-  block.  Idle rows' logits are never read.  The dense (GQA), MoE (MLA),
-  SSM and hybrid families are served; in the MoE family idle rows and
-  prompt padding are tokens like any other and compete for expert
-  capacity, as in the reference.  The SSM and hybrid families keep their
+  block.  Idle rows' logits are never read.  Every family is served; in
+  the MoE family idle rows and prompt padding are tokens like any other
+  and compete for expert capacity, as in the reference.  The SSM and hybrid families keep their
   recurrent state (and conv tails) slot-indexed, one row per slot in
   either layout: an idle row advances its own stale row, which admission
   overwrites.  Their token prompts still bucket down (the forced decode
@@ -33,6 +32,15 @@ interleaves two operations:
   bucket starts from the zero state and replays whole (``_plan``), and
   they take neither prefix hits nor ``spec=`` (the state cannot be
   shared by table or rolled back; ``ValueError``, as the reference).
+  The vlm family's prompts are embeddings (``inputs["embeds"]``), which
+  cannot replay through the token decode step, so they always bucket UP
+  (right-padded, as the reference's).  The audio family's requests carry
+  ``tokens`` and ``enc_embeds``: its prefill runs the encoder and writes
+  the slot's cross K/V rows (slot-indexed state, kept whole whatever the
+  bucket); its token prompts bucket down, or up below the smallest
+  bucket, as the dense family's.  Neither takes a prefix hit (prefix
+  sharing is keyed on token-only prompts over an all-paged pool), and
+  the audio family takes no ``spec=`` (its cross K/V are slot-indexed).
 
 The rest of this header is the paged pool's.  Blocks are appended lazily (one every ``block_size`` ticks per slot); when
 the pool runs dry the newest-admitted request is preempted back to the
@@ -102,6 +110,7 @@ from repro_torch.models import (convert_to_compressed, decode_step,
                                 init_caches, make_draft, prefill, verify_step,
                                 weight_stream_bytes)
 from repro_torch.models.common import greedy_sample
+from repro_torch.models.transformer import STATE_FAMILIES
 from repro_torch.serve.cache import (leaves, scatter_slot_,
                                      seed_decode_caches)
 from repro_torch.serve.paged import (TRASH_BLOCK, BlockPool, SwapState,
@@ -404,8 +413,6 @@ class ServeEngine:
     def submit(self, req: Request) -> None:
         """Queue a request; one the pool can never serve is recorded as a
         rejected ``RequestResult`` instead of raising."""
-        if set(req.inputs) != {"tokens"}:
-            raise not_ported("non-token request inputs", "other-families")
         if req.prompt_len + req.max_new_tokens - 1 > self.max_len:
             self._reject(req, f"prompt {req.prompt_len} + gen "
                               f"{req.max_new_tokens} exceeds pool max_len "
@@ -431,19 +438,22 @@ class ServeEngine:
     def _plan(self, req: Request) -> "tuple[int, bool]":
         """Bucketed prefill plan ``(prefill_len, pad_up)``: the largest
         bucket <= prompt_len (the rest replays as forced decode), else the
-        smallest bucket >= prompt_len with right padding.  Right padding
-        is causal-safe for attention but runs through a recurrence and
-        changes its state, so a family with slot-indexed state (SSM,
-        hybrid) plans no prefill for such a prompt (``(0, False)``): the
+        smallest bucket >= prompt_len with right padding.  Embeddings
+        prompts (the vlm family) always pad up: they cannot replay through
+        the token decode step.  Right padding is causal-safe for attention
+        (and the audio family's encoder input is kept whole) but runs
+        through a recurrence and changes its state, so the SSM and hybrid
+        families plan no prefill for such a prompt (``(0, False)``): the
         slot starts from the zero state and the whole prompt replays as
         forced decode, exact and within the graph set.  (The reference
         pads up there and seeds the padded state.)"""
         plen = req.prompt_len
-        downs = [b for b in self.prefill_buckets if b <= plen]
-        if downs:
-            return max(downs), False
-        if self.pool.state:
-            return 0, False
+        if self.cfg.input_mode != "embeds":
+            downs = [b for b in self.prefill_buckets if b <= plen]
+            if downs:
+                return max(downs), False
+            if self.cfg.family in STATE_FAMILIES:
+                return 0, False
         ups = [b for b in self.prefill_buckets if b >= plen]
         if ups:
             return min(ups), True
@@ -453,10 +463,12 @@ class ServeEngine:
         pb, pad_up = self._plan(req)
         return req.prompt_len if pad_up else pb
 
-    def _prefix_cacheable(self) -> bool:
-        """Prefix sharing needs every cache leaf behind the block table
-        (slot-indexed state is only regenerated by prefill)."""
-        return self.index is not None and not self.pool.state
+    def _prefix_cacheable(self, req: Request) -> bool:
+        """Prefix sharing is keyed on tokens and needs every cache leaf
+        behind the block table (slot-indexed state: SSM state, conv tails,
+        encoder cross K/V, is only regenerated by prefill)."""
+        return (self.index is not None and not self.pool.state
+                and set(req.inputs) == {"tokens"})
 
     def _match(self, req: Request, now: int
                ) -> "tuple[int, List[int], Optional[object]]":
@@ -472,7 +484,7 @@ class ServeEngine:
         branch's block and the later branch's copy-on-write block in that
         span, and only the latter holds the matched history
         (``serve/prefix.py``)."""
-        if not self._prefix_cacheable():
+        if not self._prefix_cacheable(req):
             return 0, [], None
         toks = np.asarray(req.inputs["tokens"])[:req.prompt_len - 1]
         m, pids, node = self.index.match_path(toks, now)
@@ -522,13 +534,13 @@ class ServeEngine:
         if req.rid in self._suspended:
             return self._resume(slot, req)
         plen = req.prompt_len
-        toks = np.asarray(req.inputs["tokens"])
         # prefix-cache hit: point the slot's table at the cached blocks and
         # replay only the divergent suffix through forced decode.  Matched
         # again here (not reused from _fits), so an eviction between the
         # two can never hand out a freed block.
         m, shared, _ = self._match(req, now)
         if m > 0:
+            toks = np.asarray(req.inputs["tokens"])
             self.pool.share(slot, shared)
             self._slots[slot] = _SlotState(
                 req=req, tokens=[], admitted_at=now,
@@ -547,11 +559,11 @@ class ServeEngine:
             self.scheduler.preempt(slot)
             return False
         if pb:
-            prompt = toks[:pb] if not pad_up else np.pad(toks, (0, pb - plen))
             self.prefill_lengths.add(pb)
             self.prefill_calls += 1
             lp = torch.tensor((plen if pad_up else pb) - 1, dtype=torch.long)
-            first, pf = self._prefill(batch_prompt({"tokens": prompt}), lp)
+            first, pf = self._prefill(
+                batch_prompt(_bucketed(req.inputs, pb, pad_up)), lp)
             self.pool.seed(slot, pf, n_seed)
         else:                                # no prefill: from zero state
             self.pool.clear_state(slot)
@@ -561,6 +573,7 @@ class ServeEngine:
             self.pos[slot] = plen
             self.tok[slot] = first
         else:                                # catch up via forced decode
+            toks = np.asarray(req.inputs["tokens"])
             st = _SlotState(req=req, tokens=[], admitted_at=now,
                             pending=[int(t) for t in toks[pb + 1:plen]])
             self.pos[slot] = pb
@@ -602,7 +615,7 @@ class ServeEngine:
         self.active[slot] = False
         if self.pool is None:
             return                           # the row stays, stale, unread
-        if self._prefix_cacheable():
+        if self._prefix_cacheable(st.req):
             # register the prompt's (token -> block) mapping BEFORE the slot
             # drops its references: the index pins the blocks, so the
             # cached span never passes through the free heap
@@ -958,6 +971,23 @@ class ServeEngine:
                 "draft_stream_bytes": float(
                     self.draft_stream["stream_bytes"])})
         return out
+
+
+def _bucketed(inputs: Dict[str, np.ndarray], pb: int, pad_up: bool
+              ) -> Dict[str, np.ndarray]:
+    """A prompt's arrays at its prefill bucket ``pb``: bucket-down cuts the
+    token prompt (the rest replays through decode), pad-up right-pads the
+    prompt (tokens or embeddings) on its sequence axis; the encoder's input
+    is not positions and stays whole."""
+    out = {}
+    for name, a in inputs.items():
+        a = np.asarray(a)
+        if name == "tokens" and not pad_up:
+            a = a[:pb]
+        elif pad_up and name != "enc_embeds":
+            a = np.pad(a, ((0, pb - a.shape[0]),) + ((0, 0),) * (a.ndim - 1))
+        out[name] = a
+    return out
 
 
 def _seq_leaves(cfg) -> List[bool]:

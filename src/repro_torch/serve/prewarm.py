@@ -322,12 +322,20 @@ class GraphEntry:
         return warm, out
 
 
+def batch_inputs(inputs: Sequence[Dict[str, np.ndarray]]
+                 ) -> Dict[str, torch.Tensor]:
+    """Prompts' unbatched arrays (every input the family takes: tokens,
+    embeddings, the encoder's frames) stacked into the [B, ...] host
+    tensors ``prefill`` takes (token ids as int64, the rest float32)."""
+    return {k: torch.from_numpy(np.stack([x[k] for x in inputs])).to(
+        torch.long if k == "tokens" else torch.float32)
+        for k in inputs[0]}
+
+
 def batch_prompt(inputs: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """A request's unbatched prompt arrays as the [1, ...] host tensors
-    ``prefill`` takes (token ids as int64)."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)[None]).to(
-        torch.long if k == "tokens" else torch.float32)
-        for k, v in inputs.items()}
+    ``prefill`` takes."""
+    return batch_inputs([inputs])
 
 
 def abstract_batch(cfg, prefill_len: int) -> Dict[str, torch.Tensor]:

@@ -103,10 +103,13 @@ def shared_prefix_trace(cfg, n_requests: int, prefix_len: int,
     shared ``prefix_len``-token system prompt (one of ``n_prefixes``
     variants, round-robin) followed by a per-request random
     ``suffix_len``-token suffix.  Token-input families only — prefix
-    caching is keyed on tokens."""
-    if cfg.input_mode != "tokens":
+    caching is keyed on tokens (the audio family's requests also carry
+    encoder frames, which this trace has none of: the reference builds
+    them without and its prefill fails; here it raises up front)."""
+    if cfg.input_mode != "tokens" or cfg.family == "audio":
         raise ValueError("shared_prefix_trace needs a token-input family "
-                         f"(cfg.input_mode={cfg.input_mode!r})")
+                         f"(cfg.input_mode={cfg.input_mode!r}, family "
+                         f"{cfg.family!r})")
     rng = np.random.default_rng(seed)
     prefixes = [rng.integers(0, cfg.vocab, (prefix_len,)).astype(np.int32)
                 for _ in range(n_prefixes)]

@@ -31,7 +31,8 @@ from repro_torch import resolve_device
 from repro_torch.models import decode_step, init_caches, prefill
 from repro_torch.models.common import greedy_sample
 from repro_torch.serve.cache import leaves, seed_decode_caches
-from repro_torch.serve.prewarm import CompileLog, GraphEntry, abstract
+from repro_torch.serve.prewarm import (CompileLog, GraphEntry, abstract,
+                                       batch_inputs)
 from repro_torch.serve.request import Request, RequestResult
 
 
@@ -112,8 +113,7 @@ class FixedBatch:
         prompt_len = plens.pop()
         gen = max(r.max_new_tokens for r in requests)
         max_len = max_len or prompt_len + gen
-        toks = np.stack([r.inputs["tokens"] for r in requests])
-        batch = {"tokens": torch.from_numpy(toks).long()}
+        batch = batch_inputs([r.inputs for r in requests])
         decode = self._decoder(len(requests), max_len)
         caches = self.caches[len(requests), max_len]
 

@@ -1,9 +1,12 @@
 """Helpers shared by the port's engine-against-reference test files (not a
 test module: pytest collects nothing here).
 
-* ``pair(arch, compressed)``: (reference cfg, reference params, port cfg,
-  port model) at smoke size, f32, the reference's jax.random weights carried
-  over through ``repro_torch.convert``; cached per process.
+* ``pair(arch, compressed, dtype)``: (reference cfg, reference params, port
+  cfg, port model) at smoke size (f32 unless ``dtype``), the reference's
+  jax.random weights carried over through ``repro_torch.convert``, the
+  biases of a ``qkv_bias`` config drawn nonzero (``nonzero_biases``: the
+  reference initialises them to zero, where a dropped bias cannot show);
+  cached per process.
 * ``one_thread``: an autouse fixture for the files that import it.  Smoke
   tensors gain nothing from torch's intra-op threads, which spin on every
   core while the suite's other workers share them, so those files run
@@ -58,17 +61,32 @@ def one_thread():
         yield
 
 
-def pair(arch, compressed=False):
+def nonzero_biases(params, seed=1):
+    """``params`` with every bias leaf ``b`` drawn from N(0, 0.5^2) (numpy,
+    ``seed``), in its own dtype."""
+    rng = np.random.default_rng(seed)
+
+    def walk(tree):
+        if not isinstance(tree, dict):
+            return tree
+        return {k: (jax.numpy.asarray(rng.standard_normal(v.shape)
+                                      .astype(np.float32) * 0.5, v.dtype)
+                    if k == "b" else walk(v)) for k, v in tree.items()}
+    return walk(params)
+
+
+def pair(arch, compressed=False, dtype="float32"):
     """(reference cfg, reference params, port cfg, port model), smoke size,
-    f32, the same weights in both."""
-    key = (arch, compressed)
+    the same weights in both (nonzero biases where the config has them)."""
+    key = (arch, compressed, dtype)
     if key not in _CACHE:
-        if arch not in _CACHE:     # jitted: eager init takes seconds
-            jc = jget(arch, smoke=True)
-            _CACHE[arch] = jax.jit(lambda k: jinit(k, jc)[0])(
-                jax.random.PRNGKey(0))
-        jc, tc = jget(arch, smoke=True), tget(arch, smoke=True)
-        params = _CACHE[arch]
+        jc = jget(arch, smoke=True).replace(dtype=dtype)
+        tc = tget(arch, smoke=True).replace(dtype=dtype)
+        if (arch, dtype) not in _CACHE:     # jitted: eager init takes seconds
+            params = jax.jit(lambda k: jinit(k, jc)[0])(jax.random.PRNGKey(0))
+            _CACHE[arch, dtype] = (nonzero_biases(params) if jc.qkv_bias
+                                   else params)
+        params = _CACHE[arch, dtype]
         if compressed:
             jc = jc.replace(sparsity=dataclasses.replace(
                 jc.sparsity, mode="compressed"))

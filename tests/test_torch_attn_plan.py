@@ -22,6 +22,8 @@ LLAMA = dict(kvh=8, g=4, d=64, dv=64)               # llama3.2-1b attention
 DEEPSEEK = dict(h=16, r=512, rd=64)                 # deepseek-v2-lite MLA
 GEMMA2 = dict(kvh=8, g=2, d=256, dv=256)            # gemma2-9b attention
 ZAMBA2 = dict(kvh=32, g=1, d=112, dv=112)           # zamba2-7b shared block
+WHISPER = dict(kvh=12, g=1, d=64, dv=64)            # whisper-small decoder
+QWEN2_VL = dict(kvh=4, g=7, d=128, dv=128)          # qwen2-vl-7b, G 7
 
 
 def _gqa(b, s, bs, tw, dtype=BF, **kw):
@@ -130,6 +132,35 @@ def test_zamba2_width_takes_the_tensor_cores_within_shared_memory(tw):
     assert p.grid[0] == {10: 3, 264: 66}[tw]
     f = _gqa(8, 1, 16, tw, dtype=F32, **ZAMBA2)
     assert f.body == "first" and 0 < f.smem <= fa.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("tw", [10, 132])
+@pytest.mark.parametrize("s", [1, 4])
+def test_whisper_and_qwen2_vl_widths_take_the_tensor_cores(s, tw):
+    """whisper-small's decoder self-attention (12 KV heads of d 64, G 1:
+    one of the query tile's 16 rows) in decode, and qwen2-vl-7b's (4 KV
+    heads of d 128, G 7: 7 of 16 rows, not a power of two; 28 rows a kv
+    head at span 4) in decode and verify, at block 16 over phase 3's
+    160-position table and a 2100-position one: the tensor-core body, a
+    CTA per chunk x slot x kv head, 2 B x (64 x (d + 8) for K and for V,
+    rows x 16 x (d + 8) for the queries) of shared memory, and the split
+    workspace holding every (row, head) of a chunk's partials."""
+    rows = -(-s // -(-s // fa.GQA_SPAN_ROWS))
+    for shape, kvh, g, d in ((WHISPER, 12, 1, 64), (QWEN2_VL, 4, 7, 128)):
+        if shape is WHISPER and s > 1:
+            continue                     # whisper takes no speculation
+        p = _gqa(8, s, 16, tw, **shape)
+        assert p.body == "tc" and p.rows == rows and p.threads == 128
+        assert p.smem == 2 * (64 * (d + 8) * 2 + rows * 16 * (d + 8))
+        assert p.smem <= fa.SMEM_LIMIT
+        chunks = fa.table_chunks(tw, 16)
+        assert p.grid == (chunks, 8 * kvh, -(-s // rows))
+        assert chunks == {10: 3, 132: 33}[tw]
+        assert p.ws == 8 * kvh * s * chunks * g * (d + 2)
+        assert p.counters == 8 * kvh * s
+        f = _gqa(8, s, 16, tw, dtype=F32, **shape)
+        assert f.body == "first" and 0 < f.smem <= fa.SMEM_LIMIT
+        assert f.rows == min(s * g, 1024 // d)
 
 
 def _live_ctas(plan, lens, s, tw, bs, heads=1):

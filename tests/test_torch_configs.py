@@ -1,7 +1,10 @@
 """The port's configuration registry against the reference's: every ported
 arch (the full config and its ``reduced()`` smoke variant) equals the
 reference's field by field on every field of the port's schema,
-``param_count`` agrees (total and active), and arctic-480b's smoke model
+``param_count`` agrees (total and active), whisper-small's and
+qwen2-vl-7b's full-size ``weight_stream_bytes`` agree (the port's model
+built abstract, on the meta device, the reference's through
+``jax.eval_shape``), and arctic-480b's smoke model
 (MoE with a parallel dense-residual MLP, GQA attention) runs ``forward``,
 ``prefill`` and slotted and paged ``decode_step`` within 1e-4 of the
 reference's in f32, with its jax.random weights carried over."""
@@ -21,25 +24,53 @@ from repro.models import decode_step as jdecode  # noqa: E402
 from repro.models import forward as jforward  # noqa: E402
 from repro.models import init_caches as jinit_caches  # noqa: E402
 from repro.models import prefill as jprefill  # noqa: E402
+from repro.models import convert_to_compressed as jconvert  # noqa: E402
+from repro.models import init_model as jinit  # noqa: E402
+from repro.models import weight_stream_bytes as jstream  # noqa: E402
 from repro.models.config import param_count as jparam_count  # noqa: E402
+from repro.configs import ALL_ARCHS as J_ARCHS  # noqa: E402
 from repro.serve.cache import seed_decode_caches as jseed  # noqa: E402
 from _torch_engines import one_thread, pair  # noqa: E402,F401
 from repro_torch.configs import ALL_ARCHS, get_config as tget  # noqa: E402
 from repro_torch.models import (decode_step, forward, init_caches,  # noqa: E402
-                                prefill)
+                                init_model, prefill, weight_stream_bytes)
 from repro_torch.models.config import ArchConfig, param_count  # noqa: E402
 from repro_torch.serve import seed_decode_caches  # noqa: E402
 
 NEW = ["gemma2-9b", "deepseek-67b", "mistral-large-123b", "arctic-480b",
-       "falcon-mamba-7b", "zamba2-7b"]
+       "falcon-mamba-7b", "zamba2-7b", "whisper-small", "qwen2-vl-7b"]
 ARCTIC = "arctic-480b"
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def test_registry_holds_the_new_archs():
+    """Every arch of the reference's registry is the port's; an unknown
+    one raises."""
     assert set(NEW) <= set(ALL_ARCHS)
-    with pytest.raises(KeyError, match="not yet ported"):
-        tget("whisper-small")
+    assert sorted(ALL_ARCHS) == sorted(J_ARCHS)
+    with pytest.raises(KeyError, match="unknown arch"):
+        tget("whisper-large")
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "qwen2-vl-7b"])
+def test_full_weight_stream_equals_reference(arch):
+    """Full width and depth, 2:4 compressed: the bytes a decode step's
+    walk over every linear streams (whisper: 286.65 MB, its encoder and
+    cross ``wk`` / ``wv`` included, as the reference counts them;
+    qwen2-vl: 7.34 GB) and the dense bytes, equal to the reference's."""
+    jc, tc = jget(arch), tget(arch)
+    jc = jc.replace(sparsity=dataclasses.replace(jc.sparsity,
+                                                 mode="compressed"))
+    tc = tc.replace(sparsity=dataclasses.replace(tc.sparsity,
+                                                 mode="compressed"))
+    params = jax.eval_shape(lambda k: jconvert(jinit(k, jc)[0], jc),
+                            jax.random.PRNGKey(0))
+    want = jstream(params, jc)
+    got = weight_stream_bytes(init_model(tc, device="meta"), tc)
+    for k in ("dense_bytes", "stream_bytes", "ratio"):
+        assert got[k] == want[k], k
+    assert got["stream_bytes"] == {"whisper-small": 286654464,
+                                   "qwen2-vl-7b": 7340949504}[arch]
 
 
 @pytest.mark.parametrize("smoke", [False, True])

@@ -67,6 +67,26 @@ def test_nm_spmv_kernel_matches_plain(dtype, nm, b, o, k):
                                want.float().cpu().numpy(), **_tol(dtype))
 
 
+@pytest.mark.parametrize("b,o,k", [(8, 768, 3072)])
+def test_nm_spmv_kernel_at_the_default_shared_memory_edge(b, o, k):
+    """whisper-small's wd at B 8, bf16: the gather plan's x slice is 48 KB
+    exactly (8 rows x 3072 x 2 B), which with the kernel's static
+    reduction scratch passes the 48 KB a launch may take without opting
+    in (the launcher used to opt in only above 48 KB of dynamic memory,
+    and the launch failed with an invalid argument)."""
+    from repro_torch.kernels import nm_spmv as mod
+    plan = mod.gather_plan(b, o, k, 2, 4, 2)
+    assert plan.smem(2) == 48 * 1024
+    sp, g = _compressed(o, k, 2, 4, torch.bfloat16, seed=o)
+    x = torch.randn(b, k, generator=g, device="cuda").to(torch.bfloat16)
+    y = mod.nm_spmv(x, sp.values, sp.indices, 2, 4)
+    torch.cuda.synchronize()
+    want = mod.nm_spmv_plain(x, sp.values, sp.indices, 2, 4)
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               **_tol(torch.bfloat16))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,k", [(3, 1028), (9, 2052)])
 def test_nm_spmv_kernel_unaligned_k_matches_plain(dtype, b, k):

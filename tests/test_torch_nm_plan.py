@@ -25,6 +25,13 @@ MODEL = sorted(set(LLAMA + DEEPSEEK))
 SSM = [(16384, 4096), (288, 8192), (8192, 256), (4096, 8192),
        (14576, 3584), (3584, 7168), (3584, 3584), (14336, 3584),
        (3584, 14336)]
+# whisper-small's linears (q, k, v, o at K 768, the MLP's 3072 x 768 and
+# 768 x 3072), which its encoder and cross_kv run at the 1500 frames (11
+# row tiles of 128 and a ragged last one), and qwen2-vl-7b's (k / v 512
+# rows, the down projection's K 18944)
+WHISPER = [(768, 768), (3072, 768), (768, 3072)]
+QWEN2_VL = [(3584, 3584), (512, 3584), (18944, 3584), (3584, 18944)]
+FRAMES = 1500
 # CNN GEMMs as nm_xwt sees them (rows = spatial, O = C_out, K rounded up
 # to M as the layer pads it), bf16 case
 CNN = sorted({(sp, co, -(-k // 4) * 4) for layers in CNN_LAYER_GEMMS.values()
@@ -32,9 +39,10 @@ CNN = sorted({(sp, co, -(-k // 4) * 4) for layers in CNN_LAYER_GEMMS.values()
 RAGGED = [(37, 200, 136), (129, 72, 1028), (5, 300, 520), (33, 96, 2052),
           (1, 64, 64), (130, 96, 520)]
 
-CASES = ([(r, o, k, False) for o, k in MODEL + SSM
+CASES = ([(r, o, k, False) for o, k in MODEL + SSM + WHISPER + QWEN2_VL
           for r in (1, 8, 32, 128)]
-         + [(8, o, k, True) for o, k in MODEL + SSM]
+         + [(8, o, k, True) for o, k in MODEL + SSM + WHISPER + QWEN2_VL]
+         + [(FRAMES, o, k, False) for o, k in WHISPER]
          + [(r, o, k, False) for r, o, k in CNN + RAGGED]
          + [(r, o, k, True) for r, o, k in RAGGED if r <= 8])
 
@@ -53,6 +61,15 @@ def test_ragged_last_tile_covers_the_output_rows(o, rows):
     assert (gx - 1) * p.col_tile < o <= gx * p.col_tile
     if rows >= 128:
         assert o % p.col_tile
+
+
+@pytest.mark.parametrize("o,k", WHISPER)
+def test_ragged_frame_rows_are_covered(o, k):
+    """The encoder's 1500 frames: the grid's last row tile starts inside
+    the rows and ends past them (the kernel's row guard trims it)."""
+    p = _plan(FRAMES, o, k, False)
+    _, gy, _ = p.grid(FRAMES, o)
+    assert (gy - 1) * p.row_tile < FRAMES < gy * p.row_tile
 
 
 def _plan(rows, o, k, decode, n=2, m=4):
@@ -178,11 +195,11 @@ def test_split_partials_stay_within_their_limit(o, k, rows):
         assert -(-q_ctas // slots) * q_per >= cost
 
 
-@pytest.mark.parametrize("o,k", MODEL + SSM)
+@pytest.mark.parametrize("o,k", MODEL + SSM + WHISPER + QWEN2_VL)
 @pytest.mark.parametrize("rows,decode", [(8, True), (32, False),
                                          (128, False)])
 def test_model_shapes_put_about_two_ctas_per_sm(o, k, rows, decode):
-    """Every llama and deepseek decode, verify-span and prefill shape puts
+    """Every model's decode, verify-span and prefill shape puts
     about 2 x 132 CTAs on the card (or all that its resident slots and K
     allow)."""
     p, slots, most = _fill(rows, o, k, decode)

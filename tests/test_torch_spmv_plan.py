@@ -26,7 +26,12 @@ DEEPSEEK = [(3072, 2048), (576, 2048), (2048, 512), (2048, 2048),
 SSM = [(16384, 4096), (288, 8192), (8192, 256), (4096, 8192),
        (14576, 3584), (3584, 7168), (3584, 3584), (14336, 3584),
        (3584, 14336)]
-MODEL = sorted(set(LLAMA + DEEPSEEK + SSM))
+# whisper-small's decoder linears (self / cross q, k, v, o at K 768, the
+# MLP's 3072 x 768 and 768 x 3072) and qwen2-vl-7b's (k / v 512 rows, the
+# down projection's K 18944)
+ENCDEC_VLM = [(768, 768), (3072, 768), (768, 3072), (3584, 3584),
+              (512, 3584), (18944, 3584), (3584, 18944)]
+MODEL = sorted(set(LLAMA + DEEPSEEK + SSM + ENCDEC_VLM))
 RAGGED = [(200, 1032), (96, 8192), (72, 1028), (5, 64), (1, 2048)]
 NM = [(2, 4), (1, 4), (1, 2), (2, 8), (4, 8), (1, 16), (3, 4), (5, 7)]
 
@@ -61,7 +66,8 @@ def test_gather_splits_cover_k_exactly(o, k, nm):
                                  (9, 2048), (200, 1032), (512, 2048),
                                  (576, 2048), (2048, 2048), (2816, 2048),
                                  (8192, 2048), (10944, 2048), (2048, 512),
-                                 (288, 8192), (8192, 256), (14576, 3584)])
+                                 (288, 8192), (8192, 256), (14576, 3584),
+                                 (768, 768), (512, 3584), (3584, 18944)])
 @pytest.mark.parametrize("b", [1, 8, 9])
 def test_gather_rows_cover_o_once(b, o, k):
     """A CTA takes 8 / kw row groups of 4 rows per pass, kw warps on each
@@ -99,9 +105,9 @@ def test_gather_batch_groups(b):
 @pytest.mark.parametrize("o,k", MODEL)
 @pytest.mark.parametrize("b", [1, 8, 9])
 def test_gather_fills_every_sm_at_model_shapes(b, o, k, nm):
-    """Every llama, deepseek, falcon-mamba and zamba2 decode linear at B 1,
-    8 and 9, at 2:4 and the rerank draft's 1:4, puts at least one CTA on
-    each of the 132 SMs."""
+    """Every llama, deepseek, falcon-mamba, zamba2, whisper and qwen2-vl
+    decode linear at B 1, 8 and 9, at 2:4 and the rerank draft's 1:4, puts
+    at least one CTA on each of the 132 SMs."""
     n, m = nm
     _, p = _plan(b, o, k, n, m)
     assert p.total(b) >= SMS
