@@ -239,7 +239,33 @@ steady tick and the graph pool's bytes.
    suspend = replay (qwen2-vl: spec = plain), each graphed = eager;
    ``forward`` against ``prefill`` + ``decode_step`` (slotted and paged
    fused) and the kernel route against the plain route, within 1e-3.
-13. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
+13. Training (SR-STE, the dense family; no new kernel: the step is plain
+   PyTorch).  13a, the reference CLI's defaults at full width and depth:
+   llama3.2-1b bf16, srste 2:4, batch 8 x 128, grad_accum 4, remat on,
+   AdamW with f32 masters, base_lr 3e-4, warmup 100, 20 steps of
+   ``train_loop`` checkpointing into a temp dir: median ms a step after
+   step 2, tokens/s, peak memory, first and last loss, the model-FLOP
+   share of the dense bf16 peak (6 x parameters x tokens), a ``[profile]``
+   of one step (GEMMs, the N:M mask + STE, the accumulation, AdamW,
+   other).  13b, the reference's learnable mapping (label = token + 1,
+   tokens from the first 32 ids, batch 8 x 128) at full width and depth,
+   60 steps at base_lr 3e-3, warmup 5: the last five losses' mean below
+   the first five's less 1.0, and below ln 32 - 1.0 (the loss that
+   knowing only the labels' range gives, less 1.0).  13c, full width at
+   2 layers: 6 steps
+   straight against 3, a checkpoint, a fresh ``train_loop`` that
+   restores and 3 more (losses within rtol 2e-4, atol 2e-5; the largest
+   parameter difference).  13d, f32 at 4 layers: one step on the card
+   and on the CPU from the same weights and batch (loss within 1e-5
+   relative, every gradient and updated parameter within 1e-4); the bf16
+   LM head's hand-written backward at 13a's shape against f32 autograd
+   (within one bf16 rounding step of each gradient's largest value).  13e:
+   f32 at 4 layers, 3 steps, ``convert_to_compressed``, phase 3's trace
+   through the graphed paged fused engine, token for token against
+   greedy decode by the trained srste model's ``forward``; then 13b's
+   model compressed in bf16 on the same engine (tokens/s); their
+   launches are the ``train_serve`` path.
+14. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
    device line last.  The total time is printed on the ``[done]`` line.
 """
 
@@ -2876,6 +2902,32 @@ PROFILE_LABELS = (("nm_spmv_onehot", "nm_spmv onehot"), ("nm_spmv", "nm_spmv"),
                   ("paged_mla_verify", "paged MLA attention (decode+verify)"))
 
 
+def device_events(prof, skip=()) -> list:
+    """(device us, launches, name) of each kernel, copy and fill that a
+    ``torch.profiler`` trace recorded on the card, the events whose names
+    start with ``skip`` left out.  Raises where it recorded no device
+    time."""
+    out = []
+    for ev in prof.key_averages():
+        if ("CUDA" not in str(getattr(ev, "device_type", ""))
+                or ev.key.startswith(skip)):
+            continue            # host ops: their kernels are counted here
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            out.append((us, ev.count, ev.key))
+    if not out:
+        raise SystemExit("profile: the trace recorded no device time")
+    return out
+
+
+def is_gemm(name: str) -> bool:
+    """cuBLAS's products (on Hopper it names its gemms nvjet_*)."""
+    low = name.lower()
+    return any(s in low for s in ("gemm", "cutlass", "nvjet"))
+
+
 def profile_breakdown(torch, model, cfg, kw, time_calls: bool = False):
     """Where the time goes: device time by kernel over a traced engine run
     (8 requests, 128 prompt tokens, 16 generated), against its wall time,
@@ -2899,29 +2951,18 @@ def profile_breakdown(torch, model, cfg, kw, time_calls: bool = False):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     groups, kernels = {}, []
-    for ev in prof.key_averages():
-        if "CUDA" not in str(getattr(ev, "device_type", "")):
-            continue            # host ops: their kernels are counted below
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        if us <= 0:
-            continue
-        name = ev.key
-        low = name.lower()
+    for us, count, name in device_events(prof):
         label = next((v for k, v in PROFILE_LABELS if k in name), None)
-        if label is None:   # cuBLAS on Hopper names its gemms nvjet_*
-            if any(s in low for s in ("gemm", "cutlass", "nvjet")):
+        if label is None:
+            if is_gemm(name):
                 label = "cuBLAS gemm"
-            elif "scatter" in low:
+            elif "scatter" in name.lower():
                 label = "scatter (decompress)"
             else:
                 label = "other"
         groups[label] = groups.get(label, 0.0) + us / 1e3
-        kernels.append((us / 1e3, ev.count, name[:60]))
+        kernels.append((us / 1e3, count, name[:60]))
     busy = sum(groups.values())
-    if busy <= 0:
-        raise SystemExit("profile: the trace recorded no device time")
     parts = ", ".join(f"{k} {v:.2f} ms" for k, v in
                       sorted(groups.items(), key=lambda kv: -kv[1]))
     share = busy / (wall * 1e3)
@@ -2987,7 +3028,8 @@ def drawn_params(model, cfg) -> int:
             n += (mod.w_vals.numel() * sp.m // sp.n if mod.compressed
                   else mod.w.numel())
         else:
-            n += sum(t.numel() for t in mod.buffers(recurse=False))
+            n += sum(t.numel() for t in (*mod.parameters(recurse=False),
+                                         *mod.buffers(recurse=False)))
     return n
 
 
@@ -4327,6 +4369,431 @@ def phase_encdec_vlm(torch, card):
     return path
 
 
+# ----------------------------------------------------------------- phase 13
+
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 20, 8, 128
+# 13b draws its tokens from the first 32 ids, 13a's batch of 1024 tokens
+# a step (each id about 32 times), for 60 steps: 16 layers at full width
+# learn the mapping there, and the gate below can tell it from the label
+# range (the reference's 40 steps of 256 tokens over a smoke model's 512
+# ids leave a 16-layer model at the range's ln 512)
+MAP_STEPS, MAP_BATCH, MAP_SEQ = 60, 8, 128
+MAP_IDS = 32
+TRAIN_LAYERS = 4                 # 13d / 13e: full width, cut in depth
+# 13c: 2 layers (cut from 4 for the run's time: its checkpoints,
+# 6 GB each, are most of it)
+RESUME_LAYERS = 2
+RESUME_TOL = dict(rtol=2e-4, atol=2e-5)
+GRAD_TOL = 1e-4
+TRAIN_SERVE_PATH = ("nm_spmv", "nm_xwt", "paged_gqa_decode")
+TRAIN_PROFILE = (("ste_sparsify.", "N:M mask + STE"),
+                 ("train.accumulate", "accumulation"),
+                 ("train.adamw", "AdamW"))
+TRAIN_RANGES = ("ste_sparsify.", "train.")     # the trainer's range labels
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return 0.5 * (xs[(len(xs) - 1) // 2] + xs[len(xs) // 2])
+
+
+def _range_device_us(ev) -> float:
+    """Device microseconds of the kernels launched inside a host event and
+    the events nested in it."""
+    return (sum(k.duration for k in ev.kernels)
+            + sum(_range_device_us(c) for c in ev.cpu_children))
+
+
+def train_profile(torch, step_fn, model, opt, batch, step) -> str:
+    """One traced training step: device ms split into GEMMs (by kernel
+    name), the ranges ``TRAIN_PROFILE`` names (the mask and STE of every
+    linear, forward, recompute and backward; the f32 gradient sums; the
+    optimizer), and the rest; against the step's wall."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(model, opt, batch, step)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # the ranges' own device spans (``gpu_user_annotation``) overlap the
+    # kernels they hold and are left out
+    kernels = [(us, n, name[:70]) for us, n, name in
+               device_events(prof, skip=TRAIN_RANGES)]
+    total = sum(us for us, _, _ in kernels)
+    launches = sum(n for _, n, _ in kernels)
+    # ops dispatched from Python or from the autograd engine's nodes (an
+    # aten op inside another is that op's own work)
+    ops = sum(1 for ev in prof.events() if ev.name.startswith("aten::") and (
+        ev.cpu_parent is None or not ev.cpu_parent.name.startswith("aten::")))
+    parts = {"GEMMs": sum(us for us, _, name in kernels if is_gemm(name))}
+    for prefix, label in TRAIN_PROFILE:
+        parts[label] = sum(_range_device_us(ev) for ev in prof.events()
+                           if ev.name.startswith(prefix))
+    parts["other"] = total - sum(parts.values())
+    top = "; ".join(f"{us / 1e3:.1f} ms {n}x {name}" for us, n, name in
+                    sorted(kernels, reverse=True)[:6])
+    return (f"wall {wall:.1f} ms, device busy {total / 1e3:.1f} ms "
+            f"({100 * total / 1e3 / wall:.1f}%), {launches} device "
+            f"events, {ops} top-level aten ops: " + ", ".join(
+                f"{k} {v / 1e3:.1f} ms ({100 * v / total:.1f}%)"
+                for k, v in parts.items()) + f"; top: {top}")
+
+
+def phase_train_full(torch, card):
+    """13a: ``train_loop`` at the reference CLI's defaults, full width and
+    depth, checkpointing into a temp dir."""
+    import tempfile
+    from repro_torch.data import SyntheticLMData, to_device
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import param_count
+    from repro_torch.optim import AdamWConfig
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="train_13a_") as ck:
+        t0 = time.perf_counter()
+        run = train_loop(TRAIN_ARCH, False, TRAIN_STEPS, TRAIN_BATCH,
+                         TRAIN_SEQ, ck, ckpt_every=TRAIN_STEPS, log_every=10,
+                         device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ck_bytes = sum(os.path.getsize(os.path.join(d, f))
+                       for d, _, files in os.walk(ck) for f in files)
+        committed = os.path.exists(os.path.join(
+            ck, f"step_{TRAIN_STEPS:010d}", "COMMIT"))
+    peak = torch.cuda.max_memory_allocated()
+    cfg, losses = run.cfg, run.losses
+    if (len(losses) != TRAIN_STEPS or not committed
+            or not all(abs(x) < 1e3 for x in losses)):
+        raise SystemExit(f"phase 13a: {len(losses)} steps, checkpoint "
+                         f"committed {committed}, losses {losses}")
+    ms = _median(run.step_seconds[2:]) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = param_count(cfg)
+    flops = 6 * n_params * tokens
+    # each parameter: bf16 weight read and written, f32 master / mu / nu
+    # read and written, the f32 gradient sum written and read
+    state_bytes = n_params * (2 * 2 + 3 * 8 + 8)
+    floor, by = bound_ms(state_bytes, flops, "bfloat16")
+    log(f"[13a train] {card}: {cfg.name} {cfg.n_layers}L d{cfg.d_model} "
+        f"{cfg.dtype} srste {cfg.sparsity.n}:{cfg.sparsity.m}, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, grad_accum {cfg.grad_accum}, remat "
+        f"{cfg.remat}, AdamW f32 masters: {len(losses)} steps, median "
+        f"{ms:.1f} ms/step after step 2 = {tokens / ms * 1e3:.0f} tokens/s; "
+        f"steps {[round(1e3 * t, 1) for t in run.step_seconds]} ms; peak "
+        f"{gib(peak)}; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"train_loop {wall:.1f}s (steps {sum(run.step_seconds):.1f}s, the "
+        f"rest init and the {gib(ck_bytes)} checkpoint)")
+    log(f"[13a mfu] {card}: model FLOPs = 6 x {n_params} parameters x "
+        f"{tokens} tokens = {flops / 1e12:.2f} TFLOP a step; "
+        f"{100 * flops / (ms * 1e-3) / PEAK_FLOPS['bfloat16']:.2f}% of "
+        f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s dense bf16; floor "
+        f"{floor:.2f} ms a step ({by}: {state_bytes / 1e9:.1f} GB of "
+        f"weights and optimizer state)")
+    ocfg = AdamWConfig(master_weights=True)
+    step_fn = make_train_step(cfg, ocfg)
+    batch = to_device(SyntheticLMData(cfg, TRAIN_BATCH, TRAIN_SEQ)
+                      .batch_at(TRAIN_STEPS), "cuda")
+    log(f"[profile] {card}: 13a train step {TRAIN_STEPS + 1}: "
+        + train_profile(torch, step_fn, run.model, run.opt_state, batch,
+                        TRAIN_STEPS))
+    return {"ms": ms, "peak": peak}
+
+
+def phase_mapping(torch, card):
+    """13b: the reference's learnable mapping at full width and depth ->
+    (the trained model, its config)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step, named_params
+    from repro_torch.models import init_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    free_card(torch)
+    cfg = get_config(TRAIN_ARCH).replace(grad_accum=1)
+    model = init_model(cfg, seed=1, device="cuda")
+    ocfg = AdamWConfig(master_weights=cfg.dtype == "bfloat16")
+    opt = adamw_init(named_params(model), ocfg)
+    step_fn = make_train_step(cfg, ocfg, base_lr=3e-3, warmup=5)
+    rng = np.random.default_rng(0)
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(MAP_STEPS):
+        toks = torch.from_numpy(rng.integers(0, MAP_IDS, (MAP_BATCH, MAP_SEQ))
+                                .astype(np.int32)).cuda()
+        model, opt, m = step_fn(model, opt, {"tokens": toks,
+                                             "labels": (toks + 1) % cfg.vocab},
+                                i)
+        losses.append(float(m["loss"]))
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    # knowing only that the labels lie in [1, MAP_IDS] gives ln MAP_IDS:
+    # below it by 1.0, the model has learnt which label follows which token
+    floor = float(np.log(MAP_IDS)) - 1.0
+    log(f"[13b mapping] {card}: {cfg.name} {cfg.n_layers}L {cfg.dtype}, "
+        f"label = token + 1 over ids < {MAP_IDS}, batch {MAP_BATCH} x "
+        f"{MAP_SEQ}, {MAP_STEPS} steps at base_lr 3e-3, warmup 5 in "
+        f"{time.perf_counter() - t0:.1f}s: mean of the first five losses "
+        f"{first:.4f}, of the last five {last:.4f} (drop {first - last:.4f}, "
+        f"gate 1.0; mapping gate: below ln {MAP_IDS} - 1.0 = {floor:.4f}); "
+        f"losses {[round(x, 3) for x in losses]}")
+    if not (last < first - 1.0 and last < floor):
+        raise SystemExit(f"phase 13b: the mapping was not learnt: the last "
+                         f"five losses average {last:.4f}, gates "
+                         f"{first - 1.0:.4f} and {floor:.4f}")
+    del opt
+    free_card(torch)
+    return model, cfg
+
+
+def _max_diff(a, b) -> float:
+    return float((a.detach().float() - b.detach().float()).abs().max())
+
+
+def phase_resume(torch, card):
+    """13c: kill-and-resume against the uninterrupted run, full width,
+    ``RESUME_LAYERS`` layers."""
+    import tempfile
+    from repro_torch.launch.train import train_loop
+    free_card(torch)
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=100, device="cuda",
+              n_layers=RESUME_LAYERS)
+    t0 = time.perf_counter()
+    full = train_loop(TRAIN_ARCH, False, 6, ckpt_dir="", **kw)
+    with tempfile.TemporaryDirectory(prefix="train_13c_") as ck:
+        train_loop(TRAIN_ARCH, False, 3, ckpt_dir=ck, ckpt_every=3, **kw)
+        free_card(torch)
+        resumed = train_loop(TRAIN_ARCH, False, 6, ckpt_dir=ck,
+                             ckpt_every=100, **kw)
+    pairs = list(zip(full.model.named_parameters(),
+                     resumed.model.named_parameters()))
+    worst = max(_max_diff(a, b) for (_, a), (_, b) in pairs)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in pairs)
+    log(f"[13c resume] {card}: {RESUME_LAYERS} layers, 6 steps straight "
+        f"{[round(x, 6) for x in full.losses[3:]]} against 3 + resume + 3 "
+        f"{[round(x, 6) for x in resumed.losses]}; largest parameter "
+        f"difference {worst:.3e}, bit-equal {same}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    ok = len(resumed.losses) == 3 and all(
+        abs(a - b) <= RESUME_TOL["atol"] + RESUME_TOL["rtol"] * abs(a)
+        for a, b in zip(full.losses[3:], resumed.losses))
+    if not ok:
+        raise SystemExit(f"phase 13c: resumed losses {resumed.losses} != "
+                         f"{full.losses[3:]}")
+    if not same:
+        # is the step itself deterministic? a second straight run says
+        again = train_loop(TRAIN_ARCH, False, 6, ckpt_dir="", **kw)
+        worst = max(_max_diff(a, b) for (_, a), (_, b) in zip(
+            full.model.named_parameters(), again.model.named_parameters()))
+        log(f"[13c resume] a second straight run: largest parameter "
+            f"difference to the first {worst:.3e}")
+        del again
+    del full, resumed
+    free_card(torch)
+
+
+def phase_card_vs_cpu(torch, card):
+    """13d: one f32 step on the card and on the CPU from the same weights
+    and batch: loss, every gradient and every updated parameter."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData, to_device
+    from repro_torch.launch.steps import loss_and_grads, named_params
+    from repro_torch.models import init_model
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   warmup_cosine)
+    free_card(torch)
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS,
+                                         dtype="float32", grad_accum=1)
+    ocfg = AdamWConfig(master_weights=False)
+    batch = SyntheticLMData(cfg, 2, 64, seed=4).batch_at(0)
+    lr = warmup_cosine(100, 3e-4, 100, 10000)
+    cpu = init_model(cfg, seed=2, device="cpu")
+    out, secs = [], []
+    for where, model in (("cpu", cpu), ("cuda", copy.deepcopy(cpu).cuda())):
+        ts = time.perf_counter()
+        params = named_params(model)
+        opt = adamw_init(params, ocfg)
+        loss, grads = loss_and_grads(model, cfg, to_device(batch, where))
+        adamw_update(grads, opt, params, lr, ocfg)
+        out.append((float(loss), {k: g.cpu() for k, g in grads.items()},
+                    {k: p.detach().cpu() for k, p in params.items()}))
+        secs.append(time.perf_counter() - ts)
+    (lc, gc_, pc), (lg, gg, pg) = out
+    rel = abs(lg - lc) / abs(lc)
+    gerr = max(_max_diff(gg[k], gc_[k]) for k in gc_)
+    perr = max(_max_diff(pg[k], pc[k]) for k in pc)
+    log(f"[13d f32 grads] {card}: {TRAIN_LAYERS} layers f32 (TF32 off), "
+        f"batch 2 x 64: loss card {lg:.7f} CPU {lc:.7f} (relative "
+        f"{rel:.2e}, tol 1e-5); largest gradient difference {gerr:.3e}, "
+        f"updated parameter {perr:.3e} (tol {GRAD_TOL}); the step "
+        f"{secs[0]:.1f}s on the CPU, {secs[1]:.1f}s on the card; "
+        f"{time.perf_counter() - t0:.1f}s")
+    if not (rel <= 1e-5 and gerr <= GRAD_TOL and perr <= GRAD_TOL):
+        raise SystemExit("phase 13d: the card's f32 step disagrees with the "
+                         "CPU's")
+    del out, cpu
+    check_head_backward(torch, card, cfg)
+    free_card(torch)
+
+
+def check_head_backward(torch, card, cfg):
+    """13d, bf16: the tied LM head at 13a's shape (one microbatch of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` / grad_accum 4 tokens, d 2048, vocab
+    128256), its hand-written backward on the card (``_HeadMM``: f32
+    cotangent, f32 products, each result rounded to bf16) against autograd
+    of the f32 product (the CPU branch's and the reference's formula) on
+    the same inputs; each gradient within one bf16 rounding step of its
+    largest value."""
+    from repro_torch.models.common import _HeadMM
+    n, d, v = TRAIN_BATCH * TRAIN_SEQ // 4, cfg.d_model, cfg.vocab
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(n, d, generator=g, device="cuda").to(torch.bfloat16)
+    emb = (torch.randn(v, d, generator=g, device="cuda")
+           * d ** -0.5).to(torch.bfloat16)
+    ct = torch.randn(n, v, generator=g, device="cuda") / n
+    xa, ea = x.clone().requires_grad_(True), emb.clone().requires_grad_(True)
+    got = _HeadMM.apply(xa, ea)
+    got.backward(ct)
+    xb, eb = x.clone().requires_grad_(True), emb.clone().requires_grad_(True)
+    want = xb.float() @ eb.float().t()
+    want.backward(ct)
+    lerr = _max_diff(got, want)
+    errs = {}
+    for name, a, b in (("dx", xa.grad, xb.grad), ("demb", ea.grad, eb.grad)):
+        scale = float(b.float().abs().max())
+        errs[name] = (_max_diff(a, b), 2 ** -7 * scale)
+    log(f"[13d bf16 head] {card}: _HeadMM at [{n}, {d}] x [{v}, {d}] "
+        f"against f32 autograd: logits {lerr:.3e} (tol 1e-4); " + ", ".join(
+            f"{k} {e:.3e} (tol {t:.3e})" for k, (e, t) in errs.items()))
+    if lerr > 1e-4 or any(e > t for e, t in errs.values()):
+        raise SystemExit("phase 13d: the LM head's bf16 backward disagrees "
+                         "with f32 autograd")
+
+
+def forward_greedy(torch, model, cfg, reqs):
+    """Greedy continuation of equal-length prompts by full-sequence
+    ``forward`` (no cache): {rid: tokens}."""
+    import numpy as np
+    from repro_torch.models import forward
+    toks = torch.from_numpy(np.stack([r.inputs["tokens"] for r in reqs])
+                            ).cuda()
+    gen = []
+    with torch.no_grad():
+        for _ in range(max(r.max_new_tokens for r in reqs)):
+            logits, _ = forward(model, cfg, {"tokens": toks})
+            nxt = logits[:, -1].argmax(-1).to(toks.dtype)
+            gen.append(nxt)
+            toks = torch.cat([toks, nxt[:, None]], dim=1)
+    gen = torch.stack(gen, dim=1).cpu().numpy()
+    return {r.rid: gen[i, :r.max_new_tokens] for i, r in enumerate(reqs)}
+
+
+def phase_train_serve(torch, card, mapped, mapped_cfg):
+    """13e: train -> compress -> serve.  f32 at 4 layers through the graphed
+    paged fused engine against greedy ``forward`` of the trained srste
+    model, then 13b's model compressed in bf16 on the same engine.
+    Returns the launches of both runs."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.layers import SparseLinear
+    from repro_torch.core.sparsity import nm_mask
+    from repro_torch.data import SyntheticLMData, to_device
+    from repro_torch.launch.steps import make_train_step, named_params
+    from repro_torch.models import convert_to_compressed, init_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.serve import ServeEngine, synthetic_trace
+    free_card(torch)
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS,
+                                         dtype="float32", grad_accum=1)
+    model = init_model(cfg, seed=3, device="cuda")
+    probe = model.layers[0].attn.wq
+    mask0 = nm_mask(probe.w, cfg.sparsity.n, cfg.sparsity.m)
+    ocfg = AdamWConfig(master_weights=False)
+    opt = adamw_init(named_params(model), ocfg)
+    step_fn = make_train_step(cfg, ocfg, base_lr=3e-3, warmup=1)
+    data = SyntheticLMData(cfg, 4, TRAIN_SEQ, seed=5)
+    losses = []
+    for i in range(3):
+        model, opt, m = step_fn(model, opt, to_device(next(data), "cuda"),
+                                i + 1)
+        losses.append(float(m["loss"]))
+    del opt
+    moved = int((nm_mask(probe.w, cfg.sparsity.n, cfg.sparsity.m)
+                 != mask0).sum())
+    reqs = synthetic_trace(cfg, n_requests=16, prompt_len=128,
+                           gen_lens=[16, 32], seed=0)
+    kw = graphed(dict(n_slots=8, max_len=128 + 32, kv="paged", attn="fused",
+                      block_size=16, device="cuda"))
+    runs = []
+    for what, trained, tcfg in (("f32 4L", model, cfg),
+                                ("bf16 13b", mapped, mapped_cfg)):
+        ccfg = tcfg.replace(sparsity=dataclasses.replace(tcfg.sparsity,
+                                                         mode="compressed"))
+        served = convert_to_compressed(trained, ccfg)
+        if not all(m.compressed for m in served.modules()
+                   if isinstance(m, SparseLinear)):
+            raise SystemExit(f"phase 13e: {what}: a linear stayed dense")
+        runs.append((what, ServeEngine(served, ccfg, **kw), tcfg))
+    kernels.reset_launch_counts()
+    results, walls = [], []
+    for what, eng, _ in runs:
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        results.append(eng.run(reqs))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - ts)
+    launches = {k.name: k.launches for k in kernels.all_kernels()}
+    want = {"nm_spmv": 0, "nm_xwt": 0, "paged_gqa_decode": 0}
+    for (what, eng, tcfg), wall in zip(runs, walls):
+        st = eng.stats()
+        want["nm_spmv"] += eng.decode_steps * tcfg.n_layers * LINEARS_PER_LAYER
+        want["paged_gqa_decode"] += eng.decode_steps * tcfg.n_layers
+        want["nm_xwt"] += eng.prefill_calls * tcfg.n_layers * LINEARS_PER_LAYER
+        log(f"[13e serve] {card}: {what} ({tcfg.n_layers}L) compressed after "
+            f"training, graphed paged fused, 8 slots: {int(st['tokens'])} "
+            f"tokens in {wall:.3f}s = {st['tokens'] / wall:.1f} tokens/s, "
+            f"{eng.decode_steps} decode steps, {eng.prefill_calls} prefills")
+        if (not eng.graphs or st["mid_serve_compiles"]
+                or st["tokens"] != sum(r.max_new_tokens for r in reqs)):
+            raise SystemExit(f"phase 13e: {what}: the engine did not serve "
+                             f"every token from its prewarmed graphs")
+    ref = forward_greedy(torch, model, cfg, reqs)
+    bad = [r.rid for r in reqs
+           if not np.array_equal(results[0][r.rid].tokens, ref[r.rid])]
+    log(f"[13e exact] {card}: f32 {TRAIN_LAYERS}L trained 3 steps (losses "
+        f"{[round(x, 4) for x in losses]}; layer 0 wq's mask moved in "
+        f"{moved} of {mask0.numel()} entries): served tokens equal greedy "
+        f"forward of the srste model in {len(reqs) - len(bad)}/{len(reqs)} "
+        f"requests; {time.perf_counter() - t0:.1f}s")
+    if bad:
+        raise SystemExit(f"phase 13e: served tokens differ from the trained "
+                         f"model's forward in requests {bad}")
+    log(f"[13e serve] kernel launches over both runs: {launches} (expected "
+        f"{want})")
+    if any(launches[k] != n for k, n in want.items()):
+        raise SystemExit(f"phase 13e: launches {launches} != {want}")
+    return launches
+
+
+def phase_train(torch, card):
+    """Phase 13: training on the card (13a-13e).  Returns the launches of
+    the train -> serve path."""
+    t0 = time.perf_counter()
+    phase_train_full(torch, card)
+    mapped, mapped_cfg = phase_mapping(torch, card)
+    phase_resume(torch, card)
+    phase_card_vs_cpu(torch, card)
+    launches = phase_train_serve(torch, card, mapped, mapped_cfg)
+    del mapped
+    free_card(torch)
+    log(f"[time] phase 13 {time.perf_counter() - t0:.1f}s")
+    return {"train_serve": launches}
+
+
 # ------------------------------------------------------------------ main
 
 KERNEL_META = {
@@ -4444,6 +4911,7 @@ def main() -> int:
     log(f"[time] other configs {time.perf_counter() - t0:.1f}s")
     by_path.update(phase_ssm(torch, card))
     by_path.update(phase_encdec_vlm(torch, card))
+    by_path.update(phase_train(torch, card))
     # the packed variant serves no path of its own: its launches are those
     # of the CNN phase, where it runs on every layer the reference can pack
     kernels_line = []

@@ -17,4 +17,6 @@ def config() -> ArchConfig:
         n_experts=128, top_k=2, dense_residual=True,
         capacity_factor=1.25,
         sparsity=SparsityConfig(n=2, m=4, mode="srste"),
+        grad_accum=16,
+        remat_group=7,
     )

@@ -11,4 +11,6 @@ def config() -> ArchConfig:
         n_layers=95, d_model=8192, n_heads=64, n_kv=8, d_ff=22016,
         vocab=102400, head_dim=128, rope_theta=10000.0,
         sparsity=SparsityConfig(n=2, m=4, mode="srste"),
+        grad_accum=16,
+        remat_group=19,
     )

@@ -17,4 +17,5 @@ def config() -> ArchConfig:
         n_experts=64, top_k=6, n_shared_experts=2, moe_dff=1408,
         first_dense_layers=1, capacity_factor=1.25,
         sparsity=SparsityConfig(n=2, m=4, mode="srste"),
+        grad_accum=4,
     )

@@ -17,4 +17,5 @@ def config() -> ArchConfig:
         ssm_state=16, d_inner=8192, dt_rank=256, conv_kernel=4,
         mamba_version=1, ssm_chunk=32,
         sparsity=SparsityConfig(n=2, m=4, mode="srste"),
+        grad_accum=8,
     )

@@ -17,4 +17,5 @@ def config() -> ArchConfig:
         softcap_attn=50.0, softcap_final=30.0,
         scale_embeds=True, post_norms=True, gemma_norm=True,
         sparsity=SparsityConfig(n=2, m=4, mode="srste"),
+        grad_accum=8,
     )

@@ -11,4 +11,5 @@ def config() -> ArchConfig:
         n_layers=16, d_model=2048, n_heads=32, n_kv=8, d_ff=8192,
         vocab=128256, head_dim=64, rope_theta=500000.0, tie_embeddings=True,
         sparsity=SparsityConfig(n=2, m=4, mode="srste"),
+        grad_accum=4,
     )

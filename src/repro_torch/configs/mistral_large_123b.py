@@ -12,4 +12,6 @@ def config() -> ArchConfig:
         n_layers=88, d_model=12288, n_heads=96, n_kv=8, d_ff=28672,
         vocab=32768, head_dim=128, rope_theta=1e6,
         sparsity=SparsityConfig(n=2, m=4, mode="srste"),
+        grad_accum=16,
+        remat_group=11,
     )

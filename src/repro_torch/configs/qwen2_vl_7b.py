@@ -18,4 +18,6 @@ def config() -> ArchConfig:
         vocab=152064, head_dim=128, rope_theta=1e6, qkv_bias=True,
         input_mode="embeds",
         sparsity=SparsityConfig(n=2, m=4, mode="srste"),
+        grad_accum=8,
+        remat_group=7,
     )

@@ -19,4 +19,5 @@ def config() -> ArchConfig:
         ssm_state=64, d_inner=7168, mamba_version=2, ssm_heads=112,
         conv_kernel=4, attn_period=6, window=4096, ssm_chunk=64,
         sparsity=SparsityConfig(n=2, m=4, mode="srste"),
+        grad_accum=8,
     )

@@ -20,7 +20,15 @@ conv, ``A_log``, ``D`` and ``dt_bias`` stay f32, ``dt_proj`` keeps its
 bias.  This is how the parity tests feed both packages the
 same weights (their random generators cannot agree).
 ``from_reference_nmsparse`` carries one reference ``NMSparse`` (a CNN
-layer's weights, say) the same way.
+layer's weights, say) the same way.  A 'fixed' linear's boolean ``mask``
+comes along as the port's mask buffer.
+
+Training state: ``from_reference_opt_state`` maps the reference's AdamW
+state {"mu", "nu", "master", "step"} onto the port's dicts keyed by the
+model's parameter names, and ``to_reference_tree`` /
+``to_reference_opt_state`` go the other way (per-layer tensors stacked
+back into the reference's [L, ...] leaves, as numpy), for the tests'
+comparisons.  Both cover the plain stacked ``layers`` of the dense family.
 """
 
 from __future__ import annotations
@@ -186,3 +194,71 @@ def from_reference_params(tree: Mapping[str, Any], cfg: ArchConfig,
         return DenseLM(embed, blocks, lnf)
     return DenseLM(embed, [_dense_block(_layer(tree["layers"], i), cfg, device)
                            for i in range(cfg.n_layers)], lnf)
+
+
+def _reference_leaf(tree: Mapping[str, Any], name: str) -> np.ndarray:
+    """The reference leaf of port parameter ``name``: ``layers.3.attn.wq.w``
+    is layer 3 of ``tree["layers"]["attn"]["wq"]["w"]``."""
+    node, idx = tree, None
+    for part in name.split("."):
+        if part.isdigit():
+            idx = int(part)
+        else:
+            node = node[part]
+    node = np.asarray(node)
+    return node if idx is None else node[idx]
+
+
+def from_reference_opt_state(tree: Mapping[str, Any], model: LM,
+                             device="cuda") -> Dict[str, Any]:
+    """The reference's AdamW state (numpy leaves) -> the port's: "mu",
+    "nu" (and "master" when present) as {parameter name: tensor} in the
+    order of ``model.named_parameters()``, "step" an int32 0-d tensor."""
+    device = resolve_device(device)
+    names = [n for n, _ in model.named_parameters()]
+    out: Dict[str, Any] = {
+        part: {n: to_torch(_reference_leaf(tree[part], n), device)
+               for n in names}
+        for part in ("mu", "nu", "master") if part in tree}
+    out["step"] = torch.tensor(int(np.asarray(tree["step"])),
+                               dtype=torch.int32, device=device)
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def to_reference_tree(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """{port parameter name: tensor} -> the reference's nested tree of
+    numpy leaves (bf16 read as f32), per-layer tensors stacked along a new
+    first axis in layer order."""
+    tree: Dict[str, Any] = {}
+    stacks: Dict[tuple, Dict[int, np.ndarray]] = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        digits = [i for i, part in enumerate(parts) if part.isdigit()]
+        if digits:
+            i = digits[0]
+            key = tuple(parts[:i] + parts[i + 1:])
+            stacks.setdefault(key, {})[int(parts[i])] = _numpy(t)
+        else:
+            _set(tree, tuple(parts), _numpy(t))
+    for key, per in stacks.items():
+        _set(tree, key, np.stack([per[i] for i in sorted(per)]))
+    return tree
+
+
+def _set(tree: Dict[str, Any], path: tuple, leaf) -> None:
+    for part in path[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[path[-1]] = leaf
+
+
+def to_reference_opt_state(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's AdamW state -> the reference's tree (numpy leaves)."""
+    out = {part: to_reference_tree(state[part])
+           for part in ("mu", "nu", "master") if part in state}
+    out["step"] = np.asarray(int(state["step"]), np.int32)
+    return out

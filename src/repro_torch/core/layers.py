@@ -1,21 +1,24 @@
 """SparseLinear — the switch that makes any architecture N:M-sparse
 (counterpart of ``repro.core.layers``).
 
-A ``SparseLinear`` holds either a dense weight ``w`` [out, in] or the
-compressed pair ``w_vals`` / ``w_idx`` [out, in/M*N], plus an optional bias
-``b``.  A ``StackedLinear`` is the same for a stack of experts, [E, out,
-in] / [E, out, in/M*N]; the MoE layer reads it through ``dense_view``.
+A ``SparseLinear`` holds either a dense weight ``w`` [out, in] (with a
+frozen boolean ``mask`` under 'fixed') or the compressed pair ``w_vals`` /
+``w_idx`` [out, in/M*N], plus an optional bias ``b``.  ``w`` and ``b`` are
+parameters, created with ``requires_grad=False`` (the trainer turns them
+on); the compressed pair and the mask are buffers.  A ``StackedLinear`` is
+the same for a stack of experts, [E, out, in] / [E, out, in/M*N]; the MoE
+layer reads it through ``dense_view``.
 ``linear_apply`` runs a ``SparseLinear`` under a ``SparsityConfig``:
 
   dense       plain dense product
-  srste       dense weight, N:M magnitude mask applied in the forward (the
-              straight-through training gradients come with the training
-              port)
+  srste       dense weight, N:M mask recomputed in every forward, with
+              straight-through gradients (``nm_matmul_ste``)
+  fixed       dense weight times its stored mask (``masked_matmul``)
   compressed  values + indices through ``nm_matmul`` (impl chosen by
               ``select_impl``); dense leaves not yet converted get the mask
 
-``convert_to_compressed`` is the offline prune-and-pack step (stacks
-compress along their last axis unchanged).
+``convert_to_compressed`` is the offline prune-and-pack step (a stored
+mask applies first; stacks compress along their last axis unchanged).
 """
 
 from __future__ import annotations
@@ -26,24 +29,32 @@ import torch
 from torch import nn
 
 from repro_torch.core.sparse_matmul import (SparsityConfig, dense_forward_view,
-                                            matmul_f32acc, nm_matmul,
+                                            masked_matmul, matmul_f32acc,
+                                            nm_matmul, nm_matmul_ste,
                                             select_impl)
-from repro_torch.core.sparsity import NMSparse, compress, decompress_parts
+from repro_torch.core.sparsity import (NMSparse, compress, decompress_parts,
+                                       nm_mask)
 
 
 class SparseLinear(nn.Module):
-    """Weights of one linear, stored [out, in] (the paper's A layout).  The
-    tensors are buffers: the port serves, it does not train yet."""
+    """Weights of one linear, stored [out, in] (the paper's A layout)."""
 
     def __init__(self, w: Optional[torch.Tensor] = None,
                  w_vals: Optional[torch.Tensor] = None,
                  w_idx: Optional[torch.Tensor] = None,
-                 b: Optional[torch.Tensor] = None):
+                 b: Optional[torch.Tensor] = None,
+                 mask: Optional[torch.Tensor] = None):
         super().__init__()
         if (w is None) == (w_vals is None) or (w_vals is None) != (w_idx is None):
             raise ValueError("SparseLinear holds either w or (w_vals, w_idx)")
-        for name, t in (("w", w), ("w_vals", w_vals), ("w_idx", w_idx),
-                        ("b", b)):
+        if mask is not None and w is None:
+            raise ValueError("a stored mask belongs to a dense weight")
+        for name, t in (("w", w), ("b", b)):
+            if t is not None:
+                self.register_parameter(name, nn.Parameter(
+                    t.detach(), requires_grad=False))
+        for name, t in (("w_vals", w_vals), ("w_idx", w_idx),
+                        ("mask", mask)):
             if t is not None:
                 self.register_buffer(name, t)
 
@@ -52,7 +63,7 @@ class SparseLinear(nn.Module):
         return hasattr(self, "w_vals")
 
     def has(self, name: str) -> bool:
-        return name in self._buffers
+        return name in self._buffers or name in self._parameters
 
 
 class StackedLinear(SparseLinear):
@@ -70,7 +81,7 @@ def dense_view(p: SparseLinear, cfg: SparsityConfig) -> torch.Tensor:
     if p.compressed:
         k = p.w_vals.shape[-1] * cfg.m // cfg.n
         return decompress_parts(p.w_vals, p.w_idx, cfg.n, cfg.m, k)
-    return dense_forward_view(p.w, cfg)
+    return dense_forward_view(p.w, cfg, getattr(p, "mask", None))
 
 
 def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
@@ -78,17 +89,18 @@ def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
                 device="cuda", use_bias: bool = False,
                 scale: Optional[float] = None) -> SparseLinear:
     """Normal(0, scale^2) weight [out, in] drawn from ``gen`` (on
-    ``device``); compressed at init under ``mode='compressed'``."""
+    ``device``); compressed at init under ``mode='compressed'``, its
+    magnitude mask stored under ``mode='fixed'``."""
     scale = scale if scale is not None else in_dim ** -0.5
     w = (torch.randn((out_dim, in_dim), generator=gen, device=device,
                      dtype=torch.float32) * scale).to(dtype)
     b = torch.zeros(out_dim, dtype=dtype, device=device) if use_bias else None
-    if cfg.applies(in_dim, out_dim) and cfg.mode == "compressed":
-        sp = compress(w, cfg.n, cfg.m)
-        return SparseLinear(w_vals=sp.values, w_idx=sp.indices, b=b)
-    if cfg.mode == "fixed":
-        raise NotImplementedError("mode='fixed' (stored masks) comes with the "
-                                  "training port")
+    if cfg.applies(in_dim, out_dim):
+        if cfg.mode == "compressed":
+            sp = compress(w, cfg.n, cfg.m)
+            return SparseLinear(w_vals=sp.values, w_idx=sp.indices, b=b)
+        if cfg.mode == "fixed":
+            return SparseLinear(w=w, b=b, mask=nm_mask(w, cfg.n, cfg.m))
     return SparseLinear(w=w, b=b)
 
 
@@ -100,6 +112,10 @@ def linear_apply(p: SparseLinear, x: torch.Tensor, cfg: SparsityConfig,
         sp = NMSparse(p.w_vals, p.w_idx, cfg.n, cfg.m, (out_dim, in_dim))
         # the kernels read x as dense rows (an MLA latent slice is strided)
         y = nm_matmul(x.contiguous(), sp, impl=select_impl(cfg, x))
+    elif p.has("mask"):
+        y = masked_matmul(x, p.w, p.mask)
+    elif cfg.applies(in_dim, p.w.shape[0]) and cfg.mode == "srste":
+        y = nm_matmul_ste(x, p.w, cfg.n, cfg.m, cfg.srste_lam)
     else:
         y = matmul_f32acc(x, dense_forward_view(p.w, cfg))
     if p.has("b"):
@@ -109,14 +125,18 @@ def linear_apply(p: SparseLinear, x: torch.Tensor, cfg: SparsityConfig,
 
 def convert_to_compressed(p: SparseLinear, cfg: SparsityConfig
                           ) -> SparseLinear:
-    """Dense layer -> compressed serving format (offline packing step); a
+    """Trained (srste / fixed / dense) layer -> compressed serving format
+    (offline packing step; a stored mask applies first); a
     ``StackedLinear`` stays one.  Returns ``p`` itself when already
-    compressed or skipped by the policy."""
+    compressed or skipped by the policy.  The packed tensors carry no
+    autograd history."""
     if p.compressed:
         return p
     out_dim, in_dim = p.w.shape[-2:]
     if not cfg.applies(in_dim, out_dim):
         return p
-    sp = compress(p.w, cfg.n, cfg.m)
+    with torch.no_grad():
+        w = p.w * p.mask.to(p.w.dtype) if p.has("mask") else p.w
+        sp = compress(w, cfg.n, cfg.m)
     return type(p)(w_vals=sp.values, w_idx=sp.indices,
                    b=p.b if p.has("b") else None)

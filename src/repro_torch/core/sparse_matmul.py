@@ -21,14 +21,20 @@ kernels (decode-shaped -> spmv, or spmv_onehot under
 ``dense_forward_view`` is the dense weights' forward semantics, shared by
 ``linear_apply``, the MoE expert stacks and the MLA absorbed decode.
 ``nm_rerank`` re-ranks stored n:m operands down to keep:m (the speculative
-draft's sparsity ladder).  The TP ring, SR-STE training (``ste_sparsify``)
-and the fixed-mask mode (``masked_matmul``) are not ported yet.
+draft's sparsity ladder).
+
+SR-STE training: ``ste_sparsify`` is the N:M magnitude mask with the
+straight-through gradient plus the SR-STE decay on the pruned complement
+(an autograd Function acting on the weight only, so it composes with any
+product); ``nm_matmul_ste`` and ``masked_matmul`` (a frozen boolean mask,
+the 'fixed' mode) are the f32-accumulated products over it.  The
+tensor-parallel ring is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,7 +50,9 @@ Impl = str  # 'auto' | 'ref' | 'plain' | 'xwt' | 'spmv' | 'spmv_onehot'
 class SparsityConfig:
     """Per-model sparsity policy (threaded through every SparseLinear).
 
-    ``mode``: 'srste' (dense weight, N:M mask recomputed in the forward),
+    ``mode``: 'srste' (dense weight, N:M mask recomputed in the forward,
+    straight-through gradients with the ``srste_lam`` decay on pruned
+    weights), 'fixed' (dense weight and a frozen boolean mask),
     'compressed' (values + indices; dense leaves not yet converted get the
     magnitude mask), 'dense'.  ``decode_batch_max`` bounds the rank-2 batch
     that counts as decode-shaped.
@@ -59,6 +67,7 @@ class SparsityConfig:
     enabled: bool = True
     mode: str = "srste"
     impl: Impl = "auto"
+    srste_lam: float = 2e-4
     min_dim: int = 128
     decode_impl: Impl = "auto"
     decode_batch_max: int = 8
@@ -174,16 +183,62 @@ def nm_matmul(x: torch.Tensor, sp: NMSparse, impl: Impl = "auto"
                      f"tensor-parallel serving)")
 
 
-def dense_forward_view(w: torch.Tensor, sp: SparsityConfig) -> torch.Tensor:
+class _SteSparsify(torch.autograd.Function):
+    """Forward ``w * mask``; backward the straight-through dense gradient
+    plus the SR-STE decay ``lam * (1 - mask) * w`` on the pruned entries,
+    cast to w's dtype (the reference's ``custom_vjp``).  The mask is kept
+    for the backward as booleans."""
+
+    @staticmethod
+    def forward(ctx, w, n, m, lam):
+        mask = nm_mask(w, n, m)
+        ctx.save_for_backward(w, mask)
+        ctx.lam = lam
+        return w * mask.to(w.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, mask = ctx.saved_tensors
+        with torch.autograd.profiler.record_function("ste_sparsify.bwd"):
+            decay = (ctx.lam * ((1.0 - mask.to(w.dtype)) * w)).to(g.dtype)
+            return (g + decay).to(w.dtype), None, None, None
+
+
+def ste_sparsify(w: torch.Tensor, n: int, m: int, lam: float) -> torch.Tensor:
+    """N:M-sparsified view of ``w`` [..., out, in] with SR-STE gradients."""
+    with torch.autograd.profiler.record_function("ste_sparsify.fwd"):
+        return _SteSparsify.apply(w, n, m, lam)
+
+
+def nm_matmul_ste(x: torch.Tensor, w: torch.Tensor, n: int, m: int,
+                  lam: float) -> torch.Tensor:
+    """y = x @ sparsify(w).T with straight-through training semantics,
+    accumulated in f32, result in x's dtype."""
+    return matmul_f32acc(x, ste_sparsify(w, n, m, lam))
+
+
+def masked_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor
+                  ) -> torch.Tensor:
+    """The fixed-mask product (ASP-style fine-tuning): autograd gives the
+    masked gradient."""
+    return matmul_f32acc(x, w * mask.to(w.dtype))
+
+
+def dense_forward_view(w: torch.Tensor, sp: SparsityConfig,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dense view [..., out, in] of a dense-stored weight with the forward
-    semantics ``linear_apply`` uses: under 'srste' and under a not yet
-    converted 'compressed' policy the magnitude N:M mask applies (never
-    silently unmasked).  Shared by the MoE stacked products and the MLA
-    absorbed decode, so those paths cannot diverge from the per-linear one.
-    (The reference's srste branch carries straight-through gradients; the
-    port serves and computes the same forward.)"""
+    semantics ``linear_apply`` uses: a stored ``mask`` (the 'fixed' mode)
+    applies; 'srste' recomputes the N:M mask with straight-through
+    gradients; a not yet converted 'compressed' policy applies the
+    magnitude mask (never silently unmasked).  Shared by the MoE stacked
+    products and the MLA absorbed decode, so those paths cannot diverge
+    from the per-linear one."""
     if not sp.applies(w.shape[-1], w.shape[-2]):
         return w
-    if sp.mode in ("srste", "compressed"):
+    if mask is not None:
+        return w * mask.to(w.dtype)
+    if sp.mode == "srste":
+        return ste_sparsify(w, sp.n, sp.m, sp.srste_lam)
+    if sp.mode == "compressed":
         return w * nm_mask(w, sp.n, sp.m).to(w.dtype)
     return w

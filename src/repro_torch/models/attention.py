@@ -37,9 +37,11 @@ pool), and decode reads them, never writes them.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.core.layers import (SparseLinear, dense_view, linear_apply,
@@ -88,6 +90,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     nq, nk = -(-sq // cq), -(-sk // ck)
     q_off = sk - sq
     dev = q.device
+    # under autograd each kv step is a checkpoint, as the reference's: its
+    # [cq, ck] scores and probabilities are recomputed in the backward,
+    # not kept for every chunk pair
+    remat = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)
     q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, nq * cq - sq))
     k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, nk * ck - sk))
     v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, nk * ck - sk))
@@ -107,26 +114,36 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             if window is not None and q_lo - (ki * ck + ck - 1) >= window:
                 continue
             kpos = ki * ck + torch.arange(ck, device=dev)
-            s = torch.einsum("bhgqd,bhkd->bhgqk", qg[qi], kc[ki]) * scale
-            s = softcap(s, cap)
             mask = (kpos < sk)[None, :].expand(cq, ck)
             if causal:
                 mask = mask & (qpos[:, None] >= kpos[None, :])
             if window is not None:
                 mask = mask & (qpos[:, None] - kpos[None, :] < window)
-            s = torch.where(mask, s, torch.full_like(s, _NEG))
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.where(mask, torch.exp(s - m_new[..., None]),
-                            torch.zeros_like(s))
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bhgqk,bhkd->bhgqd", p, vc[ki])
-            m = m_new
+            step = functools.partial(_kv_step, mask=mask, scale=scale,
+                                     cap=cap)
+            args = (m, l, acc, qg[qi], kc[ki], vc[ki])
+            m, l, acc = (torch.utils.checkpoint.checkpoint(
+                step, *args, use_reentrant=False, preserve_rng_state=False)
+                if remat else step(*args))
         outs.append(acc / l.clamp_min(1e-30)[..., None])   # [b, kvh, g, cq, dv]
     out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(b, nq * cq, h,
                                                               dv)
     return out[:, :sq].to(v.dtype)
+
+
+def _kv_step(m, l, acc, qc, kc, vc, *, mask, scale, cap):
+    """One kv chunk of the online softmax: (m, l, acc) of a q chunk ->
+    the same after the chunk's keys."""
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kc) * scale
+    s = softcap(s, cap)
+    s = torch.where(mask, s, torch.full_like(s, _NEG))
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.where(mask, torch.exp(s - m_new[..., None]),
+                    torch.zeros_like(s))
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(-1)
+    acc = acc * corr[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", p, vc)
+    return m_new, l, acc
 
 
 # ------------------------------------------------------------------------ GQA

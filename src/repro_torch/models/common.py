@@ -2,7 +2,8 @@
 
 Weight convention follows ``core.layers``: linear weights are [out, in] and
 the contraction axis (in) is the N:M-sparse axis.  Norm scales are float32,
-as in the reference.
+as in the reference.  Norm scales and the embedding table are parameters
+created with ``requires_grad=False`` (the trainer turns them on).
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ def linear_weight_bytes(p: SparseLinear, cfg: SparsityConfig
 class RMSNorm(nn.Module):
     def __init__(self, scale: torch.Tensor):
         super().__init__()
-        self.register_buffer("scale", scale)
+        self.scale = nn.Parameter(scale.detach(), requires_grad=False)
 
 
 def rms_norm_init(d: int, device="cuda") -> RMSNorm:
@@ -67,7 +68,7 @@ class Embedding(nn.Module):
 
     def __init__(self, emb: torch.Tensor):
         super().__init__()
-        self.register_buffer("emb", emb)
+        self.emb = nn.Parameter(emb.detach(), requires_grad=False)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
@@ -79,6 +80,26 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
 
 def embed_apply(p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
     return p.emb[tokens]
+
+
+class _HeadMM(torch.autograd.Function):
+    """x2 [N, d] @ emb[V, d].T with an f32 output on the card, with a
+    backward (``mm`` with ``out_dtype`` has none).  The backward keeps the
+    f32 cotangent and multiplies it by the operands in f32, each result
+    rounded once to its operand's dtype: the reference's transpose of its
+    f32-preferred einsum (an f32 x bf16 dot_general), and the CPU branch's
+    autograd."""
+
+    @staticmethod
+    def forward(ctx, x2, emb):
+        ctx.save_for_backward(x2, emb)
+        return torch.mm(x2, emb.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, emb = ctx.saved_tensors
+        return (torch.mm(g, emb.float()).to(x2.dtype),
+                torch.mm(g.t(), x2.float()).to(emb.dtype))
 
 
 def lm_head_apply(p: Embedding, x: torch.Tensor,
@@ -93,7 +114,7 @@ def lm_head_apply(p: Embedding, x: torch.Tensor,
     if x2.dtype == torch.float32 and emb.dtype == torch.float32:
         logits = x2 @ emb.t()
     elif x2.is_cuda:
-        logits = torch.mm(x2, emb.t(), out_dtype=torch.float32)
+        logits = _HeadMM.apply(x2, emb)
     else:
         logits = x2.float() @ emb.float().t()
     logits = logits.reshape(*lead, emb.shape[0])

@@ -78,6 +78,12 @@ class ArchConfig:
     q_chunk: int = 512
     kv_chunk: int = 1024
     ssm_chunk: int = 64
+    # --- training: per-block activation checkpointing; remat_group G
+    # checkpoints G groups of L/G blocks, each block inside its group too,
+    # keeping G + L/G block boundaries instead of L (0 = per-block only) ---
+    remat: bool = True
+    remat_group: int = 0
+    grad_accum: int = 1                      # microbatches per step
 
     def hd(self) -> int:
         if self.head_dim:

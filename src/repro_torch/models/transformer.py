@@ -46,6 +46,12 @@ norm.  Its caches are {"self": {"k", "v"} [L, B, max_len, kv, hd],
 prefill and only read by decode, have no sequence axis, so the paged pool
 keeps them one row per slot beside the paged "self" leaves.
 
+Under autograd (a parameter requires grad: the trainer's steps)
+``forward`` checkpoints every dense / MoE block (``cfg.remat``; with
+``cfg.remat_group`` G, also G groups of L / G blocks around them, the
+reference's sqrt-remat), and ``chunked_attention`` each kv step; a pass
+that records no graph runs the blocks plainly.
+
 Public API (family-dispatched):
   init_model(cfg, seed, device)                  -> DenseLM | MoELM | SSMLM
                                                     | HybridLM | EncDecLM
@@ -70,10 +76,12 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch import resolve_device
@@ -695,16 +703,57 @@ def forward(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
     elif isinstance(p, EncDecLM):
         x, _ = _encdec_stack(p, cfg, x, positions, batch, False)
     else:
-        for i, lp in enumerate(p.blocks()):
-            if isinstance(lp, MoEBlock):
-                x, _, a = _moe_block_apply(lp, x, cfg, positions=positions)
-                aux = aux + a
-                n_moe += 1
-            else:
-                x, _ = _dense_block_apply(lp, x, cfg, positions=positions,
-                                          window=_window(cfg, i))
+        blocks = p.blocks()
+        x, aux = _blocks_forward(blocks, x, cfg, positions, aux,
+                                 remat=cfg.remat and _records_grad(p))
+        n_moe = sum(isinstance(lp, MoEBlock) for lp in blocks)
     x = _norm(p.lnf, x, cfg)
     return lm_head_apply(p.embed, x, cfg.softcap_final), aux / max(n_moe, 1)
+
+
+def _records_grad(p: nn.Module) -> bool:
+    """Whether a forward of ``p`` here records an autograd graph."""
+    return torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in p.parameters())
+
+
+def _checkpoint(fn, *args):
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def _block_forward(lp, x, aux, *, cfg: ArchConfig, positions, window):
+    if isinstance(lp, MoEBlock):
+        x, _, a = _moe_block_apply(lp, x, cfg, positions=positions)
+        return x, aux + a
+    x, _ = _dense_block_apply(lp, x, cfg, positions=positions, window=window)
+    return x, aux
+
+
+def _blocks_forward(blocks, x, cfg: ArchConfig, positions, aux, *,
+                    remat: bool):
+    """``forward``'s pass over the dense / MoE blocks -> (x, aux + the MoE
+    blocks' aux losses).  Under ``remat`` every block is an activation
+    checkpoint (its activations recomputed in the backward), and with
+    ``cfg.remat_group`` G dividing the depth the G groups of L / G blocks
+    are checkpoints too, around their blocks' own (the reference's
+    sqrt-remat)."""
+
+    def run(lo: int, hi: int, x, aux):
+        for i in range(lo, hi):
+            fn = functools.partial(_block_forward, blocks[i], cfg=cfg,
+                                   positions=positions,
+                                   window=_window(cfg, i))
+            x, aux = _checkpoint(fn, x, aux) if remat else fn(x, aux)
+        return x, aux
+
+    n, g = len(blocks), cfg.remat_group
+    if remat and g > 1 and n % g == 0:
+        for j in range(g):
+            x, aux = _checkpoint(functools.partial(run, j * n // g,
+                                                   (j + 1) * n // g), x, aux)
+        return x, aux
+    return run(0, n, x, aux)
 
 
 def loss_fn(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],

@@ -213,7 +213,9 @@ class GraphEntry:
     be abstract); ``__call__`` dispatches.  ``n_compiles`` counts shape keys
     built, ``warm_calls`` calls that built nothing, ``calls`` every call.
     The returned tensors are the graph's static outputs: read them before
-    the next call of the same entry."""
+    the next call of the same entry.  Every call and capture runs under
+    ``torch.no_grad()``: a served model whose parameters were trained
+    (``requires_grad``) records no autograd graph."""
 
     def __init__(self, name: str, fn: Callable, *, device: torch.device,
                  graphs: bool, log: Optional[CompileLog] = None, pool=None,
@@ -233,6 +235,7 @@ class GraphEntry:
         self.warm_calls = 0
         self.calls = 0
 
+    @torch.no_grad()
     def capture(self, *args, label: str = "") -> bool:
         """Build ``args``'s shape key ahead of time; False when it is
         already built."""
@@ -242,6 +245,7 @@ class GraphEntry:
         self._build(key, args, label or _describe(args), "prewarm")
         return True
 
+    @torch.no_grad()
     def __call__(self, *args):
         key = _shape_key(args)
         exe = self._exe.get(key)

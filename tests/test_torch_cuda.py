@@ -3,7 +3,8 @@ the device, in float32 and bfloat16 (the verify kernels also against
 decode launches, bit for bit), plus the fused engines (llama GQA,
 deepseek MLA + MoE) against the gather oracle, the speculative engines
 against the plain ones, and the graphed engines (paged and slotted) and
-the graphed sequential oracle against their eager runs.  Marked ``cuda``; each test
+the graphed sequential oracle against their eager runs, and the bf16 LM
+head's hand-written backward against f32 autograd.  Marked ``cuda``; each test
 skips (with a reason) where torch sees no card.  Run on the card with
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1207,3 +1208,30 @@ def test_f32_body_split_k_same_bits_and_packed(nm, r, c, k):
     y2 = _once_and_again(mod.SPMM_KERNEL, lambda: mod.nm_spmm(
         sp.values, sp.indices, b, n, m))
     _close_f32(y2, mod.nm_spmm_plain(sp.values, sp.indices, b, n, m))
+
+
+@pytest.mark.parametrize("n,d,v", [(256, 2048, 8192), (37, 256, 1000)])
+def test_lm_head_backward_matches_f32_autograd(n, d, v):
+    """The tied LM head on bf16 operands: ``_HeadMM``'s f32 logits and its
+    hand-written backward (d/dx, d/demb under an f32 cotangent) against
+    autograd of the f32 product on the same card, each gradient within
+    one bf16 rounding step of its largest value."""
+    from repro_torch.models.common import _HeadMM
+    g = torch.Generator(device="cuda").manual_seed(n + d + v)
+    x = torch.randn(n, d, generator=g, device="cuda").to(torch.bfloat16)
+    emb = (torch.randn(v, d, generator=g, device="cuda")
+           * d ** -0.5).to(torch.bfloat16)
+    ct = torch.randn(n, v, generator=g, device="cuda")
+    xa, ea = x.clone().requires_grad_(True), emb.clone().requires_grad_(True)
+    got = _HeadMM.apply(xa, ea)
+    got.backward(ct)
+    xb, eb = x.clone().requires_grad_(True), emb.clone().requires_grad_(True)
+    want = xb.float() @ eb.float().t()
+    want.backward(ct)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for a, b in ((xa.grad, xb.grad), (ea.grad, eb.grad)):
+        assert a.dtype == torch.bfloat16
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=2 ** -7,
+                                   atol=2 ** -7 * scale)

@@ -25,7 +25,12 @@ JSON line:
 * with ``--rates``: ``tokens_per_s`` of full-width llama3.2-1b and
   deepseek-v2-lite-16b through the plain engine (chip_smoke's phase-3/4
   trace, configuration and timed run; graphed and prewarmed where the
-  checkout's ``chip_smoke.py`` has ``graphed``).
+  checkout's ``chip_smoke.py`` has ``graphed``), and of the models of
+  chip_smoke's phases 10-12 on their paged fused engine runs (gemma2-9b,
+  falcon-mamba-7b and zamba2-7b at the depths those phases serve,
+  whisper-small and qwen2-vl-7b with their qkv biases drawn, qwen2-vl-7b
+  on its embeddings trace); and ``tokens_sha1``: a digest of each run's
+  tokens in request order, so two checkouts' tokens compare.
 * with ``--spec-twice``: full-width deepseek-v2-lite-16b served twice
   through the speculative engine (chip_smoke's phase-6 trace and
   configuration): ``requests_identical`` of 16 between the two runs and
@@ -69,6 +74,7 @@ JSON line:
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -412,27 +418,57 @@ def device_table(torch, F, smoke, own) -> dict:
     return out
 
 
+def rate_cases(smoke) -> tuple:
+    """(arch, layers (None: as published), launch path, whether the qkv
+    biases are drawn, the trace (None: phase 3's)) of each model that
+    ``rates`` serves; the phases 10-12 models only where the checkout's
+    ``chip_smoke.py`` has them."""
+    cases = (("llama3.2-1b", None, smoke.LLAMA_PATH, False, None),
+             ("deepseek-v2-lite-16b", None, smoke.DEEPSEEK_PATH, False,
+              None))
+    if hasattr(smoke, "vlm_trace"):
+        cases += (
+            ("gemma2-9b", smoke.GEMMA_SERVE_LAYERS, smoke.LLAMA_PATH, False,
+             None),
+            ("falcon-mamba-7b", smoke.SSM_SERVE_LAYERS["falcon-mamba-7b"],
+             smoke.SSM_PATH, False, None),
+            ("zamba2-7b", smoke.SSM_SERVE_LAYERS["zamba2-7b"],
+             smoke.HYBRID_PATH, False, None),
+            ("whisper-small", None, smoke.ENCDEC_PATH, True, None),
+            ("qwen2-vl-7b", None, smoke.ENCDEC_PATH, True, smoke.vlm_trace))
+    return cases
+
+
 def rates(torch, smoke) -> dict:
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import init_model
-    out = {}
-    for arch, path in (("llama3.2-1b", smoke.LLAMA_PATH),
-                       ("deepseek-v2-lite-16b", smoke.DEEPSEEK_PATH)):
+    out, tokens = {}, {}
+    for arch, layers, path, biases, trace in rate_cases(smoke):
         cfg = get_config(arch)
-        if arch.startswith("deepseek"):
+        if layers is not None:
+            cfg = cfg.replace(n_layers=layers)
+        if arch != "llama3.2-1b":       # compressed as drawn
             cfg = cfg.replace(sparsity=dataclasses.replace(
                 cfg.sparsity, mode="compressed"))
         model = init_model(cfg, seed=0, device="cuda")
+        if biases:
+            smoke.draw_biases(torch, model, seed=1)
         kw = dict(n_slots=8, max_len=128 + 32, compressed=True, kv="paged",
                   attn="fused", block_size=16, device="cuda")
         kw = getattr(smoke, "graphed", dict)(kw)
-        run = smoke.serve_run(torch, model, cfg, path, kw, arch)
-        out[arch] = run[0].stats()["tokens"] / run[3]
+        eng, reqs, _, wall, _ = smoke.serve_run(
+            torch, model, cfg, path, kw, arch,
+            None if trace is None else trace(cfg))
+        out[arch] = eng.stats()["tokens"] / wall
+        digest = hashlib.sha1()
+        for r in reqs:
+            digest.update(eng.results[r.rid].tokens.astype("<i4").tobytes())
+        tokens[arch] = digest.hexdigest()
         del eng, model
         torch.cuda.empty_cache()
-    return dict(tokens_per_s=out)
+    return dict(tokens_per_s=out, tokens_sha1=tokens)
 
 
 def serve_twice(torch, smoke) -> dict:
