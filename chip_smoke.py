@@ -216,18 +216,19 @@ steady tick and the graph pool's bytes.
    within 1e-3, end to end for falcon and block by block for zamba2 (its
    15 blocks amplify float32 rounding past 1e-3 end to end; the line
    prints that floor).
-12. The last two families at full width and depth, bf16, 2:4 compressed
+12. The last two families at full width (whisper at full depth, qwen2-vl
+   at ``ENCDEC_SERVE_LAYERS``, cut for the run's time), bf16, 2:4 compressed
    as drawn, qkv biases drawn nonzero (N(0, 0.5^2); the models zero
    them, as the reference does): 12a whisper-small (12 encoder + 12
    decoder layers, d 768, 12 heads of 64, d_ff 3072 gelu, vocab 51865;
-   each request 128 tokens + 1500 encoder frames), 12b qwen2-vl-7b (28
-   layers, d 3584, 28 / 4 heads of 128, d_ff 18944, vocab 152064;
+   each request 128 tokens + 1500 encoder frames), 12b qwen2-vl-7b (14
+   of its 28 layers, d 3584, 28 / 4 heads of 128, d_ff 18944, vocab 152064;
    embeddings prompts of one drawn length in 100-128 per fixed batch of
    8, padded up to the 128 bucket).  Each: phase 3's trace on the paged
    fused engine, graphed and prewarmed, the eager engine beside it, a
    second run; hard: nm_spmv launched ticks x the tick's linears (whisper
-   12 x 9: no cross wk / wv; qwen2-vl 28 x 7), paged_gqa_decode ticks x
-   layers, nm_xwt admissions x every linear (whisper 216, qwen2-vl 196);
+   12 x 9: no cross wk / wv; qwen2-vl 14 x 7), paged_gqa_decode ticks x
+   layers, nm_xwt admissions x every linear (whisper 216, qwen2-vl 98);
    the steady tick against its byte floor (whisper's counts every slot's
    cross K/V), ``[profile]``; the same trace on paged gather, slotted,
    the sequential oracle and ``prefix_cache=True`` (hard: no hit); a
@@ -242,7 +243,7 @@ steady tick and the graph pool's bytes.
 13. Training (SR-STE, the dense family; no new kernel: the step is plain
    PyTorch).  13a, the reference CLI's defaults at full width and depth:
    llama3.2-1b bf16, srste 2:4, batch 8 x 128, grad_accum 4, remat on,
-   AdamW with f32 masters, base_lr 3e-4, warmup 100, 20 steps of
+   AdamW with f32 masters, base_lr 3e-4, warmup 100, 10 steps of
    ``train_loop`` checkpointing into a temp dir: median ms a step after
    step 2, tokens/s, peak memory, first and last loss, the model-FLOP
    share of the dense bf16 peak (6 x parameters x tokens), a ``[profile]``
@@ -255,7 +256,7 @@ steady tick and the graph pool's bytes.
    2 layers: 6 steps
    straight against 3, a checkpoint, a fresh ``train_loop`` that
    restores and 3 more (losses within rtol 2e-4, atol 2e-5; the largest
-   parameter difference).  13d, f32 at 4 layers: one step on the card
+   parameter difference).  13d, f32 at 2 layers: one step on the card
    and on the CPU from the same weights and batch (loss within 1e-5
    relative, every gradient and updated parameter within 1e-4); the bf16
    LM head's hand-written backward at 13a's shape against f32 autograd
@@ -265,7 +266,30 @@ steady tick and the graph pool's bytes.
    greedy decode by the trained srste model's ``forward``; then 13b's
    model compressed in bf16 on the same engine (tokens/s); their
    launches are the ``train_serve`` path.
-14. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
+14. Training of the other families (SR-STE; no new kernel), for
+   deepseek-v2-lite-16b, gemma2-9b, falcon-mamba-7b, zamba2-7b,
+   whisper-small and qwen2-vl-7b.  14a, full width at cut depth
+   (``cut_depth``: deepseek 2 = its dense layer and one MoE layer of 64
+   experts, gemma2 one local / global pair, falcon 4, zamba2 one group of
+   6 and the shared block, whisper whole 12 + 12, qwen2-vl 2): bf16,
+   srste 2:4, batch 8 x 128, each config's grad_accum / remat /
+   remat_group, AdamW with f32 masters, 6 ``make_train_step`` steps:
+   median ms a step after step 2, tokens/s, the model-FLOP share (MoE:
+   active parameters; whisper's encoder over its frames), the byte floor
+   as 13a's, peak memory, the losses; hard: finite losses and every
+   parameter's master moving at every step; a ``[profile]`` of one more
+   step for deepseek (expert views under STE) and falcon (the scan under
+   autograd).  14b, each reduced f32 config, 2 steps, each on the card
+   and on the CPU from the CPU's state: loss within 1e-5 relative,
+   gradients and parameters within 1e-4 (an element whose Adam update is
+   ill-conditioned within 2 lr).  14c, train -> compress -> serve: f32 at
+   full width (2 layers; falcon 4, zamba2 6, whisper 2 + 2), 3 srste
+   steps, ``convert_to_compressed``, 4 requests of 64 + 8 through the
+   graphed paged fused engine (deepseek at a capacity factor of E, so no
+   route drops): tokens equal greedy ``forward`` of the trained model,
+   launches equal ticks x the tick's linears / attention layers and
+   prefills x the prefill's linears; the ``train_serve_<arch>`` paths.
+15. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
    device line last.  The total time is printed on the ``[done]`` line.
 """
 
@@ -3964,6 +3988,9 @@ BIAS_SCALE = 0.5
 ENCDEC_EXACT_PROMPTS = (37, 37, 2, 2)
 ENCDEC_EXACT_GENS = (12, 9)
 ENCDEC_EXACT_LAYERS = {"whisper-small": 12, "qwen2-vl-7b": 4}
+# phase 12b at 14 of qwen2-vl's 28 layers (cut for the run's time, with
+# phase 14 beside it; whisper stays whole)
+ENCDEC_SERVE_LAYERS = {"qwen2-vl-7b": 14}
 
 
 def draw_biases(torch, model, seed: int) -> int:
@@ -4082,7 +4109,8 @@ def serve_encdec_vlm(torch, card, arch, phase):
     from repro_torch.serve.sequential import FixedBatch
     t_phase = time.perf_counter()
     cfg = get_config(arch)
-    cfg = cfg.replace(sparsity=dataclasses.replace(cfg.sparsity,
+    cfg = cfg.replace(n_layers=ENCDEC_SERVE_LAYERS.get(arch, cfg.n_layers),
+                      sparsity=dataclasses.replace(cfg.sparsity,
                                                    mode="compressed"))
     audio = cfg.family == "audio"
     torch.cuda.empty_cache()
@@ -4372,7 +4400,8 @@ def phase_encdec_vlm(torch, card):
 # ----------------------------------------------------------------- phase 13
 
 TRAIN_ARCH = "llama3.2-1b"
-TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 20, 8, 128
+# 13a: 10 steps (cut from 20 for the run's time)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 10, 8, 128
 # 13b draws its tokens from the first 32 ids, 13a's batch of 1024 tokens
 # a step (each id about 32 times), for 60 steps: 16 layers at full width
 # learn the mapping there, and the gate below can tell it from the label
@@ -4380,7 +4409,10 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 20, 8, 128
 # ids leave a 16-layer model at the range's ln 512)
 MAP_STEPS, MAP_BATCH, MAP_SEQ = 60, 8, 128
 MAP_IDS = 32
-TRAIN_LAYERS = 4                 # 13d / 13e: full width, cut in depth
+TRAIN_LAYERS = 4                 # 13e: full width, cut in depth
+# 13d: 2 layers (cut from 4 for the run's time: its CPU step was most
+# of it)
+CARD_CPU_LAYERS = 2
 # 13c: 2 layers (cut from 4 for the run's time: its checkpoints,
 # 6 GB each, are most of it)
 RESUME_LAYERS = 2
@@ -4604,7 +4636,7 @@ def phase_card_vs_cpu(torch, card):
                                    warmup_cosine)
     free_card(torch)
     t0 = time.perf_counter()
-    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS,
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=CARD_CPU_LAYERS,
                                          dtype="float32", grad_accum=1)
     ocfg = AdamWConfig(master_weights=False)
     batch = SyntheticLMData(cfg, 2, 64, seed=4).batch_at(0)
@@ -4624,7 +4656,7 @@ def phase_card_vs_cpu(torch, card):
     rel = abs(lg - lc) / abs(lc)
     gerr = max(_max_diff(gg[k], gc_[k]) for k in gc_)
     perr = max(_max_diff(pg[k], pc[k]) for k in pc)
-    log(f"[13d f32 grads] {card}: {TRAIN_LAYERS} layers f32 (TF32 off), "
+    log(f"[13d f32 grads] {card}: {CARD_CPU_LAYERS} layers f32 (TF32 off), "
         f"batch 2 x 64: loss card {lg:.7f} CPU {lc:.7f} (relative "
         f"{rel:.2e}, tol 1e-5); largest gradient difference {gerr:.3e}, "
         f"updated parameter {perr:.3e} (tol {GRAD_TOL}); the step "
@@ -4794,6 +4826,335 @@ def phase_train(torch, card):
     return {"train_serve": launches}
 
 
+# ----------------------------------------------------------- phase 14
+
+FAMILY_ARCHS = ("deepseek-v2-lite-16b", "gemma2-9b", "falcon-mamba-7b",
+                "zamba2-7b", "whisper-small", "qwen2-vl-7b")
+# 14a: full width, depth cut as ``cut_depth`` allows (deepseek its dense
+# layer and one MoE layer of 64 experts, gemma2 one local / global pair,
+# zamba2 one group of 6 and the shared block; whisper whole, 12 + 12)
+FAMILY_TRAIN_LAYERS = {"deepseek-v2-lite-16b": 2, "gemma2-9b": 2,
+                       "falcon-mamba-7b": 4, "zamba2-7b": 6,
+                       "whisper-small": None, "qwen2-vl-7b": 2}
+FAMILY_STEPS = 6
+FAMILY_PROFILE = ("deepseek-v2-lite-16b", "falcon-mamba-7b")
+# 14c: f32 at full width; zamba2 needs a whole group (6) for its shared
+# block, whisper keeps 2 encoder and 2 decoder blocks
+SERVE_TRAIN_LAYERS = {"deepseek-v2-lite-16b": 2, "gemma2-9b": 2,
+                      "falcon-mamba-7b": 4, "zamba2-7b": 6,
+                      "whisper-small": 2, "qwen2-vl-7b": 2}
+SERVE_TRAIN_ENC = {"whisper-small": 2}
+SERVE_TRAIN_PROMPT, SERVE_TRAIN_GEN, SERVE_TRAIN_REQS = 64, 8, 4
+
+
+def train_flops(cfg, tokens: int, frames: int) -> tuple:
+    """(model FLOPs of one training step: 6 x the parameters a token uses x
+    tokens, and that count of parameters).  MoE counts the active
+    parameters (top-k routed + shared experts); the audio family's encoder
+    parameters see ``frames`` encoder frames, the rest ``tokens``."""
+    from repro_torch.models import param_count
+    active = param_count(cfg, active_only=bool(cfg.n_experts))
+    if cfg.family != "audio":
+        return 6 * active * tokens, active
+    enc = active - param_count(cfg.replace(enc_layers=0))
+    return 6 * ((active - enc) * tokens + enc * frames), active
+
+
+def phase_train_family(torch, card, arch):
+    """14a: ``make_train_step`` at full width and cut depth, bf16, srste
+    2:4, batch 8 x 128, the config's grad_accum / remat / remat_group,
+    AdamW with f32 masters, ``FAMILY_STEPS`` steps from step 1 (the
+    warmup's lr is 0 at step 0).  Gates: finite losses; every parameter's
+    master moves at every step.  A ``[profile]`` of one more step for the
+    ``FAMILY_PROFILE`` archs.  Returns the median step ms."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData, to_device
+    from repro_torch.launch.steps import make_train_step, named_params
+    from repro_torch.launch.train import cut_depth
+    from repro_torch.models import init_model, param_count
+    from repro_torch.optim import AdamWConfig, adamw_init
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = cut_depth(get_config(arch), FAMILY_TRAIN_LAYERS[arch])
+    model = init_model(cfg, seed=0, device="cuda")
+    ocfg = AdamWConfig(master_weights=True)
+    opt = adamw_init(named_params(model), ocfg)
+    step_fn = make_train_step(cfg, ocfg)
+    data = SyntheticLMData(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    init_s = time.perf_counter() - t0
+    losses, secs, frozen = [], [], set()
+    for step in range(1, FAMILY_STEPS + 1):
+        probe = {k: v.view(-1)[:4096].clone()
+                 for k, v in opt["master"].items()}
+        batch = to_device(next(data), "cuda")
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        model, opt, m = step_fn(model, opt, batch, step)
+        losses.append(float(m["loss"]))         # the read-back syncs
+        secs.append(time.perf_counter() - ts)
+        frozen |= {k for k, v in probe.items()
+                   if torch.equal(opt["master"][k].view(-1)[:4096], v)}
+    peak = torch.cuda.max_memory_allocated()
+    ms = _median(secs[2:]) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    frames = TRAIN_BATCH * cfg.enc_seq if cfg.family == "audio" else 0
+    flops, active = train_flops(cfg, tokens, frames)
+    n_params = param_count(cfg)
+    # as 13a: each parameter's bf16 weight read and written, its f32
+    # master / mu / nu read and written, the f32 gradient sum
+    state_bytes = n_params * (2 * 2 + 3 * 8 + 8)
+    floor, by = bound_ms(state_bytes, flops, "bfloat16")
+    depth = (f"{cfg.enc_layers} + {cfg.n_layers}L" if cfg.family == "audio"
+             else f"{cfg.n_layers}L")
+    log(f"[14a {arch}] {card}: {depth} d{cfg.d_model} {cfg.dtype} srste "
+        f"{cfg.sparsity.n}:{cfg.sparsity.m}, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, grad_accum {cfg.grad_accum}, remat {cfg.remat} "
+        f"(group {cfg.remat_group}), AdamW f32 masters: {n_params / 1e9:.3f} "
+        f"B parameters; median {ms:.1f} ms/step after step 2 = "
+        f"{tokens / ms * 1e3:.0f} tokens/s; steps "
+        f"{[round(1e3 * t, 1) for t in secs]} ms; model FLOPs 6 x "
+        f"{active / 1e9:.3f} B {'active ' if cfg.n_experts else ''}"
+        f"parameters x {tokens} tokens"
+        + (f" (the encoder's x {frames} frames)" if frames else "")
+        + f" = {flops / 1e12:.2f} TFLOP, "
+        f"{100 * flops / (ms * 1e-3) / PEAK_FLOPS['bfloat16']:.2f}% of "
+        f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s; floor {floor:.2f} ms "
+        f"({by}: {state_bytes / 1e9:.1f} GB of weights and optimizer "
+        f"state); peak {gib(peak)}; losses {[round(x, 4) for x in losses]}; "
+        f"init {init_s:.1f}s")
+    if not all(abs(x) < 1e3 for x in losses) or frozen:
+        raise SystemExit(f"phase 14a {arch}: losses {losses}; parameters "
+                         f"that did not move in a step: {sorted(frozen)}")
+    if arch in FAMILY_PROFILE:
+        batch = to_device(data.batch_at(FAMILY_STEPS), "cuda")
+        log(f"[profile] {card}: 14a {arch} train step {FAMILY_STEPS + 1}: "
+            + train_profile(torch, step_fn, model, opt, batch,
+                            FAMILY_STEPS + 1))
+    del model, opt
+    free_card(torch)
+    return ms
+
+
+def phase_family_card_vs_cpu(torch, card, arch):
+    """14b: the reduced f32 config, two steps, each run on the card and on
+    the CPU from the CPU's weights and optimizer state: the loss within
+    1e-5 relative; each gradient and each updated parameter within
+    ``GRAD_TOL`` of its leaf's scale, max(1, the leaf's largest CPU
+    value): an f32 gradient element is a sum whose rounding follows the
+    terms' size, not its own (zamba2's reduced model carries gradients of
+    up to 2.8, and its CPU f32 gradients are 2.7e-5 from an f64
+    evaluation at the first step).  A parameter whose Adam update is
+    ill-conditioned (sqrt(nu-hat) under 1e-6: u = m-hat / (sqrt(nu-hat)
+    + 1e-8) turns on gradient digits beneath the tolerance there) is held
+    to 2 lr.  Prints the largest absolute differences and the largest
+    share of the tolerance used."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData, to_device
+    from repro_torch.launch.steps import loss_and_grads, named_params
+    from repro_torch.models import init_model
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   warmup_cosine)
+    cfg = get_config(arch, smoke=True).replace(grad_accum=1)
+    ocfg = AdamWConfig(master_weights=False)
+    data = SyntheticLMData(cfg, 2, 32, seed=4)
+    cpu = init_model(cfg, seed=2, device="cpu")
+    opt = adamw_init(named_params(cpu), ocfg)
+    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0}
+    used = {"grad": 0.0, "param": 0.0}
+    ill = 0
+
+    def share(got, want):
+        scale = max(1.0, float(want.abs().max()))
+        return float((got - want).abs().max()) / (GRAD_TOL * scale)
+    for step in (1, 2):
+        card_model = copy.deepcopy(cpu).cuda()
+        card_opt = {k: ({n: t.cuda() for n, t in v.items()}
+                        if isinstance(v, dict) else v.cuda())
+                    for k, v in copy.deepcopy(opt).items()}
+        lr = warmup_cosine(step, 1e-3, 2, 10000)
+        out = []
+        for model, st, where in ((cpu, opt, "cpu"),
+                                 (card_model, card_opt, "cuda")):
+            params = named_params(model)
+            loss, grads = loss_and_grads(model, cfg,
+                                         to_device(data.batch_at(step),
+                                                   where))
+            adamw_update(grads, st, params, lr, ocfg)
+            out.append((float(loss), {k: g.cpu() for k, g in grads.items()},
+                        {k: p.detach().cpu() for k, p in params.items()}))
+        (lc, gc, pc), (lg, gg, pg) = out
+        worst["loss"] = max(worst["loss"], abs(lg - lc) / abs(lc))
+        worst["grad"] = max(worst["grad"],
+                            max(_max_diff(gg[k], gc[k]) for k in gc))
+        used["grad"] = max(used["grad"],
+                           max(share(gg[k], gc[k]) for k in gc))
+        for k in pc:
+            vhat = opt["nu"][k] / (1 - ocfg.b2 ** step)
+            bad = vhat.sqrt() < 1e-6
+            diff = (pg[k] - pc[k]).abs()
+            ill += int(bad.sum())
+            if (~bad).any():
+                worst["param"] = max(worst["param"], float(diff[~bad].max()))
+                used["param"] = max(used["param"],
+                                    share(pg[k][~bad], pc[k][~bad]))
+            if bad.any() and float(diff[bad].max()) > 2 * float(lr) + 1e-6:
+                raise SystemExit(f"phase 14b {arch}: {k} moved "
+                                 f"{float(diff[bad].max()):.3e} where its "
+                                 f"update is ill-conditioned")
+        del card_model, card_opt
+    log(f"[14b {arch}] {card}: reduced f32 config ({cfg.n_layers}L d"
+        f"{cfg.d_model}), 2 steps, each from the CPU's state: loss "
+        f"relative {worst['loss']:.2e} (tol 1e-5), gradients "
+        f"{worst['grad']:.3e}, parameters {worst['param']:.3e} (tol "
+        f"{GRAD_TOL} x max(1, the leaf's largest value): {used['grad']:.2f}"
+        f" / {used['param']:.2f} of it used; {ill} ill-conditioned "
+        f"elements within 2 lr)")
+    if not (worst["loss"] <= 1e-5 and used["grad"] <= 1.0
+            and used["param"] <= 1.0):
+        raise SystemExit(f"phase 14b {arch}: the card's f32 steps disagree "
+                         f"with the CPU's: {worst}, {used} of the "
+                         f"tolerance")
+
+
+def serve_linears(model, cfg):
+    """(N:M linears a decode tick runs, linears a prefill runs) of a
+    compressed model (at full width every linear is compressed): every
+    linear but the expert stacks (their dense views are batched products,
+    not kernels); MLA decode reads ``wuk`` / ``wuv`` decompressed; the
+    hybrid runs its shared block once per group; the audio family's tick
+    skips the cross ``wk`` / ``wv``."""
+    from repro_torch.core.layers import SparseLinear, StackedLinear
+    lins = [m for m in model.modules() if isinstance(m, SparseLinear)
+            and not isinstance(m, StackedLinear)]
+    if cfg.family == "hybrid":
+        n = ssm_linears_per_tick(model)
+        return n, n
+    if cfg.family == "audio":
+        return len(tick_linears(model)), len(lins)
+    return len(lins) - (2 * cfg.n_layers if cfg.mla else 0), len(lins)
+
+
+def phase_family_train_serve(torch, card, arch):
+    """14c: train -> compress -> serve.  f32 at full width and
+    ``SERVE_TRAIN_LAYERS`` depth, 3 srste steps, ``convert_to_compressed``,
+    4 requests through the graphed paged fused engine (prewarmed, strict):
+    the tokens equal greedy decode by the trained model's ``forward``;
+    each kernel's launches equal the ticks' and prefills' counts.  deepseek
+    runs at a capacity factor of E, so that no route drops in the engine's
+    batches or in ``forward``'s.  Returns the launches."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.layers import SparseLinear
+    from repro_torch.data import SyntheticLMData, to_device
+    from repro_torch.launch.steps import make_train_step, named_params
+    from repro_torch.launch.train import cut_depth
+    from repro_torch.models import (convert_to_compressed, forward,
+                                    init_model)
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.serve import ServeEngine, synthetic_trace
+    free_card(torch)
+    t0 = time.perf_counter()
+    cfg = cut_depth(get_config(arch).replace(dtype="float32", grad_accum=1),
+                    SERVE_TRAIN_LAYERS[arch], SERVE_TRAIN_ENC.get(arch))
+    if cfg.n_experts:
+        cfg = cfg.replace(capacity_factor=float(cfg.n_experts))
+    model = init_model(cfg, seed=3, device="cuda")
+    ocfg = AdamWConfig(master_weights=False)
+    opt = adamw_init(named_params(model), ocfg)
+    step_fn = make_train_step(cfg, ocfg, base_lr=3e-3, warmup=1)
+    data = SyntheticLMData(cfg, 2, SERVE_TRAIN_PROMPT, seed=5)
+    losses = []
+    for i in range(3):
+        model, opt, m = step_fn(model, opt, to_device(next(data), "cuda"),
+                                i + 1)
+        losses.append(float(m["loss"]))
+    del opt
+    ccfg = cfg.replace(sparsity=dataclasses.replace(cfg.sparsity,
+                                                    mode="compressed"))
+    served = convert_to_compressed(model, ccfg)
+    if any(not m.compressed and ccfg.sparsity.applies(*m.w.shape[:-3:-1])
+           for m in served.modules() if isinstance(m, SparseLinear)):
+        raise SystemExit(f"phase 14c {arch}: a linear stayed dense")
+    reqs = synthetic_trace(cfg, n_requests=SERVE_TRAIN_REQS,
+                           prompt_len=SERVE_TRAIN_PROMPT,
+                           gen_lens=[SERVE_TRAIN_GEN], seed=0)
+    eng = ServeEngine(served, ccfg, **graphed(dict(
+        n_slots=SERVE_TRAIN_REQS, max_len=SERVE_TRAIN_PROMPT + 16,
+        kv="paged", attn="fused", block_size=16, device="cuda")))
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    results = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - ts
+    launches = {k.name: k.launches for k in kernels.all_kernels()}
+    st = eng.stats()
+    if (not eng.graphs or st["mid_serve_compiles"]
+            or st["tokens"] != SERVE_TRAIN_REQS * SERVE_TRAIN_GEN):
+        raise SystemExit(f"phase 14c {arch}: the engine did not serve every "
+                         f"token from its prewarmed graphs")
+    tick, pre = serve_linears(served, ccfg)
+    attn_layers = (len(served.groups) if cfg.family == "hybrid"
+                   else 0 if cfg.family == "ssm" else cfg.n_layers)
+    want = {"nm_spmv": eng.decode_steps * tick,
+            "nm_xwt": eng.prefill_calls * pre,
+            "paged_mla_decode" if cfg.mla else "paged_gqa_decode":
+            eng.decode_steps * attn_layers}
+    with torch.no_grad():
+        ref = {}
+        for r in reqs:
+            gen = []
+            for _ in range(r.max_new_tokens):
+                logits, _ = forward(model, cfg,
+                                    prompt_batch(torch, model, r.inputs, gen))
+                gen.append(int(logits[0, -1].argmax()))
+            ref[r.rid] = gen
+    bad = [r.rid for r in reqs
+           if not np.array_equal(results[r.rid].tokens, ref[r.rid])]
+    log(f"[14c {arch}] {card}: f32 {cfg.n_layers}L"
+        + (f" (+ {cfg.enc_layers} encoder)" if cfg.family == "audio" else "")
+        + f" d{cfg.d_model} trained 3 srste steps (losses "
+        f"{[round(x, 4) for x in losses]}), compressed, {SERVE_TRAIN_REQS} "
+        f"requests of {SERVE_TRAIN_PROMPT} + {SERVE_TRAIN_GEN} through the "
+        f"graphed paged fused engine in {wall:.3f}s: {eng.decode_steps} "
+        f"ticks, {eng.prefill_calls} prefills; served tokens equal greedy "
+        f"forward in {len(reqs) - len(bad)}/{len(reqs)} requests; launches "
+        f"{ {k: v for k, v in launches.items() if v} } (expected {want}); "
+        f"{time.perf_counter() - t0:.1f}s")
+    if bad:
+        raise SystemExit(f"phase 14c {arch}: served tokens differ from the "
+                         f"trained model's forward in requests {bad}")
+    if any(launches[k] != n for k, n in want.items()) or sum(
+            launches.values()) != sum(want.values()):
+        raise SystemExit(f"phase 14c {arch}: launches {launches} != {want}")
+    del eng, served, model
+    free_card(torch)
+    return launches
+
+
+def phase_train_families(torch, card):
+    """Phase 14: training of the other families (14a-14c).  Returns the
+    launches of each family's train -> serve path."""
+    t0 = time.perf_counter()
+    for arch in FAMILY_ARCHS:
+        phase_train_family(torch, card, arch)
+    log(f"[time] phase 14a {time.perf_counter() - t0:.1f}s")
+    t1 = time.perf_counter()
+    for arch in FAMILY_ARCHS:
+        phase_family_card_vs_cpu(torch, card, arch)
+    log(f"[time] phase 14b {time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
+    paths = {f"train_serve_{arch}": phase_family_train_serve(torch, card,
+                                                              arch)
+             for arch in FAMILY_ARCHS}
+    log(f"[time] phase 14c {time.perf_counter() - t1:.1f}s")
+    log(f"[time] phase 14 {time.perf_counter() - t0:.1f}s")
+    return paths
+
+
 # ------------------------------------------------------------------ main
 
 KERNEL_META = {
@@ -4912,6 +5273,7 @@ def main() -> int:
     by_path.update(phase_ssm(torch, card))
     by_path.update(phase_encdec_vlm(torch, card))
     by_path.update(phase_train(torch, card))
+    by_path.update(phase_train_families(torch, card))
     # the packed variant serves no path of its own: its launches are those
     # of the CNN phase, where it runs on every layer the reference can pack
     kernels_line = []

@@ -28,12 +28,14 @@ state {"mu", "nu", "master", "step"} onto the port's dicts keyed by the
 model's parameter names, and ``to_reference_tree`` /
 ``to_reference_opt_state`` go the other way (per-layer tensors stacked
 back into the reference's [L, ...] leaves, as numpy), for the tests'
-comparisons.  Both cover the plain stacked ``layers`` of the dense family.
+comparisons.  ``reference_path`` names, family by family from the config,
+where each port parameter lives in the reference's tree, so each
+direction is the exact inverse of ``from_reference_params``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -196,28 +198,64 @@ def from_reference_params(tree: Mapping[str, Any], cfg: ArchConfig,
                            for i in range(cfg.n_layers)], lnf)
 
 
-def _reference_leaf(tree: Mapping[str, Any], name: str) -> np.ndarray:
-    """The reference leaf of port parameter ``name``: ``layers.3.attn.wq.w``
-    is layer 3 of ``tree["layers"]["attn"]["wq"]["w"]``."""
-    node, idx = tree, None
-    for part in name.split("."):
-        if part.isdigit():
-            idx = int(part)
-        else:
-            node = node[part]
-    node = np.asarray(node)
-    return node if idx is None else node[idx]
+_STACKS = {"layers": 1, "dense_layers": 1, "enc_layers": 1, "groups": 2,
+           "tail": 1}        # a port module list -> its stacked axes
+
+
+def reference_path(name: str, cfg: Optional[ArchConfig] = None
+                   ) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    """Where port parameter ``name`` lives in the reference's tree: (the
+    key path, the index into the stacked leaf there), the exact inverse of
+    ``from_reference_params`` for ``cfg``'s family (``None``: the dense
+    family's plain ``layers``).  ``layers.3.attn.wq.w`` is
+    (("layers", "attn", "wq", "w"), (3,)); gemma2's block 2i / 2i + 1 is
+    pair i's "local" / "global"; the hybrid's ``groups.g.j`` is [g, j] of
+    "groups", ``tail.t`` [t] of "tail", ``shared`` unstacked; the audio
+    family's decoder ``layers`` are "dec_layers" (their ``attn`` is
+    "self"); an MoE ``router`` is the leaf ``router.w``."""
+    parts = name.split(".")
+    head, rest = (parts[0],), parts[1:]
+    idx: Tuple[int, ...] = ()
+    if parts[0] in _STACKS:
+        n = _STACKS[parts[0]]
+        idx, rest = tuple(int(i) for i in rest[:n]), rest[n:]
+        family = cfg.family if cfg is not None else "dense"
+        if parts[0] == "layers" and family == "audio":
+            head = ("dec_layers",)
+            rest = ["self"] + rest[1:] if rest[0] == "attn" else rest
+        elif parts[0] == "layers" and cfg is not None \
+                and cfg.local_global_period:
+            head = ("pairs", ("local", "global")[idx[0] % 2])
+            idx = (idx[0] // 2,)
+    if rest and rest[-1] == "router":
+        rest = rest + ["w"]
+    return head + tuple(rest), idx
+
+
+def _reference_leaf(tree: Mapping[str, Any], name: str,
+                    cfg: Optional[ArchConfig] = None) -> np.ndarray:
+    """The reference leaf of port parameter ``name`` (``reference_path``):
+    ``layers.3.attn.wq.w`` is layer 3 of ``tree["layers"]["attn"]["wq"]
+    ["w"]``."""
+    path, idx = reference_path(name, cfg)
+    node = tree
+    for key in path:
+        node = node[key]
+    return np.asarray(node)[idx] if idx else np.asarray(node)
 
 
 def from_reference_opt_state(tree: Mapping[str, Any], model: LM,
-                             device="cuda") -> Dict[str, Any]:
-    """The reference's AdamW state (numpy leaves) -> the port's: "mu",
-    "nu" (and "master" when present) as {parameter name: tensor} in the
-    order of ``model.named_parameters()``, "step" an int32 0-d tensor."""
+                             device="cuda",
+                             cfg: Optional[ArchConfig] = None
+                             ) -> Dict[str, Any]:
+    """The reference's AdamW state (numpy leaves) of ``cfg``'s family
+    (``None``: dense) -> the port's: "mu", "nu" (and "master" when present)
+    as {parameter name: tensor} in the order of
+    ``model.named_parameters()``, "step" an int32 0-d tensor."""
     device = resolve_device(device)
     names = [n for n, _ in model.named_parameters()]
     out: Dict[str, Any] = {
-        part: {n: to_torch(_reference_leaf(tree[part], n), device)
+        part: {n: to_torch(_reference_leaf(tree[part], n, cfg), device)
                for n in names}
         for part in ("mu", "nu", "master") if part in tree}
     out["step"] = torch.tensor(int(np.asarray(tree["step"])),
@@ -230,23 +268,29 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def to_reference_tree(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+def to_reference_tree(named: Mapping[str, torch.Tensor],
+                      cfg: Optional[ArchConfig] = None) -> Dict[str, Any]:
     """{port parameter name: tensor} -> the reference's nested tree of
-    numpy leaves (bf16 read as f32), per-layer tensors stacked along a new
-    first axis in layer order."""
+    numpy leaves (bf16 read as f32) for ``cfg``'s family (``None``:
+    dense): each name goes where ``reference_path`` puts it, the per-layer
+    tensors of a stacked leaf stacked along its leading axes in index
+    order."""
     tree: Dict[str, Any] = {}
-    stacks: Dict[tuple, Dict[int, np.ndarray]] = {}
+    stacks: Dict[tuple, Dict[tuple, np.ndarray]] = {}
     for name, t in named.items():
-        parts = name.split(".")
-        digits = [i for i, part in enumerate(parts) if part.isdigit()]
-        if digits:
-            i = digits[0]
-            key = tuple(parts[:i] + parts[i + 1:])
-            stacks.setdefault(key, {})[int(parts[i])] = _numpy(t)
+        path, idx = reference_path(name, cfg)
+        if idx:
+            stacks.setdefault(path, {})[idx] = _numpy(t)
         else:
-            _set(tree, tuple(parts), _numpy(t))
-    for key, per in stacks.items():
-        _set(tree, key, np.stack([per[i] for i in sorted(per)]))
+            _set(tree, path, _numpy(t))
+    for path, per in stacks.items():
+        dims = tuple(max(i[a] for i in per) + 1
+                     for a in range(len(next(iter(per)))))
+        if len(per) != int(np.prod(dims)):
+            raise ValueError(f"{'.'.join(path)}: {len(per)} of the "
+                             f"{dims} stacked entries")
+        leaf = np.stack([per[i] for i in np.ndindex(*dims)])
+        _set(tree, path, leaf.reshape(dims + leaf.shape[1:]))
     return tree
 
 
@@ -256,9 +300,12 @@ def _set(tree: Dict[str, Any], path: tuple, leaf) -> None:
     tree[path[-1]] = leaf
 
 
-def to_reference_opt_state(state: Mapping[str, Any]) -> Dict[str, Any]:
-    """The port's AdamW state -> the reference's tree (numpy leaves)."""
-    out = {part: to_reference_tree(state[part])
+def to_reference_opt_state(state: Mapping[str, Any],
+                           cfg: Optional[ArchConfig] = None
+                           ) -> Dict[str, Any]:
+    """The port's AdamW state -> the reference's tree (numpy leaves) of
+    ``cfg``'s family (``None``: dense)."""
+    out = {part: to_reference_tree(state[part], cfg)
            for part in ("mu", "nu", "master") if part in state}
     out["step"] = np.asarray(int(state["step"]), np.int32)
     return out

@@ -21,15 +21,6 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.optim import AdamWConfig, adamw_update, warmup_cosine
 
 
-def check_trainable(cfg: ArchConfig) -> None:
-    """The trainer covers the dense GQA family; the others raise."""
-    if cfg.family != "dense" or cfg.local_global_period or cfg.mla:
-        raise NotImplementedError(
-            f"{cfg.name}: training is ported for the dense GQA family only; "
-            f"the MoE / MLA, gemma2, SSM / hybrid, audio and vlm families "
-            f"come with ROADMAP A5")
-
-
 def named_params(model: nn.Module) -> Dict[str, torch.Tensor]:
     """The model's parameters by name, their gradients turned on."""
     out = {}
@@ -42,8 +33,9 @@ def named_params(model: nn.Module) -> Dict[str, torch.Tensor]:
 def loss_and_grads(model: nn.Module, cfg: ArchConfig,
                    batch: Dict[str, torch.Tensor], accum: int = 1):
     """(mean loss over ``accum`` microbatches, {name: gradient}) of one
-    batch.  The batch splits along its first axis into ``accum`` equal
-    microbatches whose gradients sum in f32 and are divided by ``accum``;
+    batch of any family ({"tokens" or "embeds", "labels"}, plus the audio
+    family's "enc_embeds").  Every entry splits along its first axis into
+    ``accum`` equal microbatches whose gradients sum in f32 and are divided by ``accum``;
     with ``accum == 1`` the gradients keep the parameters' dtypes, as the
     reference's."""
     params = named_params(model)
@@ -78,7 +70,6 @@ def make_train_step(cfg: ArchConfig, ocfg: AdamWConfig, base_lr: float = 3e-4,
     """(model, opt_state, batch, step) -> (model, opt_state, metrics
     {"loss", "gnorm", "lr"}), the model and state updated in place.
     ``accum`` overrides ``cfg.grad_accum``."""
-    check_trainable(cfg)
     accum = max(accum if accum is not None else cfg.grad_accum, 1)
 
     def train_step(model, opt_state, batch, step):

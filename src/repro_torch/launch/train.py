@@ -4,8 +4,10 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --smoke --steps 50 --batch 8 --seq 128 --ckpt-dir DIR
 
-runs SR-STE training steps on the card (``--device cuda``, the default;
-``--device cpu`` runs the plain path): the synthetic data stream, gradient
+runs SR-STE training steps of any arch on the card (``--device cuda``,
+the default; ``--device cpu`` runs the plain path): the synthetic data
+stream (tokens, the vlm family's embeddings, the audio family's encoder
+frames), gradient
 accumulation (``cfg.grad_accum``; 1 under ``--smoke``), AdamW with f32
 master weights for a bf16 model, a checkpoint every ``--ckpt-every`` steps
 and a blocking one at the end, and resume from the newest complete
@@ -44,14 +46,44 @@ class TrainRun:
     cfg: ArchConfig
 
 
+def cut_depth(cfg: ArchConfig, n_layers: Optional[int] = None,
+              enc_layers: Optional[int] = None) -> ArchConfig:
+    """``cfg`` cut to ``n_layers`` blocks (the audio family: decoder
+    blocks; ``enc_layers`` cuts its encoder), keeping each family's
+    structure: gemma2 whole local / global pairs (an even count), the
+    hybrid whole groups of ``attn_period`` Mamba blocks (with its shared
+    block), MoE its ``first_dense_layers`` and at least one MoE block.  A
+    cut that breaks the structure raises ``ValueError``."""
+    if enc_layers is not None:
+        if cfg.family != "audio" or enc_layers < 1:
+            raise ValueError(f"{cfg.name}: enc_layers={enc_layers} needs the "
+                             f"audio family and at least one block")
+        cfg = cfg.replace(enc_layers=enc_layers)
+    if n_layers is None:
+        return cfg
+    need = {"gemma2 keeps whole local / global pairs":
+            cfg.local_global_period and n_layers % 2,
+            "the hybrid keeps whole groups of attn_period blocks":
+            cfg.family == "hybrid" and n_layers % (cfg.attn_period or 1),
+            "MoE keeps first_dense_layers and one MoE block":
+            cfg.family == "moe" and n_layers <= cfg.first_dense_layers}
+    broken = [why for why, bad in need.items() if bad]
+    if n_layers < 1 or broken:
+        raise ValueError(f"{cfg.name}: cannot cut to n_layers={n_layers}"
+                         + (f" ({broken[0]})" if broken else ""))
+    return cfg.replace(n_layers=n_layers)
+
+
 def train_loop(arch: str, smoke: bool, steps: int, batch: int, seq: int,
                ckpt_dir: str, ckpt_every: int = 20, seed: int = 0,
                use_mesh: bool = False, log_every: int = 10,
                base_lr: float = 3e-4, device="cuda",
-               n_layers: Optional[int] = None) -> TrainRun:
+               n_layers: Optional[int] = None,
+               enc_layers: Optional[int] = None) -> TrainRun:
     """Train ``arch`` from ``init_model``'s draw from ``seed`` for
     ``steps`` steps (from the newest checkpoint in ``ckpt_dir`` when there
-    is one) -> ``TrainRun``.  ``n_layers`` cuts the depth."""
+    is one) -> ``TrainRun``.  ``n_layers`` / ``enc_layers`` cut the depth
+    (``cut_depth``)."""
     if use_mesh:
         raise NotImplementedError("sharded training (--mesh) comes with "
                                   "ROADMAP A4 (distribution)")
@@ -59,8 +91,7 @@ def train_loop(arch: str, smoke: bool, steps: int, batch: int, seq: int,
     cfg = get_config(arch, smoke=smoke)
     if smoke:
         cfg = cfg.replace(grad_accum=1)
-    if n_layers is not None:
-        cfg = cfg.replace(n_layers=n_layers)
+    cfg = cut_depth(cfg, n_layers, enc_layers)
     ocfg = AdamWConfig(master_weights=cfg.dtype == "bfloat16")
     step_fn = make_train_step(cfg, ocfg, base_lr=base_lr)
     data = SyntheticLMData(cfg, batch, seq, seed=seed)

@@ -71,7 +71,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: Optional[int] = None,
                       cap: Optional[float] = None,
                       scale: Optional[float] = None, q_chunk: int = 512,
-                      kv_chunk: int = 1024) -> torch.Tensor:
+                      kv_chunk: int = 1024,
+                      chain_bf16: bool = False) -> torch.Tensor:
     """Online-softmax attention in f32.
 
     q [B, Sq, H, Dq], k [B, Sk, KVH, Dq], v [B, Sk, KVH, Dv]; H % KVH == 0
@@ -79,7 +80,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     in v.dtype.  The q tokens occupy positions Sk - Sq ... Sk - 1.  A
     (q chunk, kv chunk) pair that the causal mask or the window masks
     everywhere is skipped: it would add p = 0 under a correction of exactly
-    1, so skipping it changes no bit.
+    1, so skipping it changes no bit.  ``chain_bf16`` rounds each [cq, ck]
+    score and probability tile to bf16, as the reference's; the running
+    max, the sum and the output accumulate in f32 either way.
     """
     b, sq, h, dq = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -120,7 +123,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             if window is not None:
                 mask = mask & (qpos[:, None] - kpos[None, :] < window)
             step = functools.partial(_kv_step, mask=mask, scale=scale,
-                                     cap=cap)
+                                     cap=cap, chain_bf16=chain_bf16)
             args = (m, l, acc, qg[qi], kc[ki], vc[ki])
             m, l, acc = (torch.utils.checkpoint.checkpoint(
                 step, *args, use_reentrant=False, preserve_rng_state=False)
@@ -131,15 +134,19 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out[:, :sq].to(v.dtype)
 
 
-def _kv_step(m, l, acc, qc, kc, vc, *, mask, scale, cap):
+def _kv_step(m, l, acc, qc, kc, vc, *, mask, scale, cap, chain_bf16=False):
     """One kv chunk of the online softmax: (m, l, acc) of a q chunk ->
     the same after the chunk's keys."""
     s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kc) * scale
     s = softcap(s, cap)
     s = torch.where(mask, s, torch.full_like(s, _NEG))
+    if chain_bf16:
+        s = s.to(torch.bfloat16).float()
     m_new = torch.maximum(m, s.amax(-1))
     p = torch.where(mask, torch.exp(s - m_new[..., None]),
                     torch.zeros_like(s))
+    if chain_bf16:
+        p = p.to(torch.bfloat16).float()
     corr = torch.exp(m - m_new)
     l = l * corr + p.sum(-1)
     acc = acc * corr[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", p, vc)
@@ -369,7 +376,8 @@ def gqa_apply(p: GQA, x: torch.Tensor, cfg: ArchConfig, *,
     if cache is None:
         o = chunked_attention(q, k, v, causal=True, window=window,
                               cap=cfg.softcap_attn, q_chunk=cfg.q_chunk,
-                              kv_chunk=cfg.kv_chunk)
+                              kv_chunk=cfg.kv_chunk,
+                              chain_bf16=cfg.attn_chain_bf16)
         new_kv = {"k": k, "v": v} if return_kv else None
     elif block_table is None:
         # slotted ring buffer: write at pos % L, then the gather read's
@@ -490,7 +498,8 @@ def mla_apply(p: MLA, x: torch.Tensor, cfg: ArchConfig, *,
         q = torch.cat([qn, qpe], dim=-1)
         k = torch.cat([kn, kpe[:, :, None, :].expand(b, s, h, rd)], dim=-1)
         o = chunked_attention(q, k, vv, causal=True, scale=scale,
-                              q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+                              q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                              chain_bf16=cfg.attn_chain_bf16)
         new_kv = {"ckv": ckv, "kpe": kpe} if return_kv else None
     else:
         # absorbed decode in the latent space: the cache stays [kv_lora +
@@ -559,7 +568,8 @@ def cross_attn_apply(p: GQA, x: torch.Tensor,
     q = linear_apply(p.wq, x, sp).reshape(b, s, h, hd)
     k, v = enc_kv
     o = chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
-                          kv_chunk=cfg.kv_chunk)
+                          kv_chunk=cfg.kv_chunk,
+                          chain_bf16=cfg.attn_chain_bf16)
     return linear_apply(p.wo, o.reshape(b, s, h * hd), sp)
 
 

@@ -78,6 +78,9 @@ class ArchConfig:
     q_chunk: int = 512
     kv_chunk: int = 1024
     ssm_chunk: int = 64
+    # chunked attention keeps its [q_chunk, kv_chunk] score and probability
+    # tiles in bf16 (the statistics and accumulations stay f32)
+    attn_chain_bf16: bool = False
     # --- training: per-block activation checkpointing; remat_group G
     # checkpoints G groups of L/G blocks, each block inside its group too,
     # keeping G + L/G block boundaries instead of L (0 = per-block only) ---

@@ -58,14 +58,15 @@ def mlp_apply(p: MLP, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 # ------------------------------------------------------------------------ MoE
 
 class MoE(nn.Module):
-    """Router (f32 [E, d], never sparsified: routing runs in f32), the
-    stacked expert weights and the optional shared-expert MLP."""
+    """Router (an f32 [E, d] parameter, never sparsified: routing runs in
+    f32; trained, as the reference's ``router.w``), the stacked expert
+    weights and the optional shared-expert MLP."""
 
     def __init__(self, router: torch.Tensor, wg: StackedLinear,
                  wu: StackedLinear, wd: StackedLinear,
                  shared: Optional[MLP] = None):
         super().__init__()
-        self.register_buffer("router", router)
+        self.router = nn.Parameter(router.detach(), requires_grad=False)
         self.wg, self.wu, self.wd = wg, wu, wd
         self.shared = shared
 

@@ -45,7 +45,8 @@ class Mamba1(nn.Module):
     a depthwise causal conv, ``x_proj`` (d_inner -> dt_rank + 2 state: dt,
     B, C), ``dt_proj`` (dt_rank -> d_inner, with a bias), ``out_proj``;
     ``conv_w`` [d_inner, K], ``conv_b``, ``A_log`` [d_inner, state] and
-    ``D`` are f32 buffers."""
+    ``D`` are f32 parameters (created with ``requires_grad=False``, as
+    every parameter of the port: the trainer turns them on)."""
 
     def __init__(self, in_proj: SparseLinear, x_proj: SparseLinear,
                  dt_proj: SparseLinear, out_proj: SparseLinear,
@@ -54,15 +55,14 @@ class Mamba1(nn.Module):
         super().__init__()
         self.in_proj, self.x_proj = in_proj, x_proj
         self.dt_proj, self.out_proj = dt_proj, out_proj
-        for name, t in (("conv_w", conv_w), ("conv_b", conv_b),
-                        ("A_log", A_log), ("D", D)):
-            self.register_buffer(name, t)
+        _f32_params(self, conv_w=conv_w, conv_b=conv_b, A_log=A_log, D=D)
 
 
 class Mamba2(nn.Module):
     """Mamba2 mixer: a packed ``in_proj`` (d -> x, z, B, C, dt), the
     depthwise causal conv over x, per-head ``A_log`` / ``D`` / ``dt_bias``
-    (f32), the gated RMS ``norm`` and ``out_proj``."""
+    (f32 parameters, as Mamba1's), the gated RMS ``norm`` and
+    ``out_proj``."""
 
     def __init__(self, in_proj: SparseLinear, out_proj: SparseLinear,
                  norm: RMSNorm, conv_w: torch.Tensor, conv_b: torch.Tensor,
@@ -70,9 +70,16 @@ class Mamba2(nn.Module):
                  dt_bias: torch.Tensor):
         super().__init__()
         self.in_proj, self.out_proj, self.norm = in_proj, out_proj, norm
-        for name, t in (("conv_w", conv_w), ("conv_b", conv_b),
-                        ("A_log", A_log), ("D", D), ("dt_bias", dt_bias)):
-            self.register_buffer(name, t)
+        _f32_params(self, conv_w=conv_w, conv_b=conv_b, A_log=A_log, D=D,
+                    dt_bias=dt_bias)
+
+
+def _f32_params(mod: nn.Module, **leaves: torch.Tensor) -> None:
+    """The mixer's f32 leaves as parameters, gradients off until the
+    trainer turns them on (they are trained, as the reference's)."""
+    for name, t in leaves.items():
+        mod.register_parameter(name, nn.Parameter(t.detach(),
+                                                  requires_grad=False))
 
 
 def _conv_init(gen, di: int, ck: int, device):
@@ -164,7 +171,8 @@ def mamba1_scan(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     cmat [B, S, st] f32, a [di, st] f32 (negative) -> (y [B, S, di],
     h_last [B, di, st]).  Per chunk, h_t = exp(dt_t a) h_{t-1} + dt_t x_t
     B_t for every t at once by an inclusive scan of the pairs (exp(dt a),
-    dt x B) under (a_l, b_l) o (a_r, b_r) = (a_l a_r, b_l a_r + b_r)."""
+    dt x B) under (a_l, b_l) o (a_r, b_r) = (a_l a_r, b_l a_r + b_r).
+    Nothing is written in place, so the scan runs under autograd."""
     bb, s, di = xs.shape
     h = torch.zeros((bb, di, a.shape[1]), dtype=torch.float32,
                     device=xs.device)
@@ -175,8 +183,12 @@ def mamba1_scan(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
         acc_b = (dtk * xs[:, c0:c1])[..., None] * bmat[:, c0:c1, None, :]
         off = 1
         while off < c1 - c0:
-            acc_b[:, off:] = acc_b[:, :-off] * acc_a[:, off:] + acc_b[:, off:]
-            acc_a[:, off:] = acc_a[:, :-off] * acc_a[:, off:]
+            # each level is new tensors (the untouched head, the combined
+            # tail), so autograd keeps every level it differentiates
+            acc_b = torch.cat([acc_b[:, :off], acc_b[:, :-off] * acc_a[:, off:]
+                               + acc_b[:, off:]], dim=1)
+            acc_a = torch.cat([acc_a[:, :off],
+                               acc_a[:, :-off] * acc_a[:, off:]], dim=1)
             off *= 2
         h_all = acc_b + acc_a * h[:, None]
         ys.append(torch.einsum("bcds,bcs->bcd", h_all, cmat[:, c0:c1]))

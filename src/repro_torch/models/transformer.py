@@ -47,10 +47,12 @@ prefill and only read by decode, have no sequence axis, so the paged pool
 keeps them one row per slot beside the paged "self" leaves.
 
 Under autograd (a parameter requires grad: the trainer's steps)
-``forward`` checkpoints every dense / MoE block (``cfg.remat``; with
+``forward`` checkpoints every block (``cfg.remat``; with
 ``cfg.remat_group`` G, also G groups of L / G blocks around them, the
-reference's sqrt-remat), and ``chunked_attention`` each kv step; a pass
-that records no graph runs the blocks plainly.
+reference's sqrt-remat, for the dense / MoE, SSM, encoder and decoder
+stacks), each of the hybrid's groups with its shared block's application
+around its Mamba blocks' own checkpoints, and ``chunked_attention`` each
+kv step; a pass that records no graph runs the blocks plainly.
 
 Public API (family-dispatched):
   init_model(cfg, seed, device)                  -> DenseLM | MoELM | SSMLM
@@ -387,17 +389,17 @@ def _sub(tree: Dict[str, torch.Tensor], *idx: int) -> Dict[str, torch.Tensor]:
     return {name: leaf[idx] for name, leaf in tree.items()}
 
 
-def _state_stack(p: LM, cfg: ArchConfig, x, positions, return_state: bool):
+def _state_stack(p: LM, cfg: ArchConfig, x, positions):
     """The SSM or hybrid stack over x [B, S, d] without caches -> (x before
-    the final norm, the prefill caches when ``return_state``: SSM {"h",
-    "conv"} [L, B, ...]; hybrid {"groups": [G, P, B, ...], "attn": {"k",
-    "v"} [G, B, S, ...], "tail": [T, B, ...]})."""
+    the final norm, the prefill caches: SSM {"h", "conv"} [L, B, ...];
+    hybrid {"groups": [G, P, B, ...], "attn": {"k", "v"} [G, B, S, ...],
+    "tail": [T, B, ...]})."""
 
     def run(blocks):
         nonlocal x
         states = []
         for lp in blocks:
-            x, st = _ssm_block_apply(lp, x, cfg, return_state=return_state)
+            x, st = _ssm_block_apply(lp, x, cfg, return_state=True)
             states.append(st)
         return states
 
@@ -407,23 +409,53 @@ def _state_stack(p: LM, cfg: ArchConfig, x, positions, return_state: bool):
 
     if isinstance(p, SSMLM):
         states = run(p.layers)
-        return x, (stack(states) if return_state else None)
+        return x, stack(states)
     caches, gstates, kvs = {}, [], []
     for group in p.groups:
         gstates.append(run(group))
         x, kv = _dense_block_apply(p.shared, x, cfg, positions=positions,
-                                   window=cfg.window, return_kv=return_state)
+                                   window=cfg.window, return_kv=True)
         kvs.append(kv)
-    if return_state and gstates:
+    if gstates:
         per_group = [stack(g) for g in gstates]
         caches["groups"] = {name: torch.stack([g[name] for g in per_group])
                             for name in per_group[0]}
         caches["attn"] = {name: torch.stack([kv[name] for kv in kvs])
                           for name in kvs[0]}
     tail = run(p.tail)
-    if return_state and tail:
+    if tail:
         caches["tail"] = stack(tail)
-    return x, (caches if return_state else None)
+    return x, caches
+
+
+def _ssm_step(lp: SSMBlock, x, *, cfg: ArchConfig):
+    return (_ssm_block_apply(lp, x, cfg)[0],)
+
+
+def _state_forward(p: LM, cfg: ArchConfig, x, positions, *, remat: bool):
+    """``forward``'s pass over the SSM or hybrid stack (no caches) -> x.
+    Under ``remat`` every Mamba block is a checkpoint (the SSM stack also
+    in ``cfg.remat_group`` groups), and each hybrid group, its shared
+    block's application included, is one around its blocks' own, as the
+    reference's ``_lm_hybrid_forward``."""
+
+    def steps(blocks):
+        return [functools.partial(_ssm_step, lp, cfg=cfg) for lp in blocks]
+
+    if isinstance(p, SSMLM):
+        return _stack_forward(steps(p.layers), (x,), cfg, remat=remat)[0]
+
+    def group_step(group, x):
+        (x,) = _stack_forward(steps(group), (x,), cfg, remat=remat,
+                              grouped=False)
+        x, _ = _dense_block_apply(p.shared, x, cfg, positions=positions,
+                                  window=cfg.window)
+        return (x,)
+
+    fns = [functools.partial(group_step, group) for group in p.groups]
+    (x,) = _stack_forward(fns, (x,), cfg, remat=remat, grouped=False)
+    return _stack_forward(steps(p.tail), (x,), cfg, remat=remat,
+                          grouped=False)[0]
 
 
 def _state_cached(p: LM, cfg: ArchConfig, caches, x, pos, block_table,
@@ -498,29 +530,49 @@ def _dec_block_apply(p: DecBlock, x, cfg: ArchConfig, enc_kv, *, positions,
     return x, new_cache
 
 
-def _encode(p: EncDecLM, cfg: ArchConfig, batch) -> torch.Tensor:
+def _enc_step(lp: EncBlock, x, *, cfg: ArchConfig):
+    return (_enc_block_apply(lp, x, cfg),)
+
+
+def _encode(p: EncDecLM, cfg: ArchConfig, batch, remat: bool = False
+            ) -> torch.Tensor:
+    """The encoder stack over ``batch["enc_embeds"]``, then its final norm;
+    under ``remat`` checkpointed as ``forward``'s other stacks."""
     x = batch["enc_embeds"].to(cfg.tdtype())
-    for lp in p.enc_layers:
-        x = _enc_block_apply(lp, x, cfg)
+    fns = [functools.partial(_enc_step, lp, cfg=cfg) for lp in p.enc_layers]
+    (x,) = _stack_forward(fns, (x,), cfg, remat=remat)
     return _norm(p.enc_lnf, x, cfg)
 
 
-def _encdec_stack(p: EncDecLM, cfg: ArchConfig, x, positions, batch,
-                  return_kv: bool):
+def _dec_step(lp: DecBlock, x, *, cfg: ArchConfig, enc_out, positions):
+    ckv = attn.cross_kv(lp.cross, enc_out, cfg)
+    return (_dec_block_apply(lp, x, cfg, ckv, positions=positions)[0],)
+
+
+def _encdec_forward(p: EncDecLM, cfg: ArchConfig, x, positions, batch, *,
+                    remat: bool) -> torch.Tensor:
+    """``forward``'s pass over the encoder and decoder stacks (no caches)
+    -> x before the final norm; each decoder block projects its cross K/V
+    inside its own checkpoint, as the reference's scan body does."""
+    enc_out = _encode(p, cfg, batch, remat=remat)
+    fns = [functools.partial(_dec_step, lp, cfg=cfg, enc_out=enc_out,
+                             positions=positions) for lp in p.layers]
+    return _stack_forward(fns, (x,), cfg, remat=remat)[0]
+
+
+def _encdec_stack(p: EncDecLM, cfg: ArchConfig, x, positions, batch):
     """The decoder over x [B, S, d], each block cross-attending over its
     projection of the encoded ``batch["enc_embeds"]`` -> (x before the
     final norm, the prefill caches {"self": {"k", "v"} [L, B, S, ...],
-    "cross_k", "cross_v": [L, B, Se, ...]} when ``return_kv``)."""
+    "cross_k", "cross_v": [L, B, Se, ...]})."""
     enc_out = _encode(p, cfg, batch)
     kvs, cross = [], []
     for lp in p.layers:
         ckv = attn.cross_kv(lp.cross, enc_out, cfg)
         x, kv = _dec_block_apply(lp, x, cfg, ckv, positions=positions,
-                                 return_kv=return_kv)
+                                 return_kv=True)
         kvs.append(kv)
         cross.append(ckv)
-    if not return_kv:
-        return x, None
     return x, {"self": {name: torch.stack([kv[name] for kv in kvs])
                         for name in kvs[0]},
                "cross_k": torch.stack([c[0] for c in cross]),
@@ -667,9 +719,9 @@ def prefill(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                 for name in kvs[0]}
 
     if isinstance(p, (SSMLM, HybridLM)):
-        x, caches = _state_stack(p, cfg, x, positions, return_state=True)
+        x, caches = _state_stack(p, cfg, x, positions)
     elif isinstance(p, EncDecLM):
-        x, caches = _encdec_stack(p, cfg, x, positions, batch, True)
+        x, caches = _encdec_stack(p, cfg, x, positions, batch)
     elif isinstance(p, MoELM):
         caches = {"dense": run(p.dense_layers)} if len(p.dense_layers) else {}
         caches["moe"] = run(p.layers)
@@ -698,14 +750,17 @@ def forward(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n_moe = 0
+    remat = cfg.remat and _records_grad(p)
     if isinstance(p, (SSMLM, HybridLM)):
-        x, _ = _state_stack(p, cfg, x, positions, return_state=False)
+        x = _state_forward(p, cfg, x, positions, remat=remat)
     elif isinstance(p, EncDecLM):
-        x, _ = _encdec_stack(p, cfg, x, positions, batch, False)
+        x = _encdec_forward(p, cfg, x, positions, batch, remat=remat)
     else:
         blocks = p.blocks()
-        x, aux = _blocks_forward(blocks, x, cfg, positions, aux,
-                                 remat=cfg.remat and _records_grad(p))
+        fns = [functools.partial(_block_forward, lp, cfg=cfg,
+                                 positions=positions, window=_window(cfg, i))
+               for i, lp in enumerate(blocks)]
+        x, aux = _stack_forward(fns, (x, aux), cfg, remat=remat)
         n_moe = sum(isinstance(lp, MoEBlock) for lp in blocks)
     x = _norm(p.lnf, x, cfg)
     return lm_head_apply(p.embed, x, cfg.softcap_final), aux / max(n_moe, 1)
@@ -730,30 +785,28 @@ def _block_forward(lp, x, aux, *, cfg: ArchConfig, positions, window):
     return x, aux
 
 
-def _blocks_forward(blocks, x, cfg: ArchConfig, positions, aux, *,
-                    remat: bool):
-    """``forward``'s pass over the dense / MoE blocks -> (x, aux + the MoE
-    blocks' aux losses).  Under ``remat`` every block is an activation
-    checkpoint (its activations recomputed in the backward), and with
-    ``cfg.remat_group`` G dividing the depth the G groups of L / G blocks
-    are checkpoints too, around their blocks' own (the reference's
-    sqrt-remat)."""
+def _stack_forward(fns, carry: tuple, cfg: ArchConfig, *, remat: bool,
+                   grouped: bool = True) -> tuple:
+    """``forward``'s pass over a stack: each of ``fns`` maps the carry
+    tuple (x, and the dense / MoE stack's aux sum) to the next.  Under
+    ``remat`` every step is an activation checkpoint (its activations
+    recomputed in the backward), and with ``grouped`` and
+    ``cfg.remat_group`` G dividing the depth the G groups of L / G steps
+    are checkpoints too, around their steps' own (the reference's
+    sqrt-remat, ``_stacked_scan``)."""
 
-    def run(lo: int, hi: int, x, aux):
-        for i in range(lo, hi):
-            fn = functools.partial(_block_forward, blocks[i], cfg=cfg,
-                                   positions=positions,
-                                   window=_window(cfg, i))
-            x, aux = _checkpoint(fn, x, aux) if remat else fn(x, aux)
-        return x, aux
+    def run(lo: int, hi: int, *carry):
+        for fn in fns[lo:hi]:
+            carry = _checkpoint(fn, *carry) if remat else fn(*carry)
+        return carry
 
-    n, g = len(blocks), cfg.remat_group
-    if remat and g > 1 and n % g == 0:
+    n, g = len(fns), cfg.remat_group
+    if remat and grouped and g > 1 and n % g == 0:
         for j in range(g):
-            x, aux = _checkpoint(functools.partial(run, j * n // g,
-                                                   (j + 1) * n // g), x, aux)
-        return x, aux
-    return run(0, n, x, aux)
+            carry = _checkpoint(functools.partial(run, j * n // g,
+                                                  (j + 1) * n // g), *carry)
+        return carry
+    return run(0, n, *carry)
 
 
 def loss_fn(p: LM, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
@@ -878,7 +931,7 @@ def _linears(module: nn.Module) -> List[SparseLinear]:
 def convert_to_compressed(p: LM, cfg: ArchConfig) -> LM:
     """Model-wide offline packing pass: every SparseLinear (expert stacks
     included) the sparsity policy applies to moves to the compressed N:M
-    serving format; the MoE router (an f32 buffer, not a linear), norms and
+    serving format; the MoE router (an f32 parameter, not a linear), norms and
     the embedding are shared with ``p``, which is left unchanged."""
     sp = cfg.sparsity
     return _map_linears(p, lambda q: sparse_layers.convert_to_compressed(q, sp))
