@@ -289,7 +289,31 @@ steady tick and the graph pool's bytes.
    route drops): tokens equal greedy ``forward`` of the trained model,
    launches equal ticks x the tick's linears / attention layers and
    prefills x the prefill's linears; the ``train_serve_<arch>`` paths.
-15. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
+15. Tensor-parallel serving (``ServeEngine(mesh=)``; no new kernel: the
+   kernels run on shards, under the whole shape's launch plan).  15a,
+   NCCL at world size 1 in this process: llama3.2-1b at full width and
+   depth, compressed, paged, fused, graphed and prewarmed strict (the
+   graphs capture the NCCL all-gathers), on phase 3's trace: tokens equal
+   phase 3's engine's; the ``tp_nccl`` path.  15b, gloo at world size 2
+   on the one card (two child processes, both on cuda:0, their
+   collectives staged through host memory, eager): llama3.2-1b bf16 at
+   full width and depth, compressed, paged, fused, under
+   ``tp_collective="ring"`` and ``"gspmd"``, 4 requests of 64 prompt
+   tokens, 8 generated, 4 slots, block 16: every request's tokens equal
+   the single-rank engine's on the same trace; the ring bytes the
+   transport counted per decode tick, summed over the ranks, equal
+   ``serve_ring_traffic_bytes``' (llama's rows fill whole index words:
+   no padding); launches per rank nm_spmv = ticks x 112 x 2 (ring) or
+   ticks x 112 (gspmd), nm_xwt = prefills x 112, paged_gqa_decode = ticks
+   x 16; each rank keeps the whole model on the host and moves only its
+   shard to the card (``init_model(store="cpu")``, as ``launch.serve
+   --tp`` does): its peak card allocation over engine init and serve
+   stays below the whole model's bytes; the tick's ms (one card, two
+   processes, gloo through host memory: not a multi-card figure); the
+   ``tp_ring`` / ``tp_gspmd`` paths.  15c, f32 at world size 2 over gloo, ring: llama at 4 layers
+   and deepseek-v2-lite-16b at 2 (its dense layer and an MoE layer):
+   tokens equal the single-rank engine's; the ``tp_f32`` path.
+16. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
    device line last.  The total time is printed on the ``[done]`` line.
 """
 
@@ -1820,7 +1844,9 @@ def check_graphed(torch, model, cfg, kw, reqs, eng, wall, again_wall,
                                                        busy) if b is not None)))
 
 
-def phase_serve(torch, card):
+def phase_serve(torch, card, tokens=None):
+    """Phases 3-9 on full-width llama3.2-1b; ``tokens`` (a dict) receives
+    phase 3's token streams, which phase 15a is held to."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_model
     cfg = get_config("llama3.2-1b")
@@ -1835,6 +1861,7 @@ def phase_serve(torch, card):
                       device="cuda"))
     eng, reqs, launches, wall, first_eager = serve_run(
         torch, model, cfg, LLAMA_PATH, kw, "phase 3")
+    results = eng.results
     want = eng.decode_steps * cfg.n_layers * LINEARS_PER_LAYER
     if launches["nm_spmv"] != want:
         raise SystemExit(f"phase 3: nm_spmv launched {launches['nm_spmv']} "
@@ -1864,6 +1891,8 @@ def phase_serve(torch, card):
     check_onehot_exact(torch)
     check_prefix_exact(torch, "llama3.2-1b")
     check_slotted_exact(torch, "llama3.2-1b")
+    if tokens is not None:
+        tokens.update({rid: r.tokens.copy() for rid, r in results.items()})
     return {"llama3.2-1b": launches, "llama3.2-1b onehot": onehot_launches,
             "llama3.2-1b spec": spec_launches,
             "llama3.2-1b prefix": prefix_launches, **slotted_launches}
@@ -5155,6 +5184,302 @@ def phase_train_families(torch, card):
     return paths
 
 
+# ----------------------------------------------------------- phase 15
+
+TP_TRACE = dict(n_requests=4, prompt_len=64, gen_lens=[8], seed=0)
+TP_KW = dict(n_slots=4, max_len=72, compressed=True, kv="paged",
+             attn="fused", block_size=16)
+TP_PATH = ("nm_spmv", "nm_xwt", "paged_gqa_decode")
+TP_F32_LAYERS = {"llama3.2-1b": 4, "deepseek-v2-lite-16b": 2}
+TP_LABEL = ("one card, two processes, gloo through host memory: not a "
+            "multi-card figure")
+
+
+def _tp_cfg(arch, dtype, layers=None):
+    """``arch`` at full width (``layers``: cut depth), compressed."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    cfg = cfg.replace(dtype=dtype, sparsity=dataclasses.replace(
+        cfg.sparsity, mode="compressed"))
+    return cfg if layers is None else cfg.replace(n_layers=layers)
+
+
+def _tp_model(torch, arch, dtype, layers=None, store=None):
+    """``_tp_cfg``'s model, compressed at init, from seed 0 on the card
+    (the same weights in every process); ``store="cpu"`` keeps it on the
+    host, as a rank of ``launch.serve --tp`` does."""
+    from repro_torch.models import init_model
+    cfg = _tp_cfg(arch, dtype, layers)
+    return init_model(cfg, seed=0, device="cuda", store=store), cfg
+
+
+def _model_bytes(model) -> int:
+    return sum(t.numel() * t.element_size() for t in
+               list(model.parameters()) + list(model.buffers()))
+
+
+def _tp_margin(torch, model, cfg, req, base, got) -> str:
+    """The single-rank model's top-2 logit margin at the first token where
+    ``got`` leaves ``base`` (teacher-forced prefill)."""
+    import numpy as np
+    from repro_torch.models import prefill
+    i = int(np.argmin(np.asarray(base) == np.asarray(got)))
+    logits, _ = prefill(model, cfg, prompt_batch(torch, model, req.inputs,
+                                                 base[:i]))
+    top = torch.topk(logits[0].float(), 2).values
+    return (f"rid {req.rid} token {i} ({base[i]} single, {got[i]} TP): "
+            f"margin {float(top[0] - top[1]):.4g}")
+
+
+def _tp_rank(rank: int, n: int, port: int, out: str, jobs) -> None:
+    """One rank of 15b / 15c (a child process on cuda:0, gloo): each job
+    serves its trace over the mesh under each of its collectives from a
+    model kept on the host (only the rank's shard goes to the card; the
+    card's peak allocation over engine init and serve is recorded), counts
+    zeroed before each run; rank 0 then serves the same trace on one rank
+    (the whole model on the card, no mesh, eager) and compares.  Writes
+    its results as JSON to ``out.<rank>``."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.dist.api import make_serve_mesh
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=n, rank=rank)
+    try:
+        res = _tp_jobs(torch, make_serve_mesh(n, backend="gloo",
+                                              device="cuda"), jobs)
+        with open(f"{out}.{rank}", "w") as f:
+            json.dump(res, f)
+        dist.barrier()          # no rank tears down while a peer still talks
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_jobs(torch, mesh, jobs):
+    """``_tp_rank``'s jobs on this rank (see there)."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.serve import ServeEngine, synthetic_trace
+    rank = mesh.rank
+    res = []
+    for job in jobs:
+        host, cfg = _tp_model(torch, job["arch"], job["dtype"],
+                              job.get("layers"), store="cpu")
+        reqs = synthetic_trace(cfg, **job["trace"])
+        runs = {}
+        for coll in job["collectives"]:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            eng = ServeEngine(host, cfg, mesh=mesh, tp_collective=coll,
+                              device="cuda", **TP_KW)
+            mesh.reset_stats()
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run([dataclasses.replace(r) for r in reqs])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = eng.stats()
+            runs[coll] = dict(
+                tokens={str(k): v.tokens.tolist()
+                        for k, v in eng.results.items()},
+                launches={k.name: k.launches for k in kernels.all_kernels()},
+                wall=wall, graphs=eng.graphs,
+                whole_bytes=_model_bytes(host),
+                shard_bytes=_model_bytes(eng.model),
+                peak_bytes=torch.cuda.max_memory_allocated() - base,
+                stats={k: st[k] for k in (
+                    "tokens", "decode_steps", "prefill_calls",
+                    "steady_tick_s", "first_tick_s", "ring_bytes_per_step",
+                    "ring_dense_bytes_per_step", "ring_traffic_ratio",
+                    "ring_linears", "local_linears", "ring_sent_bytes",
+                    "gather_sent_bytes", "staged_bytes",
+                    "weight_stream_bytes")})
+            del eng
+        del host
+        one = {}
+        if rank == 0:
+            model, _ = _tp_model(torch, job["arch"], job["dtype"],
+                                 job.get("layers"))
+            eng = ServeEngine(model, cfg, device="cuda", graphs=False,
+                              **TP_KW)
+            eng.run([dataclasses.replace(r) for r in reqs])
+            one["tokens"] = {str(k): v.tokens.tolist()
+                             for k, v in eng.results.items()}
+            one["margins"] = [
+                _tp_margin(torch, eng.model, eng.cfg, r,
+                           one["tokens"][str(r.rid)],
+                           run["tokens"][str(r.rid)])
+                for run in runs.values() for r in reqs
+                if not np.array_equal(one["tokens"][str(r.rid)],
+                                      run["tokens"][str(r.rid)])]
+            del eng, model
+        res.append(dict(job=job, runs=runs, single=one))
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_tp_nccl(torch, card, base=None):
+    """15a: NCCL at world size 1, graphed and prewarmed, on phase 3's trace,
+    held to ``base``, phase 3's token streams (served here without a mesh
+    when not given)."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.dist.api import make_serve_mesh
+    from repro_torch.serve import ServeEngine, synthetic_trace
+    model, cfg = _tp_model(torch, "llama3.2-1b", "bfloat16")
+    kw = graphed(dict(n_slots=8, max_len=128 + 32, compressed=True,
+                      kv="paged", attn="fused", block_size=16,
+                      device="cuda"))
+    reqs = synthetic_trace(cfg, n_requests=16, prompt_len=128,
+                           gen_lens=[16, 32], seed=0)
+    if not base:
+        eng = ServeEngine(model, cfg, **kw)
+        eng.run(reqs)
+        base = {rid: r.tokens for rid, r in eng.results.items()}
+        del eng
+    mesh = make_serve_mesh(1, backend="nccl", device="cuda")
+    try:
+        eng = ServeEngine(model, cfg, mesh=mesh, **kw)
+        kernels.reset_launch_counts()
+        mesh.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels.all_kernels()}
+        st = eng.stats()
+    finally:
+        dist.destroy_process_group()
+    same = sum(np.array_equal(base[r.rid], eng.results[r.rid].tokens)
+               for r in reqs)
+    ticks = int(st["decode_steps"])
+    lin = cfg.n_layers * LINEARS_PER_LAYER
+    want = dict(nm_spmv=ticks * lin, paged_gqa_decode=ticks * cfg.n_layers,
+                nm_xwt=int(st["prefill_calls"]) * lin)
+    log(f"[15a nccl] {cfg.name} at world size 1 ({mesh.backend}, "
+        f"{eng.tp_collective}), graphed {eng.graphs}, "
+        f"{int(st['prewarmed_executables'])} graphs prewarmed, "
+        f"{int(st['mid_serve_compiles'])} mid-serve: {same}/{len(reqs)} "
+        f"requests equal phase 3's; {st['tokens'] / wall:.1f} tokens/s, tick "
+        f"steady {st['steady_tick_s'] * 1e3:.2f} ms; all-gathers sent "
+        f"{int(st['gather_sent_bytes'])} B (a group of one); launches "
+        f"{launches} (card {card})")
+    if (same != len(reqs) or not eng.graphs or st["mid_serve_compiles"]
+            or st["prewarmed_executables"] != st["executables_expected"]):
+        raise SystemExit(f"phase 15a: NCCL world-size-1 serving gave "
+                         f"{same}/{len(reqs)} requests equal to phase 3's, "
+                         f"or did not serve from its prewarmed graphs")
+    check_path(launches, TP_PATH, "phase 15a", **want)
+    del eng, model
+    torch.cuda.empty_cache()
+    return {"tp_nccl": launches}
+
+
+def phase_tp_gloo(torch, card):
+    """15b and 15c: two child processes on the one card, gloo."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.dist.api import free_port
+    jobs = [dict(arch="llama3.2-1b", dtype="bfloat16", trace=TP_TRACE,
+                 collectives=["ring", "gspmd"])]
+    for arch, layers in TP_F32_LAYERS.items():
+        jobs.append(dict(arch=arch, dtype="float32", layers=layers,
+                         trace=dict(TP_TRACE, prompt_len=4 if "deepseek"
+                                    in arch else 32),
+                         collectives=["ring"]))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "tp")
+        mp.start_processes(_tp_rank, args=(2, free_port(), out, jobs),
+                           nprocs=2, start_method="spawn")
+        ranks = []
+        for r in range(2):
+            with open(f"{out}.{r}") as f:
+                ranks.append(json.load(f))
+    log(f"[time] phase 15b/c children {time.perf_counter() - t0:.1f}s")
+    paths = {}
+    for j, res in enumerate(ranks[0]):
+        job, single = res["job"], res["single"]
+        cfg = _tp_cfg(job["arch"], job["dtype"], job.get("layers"))
+        what = (f"{job['arch']} {job['dtype']}"
+                + (f" {job['layers']}L" if job.get("layers") else ""))
+        for coll, run in res["runs"].items():
+            other = ranks[1][j]["runs"][coll]
+            st = run["stats"]
+            ticks, prefills = int(st["decode_steps"]), int(st["prefill_calls"])
+            lin = cfg.n_layers * LINEARS_PER_LAYER if cfg.n_experts == 0 \
+                else None
+            same = sum(single["tokens"][rid] == toks
+                       for rid, toks in run["tokens"].items())
+            ranks_agree = run["tokens"] == other["tokens"]
+            sent = st["ring_sent_bytes"] + other["stats"]["ring_sent_bytes"]
+            log(f"[15 tp] {what} {coll}: {same}/{len(run['tokens'])} requests "
+                f"equal the single-rank engine's, ranks agree {ranks_agree}; "
+                f"{ticks} ticks, {prefills} prefills; ring sent "
+                f"{sent / max(ticks, 1):.0f} B a tick over both ranks against the model's "
+                f"{st['ring_bytes_per_step']:.0f} (ratio to the dense ring "
+                f"{st['ring_traffic_ratio']:.4f}, {int(st['ring_linears'])} "
+                f"ring / {int(st['local_linears'])} local linears); gathers "
+                f"sent {int(st['gather_sent_bytes'])} B, staged through the "
+                f"host {int(st['staged_bytes'])} B (rank 0); weight stream "
+                f"{st['weight_stream_bytes'] / 1e9:.3f} GB a rank; tick steady "
+                f"{st['steady_tick_s'] * 1e3:.1f} ms, first "
+                f"{st['first_tick_s'] * 1e3:.1f} ms, "
+                f"{st['tokens'] / run['wall']:.1f} tokens/s ({TP_LABEL}); "
+                f"card memory rank 0: whole model {run['whole_bytes']} B "
+                f"on the host, shard {run['shard_bytes']} B, peak "
+                f"allocated over init and serve {run['peak_bytes']} B; "
+                f"launches rank 0 {run['launches']}")
+            for m in single["margins"]:
+                log(f"[15 tp]   {m}")
+            if same != len(run["tokens"]) or not ranks_agree or run["graphs"]:
+                raise SystemExit(f"phase 15: {what} {coll}: TP tokens differ "
+                                 f"from the single-rank engine's "
+                                 f"({same}/{len(run['tokens'])}) or between "
+                                 f"ranks, or the gloo engine captured graphs")
+            want = {"nm_xwt": prefills * lin,
+                    "paged_gqa_decode": ticks * cfg.n_layers} if lin else {}
+            if lin:
+                want["nm_spmv"] = ticks * lin * (2 if coll == "ring" else 1)
+            path = TP_PATH if lin else DEEPSEEK_PATH
+            check_path(run["launches"], path, f"phase 15 {what} {coll}",
+                       **want)
+            if job["dtype"] == "bfloat16":
+                peaks = (run["peak_bytes"], other["peak_bytes"])
+                if max(peaks) >= run["whole_bytes"]:
+                    raise SystemExit(f"phase 15b {coll}: a rank's card peak "
+                                     f"{peaks} B reaches the whole model's "
+                                     f"{run['whole_bytes']} B")
+                want_sent = st["ring_bytes_per_step"] * ticks \
+                    if coll == "ring" else 0
+                if sent != want_sent:
+                    raise SystemExit(f"phase 15b {coll}: the ring sent {sent}"
+                                     f" B over {ticks} ticks, the model "
+                                     f"says {want_sent}")
+                paths[f"tp_{coll}"] = run["launches"]
+            else:
+                prev = paths.get("tp_f32")
+                paths["tp_f32"] = run["launches"] if prev is None else {
+                    k: prev[k] + v for k, v in run["launches"].items()}
+    return paths
+
+
+def phase_tp(torch, card, llama_tokens=None):
+    """Phase 15; ``llama_tokens``: phase 3's token streams, for 15a."""
+    t0 = time.perf_counter()
+    paths = phase_tp_nccl(torch, card, llama_tokens)
+    log(f"[time] phase 15a {time.perf_counter() - t0:.1f}s")
+    paths.update(phase_tp_gloo(torch, card))
+    log(f"[time] phase 15 {time.perf_counter() - t0:.1f}s")
+    return paths
+
+
 # ------------------------------------------------------------------ main
 
 KERNEL_META = {
@@ -5260,7 +5585,10 @@ def main() -> int:
                                          spmm_err)
     rows["nm_xwt"]["at_cnn"] = cnn_rows["nm_xwt"]
     by_path = {**flash_path, **cnn_path}
-    for name, phase in (("llama phases 3-9", phase_serve),
+    llama_tokens = {}
+    for name, phase in (("llama phases 3-9",
+                         lambda torch, card: phase_serve(torch, card,
+                                                         llama_tokens)),
                         ("deepseek phases 4, 6",
                          lambda torch, card: phase_serve_deepseek(torch)),
                         ("gemma2 phase 10", phase_gemma2)):
@@ -5274,6 +5602,7 @@ def main() -> int:
     by_path.update(phase_encdec_vlm(torch, card))
     by_path.update(phase_train(torch, card))
     by_path.update(phase_train_families(torch, card))
+    by_path.update(phase_tp(torch, card, llama_tokens))
     # the packed variant serves no path of its own: its launches are those
     # of the CNN phase, where it runs on every layer the reference can pack
     kernels_line = []

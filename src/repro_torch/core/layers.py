@@ -19,10 +19,22 @@ layer reads it through ``dense_view``.
 
 ``convert_to_compressed`` is the offline prune-and-pack step (a stored
 mask applies first; stacks compress along their last axis unchanged).
+
+Tensor-parallel serving: ``models.transformer.shard_model`` cuts a
+linear's output rows (and its bias) to this rank's shard and records the
+whole row count in ``tp_rows``.  ``linear_apply`` then runs the shard
+inside the active serving mesh: under the compressed ring (decode shapes,
+``select_impl`` -> 'ring') every shard passes through every rank and the
+output is whole; otherwise the rank multiplies its own rows, with the
+whole shape's launch plan, and all-gathers the feature axis.  Either
+way the output is whole on every rank unless the caller asks for its
+``local`` part (the attention's per-head projections).  No contraction is
+split, so every output element sums in the one-device order.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -73,15 +85,23 @@ class StackedLinear(SparseLinear):
     ``dense_view`` in one batched product per stack."""
 
 
+def whole_rows(p: SparseLinear) -> int:
+    """The output rows of the whole weight (``tp_rows`` for a shard)."""
+    rows = (p.w_vals if p.compressed else p.w).shape[-2]
+    return getattr(p, "tp_rows", None) or rows
+
+
 def dense_view(p: SparseLinear, cfg: SparsityConfig) -> torch.Tensor:
     """Dense [..., out, in] view of a (stacked) linear's weight, consistent
     with what ``linear_apply`` multiplies by: compressed leaves decompress
     (the reference's slot-loop order), dense ones take
-    ``dense_forward_view``."""
+    ``dense_forward_view``.  A row shard gives its own rows (the policy
+    decided on the whole weight's)."""
     if p.compressed:
         k = p.w_vals.shape[-1] * cfg.m // cfg.n
         return decompress_parts(p.w_vals, p.w_idx, cfg.n, cfg.m, k)
-    return dense_forward_view(p.w, cfg, getattr(p, "mask", None))
+    return dense_forward_view(p.w, cfg, getattr(p, "mask", None),
+                              out_dim=whole_rows(p))
 
 
 def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
@@ -105,22 +125,71 @@ def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
 
 
 def linear_apply(p: SparseLinear, x: torch.Tensor, cfg: SparsityConfig,
-                 in_dim: Optional[int] = None) -> torch.Tensor:
+                 in_dim: Optional[int] = None, local: bool = False
+                 ) -> torch.Tensor:
+    """y = x @ W.T (+ b) under ``cfg``.  Inside a serving mesh a row shard
+    (``tp_rows``) runs tensor-parallel (module docstring) and returns the
+    whole output, or with ``local`` this rank's 1/n of the output
+    features; ``local`` on a linear the mesh leaves whole cuts its output
+    the same way."""
     in_dim = in_dim if in_dim is not None else x.shape[-1]
+    if getattr(p, "tp_rows", None):
+        return _tp_linear_apply(p, x, cfg, in_dim, local)
     if p.compressed:   # serving path: impl chosen by the shape/device policy
         out_dim = p.w_vals.shape[0]
         sp = NMSparse(p.w_vals, p.w_idx, cfg.n, cfg.m, (out_dim, in_dim))
         # the kernels read x as dense rows (an MLA latent slice is strided)
         y = nm_matmul(x.contiguous(), sp, impl=select_impl(cfg, x))
-    elif p.has("mask"):
-        y = masked_matmul(x, p.w, p.mask)
-    elif cfg.applies(in_dim, p.w.shape[0]) and cfg.mode == "srste":
-        y = nm_matmul_ste(x, p.w, cfg.n, cfg.m, cfg.srste_lam)
     else:
-        y = matmul_f32acc(x, dense_forward_view(p.w, cfg))
+        y = _dense_product(p, x, cfg, in_dim, p.w.shape[0])
     if p.has("b"):
         y = y + p.b
+    if local:
+        from repro_torch.dist.api import require_mesh
+        mesh = require_mesh("a local output")
+        part = y.shape[-1] // mesh.size
+        return y.narrow(-1, mesh.rank * part, part)
     return y
+
+
+def _dense_product(p: SparseLinear, x, cfg: SparsityConfig, in_dim: int,
+                   out_dim: int) -> torch.Tensor:
+    """x @ W.T for a dense-stored weight under the mode's semantics;
+    ``out_dim`` is the whole weight's rows, on which the policy decides."""
+    if p.has("mask"):
+        return masked_matmul(x, p.w, p.mask)
+    if cfg.applies(in_dim, out_dim) and cfg.mode == "srste":
+        return nm_matmul_ste(x, p.w, cfg.n, cfg.m, cfg.srste_lam)
+    return matmul_f32acc(x, dense_forward_view(p.w, cfg, out_dim=out_dim))
+
+
+def _tp_linear_apply(p: SparseLinear, x: torch.Tensor, cfg: SparsityConfig,
+                     in_dim: int, local: bool) -> torch.Tensor:
+    """A row shard's ``linear_apply``: the compressed ring (whole output on
+    every rank), or the local rows under the whole shape's plan, then an
+    all-gather of the feature axis unless ``local``."""
+    from repro_torch.dist.api import require_mesh
+    from repro_torch.dist.collectives import all_gather_last
+    mesh = require_mesh("this linear")
+    o = p.tp_rows
+    if p.compressed:
+        o_loc = p.w_vals.shape[0]
+        sp = NMSparse(p.w_vals, p.w_idx, cfg.n, cfg.m, (o_loc, in_dim))
+        impl = select_impl(cfg, x)
+        if impl == "ring":
+            inner = select_impl(dataclasses.replace(cfg, decode_ring=False),
+                                x)
+            y = nm_matmul(x.contiguous(), sp, "ring", plan_o=o,
+                          ring_impl=inner)
+            if p.has("b"):
+                y = y + all_gather_last(p.b, mesh)
+            return y.narrow(-1, mesh.rank * o_loc, o_loc) if local else y
+        y = nm_matmul(x.contiguous(), sp, impl=impl, plan_o=o)
+    else:
+        y = _dense_product(p, x, cfg, in_dim, o)
+    if p.has("b"):
+        y = y + p.b
+    return y if local else all_gather_last(y, mesh)
 
 
 def convert_to_compressed(p: SparseLinear, cfg: SparsityConfig

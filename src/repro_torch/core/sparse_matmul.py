@@ -27,8 +27,15 @@ SR-STE training: ``ste_sparsify`` is the N:M magnitude mask with the
 straight-through gradient plus the SR-STE decay on the pruned complement
 (an autograd Function acting on the weight only, so it composes with any
 product); ``nm_matmul_ste`` and ``masked_matmul`` (a frozen boolean mask,
-the 'fixed' mode) are the f32-accumulated products over it.  The
-tensor-parallel ring is not ported yet.
+the 'fixed' mode) are the f32-accumulated products over it.
+
+Tensor-parallel serving: with ``decode_ring`` set (the engine sets it
+under ``mesh=`` with compressed weights and ``tp_collective`` 'auto' or
+'ring') and a serving mesh of more than one rank active, ``select_impl``
+routes decode shapes to ``"ring"``: ``nm_matmul`` then runs
+``dist.collectives.ring_sparse_linear`` on this rank's shard of the rows,
+whose compressed values and packed indices rotate round the ranks, each
+step's product through the impl the policy picks without the ring.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
 Impl = str  # 'auto' | 'ref' | 'plain' | 'xwt' | 'spmv' | 'spmv_onehot'
+            # | 'ring' (tensor-parallel serving: the compressed ring)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +69,11 @@ class SparsityConfig:
     of decode-shaped inputs under ``impl='auto'`` ('auto' resolves by
     device; the reference's 'pallas' is the port's 'xwt', its 'xla' the
     port's 'plain'); ``spmv_mode`` picks the decode kernel's body on the
-    card, 'gather' (``spmv``) or 'onehot' (``spmv_onehot``)."""
+    card, 'gather' (``spmv``) or 'onehot' (``spmv_onehot``).
+
+    ``decode_ring`` routes decode-shaped compressed products through the
+    sparse ring while a serving mesh of more than one rank is active (the
+    reference's field)."""
     n: int = 2
     m: int = 4
     enabled: bool = True
@@ -72,6 +84,7 @@ class SparsityConfig:
     decode_impl: Impl = "auto"
     decode_batch_max: int = 8
     spmv_mode: str = "gather"
+    decode_ring: bool = False
 
     def applies(self, in_dim: int, out_dim: int) -> bool:
         return (self.enabled and self.mode != "dense"
@@ -141,15 +154,27 @@ def is_decode_shape(x_shape: Tuple[int, ...], batch_max: int = 8) -> bool:
     return len(x_shape) == 2 and x_shape[0] <= batch_max
 
 
+def ring_mesh():
+    """The active serving mesh when it has more than one rank, else None."""
+    from repro_torch.dist.api import current_mesh
+    mesh = current_mesh()
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        return mesh
+    return None
+
+
 def select_impl(cfg: SparsityConfig, x: torch.Tensor) -> Impl:
     """The execution policy for compressed params: a pinned ``cfg.impl``
-    wins; under 'auto' a pinned ``cfg.decode_impl`` wins for decode
-    shapes; otherwise CUDA tensors take the kernels (decode-shaped -> spmv,
-    or spmv_onehot under ``spmv_mode='onehot'``; else xwt) and CPU tensors
-    the plain path."""
+    wins; under 'auto' decode shapes take 'ring' while ``cfg.decode_ring``
+    is set and a serving mesh of more than one rank is active, else a
+    pinned ``cfg.decode_impl``; otherwise CUDA tensors take the kernels
+    (decode-shaped -> spmv, or spmv_onehot under ``spmv_mode='onehot'``;
+    else xwt) and CPU tensors the plain path."""
     if cfg.impl != "auto":
         return cfg.impl
     decode = is_decode_shape(tuple(x.shape), cfg.decode_batch_max)
+    if decode and cfg.decode_ring and ring_mesh() is not None:
+        return "ring"
     if decode and cfg.decode_impl != "auto":
         return cfg.decode_impl
     if not x.is_cuda:
@@ -159,12 +184,30 @@ def select_impl(cfg: SparsityConfig, x: torch.Tensor) -> Impl:
     return "xwt"
 
 
-def nm_matmul(x: torch.Tensor, sp: NMSparse, impl: Impl = "auto"
+def nm_matmul(x: torch.Tensor, sp: NMSparse, impl: Impl = "auto",
+              plan_o: Optional[int] = None, ring_impl: Impl = "auto"
               ) -> torch.Tensor:
-    """Y = x @ W_sp.T (layer orientation). x [..., K], sp dense_shape [O, K]."""
+    """Y = x @ W_sp.T (layer orientation). x [..., K], sp dense_shape [O, K].
+
+    ``plan_o``: the whole weight's O when ``sp`` holds a shard of its rows;
+    the kernels then launch under the whole shape's plan.  Under
+    ``impl="ring"`` ``sp`` is this rank's shard of the rows and the result
+    is the whole [..., O * ranks] (``dist.collectives.ring_sparse_linear``;
+    each step's product takes ``ring_impl``, 'auto' being the decode
+    kernel on the card and the plain path on the CPU); without a mesh of
+    more than one rank the ring is the local product."""
     n, m = sp.n, sp.m
     if impl == "auto":
         impl = "xwt" if x.is_cuda else "plain"
+    if impl == "ring":
+        inner = ring_impl if ring_impl != "auto" else (
+            "spmv" if x.is_cuda else "plain")
+        mesh = ring_mesh()
+        if mesh is None:
+            return nm_matmul(x, sp, inner, plan_o)
+        from repro_torch.dist.collectives import ring_sparse_linear
+        return ring_sparse_linear(x, sp.values, sp.indices, n, m, mesh,
+                                  inner, plan_o)
     if impl == "ref":
         lead = x.shape[:-1]
         y = kref.nm_xwt_ref(x.reshape(-1, x.shape[-1]), sp.values,
@@ -173,14 +216,13 @@ def nm_matmul(x: torch.Tensor, sp: NMSparse, impl: Impl = "auto"
     if impl == "plain":
         return _xwt_plain(x, sp.values, sp.indices, n, m)
     if impl == "xwt":
-        return kops.nm_xwt(x, sp.values, sp.indices, n, m)
+        return kops.nm_xwt(x, sp.values, sp.indices, n, m, plan_o=plan_o)
     if impl in ("spmv", "spmv_onehot"):
         return kops.nm_spmv(x, sp.values, sp.indices, n, m,
                             mode="onehot" if impl == "spmv_onehot"
-                            else "gather")
-    raise ValueError(f"unknown impl {impl!r} (ported: auto, ref, plain, "
-                     f"xwt, spmv, spmv_onehot; 'ring' comes with "
-                     f"tensor-parallel serving)")
+                            else "gather", plan_o=plan_o)
+    raise ValueError(f"unknown impl {impl!r} (one of auto, ref, plain, "
+                     f"xwt, spmv, spmv_onehot, ring)")
 
 
 class _SteSparsify(torch.autograd.Function):
@@ -225,15 +267,17 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor
 
 
 def dense_forward_view(w: torch.Tensor, sp: SparsityConfig,
-                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       mask: Optional[torch.Tensor] = None,
+                       out_dim: Optional[int] = None) -> torch.Tensor:
     """Dense view [..., out, in] of a dense-stored weight with the forward
     semantics ``linear_apply`` uses: a stored ``mask`` (the 'fixed' mode)
     applies; 'srste' recomputes the N:M mask with straight-through
     gradients; a not yet converted 'compressed' policy applies the
     magnitude mask (never silently unmasked).  Shared by the MoE stacked
     products and the MLA absorbed decode, so those paths cannot diverge
-    from the per-linear one."""
-    if not sp.applies(w.shape[-1], w.shape[-2]):
+    from the per-linear one.  ``out_dim`` is the whole weight's rows when
+    ``w`` is a shard of them (the policy decides on the whole weight)."""
+    if not sp.applies(w.shape[-1], out_dim or w.shape[-2]):
         return w
     if mask is not None:
         return w * mask.to(w.dtype)

@@ -188,17 +188,24 @@ def gqa_plan(b: int, s: int, kvh: int, g: int, d: int, dv: int, bs: int,
 
 @functools.lru_cache(maxsize=1024)
 def mla_plan(b: int, s: int, h: int, r: int, rd: int, bs: int, tw: int,
-             dtype: torch.dtype, aligned: bool = True) -> PagedPlan:
+             dtype: torch.dtype, aligned: bool = True,
+             plan_h: Optional[int] = None) -> PagedPlan:
     """The launch of the MLA kernel for q_lat [b, s, h, r] and q_pe
     [b, s, h, rd] over a table of ``tw`` blocks of ``bs``.  The tensor-core
     body takes bf16 pools with r, rd multiples of 16, r <= 512, r + rd <=
     640, h <= 16, a block size dividing the chunk and 16-byte aligned
     operands: a CTA of 8 warps per (chunk, span row, slot) holding the
-    row's h heads.  Everything else takes the first body."""
+    row's h heads.  Everything else takes the first body.  ``plan_h`` is
+    the whole head count when q holds a shard of the heads
+    (tensor-parallel serving): the body is the one the whole launch takes,
+    so each head sums in the same order; grid and workspace follow h.
+    (``gqa_plan`` needs no such argument: no part of it but the grid and
+    the workspace depends on the kv head count.)"""
     smem = (2 * ((2 * TILE + CHUNK) * (r + rd + 8) + 2 * TILE * (CHUNK + 8))
             + 4 * (TILE * CHUNK + 2 * TILE))
     if (dtype == torch.bfloat16 and r % 16 == 0 and rd % 16 == 0
-            and r <= 512 and r + rd <= MLA_MAX_DEPTH and h <= TILE
+            and r <= 512 and r + rd <= MLA_MAX_DEPTH
+            and (plan_h or h) <= TILE
             and CHUNK % bs == 0 and aligned and smem <= SMEM_LIMIT):
         chunks = table_chunks(tw, bs)
         split = chunks > 1
@@ -303,19 +310,21 @@ def paged_mla_decode_plain(q_lat: torch.Tensor, q_pe: torch.Tensor,
 def paged_mla_decode(q_lat: torch.Tensor, q_pe: torch.Tensor,
                      ckv_pool: torch.Tensor, kpe_pool: torch.Tensor,
                      block_table: torch.Tensor, kv_len: torch.Tensor, *,
-                     scale: float) -> torch.Tensor:
+                     scale: float, plan_h: Optional[int] = None
+                     ) -> torch.Tensor:
     """Fused paged MLA (absorbed) decode: q_lat [B, H, r] float32 (queries
     already in the latent space), q_pe [B, H, rd] float32, ckv_pool
     [n_blocks, bs, r], kpe_pool [n_blocks, bs, rd] (float32 or bfloat16,
     one dtype), block_table int32 [B, T], kv_len int32 [B] -> latent context
     [B, H, r] float32 (the caller up-projects through wuv).  A CUDA tensor
     launches the kernel as a span of S = 1 (or raises); a CPU tensor takes
-    ``paged_mla_decode_plain``."""
+    ``paged_mla_decode_plain``.  ``plan_h``: the whole head count of a
+    head shard (``mla_plan``)."""
     if not q_lat.is_cuda:
         return paged_mla_decode_plain(q_lat, q_pe, ckv_pool, kpe_pool,
                                       block_table, kv_len, scale=scale)
     return _mla_launch(MLA_KERNEL, q_lat, q_pe, ckv_pool, kpe_pool,
-                       block_table, kv_len, scale)
+                       block_table, kv_len, scale, plan_h)
 
 
 def _span_lens(kv_len: torch.Tensor, s: int) -> torch.Tensor:
@@ -446,7 +455,7 @@ def paged_mla_verify(q_lat: torch.Tensor, q_pe: torch.Tensor,
 
 
 def _mla_launch(kernel: CudaKernel, q_lat, q_pe, ckv_pool, kpe_pool,
-                block_table, kv_len, scale) -> torch.Tensor:
+                block_table, kv_len, scale, plan_h=None) -> torch.Tensor:
     """Check a span's operands (q_lat [B, S, H, r], or [B, H, r] for S = 1,
     on the card) and launch the MLA kernel through ``kernel``'s counter ->
     f32 of q_lat's shape."""
@@ -476,7 +485,7 @@ def _mla_launch(kernel: CudaKernel, q_lat, q_pe, ckv_pool, kpe_pool,
     check_cuda_operand("kv_len", kv_len, q_lat.device, torch.int32)
     tw = block_table.shape[1]
     plan = mla_plan(b, s, h, r, rd, bs, tw, ckv_pool.dtype,
-                    _aligned(q_lat, q_pe, ckv_pool, kpe_pool))
+                    _aligned(q_lat, q_pe, ckv_pool, kpe_pool), plan_h)
     out = torch.empty(q_lat.shape, dtype=torch.float32, device=q_lat.device)
     if out.numel():
         _launch_planned(

@@ -463,11 +463,14 @@ def _check_kernel(name: str, dtype: torch.dtype, n: int, m: int) -> None:
 
 
 def nm_xwt(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
-           n: int, m: int) -> torch.Tensor:
+           n: int, m: int, plan_o: Optional[int] = None) -> torch.Tensor:
     """Y = X @ W_sp.T for X [..., K] of any leading shape; W compressed
     [O, K/M*N], int8 indices.  A CUDA tensor launches the kernel (or
-    raises); a CPU tensor takes ``nm_xwt_plain``."""
-    return _xwt(KERNEL, nm_xwt_plain, x, values, indices, n, m, torch.int8)
+    raises); a CPU tensor takes ``nm_xwt_plain``.  ``plan_o`` is the whole
+    weight's O when W is a shard of its rows: the launch takes the whole
+    shape's plan (its K splits), so each output sums in the same order."""
+    return _xwt(KERNEL, nm_xwt_plain, x, values, indices, n, m, torch.int8,
+                plan_o)
 
 
 def nm_xwt_packed(x: torch.Tensor, values: torch.Tensor, words: torch.Tensor,
@@ -485,7 +488,8 @@ def nm_xwt_packed(x: torch.Tensor, values: torch.Tensor, words: torch.Tensor,
                 torch.int32)
 
 
-def _xwt(kernel: CudaKernel, plain, x, values, idx, n, m, idx_dtype):
+def _xwt(kernel: CudaKernel, plain, x, values, idx, n, m, idx_dtype,
+         plan_o=None):
     lead, k = x.shape[:-1], x.shape[-1]
     o = values.shape[0]
     _check(k, values, n, m)
@@ -496,22 +500,27 @@ def _xwt(kernel: CudaKernel, plain, x, values, idx, n, m, idx_dtype):
     check_cuda_operand("x", xf, x.device)
     check_cuda_operand("values", values, x.device, x.dtype)
     check_cuda_operand("indices", idx, x.device, idx_dtype)
-    return launch_xwt(kernel, xf, values, idx, n, m).reshape(*lead, o)
+    return launch_xwt(kernel, xf, values, idx, n, m,
+                      plan_o).reshape(*lead, o)
 
 
 def launch_xwt(kernel: CudaKernel, x: torch.Tensor, values: torch.Tensor,
-               idx: torch.Tensor, n: int, m: int) -> torch.Tensor:
+               idx: torch.Tensor, n: int, m: int,
+               plan_o: Optional[int] = None) -> torch.Tensor:
     """The int8 or packed launch on checked operands x [rows, K]: f32
     under ``f32_plan`` (O compressed rows, ``rows`` dense columns), bf16
     under ``mma_plan`` (None outside ``FAST_NM``: the first body).  Neither
-    plan looks at the index stream, so both instances take one plan."""
+    plan looks at the index stream, so both instances take one plan.  A
+    shard of ``plan_o`` rows takes the whole shape's plan: the tiles are
+    cut from the shard's own O, the K splits are the whole's."""
     rows, k = x.shape
     o = values.shape[0]
     plan = None
     if rows and o:
         sms = sm_count(x.device)
-        plan = f32_plan(o, rows, k, n, m, sms) if x.dtype == torch.float32 \
-            else mma_plan(rows, o, k, n, m, sms)
+        po = plan_o or o
+        plan = f32_plan(po, rows, k, n, m, sms) if x.dtype == torch.float32 \
+            else mma_plan(rows, po, k, n, m, sms)
     return launch_planned(kernel, x, values, idx, n, m, plan)
 
 

@@ -99,6 +99,12 @@ class GatherPlan(NamedTuple):
         """Dynamic shared memory of a CTA: the resident x slice."""
         return self.kper * self.bg * elt
 
+    def for_rows(self, o: int) -> "GatherPlan":
+        """This plan over ``o`` rows: a shard of the rows it was made for
+        keeps its K splits and warps per row group (so each row sums in the
+        same order) and takes no more CTAs than its row groups fill."""
+        return self._replace(ctas=min(self.ctas, -(-o // self.pass_rows())))
+
 
 def gather_unit(n: int, m: int) -> int:
     """The K columns a split boundary is a multiple of: whole M-blocks,
@@ -231,12 +237,16 @@ nm_spmv_onehot_plain = nm_xwt_plain
 
 
 def nm_spmv(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
-            n: int, m: int, mode: str = "gather") -> torch.Tensor:
+            n: int, m: int, mode: str = "gather",
+            plan_o: int | None = None) -> torch.Tensor:
     """Y = X @ W_sp.T for a decode-shaped X [..., K]; W compressed
     [O, K/M*N].  ``mode`` picks the body: ``"gather"`` (N/M of the MACs,
     indexed reads of x) or ``"onehot"`` (decompress, dense dot).  A CUDA
     tensor launches that body's kernel (or raises); a CPU tensor takes
-    ``nm_spmv_plain`` / ``nm_spmv_onehot_plain``."""
+    ``nm_spmv_plain`` / ``nm_spmv_onehot_plain``.  ``plan_o`` is the whole
+    weight's O when W is a shard of its rows (tensor-parallel serving): the
+    launch takes the whole shape's plan, so every row sums in the order
+    the whole launch sums it."""
     if mode not in MODES:
         raise ValueError(f"unknown spmv mode {mode!r} (one of {MODES})")
     onehot = mode == "onehot"
@@ -261,11 +271,13 @@ def nm_spmv(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     check_cuda_operand("indices", indices, x.device, torch.int8)
     bsz = xf.shape[0]
     if onehot:
-        plan = mma_plan(bsz, o, k, n, m, sm_count(x.device), decode=True) \
+        plan = mma_plan(bsz, plan_o or o, k, n, m, sm_count(x.device),
+                        decode=True) \
             if x.dtype == torch.bfloat16 and bsz and o else None
         y = launch_planned(ONEHOT_KERNEL, xf, values, indices, n, m, plan)
         return y.reshape(*lead, o)
     if not bsz or not o:
         return torch.empty(*lead, o, dtype=x.dtype, device=x.device)
-    plan = gather_plan(bsz, o, k, n, m, x.element_size(), sm_count(x.device))
+    plan = gather_plan(bsz, plan_o or o, k, n, m, x.element_size(),
+                       sm_count(x.device)).for_rows(o)
     return launch_gather(xf, values, indices, n, m, plan).reshape(*lead, o)

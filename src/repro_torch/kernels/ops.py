@@ -74,14 +74,16 @@ def pack_block_indices(indices: torch.Tensor, n: int, m: int,
 
 def nm_xwt(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
            n: int, m: int, *, packed: bool = False,
-           block: Tuple[int, int, int] | None = None) -> torch.Tensor:
+           block: Tuple[int, int, int] | None = None,
+           plan_o: int | None = None) -> torch.Tensor:
     """Y = X @ W_sp.T for X [..., K]; W compressed [O, K/M*N] with int8
     indices.  ``packed=True`` packs the indices per ``block`` (default: the
     reference's ``pick_block_mm``) and runs the packed kernel; ``block``
     decides only which packed layouts are accepted, as in the reference
-    (the port's kernel tiles on its own)."""
+    (the port's kernel tiles on its own).  ``plan_o``: the whole O of a
+    row shard, whose launch plan the int8 launch takes."""
     if not packed:
-        return _spmm.nm_xwt(x, values, indices, n, m)
+        return _spmm.nm_xwt(x, values, indices, n, m, plan_o)
     k = x.shape[-1]
     rows = x.numel() // max(k, 1)
     blk = block or pick_block_mm(rows, values.shape[0], k, n, m)

@@ -12,12 +12,15 @@ from repro_torch.models.transformer import (DenseLM, EncDecLM, HybridLM,
                                             convert_to_compressed,
                                             decode_step, forward, init_caches,
                                             init_model, loss_fn, make_draft,
-                                            prefill, verify_step,
+                                            param_shard_specs, prefill,
+                                            serve_ring_traffic_bytes,
+                                            shard_model, verify_step,
                                             weight_stream_bytes)
 
 __all__ = ["ArchConfig", "param_count", "DenseLM", "EncDecLM", "HybridLM",
            "MoELM",
            "SSMLM",
            "convert_to_compressed", "decode_step", "forward", "init_caches",
-           "init_model", "loss_fn", "make_draft", "prefill", "verify_step",
-           "weight_stream_bytes"]
+           "init_model", "loss_fn", "make_draft", "param_shard_specs",
+           "prefill", "serve_ring_traffic_bytes", "shard_model",
+           "verify_step", "weight_stream_bytes"]

@@ -27,6 +27,15 @@ j holds position ``pos - ((pos - j) mod L)``), then the gather read's
 score chain over the whole row.  The position is a 0-d tensor (every row
 at one position) or a per-row [B] vector.
 
+Tensor-parallel serving (a serving mesh active and the heads split by
+the rules: GQA's kv heads, MLA's heads, each dividing the mesh): each rank
+projects and attends with its own heads (``linear_apply(local=True)``)
+over its own shard of the pool's head axis, then all-gathers the heads
+before the output projection.  MLA's latent ``ckv`` / ``kpe`` have no
+head axis and stay whole on every rank; its absorbed ``wuk`` / ``wuv``
+are decompressed for the local heads only.  Heads the mesh does not
+divide are computed whole on every rank.
+
 Cross-attention (the audio family's decoder) projects its queries and
 reads the encoder's K/V [B, Se, kv, hd] through ``chunked_attention``
 without a mask, plain torch as in the reference; ``cross_kv`` projects
@@ -45,7 +54,9 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.core.layers import (SparseLinear, dense_view, linear_apply,
-                                     linear_init)
+                                     linear_init, whole_rows)
+from repro_torch.dist.api import local_part, require_mesh
+from repro_torch.dist.collectives import all_gather, all_gather_last
 from repro_torch.kernels.flash_attention import (paged_gqa_decode,
                                                  paged_gqa_verify,
                                                  paged_mla_decode,
@@ -366,10 +377,13 @@ def gqa_apply(p: GQA, x: torch.Tensor, cfg: ArchConfig, *,
     if step is None and cache is not None and block_table is not None:
         step = PagedStep(cos, sin, _paged_kv_len(cache_pos), _span_cells(
             block_table, cache_pos, s, cache["k"].shape[1]))
+    heads = local_part("act_heads", kv)     # this rank's kv heads, if split
+    if heads:
+        h, kv = h // heads[0], kv // heads[0]
 
-    q = linear_apply(p.wq, x, sp).reshape(b, s, h, hd)
-    k = linear_apply(p.wk, x, sp).reshape(b, s, kv, hd)
-    v = linear_apply(p.wv, x, sp).reshape(b, s, kv, hd)
+    q = linear_apply(p.wq, x, sp, local=bool(heads)).reshape(b, s, h, hd)
+    k = linear_apply(p.wk, x, sp, local=bool(heads)).reshape(b, s, kv, hd)
+    v = linear_apply(p.wv, x, sp, local=bool(heads)).reshape(b, s, kv, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
@@ -409,8 +423,16 @@ def gqa_apply(p: GQA, x: torch.Tensor, cfg: ArchConfig, *,
         raise ValueError(f"attn_impl must be 'gather' or 'fused', got "
                          f"{cfg.attn_impl!r}")
 
-    y = linear_apply(p.wo, o.reshape(b, s, h * hd), sp)
+    y = linear_apply(p.wo, _whole_heads(o.reshape(b, s, h * hd), heads), sp)
     return y, new_kv
+
+
+def _whole_heads(o: torch.Tensor, heads) -> torch.Tensor:
+    """[..., local heads x d] -> every head's (an all-gather of the heads,
+    rank order = head order) when ``heads`` split them, else ``o``."""
+    if not heads:
+        return o
+    return all_gather_last(o, require_mesh("split attention heads"))
 
 
 # ------------------------------------------------------------------------ MLA
@@ -446,11 +468,12 @@ def mla_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype,
                                dtype=dtype, device=device)}
 
 
-def _mla_qkv(p: MLA, x, cfg: ArchConfig, cos, sin):
+def _mla_qkv(p: MLA, x, cfg: ArchConfig, cos, sin, h: int,
+             local: bool = False):
     b, s, _ = x.shape
-    h, nd, rd = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    nd, rd = cfg.qk_nope_dim, cfg.qk_rope_dim
     sp = cfg.sparsity
-    q = linear_apply(p.wq, x, sp).reshape(b, s, h, nd + rd)
+    q = linear_apply(p.wq, x, sp, local=local).reshape(b, s, h, nd + rd)
     qn, qpe = q[..., :nd], q[..., nd:]
     dkv = linear_apply(p.wdkv, x, sp)
     ckv, kpe = dkv[..., :cfg.kv_lora], dkv[..., cfg.kv_lora:]
@@ -459,10 +482,21 @@ def _mla_qkv(p: MLA, x, cfg: ArchConfig, cos, sin):
     return qn, qpe, ckv, kpe
 
 
-def _dense_weight(p: SparseLinear, cfg: ArchConfig) -> torch.Tensor:
+def _dense_weight(p: SparseLinear, cfg: ArchConfig,
+                  local: bool = False) -> torch.Tensor:
     """Dense view of a (possibly compressed or masked) linear weight,
-    consistent with what ``linear_apply`` multiplies by."""
-    return dense_view(p, cfg.sparsity)
+    consistent with what ``linear_apply`` multiplies by: with ``local``
+    this rank's 1/n of its rows (the local heads), else all of them (a
+    row shard's are all-gathered)."""
+    w = dense_view(p, cfg.sparsity)
+    if not getattr(p, "tp_rows", None) and not local:
+        return w
+    mesh = require_mesh("a split MLA weight")
+    if getattr(p, "tp_rows", None):
+        return w if local else all_gather(w, mesh).reshape(
+            (whole_rows(p),) + tuple(w.shape[1:]))
+    part = w.shape[0] // mesh.size
+    return w.narrow(0, mesh.rank * part, part)
 
 
 def mla_apply(p: MLA, x: torch.Tensor, cfg: ArchConfig, *,
@@ -488,13 +522,18 @@ def mla_apply(p: MLA, x: torch.Tensor, cfg: ArchConfig, *,
     if step is None and cache is not None and block_table is not None:
         step = PagedStep(cos, sin, _paged_kv_len(cache_pos), _span_cells(
             block_table, cache_pos, s, cache["ckv"].shape[1]))
-    qn, qpe, ckv, kpe = _mla_qkv(p, x, cfg, cos, sin)
+    whole_h = h
+    heads = local_part("act_heads", h)      # this rank's heads, if split
+    if heads:
+        h //= heads[0]
+    loc = bool(heads)
+    qn, qpe, ckv, kpe = _mla_qkv(p, x, cfg, cos, sin, h, loc)
     scale = (nd + rd) ** -0.5
 
     if cache is None:
         # up-project and run standard chunked attention (dq nd+rd != dv vd)
-        kn = linear_apply(p.wuk, ckv, sp).reshape(b, s, h, nd)
-        vv = linear_apply(p.wuv, ckv, sp).reshape(b, s, h, vd)
+        kn = linear_apply(p.wuk, ckv, sp, local=loc).reshape(b, s, h, nd)
+        vv = linear_apply(p.wuv, ckv, sp, local=loc).reshape(b, s, h, vd)
         q = torch.cat([qn, qpe], dim=-1)
         k = torch.cat([kn, kpe[:, :, None, :].expand(b, s, h, rd)], dim=-1)
         o = chunked_attention(q, k, vv, causal=True, scale=scale,
@@ -507,8 +546,8 @@ def mla_apply(p: MLA, x: torch.Tensor, cfg: ArchConfig, *,
         # slot; S > 1 a verify span whose offset i masks to idx <= pos + i.
         # Slotted caches (no block table) take one token per row, written
         # at its position, and read through the gather chain
-        wuk3 = _dense_weight(p.wuk, cfg).reshape(h, nd, r)
-        wuv3 = _dense_weight(p.wuv, cfg).reshape(h, vd, r)
+        wuk3 = _dense_weight(p.wuk, cfg, loc).reshape(h, nd, r)
+        wuv3 = _dense_weight(p.wuv, cfg, loc).reshape(h, vd, r)
         # the kernels read dense rows; this einsum returns a permuted
         # [h, b, s, r] product
         qlat = torch.einsum("bshd,hdr->bshr", qn.float(),
@@ -537,7 +576,7 @@ def mla_apply(p: MLA, x: torch.Tensor, cfg: ArchConfig, *,
             if s == 1:
                 ov = paged_mla_decode(qlat[:, 0], qp[:, 0], new_kv["ckv"],
                                       new_kv["kpe"], block_table, step.kv_len,
-                                      scale=scale)[:, None]
+                                      scale=scale, plan_h=whole_h)[:, None]
             else:
                 ov = paged_mla_verify(qlat, qp, new_kv["ckv"], new_kv["kpe"],
                                       block_table, step.kv_len, scale=scale)
@@ -546,7 +585,7 @@ def mla_apply(p: MLA, x: torch.Tensor, cfg: ArchConfig, *,
                              f"{cfg.attn_impl!r}")
         o = torch.einsum("bshr,hdr->bshd", ov, wuv3.float()).to(x.dtype)
 
-    y = linear_apply(p.wo, o.reshape(b, s, h * vd), sp)
+    y = linear_apply(p.wo, _whole_heads(o.reshape(b, s, h * vd), heads), sp)
     return y, new_kv
 
 

@@ -79,7 +79,25 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
 
 
 def embed_apply(p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
-    return p.emb[tokens]
+    """Table rows of ``tokens``.  A vocab shard (``tp_rows``: the whole
+    vocab, tensor-parallel serving) looks up the tokens in its range and
+    writes zeros elsewhere; the ranks' results are all-gathered and each
+    token takes its owner's row, exactly."""
+    if not getattr(p, "tp_rows", None):
+        return p.emb[tokens]
+    from repro_torch.dist.api import require_mesh
+    from repro_torch.dist.collectives import all_gather
+    mesh = require_mesh("a vocab-split embedding")
+    part = p.emb.shape[0]
+    t = tokens.long()
+    mine = t - mesh.rank * part
+    inside = (mine >= 0) & (mine < part)
+    rows = torch.where(inside[..., None], p.emb[mine.clamp(0, part - 1)],
+                       torch.zeros((), dtype=p.emb.dtype,
+                                   device=p.emb.device))
+    every = all_gather(rows, mesh)                    # [n, ..., d]
+    owner = (t // part).reshape(1, *t.shape, 1)
+    return every.gather(0, owner.expand(1, *rows.shape))[0]
 
 
 class _HeadMM(torch.autograd.Function):
@@ -107,7 +125,8 @@ def lm_head_apply(p: Embedding, x: torch.Tensor,
     """logits = x @ emb.T with f32 accumulation and a **float32 output**:
     greedy argmax reads these, and rounding them to bf16 can flip tokens.
     On the card a bf16 table is read as it is (mm with an f32 output),
-    never cast to f32 per call."""
+    never cast to f32 per call.  A vocab shard (``tp_rows``) computes its
+    vocab range's logits, all-gathered before the softcap."""
     emb = p.emb
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
@@ -118,6 +137,10 @@ def lm_head_apply(p: Embedding, x: torch.Tensor,
     else:
         logits = x2.float() @ emb.float().t()
     logits = logits.reshape(*lead, emb.shape[0])
+    if getattr(p, "tp_rows", None):
+        from repro_torch.dist.api import require_mesh
+        from repro_torch.dist.collectives import all_gather_last
+        logits = all_gather_last(logits, require_mesh("a vocab-split head"))
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     return logits

@@ -11,6 +11,14 @@ as in the reference, so every call decompresses all E experts of a
 compressed stack (reading only the routed experts' compressed bytes is
 later work).
 
+Tensor-parallel serving (``models.transformer.shard_model``): the
+router's expert rows and each stack's output rows (axis -2) may be split
+over the serving mesh.  The router's rows are all-gathered before routing
+(E x d in f32, a few hundred KB), so every rank routes the same
+replicated activations through the one-device computation to the same
+experts; each stack's local product is all-gathered along its feature
+axis before anything contracts over it.
+
 Routing reproduces the reference bit for bit where it can: ``torch.topk``
 promises no order among tied probabilities, so the top-k is a stable
 descending sort (ties to the lower expert id, the order of
@@ -28,6 +36,8 @@ from repro_torch.core.layers import (SparseLinear, StackedLinear, dense_view,
                                      linear_apply, linear_init)
 from repro_torch.core.sparse_matmul import SparsityConfig, bmm_f32acc
 from repro_torch.core.sparsity import compress
+from repro_torch.dist.api import require_mesh
+from repro_torch.dist.collectives import all_gather, all_gather_last
 from repro_torch.models.common import ACTIVATIONS
 from repro_torch.models.config import ArchConfig
 
@@ -119,6 +129,12 @@ def _capacity(tokens: int, e: int, k: int, cf: float) -> int:
     return max(8, -(-c // 8) * 8)  # multiple of 8
 
 
+def _whole(y: torch.Tensor, split) -> torch.Tensor:
+    """``y``'s feature axis made whole when its rows were split."""
+    return all_gather_last(y, require_mesh("a split MoE weight")) \
+        if split else y
+
+
 def moe_route(router: torch.Tensor, xt: torch.Tensor, k: int
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """f32 router: xt [T, d] -> (probs [T, E], normalized gates [T, k],
@@ -154,7 +170,11 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ArchConfig
     dev = x.device
 
     xt = x.reshape(t, d)
-    probs, gate, ids = moe_route(p.router, xt, k)
+    router = p.router
+    if getattr(p, "tp_router", None):        # this rank's experts' rows
+        router = all_gather(router, require_mesh("a split router")) \
+            .reshape(p.tp_router, d)
+    probs, gate, ids = moe_route(router, xt, k)
 
     # ---- sort-based dispatch -------------------------------------------
     ids_f = ids.reshape(-1)                                   # [t*k]
@@ -178,8 +198,9 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ArchConfig
     wg = _stacked_dense_view(p.wg, sp)
     wu = _stacked_dense_view(p.wu, sp)
     wd = _stacked_dense_view(p.wd, sp)
-    h = act(bmm_f32acc(xbuf, wg)) * bmm_f32acc(xbuf, wu)
-    ybuf = bmm_f32acc(h, wd)
+    h = _whole(act(bmm_f32acc(xbuf, wg)) * bmm_f32acc(xbuf, wu),
+               getattr(p.wg, "tp_rows", None))
+    ybuf = _whole(bmm_f32acc(h, wd), getattr(p.wd, "tp_rows", None))
     ybuf_pad = torch.cat([ybuf.reshape(sentinel, d), ybuf.new_zeros(1, d)])
 
     # ---- gather-based combine (unsort; dropped -> sentinel zero row) ----

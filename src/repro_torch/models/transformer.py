@@ -72,6 +72,11 @@ Public API (family-dispatched):
   make_draft(model, cfg, kind, stride)           -> (draft, draft_cfg, cache_idx)
   convert_to_compressed(model, cfg)              -> the same model class
   weight_stream_bytes(model, cfg)                -> dict
+  param_shard_specs(model)                       -> {name: logical spec}
+  shard_model(model, mesh, rules)                -> the same model class,
+                                                    each leaf its local shard
+  serve_ring_traffic_bytes(model, cfg, ndev)     -> dict
+  cache_specs(caches)                            -> {leaf: logical spec}
 """
 
 from __future__ import annotations
@@ -579,14 +584,22 @@ def _encdec_stack(p: EncDecLM, cfg: ArchConfig, x, positions, batch):
                "cross_v": torch.stack([c[1] for c in cross])}
 
 
-def init_model(cfg: ArchConfig, seed: int = 0, device="cuda") -> LM:
+def init_model(cfg: ArchConfig, seed: int = 0, device="cuda",
+               store=None) -> LM:
     """Random weights from one ``torch.Generator`` seeded with ``seed`` on
     ``device`` (numbers differ from the reference's jax.random init; parity
     tests carry JAX weights over with ``repro_torch.convert``).  Under
     ``sparsity.mode == 'compressed'`` every linear is compressed as it is
-    drawn, so the dense model never exists at once."""
+    drawn, so the dense model never exists at once.  ``store``: where the
+    model is kept, each block moved there as soon as it is drawn (the
+    numbers drawn on ``device``: a tensor-parallel rank keeps the whole
+    model on the host and moves only its shard to the card)."""
     _check_family(cfg)
     device = resolve_device(device)
+    store = device if store is None else resolve_device(store)
+
+    def kept(module):
+        return module if store == device else module.to(store)
     # an abstract model (device "meta": shapes and dtypes, no storage,
     # for byte and parameter counts) draws without a generator
     gen = None
@@ -594,41 +607,43 @@ def init_model(cfg: ArchConfig, seed: int = 0, device="cuda") -> LM:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
     dtype = cfg.tdtype()
-    embed = embed_init(gen, cfg.vocab, cfg.d_model, dtype, device)
-    lnf = rms_norm_init(cfg.d_model, device)
+    embed = kept(embed_init(gen, cfg.vocab, cfg.d_model, dtype, device))
+    lnf = kept(rms_norm_init(cfg.d_model, device))
     if cfg.family == "ssm":
-        return SSMLM(embed, [_ssm_block_init(gen, cfg, dtype, device)
+        return SSMLM(embed, [kept(_ssm_block_init(gen, cfg, dtype, device))
                              for _ in range(cfg.n_layers)], lnf)
     if cfg.family == "hybrid":
         groups, period, rem = _hybrid_layout(cfg)
-        blocks = [[_ssm_block_init(gen, cfg, dtype, device)
+        blocks = [[kept(_ssm_block_init(gen, cfg, dtype, device))
                    for _ in range(period)] for _ in range(groups)]
-        shared = _dense_block_init(gen, cfg, dtype, device) if groups \
-            else None
-        tail = [_ssm_block_init(gen, cfg, dtype, device) for _ in range(rem)]
+        shared = kept(_dense_block_init(gen, cfg, dtype, device)) \
+            if groups else None
+        tail = [kept(_ssm_block_init(gen, cfg, dtype, device))
+                for _ in range(rem)]
         return HybridLM(embed, blocks, shared, tail, lnf)
     if cfg.family == "audio":
-        enc = [EncBlock(rms_norm_init(cfg.d_model, device),
-                        attn.gqa_init(gen, cfg, dtype, device),
-                        rms_norm_init(cfg.d_model, device),
-                        ffn_mod.mlp_init(gen, cfg, dtype, device))
+        enc = [kept(EncBlock(rms_norm_init(cfg.d_model, device),
+                             attn.gqa_init(gen, cfg, dtype, device),
+                             rms_norm_init(cfg.d_model, device),
+                             ffn_mod.mlp_init(gen, cfg, dtype, device)))
                for _ in range(cfg.enc_layers)]
-        enc_lnf = rms_norm_init(cfg.d_model, device)
-        dec = [DecBlock(rms_norm_init(cfg.d_model, device),
-                        attn.gqa_init(gen, cfg, dtype, device),
-                        rms_norm_init(cfg.d_model, device),
-                        attn.cross_attn_init(gen, cfg, dtype, device),
-                        rms_norm_init(cfg.d_model, device),
-                        ffn_mod.mlp_init(gen, cfg, dtype, device))
+        enc_lnf = kept(rms_norm_init(cfg.d_model, device))
+        dec = [kept(DecBlock(rms_norm_init(cfg.d_model, device),
+                             attn.gqa_init(gen, cfg, dtype, device),
+                             rms_norm_init(cfg.d_model, device),
+                             attn.cross_attn_init(gen, cfg, dtype, device),
+                             rms_norm_init(cfg.d_model, device),
+                             ffn_mod.mlp_init(gen, cfg, dtype, device)))
                for _ in range(cfg.n_layers)]
         return EncDecLM(embed, enc, enc_lnf, dec, lnf)
     if cfg.family == "moe":
         nd = cfg.first_dense_layers
-        dense = [_dense_block_init(gen, cfg, dtype, device) for _ in range(nd)]
-        moe = [_moe_block_init(gen, cfg, dtype, device)
+        dense = [kept(_dense_block_init(gen, cfg, dtype, device))
+                 for _ in range(nd)]
+        moe = [kept(_moe_block_init(gen, cfg, dtype, device))
                for _ in range(cfg.n_layers - nd)]
         return MoELM(embed, dense, moe, lnf)
-    blocks = [_dense_block_init(gen, cfg, dtype, device)
+    blocks = [kept(_dense_block_init(gen, cfg, dtype, device))
               for _ in range(cfg.n_layers)]
     return DenseLM(embed, blocks, lnf)
 
@@ -993,8 +1008,10 @@ def make_draft(p: LM, cfg: ArchConfig, kind: str = "rerank",
 
 
 def weight_stream_bytes(p: LM, cfg: ArchConfig) -> Dict[str, float]:
-    """Decode weight-stream accounting: every decode step reads each linear
-    once, so per-step traffic is the sum of their stored bytes — values
+    """Decode weight-stream accounting, per rank (a model cut by
+    ``shard_model`` counts the shards this rank holds): every decode step
+    reads each linear once, so per-step traffic is the sum of their
+    stored bytes — values
     plus packed ceil(log2 M)-bit indices for converted leaves, the dense
     weight otherwise (embedding, norms and the MoE router excluded on both
     sides).  An expert stack counts as one linear of E x its bytes, and
@@ -1013,3 +1030,145 @@ def weight_stream_bytes(p: LM, cfg: ArchConfig) -> Dict[str, float]:
         tot["compressed_linears" if lin.compressed else "dense_linears"] += 1
     tot["ratio"] = tot["stream_bytes"] / max(tot["dense_bytes"], 1)
     return tot
+
+
+# --------------------------------------------------- tensor-parallel serving
+
+# Leaf names that carry a linear's [..., out, in]-shaped tensors (or the
+# compressed [..., out, nnz] pair), and the MoE router [E, d] (the
+# reference's ``router.w``).  The walk is structural, keyed on these names,
+# so it covers the tree after ``convert_to_compressed`` as well as before.
+_LINEAR_LEAF_KEYS = frozenset({"w", "w_vals", "w_idx", "mask", "router"})
+# the leaves whose rows a linear-like module's ``tp_rows`` records
+_ROW_KEYS = ("w", "w_vals", "emb", "router")
+
+
+def param_shard_specs(p: nn.Module) -> Dict[str, Optional[tuple]]:
+    """Logical shard specs of a (possibly compressed) serving model,
+    {parameter or buffer name: spec}, None for replicated.  Output-feature
+    axes get "tp" (axis -2 of every linear-like leaf, -1 of biases, 0 of
+    the embedding table); contraction axes and stack axes (experts) stay
+    whole, so TP decode keeps the one-device reduction order.  The
+    reference's spec of the same leaf (``convert.reference_path``) is this
+    one behind the stacked layer axes."""
+    out: Dict[str, Optional[tuple]] = {}
+    for name, t in list(p.named_parameters()) + list(p.named_buffers()):
+        leaf, nd = name.rsplit(".", 1)[-1], t.dim()
+        if leaf == "emb" and nd == 2:
+            out[name] = ("tp", None)
+        elif leaf in _LINEAR_LEAF_KEYS and nd >= 2:
+            out[name] = (None,) * (nd - 2) + ("tp", None)
+        elif leaf == "b" and nd >= 1:
+            out[name] = (None,) * (nd - 1) + ("tp",)
+        else:
+            out[name] = None
+    return out
+
+
+def shard_model(p: LM, mesh, rules=None, device=None) -> LM:
+    """A copy of ``p`` holding this rank's shard of every leaf that
+    ``param_shard_specs`` and ``rules`` (default ``SERVE_TP_RULES``) split
+    over ``mesh``; ``p`` is left whole.  A module whose rows were split
+    records their whole count: ``tp_rows`` on a linear (weights and bias)
+    or the embedding, ``tp_router`` on an MoE layer.  ``device``: where the
+    copy's leaves live (default: where ``p``'s do); ``p`` is not moved, so
+    a whole model kept on the host puts only the shard on the card.  Run
+    after ``convert_to_compressed``, as the reference shards after
+    conversion."""
+    from repro_torch.dist.api import SERVE_TP_RULES, Sharding, logical_to_pspec
+    rules = SERVE_TP_RULES if rules is None else rules
+    specs = param_shard_specs(p)
+
+    def cut(module: nn.Module, prefix: str) -> nn.Module:
+        new = copy.copy(module)
+        new._modules = {name: cut(child, f"{prefix}{name}.")
+                        for name, child in module._modules.items()}
+        new._parameters = dict(module._parameters)
+        new._buffers = dict(module._buffers)
+        for store in (new._parameters, new._buffers):
+            for name, t in store.items():
+                if t is None:
+                    continue
+                spec = specs.get(prefix + name)
+                sh = None if spec is None else Sharding(logical_to_pspec(
+                    spec, rules, mesh=mesh, shape=tuple(t.shape)), mesh)
+                if sh is None or not sh.spec:
+                    if device is not None and t.device != device:
+                        store[name] = _moved(t, device)
+                    continue
+                local = sh(t.detach())
+                if device is not None:
+                    local = local.to(device)
+                store[name] = (nn.Parameter(local, requires_grad=False)
+                               if isinstance(t, nn.Parameter) else local)
+                if name in _ROW_KEYS:
+                    rows = t.shape[0] if name == "emb" else t.shape[-2]
+                    setattr(new, "tp_router" if name == "router"
+                            else "tp_rows", rows)
+        return new
+
+    return cut(p, "")
+
+
+def _moved(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` copied to ``device``, a parameter as a parameter."""
+    out = t.detach().to(device)
+    return (nn.Parameter(out, requires_grad=t.requires_grad)
+            if isinstance(t, nn.Parameter) else out)
+
+
+def serve_ring_traffic_bytes(p: LM, cfg: ArchConfig, ndev: int
+                             ) -> Dict[str, float]:
+    """Modeled interconnect bytes of one decode step at TP = ``ndev``, over
+    the whole (unsharded) model: each step streams every linear once; under
+    the sparse ring a converted linear's *compressed* shard rotates
+    (``ring_bytes``), against the same ring shipping dense weights
+    (``dense_ring_bytes``).  A linear whose rows do not divide over the
+    mesh runs locally and adds nothing (``local_linears``).  Bytes equal
+    the reference's; the linear counts are per layer (an expert stack is
+    one), as in ``weight_stream_bytes``."""
+    from repro_torch.dist.collectives import ring_matmul_bytes
+    sp = cfg.sparsity
+    tot = {"ring_bytes": 0, "dense_ring_bytes": 0,
+           "ring_linears": 0, "local_linears": 0}
+    for lin in _linears(p):
+        leaf = lin.w_vals if lin.compressed else lin.w
+        stack = int(np.prod(leaf.shape[:-2], dtype=np.int64)) \
+            if leaf.dim() > 2 else 1
+        o = leaf.shape[-2]
+        db = leaf.element_size()
+        if ndev <= 1 or o % ndev:
+            tot["local_linears"] += 1
+            continue
+        tot["ring_linears"] += 1
+        if lin.compressed:
+            k = leaf.shape[-1] * sp.m // sp.n
+            tot["ring_bytes"] += stack * ring_matmul_bytes(
+                o, k, ndev, sp.n, sp.m, dtype_bytes=db, sparse=True)
+        else:
+            k = leaf.shape[-1]
+            tot["ring_bytes"] += stack * ring_matmul_bytes(
+                o, k, ndev, dtype_bytes=db, sparse=False)
+        tot["dense_ring_bytes"] += stack * ring_matmul_bytes(
+            o, k, ndev, dtype_bytes=db, sparse=False)
+    tot["ratio"] = tot["ring_bytes"] / max(tot["dense_ring_bytes"], 1)
+    return tot
+
+
+def cache_specs(caches) -> Dict:
+    """Logical shard specs of a dense / MoE family's decode caches (the
+    tree of ``init_caches`` or of the paged pool), the reference's: GQA's
+    {"k", "v"} [L, batch, seq, kv, hd] split their kv-head axis
+    ("act_heads"); MLA's latent {"ckv", "kpe"} have no head axis and
+    replicate.  A leaf of another rank raises: the other families are not
+    served over a mesh."""
+    def one(name, t):
+        if name in ("k", "v") and t.dim() == 5:
+            return (None, "act_batch", "act_seq_sp", "act_heads", None)
+        if name in ("ckv", "kpe") and t.dim() == 4:
+            return (None, "act_batch", "act_seq_sp", None)
+        raise ValueError(f"no tensor-parallel layout for cache leaf {name!r} "
+                         f"{tuple(t.shape)}")
+
+    return {name: (cache_specs(t) if isinstance(t, dict) else one(name, t))
+            for name, t in caches.items()}

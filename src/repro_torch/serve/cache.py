@@ -31,6 +31,11 @@ from the single request's.  ``scatter_slot`` is pure, as the reference's;
 ``scatter_slot_`` writes the pool in place, which is what the engine uses:
 its CUDA graphs hold the pool tensors by address, so the pool is never
 rebound.  ``leaves`` lists a cache tree's tensors in a fixed order.
+
+``init_local_caches`` is ``init_caches`` for one rank of a serving mesh:
+each leaf at the shape of this rank's shard under the reference's cache
+specs (``models.transformer.cache_specs``: GQA's kv-head axis split when
+the mesh divides it, MLA's latent leaves whole).
 """
 
 from __future__ import annotations
@@ -142,3 +147,27 @@ def scatter_slot(pool: Tree, single: Tree, slot: int) -> Tree:
         return {name: scatter_slot(pool[name], single[name], slot)
                 for name in pool}
     return scatter_slot_(pool.clone(), single, slot)
+
+
+def init_local_caches(cfg, batch: int, max_len: int, device="cuda",
+                      mesh=None, rules=None, ring: bool = True) -> Tree:
+    """``init_caches(cfg, batch, max_len, device, ring)``, each leaf cut to
+    this rank's shard of ``mesh`` under ``rules`` (default
+    ``SERVE_TP_RULES``); without a mesh, ``init_caches`` itself."""
+    from repro_torch.models import init_caches
+    if mesh is None:
+        return init_caches(cfg, batch, max_len, device=device, ring=ring)
+    from repro_torch.dist.api import SERVE_TP_RULES, make_shardings
+    from repro_torch.models.transformer import cache_specs
+    full = init_caches(cfg, batch, max_len, device="meta", ring=ring)
+    shardings = make_shardings(cache_specs(full), mesh,
+                               SERVE_TP_RULES if rules is None else rules,
+                               shapes_tree=full)
+
+    def build(t, sh):
+        if isinstance(t, dict):
+            return {name: build(t[name], sh[name]) for name in t}
+        return torch.zeros(sh.shard_shape(t.shape), dtype=t.dtype,
+                           device=device)
+
+    return build(full, shardings)

@@ -92,8 +92,30 @@ of the reference under ``jax.disable_jit()``); the CPU always does.
 ``compile_cache=`` names the kernel build directory
 (``serve.prewarm.enable_compile_cache``).
 
-Not ported yet (the constructor raises ``NotImplementedError``):
-tensor-parallel meshes.
+``mesh=`` (a ``dist.api.ServeMesh``, ``make_serve_mesh``) turns on
+tensor-parallel serving for the dense GQA and MoE / MLA families: every
+rank of the mesh runs one engine, in lockstep, on the same trace (the
+same deterministic scheduler; the results of every rank are the same).
+The model is converted, then cut to this rank's shard under
+``dist.api.SERVE_TP_RULES`` (``models.transformer.shard_model``: every
+linear's output rows, the embedding's vocab, the router's experts) and
+the pool to its shard of the kv heads (``BlockPool(mesh=)``,
+``cache.init_local_caches``); every entry point runs inside the mesh's
+``axis_rules`` context.  Only output axes are split, and activations are
+whole between ops, so each element sums in the one-device order and the
+single-device engine stays the token-equality oracle.
+``tp_collective``: 'ring' (what 'auto' means for compressed weights)
+routes every decode-shaped compressed linear through the sparse ring
+(``dist.collectives.ring_sparse_linear``: the compressed shards rotate,
+each rank multiplies each); 'gspmd' (the reference's name; here: the
+local rows, then an all-gather) is what dense weights take.  ``stats()``
+adds the modeled ring bytes of a decode step
+(``models.serve_ring_traffic_bytes``) and this rank's transport counters.
+With the NCCL backend the graphs capture the collectives; gloo moves host
+tensors, so on a card its collectives stage through host memory, which a
+graph cannot capture: the engine runs eager there, and ``graphs=True``
+raises.  ``spec=`` under a mesh raises, as in the reference; the other
+families raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -106,13 +128,15 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.dist.api import SERVE_TP_RULES, axis_rules
 from repro_torch.models import (convert_to_compressed, decode_step,
-                                init_caches, make_draft, prefill, verify_step,
-                                weight_stream_bytes)
+                                init_caches, make_draft, prefill,
+                                serve_ring_traffic_bytes, shard_model,
+                                verify_step, weight_stream_bytes)
 from repro_torch.models.common import greedy_sample
 from repro_torch.models.transformer import STATE_FAMILIES
-from repro_torch.serve.cache import (leaves, scatter_slot_,
-                                     seed_decode_caches)
+from repro_torch.serve.cache import (init_local_caches, leaves,
+                                     scatter_slot_, seed_decode_caches)
 from repro_torch.serve.paged import (TRASH_BLOCK, BlockPool, SwapState,
                                      default_buckets)
 from repro_torch.serve.prefix import PrefixIndex
@@ -150,8 +174,12 @@ def not_ported(feature: str, slice_: str) -> NotImplementedError:
                                f"the {slice_} slice of the port")
 
 
+MESH_FAMILIES = ("dense", "moe")    # served over a mesh (plain token LMs)
+
+
 class ServeEngine:
-    """Continuous-batching greedy-decode engine on one device.
+    """Continuous-batching greedy-decode engine on one device, or one rank
+    of a tensor-parallel mesh (``mesh=``, ``tp_collective``).
 
     ``compressed=True`` converts the model to the compressed N:M serving
     format at init (``models.convert_to_compressed``) and serves from it.
@@ -171,7 +199,11 @@ class ServeEngine:
     captures the complete ``executable_shapes()`` set at init;
     ``strict_prewarm=True`` raises on any capture inside the serving loop;
     ``compile_cache=`` (a directory, or True for the default) is where the
-    kernels are built and loaded from."""
+    kernels are built and loaded from.  ``mesh`` (a ``ServeMesh``) and
+    ``tp_collective`` ('auto' | 'ring' | 'gspmd') serve this rank's shard
+    of a tensor-parallel mesh (module docstring); the device is then the
+    mesh's, and the model may stay on the host: only this rank's shard
+    moves to the device."""
 
     def __init__(self, model, cfg, n_slots: int, max_len: int,
                  compressed: bool = False, kv: str = "slotted",
@@ -179,7 +211,8 @@ class ServeEngine:
                  prefill_buckets: Optional[Sequence[int]] = None,
                  attn: str = "gather", prefix_cache: bool = False,
                  preempt: str = "replay", debug_invariants: bool = False,
-                 mesh=None, spec: Optional[SpecConfig] = None,
+                 mesh=None, tp_collective: str = "auto",
+                 spec: Optional[SpecConfig] = None,
                  compile_cache=None, prewarm: bool = False,
                  strict_prewarm: bool = False, graphs: Optional[bool] = None,
                  device="cuda"):
@@ -203,16 +236,20 @@ class ServeEngine:
             raise ValueError("spec= requires kv='paged' (speculative "
                              "rollback rewinds the block table; the "
                              "slotted layout has none)")
+        if tp_collective not in ("auto", "ring", "gspmd"):
+            raise ValueError(f"tp_collective must be 'auto', 'ring' or "
+                             f"'gspmd', got {tp_collective!r}")
         if mesh is not None:
-            raise not_ported("mesh= (tensor-parallel serving)", "distribution")
+            self._check_mesh(mesh, cfg, spec, device, graphs)
         if (spec is not None and spec.draft == "rerank" and not compressed
                 and cfg.sparsity.mode != "compressed"):
             raise ValueError("spec.draft='rerank' re-ranks the compressed "
                              "N:M pool — serve with compressed=True (or a "
                              "model already in compressed mode)")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else mesh.device)
         if graphs is None:
-            graphs = self.device.type == "cuda"
+            graphs = self.device.type == "cuda" and not (
+                mesh is not None and mesh.staged)
         if graphs and self.device.type != "cuda":
             raise ValueError(f"graphs=True captures CUDA graphs; it needs a "
                              f"CUDA device, got {self.device}")
@@ -220,13 +257,35 @@ class ServeEngine:
         self.compile_cache_dir = (enable_compile_cache(compile_cache)
                                   if compile_cache else None)
         self._compile_log = CompileLog(strict=strict_prewarm)
-        model = model.to(self.device)
+        if mesh is None:
+            model = model.to(self.device)
+        # under a mesh the model stays where the caller keeps it (the
+        # host, for a model the card holds only sharded) until its shard
+        # is cut and moved to this rank's device
         if compressed:
             # serve from the compressed pool: pack every SparseLinear offline
             # and flip the policy so skipped leaves keep masked semantics
             model = convert_to_compressed(model, cfg)
             cfg = cfg.replace(sparsity=dataclasses.replace(
                 cfg.sparsity, mode="compressed"))
+        self.mesh = mesh
+        self.rules = None
+        self.ring_traffic = None
+        self.tp_collective = None
+        if mesh is not None:
+            self.rules = dict(SERVE_TP_RULES)
+            # 'auto': compressed weights ride the sparse ring, so only
+            # compressed bytes cross between ranks; dense ones have nothing
+            # compressed to ship
+            ring = compressed and tp_collective in ("auto", "ring")
+            self.tp_collective = "ring" if ring else "gspmd"
+            cfg = cfg.replace(sparsity=dataclasses.replace(
+                cfg.sparsity, decode_ring=ring))
+            self.ring_traffic = serve_ring_traffic_bytes(model, cfg,
+                                                         mesh.size)
+            # shard after conversion: the spec walk is structural, so it
+            # sees the compressed leaves
+            model = shard_model(model, mesh, self.rules, device=self.device)
         self.weight_stream = weight_stream_bytes(model, cfg)
         self.model = model
         self.cfg = cfg
@@ -262,7 +321,8 @@ class ServeEngine:
         self.index = PrefixIndex() if prefix_cache else None
         if kv == "paged":
             self.pool = BlockPool(cfg, n_slots, max_len, block_size,
-                                  n_blocks, device=self.device)
+                                  n_blocks, device=self.device, mesh=mesh,
+                                  rules=self.rules)
             self.caches = self.pool.caches
             if spec is not None and self.pool.state:
                 raise ValueError(
@@ -276,8 +336,8 @@ class ServeEngine:
                 else default_buckets(max_len)) | {max_len}))
         else:
             self.pool = None
-            self.caches = init_caches(cfg, n_slots, max_len,
-                                      device=self.device)
+            self.caches = init_local_caches(cfg, n_slots, max_len,
+                                            self.device, mesh, self.rules)
             self._prefill_buckets = ()
         if spec is not None:
             # the draft is a view of the served model: shared embedding,
@@ -297,6 +357,31 @@ class ServeEngine:
         # cold-start bill prewarm exists to remove (strict mode raises)
         self._compile_log.serving = True
 
+    @staticmethod
+    def _check_mesh(mesh, cfg, spec, device, graphs) -> None:
+        """The refusals of ``mesh=``, before anything is built."""
+        shape = getattr(mesh, "shape", {})
+        if "model" not in shape:
+            raise ValueError(f"serving mesh needs a 'model' axis, got "
+                             f"{tuple(shape)} (see "
+                             f"dist.api.make_serve_mesh)")
+        if spec is not None:
+            raise ValueError("spec= over a mesh is not supported yet (the "
+                             "draft/verify entry points are untested under "
+                             "tensor-parallel layouts)")
+        if (cfg.family not in MESH_FAMILIES or cfg.local_global_period
+                or cfg.input_mode != "tokens"):
+            raise not_ported(f"mesh= for {cfg.name or cfg.family!r} (family "
+                             f"{cfg.family!r})", "distribution")
+        if torch.device(device).type != mesh.device.type:
+            raise ValueError(f"device {device!r} but the mesh's rank runs on "
+                             f"{mesh.device}")
+        if graphs and mesh.staged:
+            raise ValueError("graphs=True with the gloo backend on a card: "
+                             "gloo's collectives stage through host memory, "
+                             "which a CUDA graph cannot capture (serve eager, "
+                             "or use NCCL)")
+
     # ------------------------------------------------------ entry points
 
     def _make_entries(self) -> None:
@@ -313,10 +398,13 @@ class ServeEngine:
         caches = self.caches
 
         def entry(name, fn):
+            if self.mesh is not None:
+                fn = _in_mesh(fn, self.mesh, self.rules)
             self.entries[name] = GraphEntry(
                 name, fn, device=self.device, graphs=self.graphs,
                 log=self._compile_log, pool=self.graph_pool,
-                stream=self._stream, fixed=lambda: leaves(caches))
+                stream=self._stream, fixed=lambda: leaves(caches),
+                counters=None if self.mesh is None else self.mesh.stats)
             return self.entries[name]
 
         def decode(tok, pos, tbl=None):
@@ -593,7 +681,8 @@ class ServeEngine:
         self.prefill_calls += 1
         first, pf = self._prefill(batch_prompt(req.inputs),
                                   torch.tensor(plen - 1, dtype=torch.long))
-        single = init_caches(self.cfg, 1, self.max_len, device=self.device)
+        single = init_local_caches(self.cfg, 1, self.max_len, self.device,
+                                   self.mesh, self.rules)
         scatter_slot_(self.caches, seed_decode_caches(self.cfg, single, pf),
                       slot)
         first = int(first[0])
@@ -920,7 +1009,23 @@ class ServeEngine:
             "weight_stream_bytes": float(ws["stream_bytes"]),
             "dense_weight_bytes": float(ws["dense_bytes"]),
             "weight_stream_ratio": float(ws["ratio"]),
+            "tp": float(self.mesh.size if self.mesh is not None else 1),
         }
+        if self.ring_traffic is not None:
+            rt = self.ring_traffic
+            # modeled per decode step (models.serve_ring_traffic_bytes):
+            # what the ring ships compressed against the same ring shipping
+            # dense weights; then what this rank's transport sent
+            out.update({
+                "ring_bytes_per_step": float(rt["ring_bytes"]),
+                "ring_dense_bytes_per_step": float(rt["dense_ring_bytes"]),
+                "ring_traffic_ratio": float(rt["ratio"]),
+                "ring_linears": float(rt["ring_linears"]),
+                "local_linears": float(rt["local_linears"]),
+                "ring_sent_bytes": float(self.mesh.stats["ring_bytes"]),
+                "gather_sent_bytes": float(self.mesh.stats["gather_bytes"]),
+                "staged_bytes": float(self.mesh.stats["staged_bytes"]),
+            })
         if self.pool is None:
             # the slotted layout preallocates every row: resident is its
             # capacity; leaves with a sequence axis are the KV stream, the
@@ -1000,6 +1105,14 @@ def _seq_leaves(cfg) -> List[bool]:
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _in_mesh(fn, mesh, rules):
+    """``fn`` run inside the mesh's ``axis_rules`` context."""
+    def run(*args):
+        with axis_rules(mesh, rules):
+            return fn(*args)
+    return run
 
 
 def _host(*arrays: np.ndarray):

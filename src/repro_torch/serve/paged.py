@@ -48,6 +48,13 @@ Invariants (``check_invariants``):
   * freed blocks are reused lowest id first (the free list is a min-heap);
   * ``swap_out`` -> ``swap_in`` round-trips every block bit-exact.
 
+Tensor-parallel serving (``mesh=``, ``rules=``): every leaf holds this
+rank's shard under the reference's cache specs (GQA's kv-head axis split
+where the mesh divides it; the block axes, MLA's latent leaves and the
+table whole), so ``seed``, ``share``, ``cow``, ``swap_out`` and
+``swap_in`` act on each rank's shard in place; the table stays host numpy
+and every rank keeps the same one.
+
 ``rollback`` rewinds a slot's table after a speculative verify (the
 rejected tail's blocks return to the free heap); it refuses a block whose
 refcount is not 1, since the engine copies a shared span before any draft
@@ -67,8 +74,8 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.models import init_caches
-from repro_torch.serve.cache import leaves, seed_decode_caches
+from repro_torch.serve.cache import (init_local_caches, leaves,
+                                     seed_decode_caches)
 
 TRASH_BLOCK = 0
 
@@ -113,7 +120,8 @@ class BlockPool:
     mutated every tick) and ships to the device per decode step."""
 
     def __init__(self, cfg, n_slots: int, max_len: int, block_size: int,
-                 n_blocks: Optional[int] = None, device="cuda"):
+                 n_blocks: Optional[int] = None, device="cuda", mesh=None,
+                 rules=None):
         if block_size <= 0:
             raise ValueError(f"need block_size > 0, got {block_size}")
         if n_slots <= 0:
@@ -129,13 +137,13 @@ class BlockPool:
                          else n_slots * self.table_width + 1)
         if self.n_blocks < 2:
             raise ValueError("need at least 2 blocks (one is reserved trash)")
+        self.mesh, self.rules = mesh, rules
         self.paged: List[torch.Tensor] = []
         self.state: List[torch.Tensor] = []
         self.state_axes: List[int] = []
         self.caches = self._layout(
-            init_caches(cfg, 1, 1, device="meta", ring=False),
-            init_caches(cfg, 1, 2, device="meta", ring=False),
-            init_caches(cfg, 2, 1, device="meta", ring=False))
+            *(init_local_caches(cfg, b, n, "meta", mesh, rules, ring=False)
+              for b, n in ((1, 1), (1, 2), (2, 1))))
         self._staging = None                 # built lazily on first seed
         self.table = np.zeros((n_slots, self.table_width), np.int32)
         self._free: List[int] = list(range(1, self.n_blocks))
@@ -453,8 +461,9 @@ class BlockPool:
         layer's ring would be shorter than the table span."""
         if self._staging is None:
             length = self.table_width * self.block_size
-            self._staging = init_caches(self.cfg, 1, length,
-                                        device=self.device, ring=False)
+            self._staging = init_local_caches(self.cfg, 1, length,
+                                              self.device, self.mesh,
+                                              self.rules, ring=False)
         return self._staging
 
     def seed(self, slot: int, pf, n_positions: int) -> None:

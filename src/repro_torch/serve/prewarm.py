@@ -32,6 +32,16 @@ replace them by one graph replay:
 * Launch accounting: a kernel launched while a graph is captured is not
   a launch (``kernels.build.capture_launches``); the entry records what
   each graph captured, and every replay adds it to the launchers' counts.
+  The same holds for the transport's byte counters (``counters=``, the
+  mesh's ``stats``): a capture sends nothing, so what it counted is taken
+  back and added again at every replay.
+* Tensor-parallel serving: an engine over an NCCL mesh captures its
+  collectives (all-gathers, the ring's sends and receives) into the
+  graphs like any kernel; the mesh warms the communicator up at creation,
+  before any capture.  gloo's collectives stage through host memory,
+  which no graph can hold, so an engine over gloo on the card runs its
+  entry points eagerly (``graphs=True`` raises there); its
+  ``executable_shapes()`` is the same set either way.
 * ``abstract_batch``: the [1, L] prefill inputs of one bucket, built by the
   same ``batch_prompt`` that admission uses, so the prewarmed shapes are
   the admitted ones by construction.
@@ -184,8 +194,8 @@ def _sync_debug_error():
 
 class _Executable:
     """One shape key of an entry: static inputs and, on the card, the
-    captured graph, its outputs, the launches it holds and the addresses
-    of the tensors it captured."""
+    captured graph, its outputs, the launches it holds, the transport
+    bytes a replay sends and the addresses of the tensors it captured."""
 
     def __init__(self, spec, static: List[torch.Tensor]):
         self.spec = spec
@@ -193,6 +203,7 @@ class _Executable:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out = None
         self.launches: Dict[object, int] = {}
+        self.sent: Dict[str, int] = {}
         self.ptrs: Tuple[int, ...] = ()
 
 
@@ -208,6 +219,9 @@ class GraphEntry:
     card; without it every call copies into the static buffers and calls
     ``fn`` directly.  ``pool`` / ``stream``: the engine's one graph memory
     pool and its side stream (warm-up and capture run there).
+    ``counters``: byte counters the function adds to as it runs (the
+    serving mesh's transport ``stats``); a replay adds what its capture
+    counted.
 
     ``capture(*args, label=)`` builds a shape key ahead of time (args may
     be abstract); ``__call__`` dispatches.  ``n_compiles`` counts shape keys
@@ -219,7 +233,8 @@ class GraphEntry:
 
     def __init__(self, name: str, fn: Callable, *, device: torch.device,
                  graphs: bool, log: Optional[CompileLog] = None, pool=None,
-                 stream=None, fixed: Callable[[], List[torch.Tensor]] = list):
+                 stream=None, fixed: Callable[[], List[torch.Tensor]] = list,
+                 counters: Optional[Dict[str, int]] = None):
         if graphs and device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
         self.name = name
@@ -230,6 +245,7 @@ class GraphEntry:
         self.pool = pool
         self.stream = stream
         self.fixed = fixed
+        self.counters = counters if counters is not None else {}
         self._exe: Dict[Tuple, _Executable] = {}
         self.n_compiles = 0
         self.warm_calls = 0
@@ -274,6 +290,8 @@ class GraphEntry:
         exe.graph.replay()
         for kernel, n in exe.launches.items():
             kernel.launches += n
+        for key, n in exe.sent.items():
+            self.counters[key] += n
         return exe.out
 
     def _build(self, key, args, label: str, phase: str):
@@ -317,11 +335,15 @@ class GraphEntry:
         side.synchronize()
         warm = time.perf_counter() - t0
         graph = torch.cuda.CUDAGraph()
+        before = dict(self.counters)
         with build.capture_launches() as launched:
             with torch.cuda.graph(graph, pool=self.pool, stream=side):
                 exe.out = self.fn(*args)
         exe.graph = graph
         exe.launches = dict(launched)
+        # the capture recorded its sends without making them
+        exe.sent = {k: self.counters[k] - before[k] for k in before}
+        self.counters.update(before)
         exe.ptrs = tuple(t.data_ptr() for t in self.fixed())
         return warm, out
 

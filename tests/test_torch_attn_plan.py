@@ -293,3 +293,45 @@ def test_kernel_names_carry_the_source_name(name):
     kernels = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?"
                          r"\s+(\w+)\(", text)
     assert len(kernels) == 2 and all(k.startswith(name) for k in kernels)
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("s,tw", [(1, 2), (1, 11), (4, 140), (1, 140)])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_gqa_head_shard_keeps_the_whole_launch(parts, s, tw, dtype):
+    """A tensor-parallel shard of the kv heads takes the whole launch's
+    body, chunk, span rows, threads and shared memory (nothing of
+    ``gqa_plan`` but the grid and workspace reads the kv head count), so
+    each head sums in the whole launch's order."""
+    whole = _gqa(8, s, 16, tw, dtype)
+    shard = _gqa(8, s, 16, tw, dtype, kvh=LLAMA["kvh"] // parts)
+    keep = ("body", "chunk", "rows", "threads", "smem")
+    assert [getattr(shard, f) for f in keep] == \
+        [getattr(whole, f) for f in keep]
+    if whole.body == "tc":
+        assert shard.grid[1] * parts == whole.grid[1]
+        assert shard.ws * parts == whole.ws
+    else:
+        assert shard.grid[0] * parts == whole.grid[0]
+
+
+@pytest.mark.parametrize("h,parts", [(16, 2), (16, 4), (32, 2), (32, 4)])
+@pytest.mark.parametrize("s,tw", [(1, 11), (1, 140), (4, 11)])
+def test_mla_head_shard_takes_the_whole_heads_body(h, parts, s, tw):
+    """``mla_plan(..., plan_h=H)`` on H / parts heads picks the body the
+    whole launch picks: at H 32 the first body, although the shard's heads
+    would fit the tensor cores' 16-row tile; its grid and workspace follow
+    the shard's heads."""
+    whole = _mla(8, s, 16, tw, h=h)
+    shard = fa.mla_plan(8, s, h // parts, DEEPSEEK["r"], DEEPSEEK["rd"], 16,
+                        tw, BF, True, plan_h=h)
+    assert shard.body == whole.body == ("tc" if h <= fa.TILE else "first")
+    assert (shard.chunk, shard.rows, shard.threads, shard.smem) == \
+        (whole.chunk, whole.rows, whole.threads, whole.smem)
+    if whole.body == "tc":
+        assert shard.grid == whole.grid and shard.ws * parts == whole.ws
+    else:
+        assert shard.grid[0] * parts == whole.grid[0]
+    alone = _mla(8, s, 16, tw, h=h // parts)
+    if h > fa.TILE:
+        assert alone.body == "tc"            # what the pin prevents

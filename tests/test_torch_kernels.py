@@ -154,11 +154,14 @@ def test_nm_matmul_impls_agree():
     (x, v, i), (xt, vt, it) = _operands(42, 8, 64, 128, 2, 4, "float32")
     sp = NMSparse(vt, it, 2, 4, (64, 128))
     want = np.asarray(jref.nm_xwt_ref(x, v, i, 2, 4))
-    for impl in ("auto", "ref", "plain", "xwt", "spmv"):
+    # 'ring' without a serving mesh of more than one rank is the local
+    # product (tensor-parallel serving; the ring itself is held to it in
+    # tests/test_torch_dist_ring.py)
+    for impl in ("auto", "ref", "plain", "xwt", "spmv", "ring"):
         np.testing.assert_allclose(nm_matmul(xt, sp, impl=impl).numpy(), want,
                                    rtol=1e-4, atol=1e-4, err_msg=impl)
     with pytest.raises(ValueError, match="ring"):
-        nm_matmul(xt, sp, impl="ring")
+        nm_matmul(xt, sp, impl="allgather")
 
 
 @pytest.mark.parametrize("bsz,o,k", [(1, 2048, 2048), (8, 512, 2048),

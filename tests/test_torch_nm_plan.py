@@ -258,3 +258,59 @@ def test_onehot_takes_the_decode_plan():
     assert p.nt == 1 and p.grid(16, 2048)[1] == 2
     assert nm_spmv.ONEHOT_KERNEL.argtypes[:-1] == nm_spmm._PLAN_ARGS
     assert len(nm_spmm._PLAN_ARGS) == 23
+
+
+@pytest.mark.parametrize("rows,decode", [(1, False), (8, False), (32, False),
+                                         (128, False), (8, True)])
+@pytest.mark.parametrize("o,k", LLAMA + DEEPSEEK)
+def test_row_shard_launch_takes_the_whole_shapes_plan(monkeypatch, rows,
+                                                      decode, o, k):
+    """A tensor-parallel shard of O / 2 rows given the whole O
+    (``plan_o``) launches under the whole shape's plan: the same K splits
+    and columns per split, so each output sums in the whole launch's
+    order; its own tiles are cut from the shard's rows."""
+    seen = []
+    monkeypatch.setattr(nm_spmm, "launch_planned",
+                        lambda kern, x, v, i, n_, m_, plan:
+                        seen.append(plan) or torch.zeros(0))
+    monkeypatch.setattr(nm_spmm, "sm_count", lambda dev: SMS)
+    x = torch.zeros(rows, k, dtype=torch.bfloat16)
+    vals = torch.zeros(o // 2, k // 2, dtype=torch.bfloat16)
+    idx = torch.zeros(o // 2, k // 2, dtype=torch.int8)
+    if decode:
+        monkeypatch.setattr(nm_spmv, "launch_planned",
+                            lambda kern, x, v, i, n_, m_, plan:
+                            seen.append(plan) or torch.zeros(rows, o // 2))
+        monkeypatch.setattr(nm_spmv, "check_cuda_operand", lambda *a: None)
+        monkeypatch.setattr(nm_spmv, "sm_count", lambda dev: SMS)
+        monkeypatch.setattr(torch.Tensor, "is_cuda",
+                            property(lambda t: True))
+        nm_spmv.nm_spmv(x, vals, idx, 2, 4, mode="onehot", plan_o=o)
+    else:
+        nm_spmm.launch_xwt(nm_spmm.KERNEL, x, vals, idx, 2, 4, plan_o=o)
+    (plan,) = seen
+    whole = nm_spmm.mma_plan(rows, o, k, 2, 4, sms=SMS, decode=decode)
+    assert plan == whole
+    assert (plan.splits, plan.kper) == (whole.splits, whole.kper)
+    own = nm_spmm.mma_plan(rows, o // 2, k, 2, 4, sms=SMS, decode=decode)
+    assert plan.grid(rows, o // 2)[2] == whole.splits
+    assert own is not None
+
+
+@pytest.mark.parametrize("o,k", LLAMA + DEEPSEEK)
+@pytest.mark.parametrize("cols", [1, 8, 128])
+def test_row_shard_f32_launch_takes_the_whole_shapes_plan(monkeypatch, o, k,
+                                                          cols):
+    """The f32 split-TF32 body likewise: a shard given the whole O runs
+    the whole shape's K splits (at most ``F32_MAX_KPER`` columns a CTA)."""
+    seen = []
+    monkeypatch.setattr(nm_spmm, "launch_planned",
+                        lambda kern, x, v, i, n_, m_, plan:
+                        seen.append(plan) or torch.zeros(0))
+    monkeypatch.setattr(nm_spmm, "sm_count", lambda dev: SMS)
+    x = torch.zeros(cols, k, dtype=torch.float32)
+    vals = torch.zeros(o // 2, k // 2, dtype=torch.float32)
+    idx = torch.zeros(o // 2, k // 2, dtype=torch.int8)
+    nm_spmm.launch_xwt(nm_spmm.KERNEL, x, vals, idx, 2, 4, plan_o=o)
+    (plan,) = seen
+    assert plan == nm_spmm.f32_plan(o, cols, k, 2, 4, SMS)

@@ -18,6 +18,7 @@ against the lazy and the reference engine is in
   ``torch.bincount``; ``graphs=True`` on the CPU raises.
 Token streams and counters are exact."""
 
+import contextlib
 import dataclasses
 
 import pytest
@@ -185,6 +186,58 @@ def test_graph_entry_dispatch_and_capture_accounting():
     log.strict = True
     with pytest.raises(RuntimeError, match="mid-serve compile of f"):
         entry(torch.ones(2))
+
+
+def test_graph_replays_add_the_captured_transport_bytes(monkeypatch):
+    """A capture sends nothing: the bytes its collectives counted are
+    taken back, and every replay adds them to the mesh's counters (also
+    after ``reset_stats``).  The CUDA graph calls are stand-ins, so the
+    accounting runs here as it does on the card."""
+    from repro_torch.dist.api import ServeMesh
+    from repro_torch.serve import prewarm
+
+    class Graph:
+        replays = 0
+
+        def replay(self):
+            Graph.replays += 1
+
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+        def synchronize(self):
+            pass
+    none = contextlib.nullcontext
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", lambda *a, **k: none())
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: none())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: None)
+    monkeypatch.setattr(prewarm, "_sync_debug_error", none)
+    mesh = ServeMesh(size=2, rank=0, device=CPU, backend="nccl")
+    calls = []
+
+    def fn(x):                   # one ring step's send and one all-gather
+        calls.append(x)
+        mesh.stats["ring_bytes"] += 96
+        mesh.stats["gather_bytes"] += 16
+        return x + 1
+    entry = GraphEntry("decode", fn, device=CPU, graphs=False,
+                       stream=Stream(), counters=mesh.stats)
+    entry.graphs = True
+    entry(torch.zeros(4))                    # warm-up (sends) + capture
+    assert len(calls) == 2 and Graph.replays == 0
+    assert mesh.stats == {"ring_bytes": 96, "gather_bytes": 16,
+                          "staged_bytes": 0}
+    entry(torch.zeros(4))
+    entry(torch.zeros(4))
+    assert len(calls) == 2 and Graph.replays == 2
+    assert mesh.stats["ring_bytes"] == 3 * 96
+    assert mesh.stats["gather_bytes"] == 3 * 16
+    mesh.reset_stats()
+    entry(torch.zeros(4))
+    assert mesh.stats == {"ring_bytes": 96, "gather_bytes": 16,
+                          "staged_bytes": 0}
 
 
 def test_graphs_need_a_cuda_device():

@@ -21,6 +21,7 @@ from repro.serve.paged import default_buckets as jbuckets  # noqa: E402
 from _torch_engines import one_thread  # noqa: E402,F401
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.convert import from_reference_params  # noqa: E402
+from repro_torch.dist.api import ServeMesh  # noqa: E402
 from repro_torch.launch import serve as tlaunch  # noqa: E402
 from repro_torch.models import decode_step, prefill  # noqa: E402
 from repro_torch.serve import (BlockPool, ServeEngine, SpecConfig,  # noqa: E402
@@ -178,12 +179,17 @@ def test_idle_rows_write_only_the_trash_block():
 
 
 @pytest.mark.parametrize("kw,msg", [
-    (dict(kv="paged", spec=SpecConfig(draft="skip"), mesh=object()), "mesh"),
+    (dict(kv="paged", spec=SpecConfig(draft="skip"),
+          mesh=ServeMesh(size=2, rank=0, device=torch.device("cpu"),
+                         backend="gloo")), "mesh"),
     (dict(mesh=object()), "mesh"),
 ])
 def test_unported_engine_features_raise(kw, msg):
+    """``mesh=`` is served since tensor-parallel serving was ported; what
+    it still refuses, as the reference does: ``spec=`` over a mesh, and a
+    mesh without a 'model' axis."""
     _, _, tc, model = _model()
-    with pytest.raises(NotImplementedError, match=msg):
+    with pytest.raises(ValueError, match=msg):
         ServeEngine(model, tc, n_slots=1, max_len=8, device="cpu", **kw)
 
 

@@ -153,3 +153,42 @@ def test_launch_gather_hands_the_plan_over(monkeypatch, b, o, k, nm):
     else:
         assert args[15] is None and args[16] is None
     assert len(nm_spmv.KERNEL.argtypes) == len(args) + 1   # + the stream
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("o,k", LLAMA + DEEPSEEK)
+@pytest.mark.parametrize("b", [1, 4, 8])
+def test_row_shard_keeps_the_whole_shapes_splits(b, o, k, parts):
+    """A tensor-parallel shard of O / parts rows launched under the whole
+    shape's plan (``for_rows``) keeps its batch group, K splits, columns
+    per split and warps per row group, so each row sums in the whole
+    launch's order; its CTAs cover the shard's row groups and no more."""
+    whole = nm_spmv.gather_plan(b, o, k, 2, 4, 2, SMS)
+    shard = whole.for_rows(o // parts)
+    assert (shard.bg, shard.kw, shard.splits, shard.kper) == \
+        (whole.bg, whole.kw, whole.splits, whole.kper)
+    rows = shard.pass_rows()
+    assert 1 <= shard.ctas <= whole.ctas
+    assert (shard.ctas - 1) * rows < o // parts <= shard.ctas * rows * 128
+
+
+@pytest.mark.parametrize("b,o,k", [(8, 2048, 2048), (4, 512, 2048),
+                                   (8, 8192, 2048)])
+def test_sharded_wrapper_launches_the_whole_plan(monkeypatch, b, o, k):
+    """``nm_spmv(..., plan_o=O)`` on a shard of O / 2 rows hands the
+    launcher the whole shape's plan, restricted to the shard's rows."""
+    seen = []
+    monkeypatch.setattr(nm_spmv, "launch_gather",
+                        lambda x, v, i, n, m, plan: seen.append(plan)
+                        or torch.zeros(x.shape[0], v.shape[0]))
+    monkeypatch.setattr(nm_spmv, "check_cuda_operand", lambda *a: None)
+    monkeypatch.setattr(nm_spmv, "sm_count", lambda dev: SMS)
+    x = torch.zeros(b, k, dtype=torch.bfloat16)
+    vals = torch.zeros(o // 2, k // 2, dtype=torch.bfloat16)
+    idx = torch.zeros(o // 2, k // 2, dtype=torch.int8)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    nm_spmv.nm_spmv(x, vals, idx, 2, 4, plan_o=o)
+    nm_spmv.nm_spmv(x, vals, idx, 2, 4)
+    whole, own = seen
+    assert whole == nm_spmv.gather_plan(b, o, k, 2, 4, 2, SMS).for_rows(o // 2)
+    assert own == nm_spmv.gather_plan(b, o // 2, k, 2, 4, 2, SMS)
