@@ -93,8 +93,8 @@ steady tick and the graph pool's bytes.
    hard check: full width, 4 layers, float32, 2 slots: onehot tokens
    exactly equal to gather tokens, and each equal to its eager engine's.
 4. Serve deepseek-v2-lite-16b: full width at ``DEEPSEEK_SERVE_LAYERS``
-   (5) of its 27 layers (1 dense + 4 MoE; cut to keep the run's time
-   with phases 11 and 12), d 2048, 16 heads, MLA kv_lora 512 / rope 64 / v 128,
+   (3) of its 27 layers (1 dense + 2 MoE; cut to keep the run's time
+   with phases 11, 12 and 16), d 2048, 16 heads, MLA kv_lora 512 / rope 64 / v 128,
    64 routed experts top-6 + 2 shared of hidden 1408, dense d_ff 10944,
    vocab 102400, bf16, 2:4 compressed at init, random weights from a
    seed; the same engine and trace.  nm_spmv, nm_xwt and paged_mla_decode must launch, the
@@ -193,10 +193,10 @@ steady tick and the graph pool's bytes.
    its dense residual), full width, bf16: eager prefill [1, 128] + 4
    decode steps, the kernel route within 0.25 of the plain route.
 11. The SSM and hybrid families at full width and ``SSM_SERVE_LAYERS``
-   depth (cut when phase 12 came, to keep the run's time), bf16, 2:4
-   compressed as drawn: 11a falcon-mamba-7b (32 of its 64 Mamba1 layers,
-   d 4096, d_inner 8192, state 16, vocab 65024), 11b zamba2-7b (27 of its
-   81 Mamba2 layers: 4 of its 13 groups of 6, each followed by the one
+   depth (cut when phases 12 and 16 came, to keep the run's time), bf16,
+   2:4 compressed as drawn: 11a falcon-mamba-7b (16 of its 64 Mamba1
+   layers, d 4096, d_inner 8192, state 16, vocab 65024), 11b zamba2-7b (15
+   of its 81 Mamba2 layers: 2 of its 13 groups of 6, each followed by the one
    shared attention + MLP block (32 heads of 112, window 4096, d_ff
    14336), and the tail of 3; state 64, 112 heads, vocab 32000).  Each: phase 3's trace on the paged fused
    engine, graphed and prewarmed, the eager engine beside it, a second
@@ -216,12 +216,12 @@ steady tick and the graph pool's bytes.
    within 1e-3, end to end for falcon and block by block for zamba2 (its
    15 blocks amplify float32 rounding past 1e-3 end to end; the line
    prints that floor).
-12. The last two families at full width (whisper at full depth, qwen2-vl
-   at ``ENCDEC_SERVE_LAYERS``, cut for the run's time), bf16, 2:4 compressed
+12. The last two families at full width (at ``ENCDEC_SERVE_LAYERS``, cut
+   for the run's time), bf16, 2:4 compressed
    as drawn, qkv biases drawn nonzero (N(0, 0.5^2); the models zero
-   them, as the reference does): 12a whisper-small (12 encoder + 12
-   decoder layers, d 768, 12 heads of 64, d_ff 3072 gelu, vocab 51865;
-   each request 128 tokens + 1500 encoder frames), 12b qwen2-vl-7b (14
+   them, as the reference does): 12a whisper-small (6 of its 12 encoder +
+   6 of its 12 decoder layers, d 768, 12 heads of 64, d_ff 3072 gelu, vocab 51865;
+   each request 128 tokens + 1500 encoder frames), 12b qwen2-vl-7b (7
    of its 28 layers, d 3584, 28 / 4 heads of 128, d_ff 18944, vocab 152064;
    embeddings prompts of one drawn length in 100-128 per fixed batch of
    8, padded up to the 128 bucket).  Each: phase 3's trace on the paged
@@ -243,7 +243,7 @@ steady tick and the graph pool's bytes.
 13. Training (SR-STE, the dense family; no new kernel: the step is plain
    PyTorch).  13a, the reference CLI's defaults at full width and depth:
    llama3.2-1b bf16, srste 2:4, batch 8 x 128, grad_accum 4, remat on,
-   AdamW with f32 masters, base_lr 3e-4, warmup 100, 10 steps of
+   AdamW with f32 masters, base_lr 3e-4, warmup 100, 6 steps of
    ``train_loop`` checkpointing into a temp dir: median ms a step after
    step 2, tokens/s, peak memory, first and last loss, the model-FLOP
    share of the dense bf16 peak (6 x parameters x tokens), a ``[profile]``
@@ -271,9 +271,9 @@ steady tick and the graph pool's bytes.
    whisper-small and qwen2-vl-7b.  14a, full width at cut depth
    (``cut_depth``: deepseek 2 = its dense layer and one MoE layer of 64
    experts, gemma2 one local / global pair, falcon 4, zamba2 one group of
-   6 and the shared block, whisper whole 12 + 12, qwen2-vl 2): bf16,
+   6 and the shared block, whisper 4 + 4, qwen2-vl 2): bf16,
    srste 2:4, batch 8 x 128, each config's grad_accum / remat /
-   remat_group, AdamW with f32 masters, 6 ``make_train_step`` steps:
+   remat_group, AdamW with f32 masters, 4 ``make_train_step`` steps (cut from 6):
    median ms a step after step 2, tokens/s, the model-FLOP share (MoE:
    active parameters; whisper's encoder over its frames), the byte floor
    as 13a's, peak memory, the losses; hard: finite losses and every
@@ -313,7 +313,32 @@ steady tick and the graph pool's bytes.
    ``tp_ring`` / ``tp_gspmd`` paths.  15c, f32 at world size 2 over gloo, ring: llama at 4 layers
    and deepseek-v2-lite-16b at 2 (its dense layer and an MoE layer):
    tokens equal the single-rank engine's; the ``tp_f32`` path.
-16. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
+16. Sharded SR-STE training (``train_loop(use_mesh=True)``; no new
+   kernel).  16a, NCCL at world size 1 in this process: llama3.2-1b at
+   full width and depth with 13a's settings, 4 steps: the losses
+   bit-equal 13a's first 4, no byte moved; the step ms beside 13a's.
+   16b-e run in two child processes on cuda:0 over gloo (staged through
+   host memory; step ms are not multi-card figures), rank 0 running each
+   config's one-process baseline first.  16b, llama bf16 full width, 2
+   layers, 8 x 128, accum 2, 1 step on (2, 1), (2, 1) pregather and
+   (1, 2): loss within 1e-3, parameters within 5e-2, gnorm within 1e-3
+   relative of one process; the FSDP gather / reduce-scatter bytes equal
+   their model from the shapes (standard = accum x pregather); under
+   (2, 1) a rank's f32 master and moment bytes are half the whole's.
+   16c, f32 at 2 x 64, llama (2 steps) and deepseek-v2-lite-16b (its
+   dense and one MoE layer, experts under "ep"; 1 step) on (2, 1) and
+   (1, 2): loss within 1e-5 relative, parameters within 1e-4, gnorm 1e-5,
+   the MoE's capacity drops over the global batch equal.  16d, llama's
+   (2, 1) f32 checkpoint resumed in this process: the next 2 losses
+   within 1e-4 of an uninterrupted run; then compressed and served
+   through the graphed paged fused engine: tokens equal greedy
+   ``forward``; the ``train_mesh_serve`` path.  16e, on the two ranks:
+   ``moe_a2a_local`` at deepseek's expert shapes (64 experts, top-6, d
+   2048, dff 1408, 256 tokens) against the dense per-token route (1e-3),
+   its two exchanges' bytes the model and nothing all-gathered;
+   ``compressed_psum`` int8 / bf16 against the mean (0.05 / 0.02); a
+   2-stage ``pipeline_apply`` against the sequential composition (1e-5).
+17. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
    device line last.  The total time is printed on the ``[done]`` line.
 """
 
@@ -364,10 +389,10 @@ LOGIT_ATOL = 0.25
 # logits agree to ~1e-5; 1e-3 leaves room and still fails on any wrong
 # kernel or a flipped router top-k set (those move logits by O(0.1)).
 LOGIT_ATOL_F32 = 1e-3
-# phases 4 and 6: 1 dense + 4 of deepseek-v2-lite's 26 MoE layers (widths
-# as published), cut from 27 to 9 when phase 11 came and to 5 when phase
-# 12 came, to keep the run's time
-DEEPSEEK_SERVE_LAYERS = 5
+# phases 4 and 6: 1 dense + 2 of deepseek-v2-lite's 26 MoE layers (widths
+# as published), cut from 27 to 9 when phase 11 came, to 5 when phase 12
+# came and to 3 when phase 16 came, to keep the run's time
+DEEPSEEK_SERVE_LAYERS = 3
 LLAMA_PATH = ("nm_spmv", "nm_xwt", "paged_gqa_decode")
 DEEPSEEK_PATH = ("nm_spmv", "nm_xwt", "paged_mla_decode")
 LLAMA_SPEC_PATH = LLAMA_PATH + ("paged_gqa_verify",)
@@ -3438,10 +3463,10 @@ SSM_EXACT_PROMPTS = {"falcon-mamba-7b": (37, 37, 2, 2),
                      "zamba2-7b": (4160, 4160, 37, 37, 2, 2)}
 SSM_EXACT_GENS = (12, 9)
 SSM_EXACT_LAYERS = {"falcon-mamba-7b": 4, "zamba2-7b": 13}
-# 11a / 11b: falcon 32 of 64 layers, zamba2 27 of 81 (4 of 13 groups of 6
+# 11a / 11b: falcon 8 of 64 layers, zamba2 9 of 81 (1 of 13 groups of 6
 # + the tail of 3), widths as published; cut from full depth when phase 12
-# came, to keep the run's time
-SSM_SERVE_LAYERS = {"falcon-mamba-7b": 32, "zamba2-7b": 27}
+# came, and from 32 / 27 when phase 16 came, to keep the run's time
+SSM_SERVE_LAYERS = {"falcon-mamba-7b": 8, "zamba2-7b": 9}
 
 
 def ssm_linears_per_tick(model) -> int:
@@ -4017,9 +4042,11 @@ BIAS_SCALE = 0.5
 ENCDEC_EXACT_PROMPTS = (37, 37, 2, 2)
 ENCDEC_EXACT_GENS = (12, 9)
 ENCDEC_EXACT_LAYERS = {"whisper-small": 12, "qwen2-vl-7b": 4}
-# phase 12b at 14 of qwen2-vl's 28 layers (cut for the run's time, with
-# phase 14 beside it; whisper stays whole)
-ENCDEC_SERVE_LAYERS = {"qwen2-vl-7b": 14}
+# phase 12b at 7 of qwen2-vl's 28 layers (cut to 14 for the run's time
+# when phase 14 came, to 7 when phase 16 came), 12a whisper at 6 + 6 of
+# its 12 + 12 (cut when phase 16 came)
+ENCDEC_SERVE_LAYERS = {"qwen2-vl-7b": 7, "whisper-small": 6}
+ENCDEC_SERVE_ENC = {"whisper-small": 6}
 
 
 def draw_biases(torch, model, seed: int) -> int:
@@ -4139,6 +4166,7 @@ def serve_encdec_vlm(torch, card, arch, phase):
     t_phase = time.perf_counter()
     cfg = get_config(arch)
     cfg = cfg.replace(n_layers=ENCDEC_SERVE_LAYERS.get(arch, cfg.n_layers),
+                      enc_layers=ENCDEC_SERVE_ENC.get(arch, cfg.enc_layers),
                       sparsity=dataclasses.replace(cfg.sparsity,
                                                    mode="compressed"))
     audio = cfg.family == "audio"
@@ -4429,8 +4457,9 @@ def phase_encdec_vlm(torch, card):
 # ----------------------------------------------------------------- phase 13
 
 TRAIN_ARCH = "llama3.2-1b"
-# 13a: 10 steps (cut from 20 for the run's time)
-TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 10, 8, 128
+# 13a: 6 steps (cut from 20 for the run's time, to 10 when phase 14
+# came and to 6 when phase 16 came)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 8, 128
 # 13b draws its tokens from the first 32 ids, 13a's batch of 1024 tokens
 # a step (each id about 32 times), for 60 steps: 16 layers at full width
 # learn the mapping there, and the gate below can tell it from the label
@@ -4560,7 +4589,7 @@ def phase_train_full(torch, card):
     log(f"[profile] {card}: 13a train step {TRAIN_STEPS + 1}: "
         + train_profile(torch, step_fn, run.model, run.opt_state, batch,
                         TRAIN_STEPS))
-    return {"ms": ms, "peak": peak}
+    return {"ms": ms, "peak": peak, "losses": losses}
 
 
 def phase_mapping(torch, card):
@@ -4840,11 +4869,14 @@ def phase_train_serve(torch, card, mapped, mapped_cfg):
     return launches
 
 
-def phase_train(torch, card):
+def phase_train(torch, card, keep=None):
     """Phase 13: training on the card (13a-13e).  Returns the launches of
-    the train -> serve path."""
+    the train -> serve path; ``keep`` (a dict) gets 13a's losses and step
+    ms, which phase 16a is held to."""
     t0 = time.perf_counter()
-    phase_train_full(torch, card)
+    full = phase_train_full(torch, card)
+    if keep is not None:
+        keep.update(losses=full["losses"], ms=full["ms"])
     mapped, mapped_cfg = phase_mapping(torch, card)
     phase_resume(torch, card)
     phase_card_vs_cpu(torch, card)
@@ -4861,11 +4893,13 @@ FAMILY_ARCHS = ("deepseek-v2-lite-16b", "gemma2-9b", "falcon-mamba-7b",
                 "zamba2-7b", "whisper-small", "qwen2-vl-7b")
 # 14a: full width, depth cut as ``cut_depth`` allows (deepseek its dense
 # layer and one MoE layer of 64 experts, gemma2 one local / global pair,
-# zamba2 one group of 6 and the shared block; whisper whole, 12 + 12)
+# zamba2 one group of 6 and the shared block; whisper 4 + 4 of 12 + 12,
+# cut when phase 16 came)
 FAMILY_TRAIN_LAYERS = {"deepseek-v2-lite-16b": 2, "gemma2-9b": 2,
                        "falcon-mamba-7b": 4, "zamba2-7b": 6,
-                       "whisper-small": None, "qwen2-vl-7b": 2}
-FAMILY_STEPS = 6
+                       "whisper-small": 4, "qwen2-vl-7b": 2}
+FAMILY_TRAIN_ENC = {"whisper-small": 4}     # 4 + 4 of 12 + 12 (phase 16)
+FAMILY_STEPS = 4                 # cut from 6 when phase 16 came
 FAMILY_PROFILE = ("deepseek-v2-lite-16b", "falcon-mamba-7b")
 # 14c: f32 at full width; zamba2 needs a whole group (6) for its shared
 # block, whisper keeps 2 encoder and 2 decoder blocks
@@ -4905,7 +4939,8 @@ def phase_train_family(torch, card, arch):
     free_card(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg = cut_depth(get_config(arch), FAMILY_TRAIN_LAYERS[arch])
+    cfg = cut_depth(get_config(arch), FAMILY_TRAIN_LAYERS[arch],
+                    FAMILY_TRAIN_ENC.get(arch))
     model = init_model(cfg, seed=0, device="cuda")
     ocfg = AdamWConfig(master_weights=True)
     opt = adamw_init(named_params(model), ocfg)
@@ -5480,6 +5515,504 @@ def phase_tp(torch, card, llama_tokens=None):
     return paths
 
 
+# ----------------------------------------------------------- phase 16
+
+MESH_STEPS = 4                   # 16a: 13a's settings, 4 steps
+MESH_LAYERS = 2                  # 16b-d: full width, cut in depth
+MESH_BATCH, MESH_SEQ, MESH_ACCUM = 8, 128, 2       # 16b
+# 16b: 1 step per mesh (cut from 2 for the run's time: gloo stages the
+# full-width gathers through the host, ~10 s a step)
+MESH_BF16_STEPS = 1
+MESH_F32_BATCH, MESH_F32_SEQ = 2, 64               # 16c, 16d
+MESH_LABEL = ("one card, two processes, gloo through host memory: not a "
+              "multi-card figure")
+MESH_SERVE_PATH = ("nm_spmv", "nm_xwt", "paged_gqa_decode")
+A2A_SHAPE = dict(experts=64, top_k=6, d=2048, dff=1408, tokens=256)
+
+
+def _mesh_cfg(arch, dtype, accum=1):
+    from repro_torch.configs import get_config
+    return get_config(arch).replace(dtype=dtype, n_layers=MESH_LAYERS,
+                                    grad_accum=accum)
+
+
+def _mesh_loop(cfg, steps, batch, seq, shape=None, ckpt="", pregather=False,
+               ckpt_every=100):
+    """``train_loop`` of ``cfg`` from seed 0 on the card: on a ``shape``
+    mesh over this process group (gloo), or in one process."""
+    from repro_torch.dist.api import make_train_mesh
+    from repro_torch.launch.train import train_loop
+    mesh = None if shape is None else make_train_mesh(
+        shape, backend="gloo", device="cuda")
+    return train_loop(cfg.name, False, steps, batch, seq, ckpt,
+                      ckpt_every=ckpt_every, log_every=100, device="cuda",
+                      use_mesh=mesh is not None, mesh=mesh,
+                      pregather_fsdp=pregather, cfg=cfg)
+
+
+def _global_drops(ffn, cfg):
+    """``_drop_log`` over the global batch: under a batch split the
+    ranks' per-expert counts are summed first (every rank calls it)."""
+    from repro_torch.dist.api import batch_axis
+    from repro_torch.dist.collectives import all_reduce
+    seen, orig = [], ffn.moe_route
+
+    def wrapped(router, xt, k):
+        out = orig(router, xt, k)
+        counts = ffn.expert_counts(out[2].reshape(-1), cfg.n_experts)
+        t, group = xt.shape[0], batch_axis()
+        if group is not None:
+            counts, t = all_reduce(counts, group), t * group.size
+        cap = ffn._capacity(t, cfg.n_experts, k, cfg.capacity_factor)
+        seen.append(int((counts - cap).clamp_min(0).sum()))
+        return out
+    ffn.moe_route = wrapped
+    return seen, lambda: setattr(ffn, "moe_route", orig)
+
+
+def _byte_model(run):
+    """Per step, what this rank's FSDP transport must send: every leaf
+    split over the data axis all-gathers its shard ((n - 1) shards, in the
+    parameter dtype) and reduce-scatters its gradient ((n - 1) f32
+    shards), once a microbatch, or once a step under pregather."""
+    import math
+    gather = scatter = 0
+    for name, p in run.model.named_parameters():
+        lay = run.layouts[name]
+        if not lay.split:
+            continue
+        n = math.prod(run.mesh.shape[a] for a in lay.split)
+        gather += p.numel() * p.element_size() * (n - 1)
+        scatter += p.numel() * 4 * (n - 1)
+    return gather, scatter
+
+
+def _mesh_base(torch, job):
+    """The one-process run of a job's config on this rank (every rank runs
+    it, the ranks at once: the first steps of a fresh process warm the
+    card up), kept as the numbers and parameters the sharded run is held
+    to."""
+    from repro_torch.models import ffn
+    cfg = _mesh_cfg(job["arch"], job["dtype"], job["accum"])
+    seen, restore = _global_drops(ffn, cfg) if cfg.n_experts else ([], None)
+    try:
+        run = _mesh_loop(cfg, job["steps"], job["batch"], job["seq"])
+    finally:
+        if restore:
+            restore()
+    base = dict(losses=run.losses, gnorms=run.gnorms,
+                ms=[1e3 * s for s in run.step_seconds], drops=sum(seen),
+                state_bytes=sum(t.numel() * t.element_size()
+                                for k in ("master", "mu", "nu")
+                                if k in run.opt_state
+                                for t in run.opt_state[k].values()),
+                params={k: p.detach() for k, p in
+                        run.model.named_parameters()})
+    del run
+    free_card(torch)
+    return base
+
+
+def _mesh_train_job(torch, job, base):
+    """One sharded run of 16b / 16c (16d's save) on this rank, its shards
+    held to the same cut of ``base``'s parameters (``_mesh_base``).
+    Returns its numbers."""
+    from repro_torch.dist import collectives
+    from repro_torch.dist.api import Sharding
+    from repro_torch.models import ffn
+    cfg = _mesh_cfg(job["arch"], job["dtype"], job["accum"])
+    seen, restore = _global_drops(ffn, cfg) if cfg.n_experts else ([], None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        run = _mesh_loop(cfg, job["steps"], job["batch"], job["seq"],
+                         tuple(job["shape"]), job.get("ckpt", ""),
+                         job["pregather"])
+    finally:
+        if restore:
+            restore()
+    wall = time.perf_counter() - t0
+    opt = run.opt_state
+    gather, scatter = _byte_model(run)
+    per = 1 if job["pregather"] else run.accum
+    diff = max(float((p.detach().float() - Sharding(
+        run.layouts[k].spec, run.mesh)(base["params"][k]).float())
+        .abs().max()) for k, p in run.model.named_parameters())
+    out = dict(job=job, losses=run.losses, gnorms=run.gnorms,
+               step_ms=[1e3 * s for s in run.step_seconds], wall=wall,
+               stats=dict(run.mesh.stats), drops=sum(seen), accum=run.accum,
+               state_bytes=sum(t.numel() * t.element_size()
+                               for k in ("master", "mu", "nu") if k in opt
+                               for t in opt[k].values()),
+               model_gather=gather * job["steps"] * per,
+               model_scatter=scatter * job["steps"] * per, param_diff=diff,
+               reduce_scatter=("an all-reduce, sliced"
+                               if collectives._NO_RS.get("gloo")
+                               else "native"),
+               **{f"base_{k}": v for k, v in base.items() if k != "params"})
+    del run
+    free_card(torch)
+    return out
+
+
+def _mesh_lib_jobs(torch, mesh):
+    """16e on this rank: ``moe_a2a_local`` at deepseek's expert shapes
+    against the dense per-token route, ``compressed_psum`` int8 / bf16
+    against the exact mean, a 2-stage ``pipeline_apply`` against the
+    sequential composition."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.dist.moe_a2a import a2a_bytes, moe_a2a_local
+    from repro_torch.dist.pipeline import pipeline_apply
+    from repro_torch.optim import compressed_psum
+    ax = mesh.axis("data")
+    n, r = ax.size, ax.rank
+    s = A2A_SHAPE
+    e, k, d, dff, t = (s["experts"], s["top_k"], s["d"], s["dff"],
+                       s["tokens"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def draw(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+    router, xt = draw(e, d, scale=d ** -0.5), draw(t, d)
+    wg, wu = draw(e, dff, d, scale=d ** -0.5), draw(e, dff, d,
+                                                    scale=d ** -0.5)
+    wd = draw(e, d, dff, scale=dff ** -0.5)
+    el, tl, cap = e // n, t // n, (t // n) * k
+    mesh.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = moe_a2a_local(xt[r * tl:(r + 1) * tl], router,
+                      wg[r * el:(r + 1) * el], wu[r * el:(r + 1) * el],
+                      wd[r * el:(r + 1) * el], ax, e, k, cap_per_pair=cap)
+    torch.cuda.synchronize()
+    a2a_ms = 1e3 * (time.perf_counter() - t0)
+    a2a_stats = dict(mesh.stats)
+    # the dense per-token route of this rank's tokens
+    x = xt[r * tl:(r + 1) * tl]
+    probs = torch.softmax(x @ router.t(), -1)
+    gate, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, ids = gate[:, :k], ids[:, :k]
+    gate = gate / gate.sum(-1, keepdim=True)
+    ref = torch.zeros_like(x)
+    for j in range(k):
+        we = ids[:, j]
+        h = F.silu(torch.einsum("tfd,td->tf", wg[we], x)) * \
+            torch.einsum("tfd,td->tf", wu[we], x)
+        ref += gate[:, j:j + 1] * torch.einsum("tdf,tf->td", wd[we], h)
+    a2a_err = float((y - ref).abs().max())
+    # compressed_psum: rank r's tensor is rows r of one draw
+    g = draw(n, 4096)
+    psum = {}
+    for method in ("int8", "bf16"):
+        got = compressed_psum(g[r], ax, method=method)
+        psum[method] = float((got - g.mean(0)).abs().max())
+    # 2-stage GPipe over 8 microbatches
+    w = draw(n, 4, 256, 256, scale=256 ** -0.5)
+    xs = draw(8, 16, 256)
+
+    def stage(ws, xb):
+        for layer in ws:
+            xb = torch.tanh(xb @ layer)
+        return xb
+    mesh.reset_stats()
+    ys = pipeline_apply(stage, w, xs, ax)
+    want = xs
+    for i in range(n):
+        want = stage(w[i], want)
+    return dict(a2a_err=a2a_err, a2a_ms=a2a_ms, a2a_stats=a2a_stats,
+                a2a_model=a2a_bytes(n, cap, d, 4), psum=psum,
+                pipe_err=float((ys - want).abs().max()),
+                pipe_stats=dict(mesh.stats))
+
+
+def _mesh_rank(rank: int, n: int, port: int, out: str, jobs):
+    """One rank of 16b-e on cuda:0 over gloo: rank 0 is this process, the
+    others children.  Each rank first runs every config's one-process
+    baseline, before it joins the group (the children's cold start
+    overlaps 16a), then the jobs in order.  Returns the results (a child
+    writes them as JSON to ``out.<rank>``)."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.dist.api import make_train_mesh
+    bases = {}
+    for job in jobs:
+        key = _base_key(job)
+        if key is not None and key not in bases:
+            bases[key] = _mesh_base(torch, job)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=n, rank=rank,
+                            timeout=datetime.timedelta(minutes=5))
+    try:
+        res = []
+        for job in jobs:
+            if job["kind"] == "lib":
+                res.append(_mesh_lib_jobs(torch, make_train_mesh(
+                    (n, 1), backend="gloo", device="cuda")))
+            else:
+                res.append(_mesh_train_job(torch, job, bases[_base_key(job)]))
+        if rank:
+            with open(f"{out}.{rank}", "w") as f:
+                json.dump(res, f)
+        dist.barrier()          # no rank tears down while a peer still talks
+    finally:
+        dist.destroy_process_group()
+    return res
+
+
+def _base_key(job):
+    if job["kind"] == "lib":
+        return None
+    return (job["arch"], job["dtype"], job["accum"], job["steps"],
+            job["batch"], job["seq"])
+
+
+def phase_mesh_nccl(torch, card, base=None):
+    """16a: NCCL at world size 1 in this process: ``train_loop(use_mesh=
+    True)`` on llama3.2-1b at full width and depth with 13a's settings,
+    ``MESH_STEPS`` steps; the losses bit-equal the unsharded loop's first
+    ``MESH_STEPS`` (``base``: 13a's, else run here)."""
+    import torch.distributed as dist
+    from repro_torch.launch.train import train_loop
+    free_card(torch)
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, ckpt_dir="", log_every=100,
+              device="cuda")
+    if base is None:
+        run = train_loop(TRAIN_ARCH, False, MESH_STEPS, **kw)
+        base = dict(losses=run.losses,
+                    ms=_median(run.step_seconds[2:]) * 1e3)
+        del run
+        free_card(torch)
+    try:
+        run = train_loop(TRAIN_ARCH, False, MESH_STEPS, use_mesh=True,
+                         backend="nccl", **kw)
+        mesh = run.mesh
+    finally:
+        dist.destroy_process_group()
+    ms = _median(run.step_seconds[2:]) * 1e3
+    same = run.losses == base["losses"][:MESH_STEPS]
+    log(f"[16a mesh] {card}: {run.cfg.name} {run.cfg.n_layers}L "
+        f"{run.cfg.dtype}, batch {TRAIN_BATCH} x {TRAIN_SEQ}, mesh "
+        f"{mesh.shape} over NCCL: losses {run.losses} against the unsharded "
+        f"loop's {base['losses'][:MESH_STEPS]}: bit-equal {same}; "
+        f"{ms:.1f} ms/step after step 2 against 13a's {base['ms']:.1f} "
+        f"(16b-e's rank-1 process starts on the card meanwhile); "
+        f"transport {mesh.stats} (a group of one moves nothing)")
+    if not same or any(mesh.stats.values()):
+        raise SystemExit(f"phase 16a: the world-size-1 mesh's losses "
+                         f"{run.losses} are not the unsharded loop's "
+                         f"{base['losses'][:MESH_STEPS]}, or it moved bytes")
+    del run
+    free_card(torch)
+
+
+def _mesh_jobs(ck):
+    f32 = dict(dtype="float32", accum=1, steps=1, batch=MESH_F32_BATCH,
+               seq=MESH_F32_SEQ, pregather=False, kind="train")
+    bf16 = dict(arch=TRAIN_ARCH, dtype="bfloat16", accum=MESH_ACCUM,
+                steps=MESH_BF16_STEPS, batch=MESH_BATCH, seq=MESH_SEQ,
+                kind="train")
+    jobs = [dict(bf16, shape=(2, 1), pregather=False, what="16b"),
+            dict(bf16, shape=(2, 1), pregather=True, what="16b"),
+            dict(bf16, shape=(1, 2), pregather=False, what="16b")]
+    # llama's (2, 1) run is also 16d's save: 2 steps, then the checkpoint
+    # that ``phase_mesh_resume`` resumes
+    for arch in (TRAIN_ARCH, "deepseek-v2-lite-16b"):
+        for shape in ((2, 1), (1, 2)):
+            save = arch == TRAIN_ARCH and shape == (2, 1)
+            jobs.append(dict(f32, arch=arch, shape=shape, what="16c",
+                             steps=2 if arch == TRAIN_ARCH else 1,
+                             ckpt=ck if save else ""))
+    jobs.append(dict(kind="lib", what="16e"))
+    return jobs
+
+
+def phase_mesh_gloo(torch, card, jobs, child, port, out, ck):
+    """16b-16e as rank 0 in this process beside the ``child`` (rank 1),
+    then 16d's resume here.  Returns the launches of 16d's serve."""
+    free_card(torch)
+    t0 = time.perf_counter()
+    if not child.is_alive():
+        raise SystemExit(f"phase 16: the rank-1 process exited early "
+                         f"({child.exitcode})")
+    try:
+        mine = _mesh_rank(0, 2, port, out, jobs)
+    finally:
+        child.join(timeout=120)
+        if child.is_alive():
+            child.terminate()
+    if child.exitcode != 0:
+        raise SystemExit(f"phase 16: the rank-1 process failed "
+                         f"({child.exitcode})")
+    with open(f"{out}.1") as f:
+        other = json.load(f)
+    log(f"[time] phase 16b-e ranks {time.perf_counter() - t0:.1f}s")
+    for job, got, theirs in zip(jobs, mine, other):
+        if job["kind"] == "lib":
+            _check_mesh_lib(card, got, theirs)
+        else:
+            _check_mesh_train(card, got, theirs)
+    launches = phase_mesh_resume(torch, card, ck)
+    log(f"[time] phase 16b-e {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
+def _check_mesh_train(card, got, other):
+    job = got["job"]
+    what = (f"[{job['what']} mesh] {job['arch']} {job['dtype']} "
+            f"{MESH_LAYERS}L mesh {tuple(job['shape'])}"
+            + (" pregather" if job["pregather"] else "")
+            + f", batch {job['batch']} x {job['seq']}, accum {got['accum']}")
+    st = got["stats"]
+    diff = max(got["param_diff"], other["param_diff"])   # each rank's shards
+    loss_d = max(abs(a - b) for a, b in zip(got["losses"],
+                                            got["base_losses"]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                  got["base_losses"]))
+    gn = max(abs(a - b) / abs(b) for a, b in zip(got["gnorms"],
+                                                 got["base_gnorms"]))
+    log(f"{what}: losses {got['losses']} against one process "
+        f"{got['base_losses']} (largest |diff| {loss_d:.3g}, rel "
+        f"{rel:.3g}); gnorm rel {gn:.3g}; largest parameter difference "
+        f"{diff:.3g}; ranks agree "
+        f"{got['losses'] == other['losses']}; FSDP gather "
+        f"{st['fsdp_gather_bytes']} B (model {got['model_gather']}), "
+        f"reduce-scatter {st['fsdp_scatter_bytes']} B (model "
+        f"{got['model_scatter']}), TP gathers {st['gather_bytes']} B, "
+        f"all-reduces {st['reduce_bytes']} B, staged through the host "
+        f"{st['staged_bytes']} B (rank 0, {job['steps']} steps; gloo's "
+        f"reduce-scatter {got['reduce_scatter']}); master + "
+        f"moments {got['state_bytes']} B a rank of the whole "
+        f"{got['base_state_bytes']} B; MoE drops {got['drops']} (one "
+        f"process {got['base_drops']}); step ms {[round(x, 1) for x in got['step_ms']]}"
+        f" against one process {[round(x, 1) for x in got['base_ms']]} "
+        f"({MESH_LABEL}; {card})")
+    if job["dtype"] == "bfloat16":
+        bad = loss_d > 1e-3 or diff > 5e-2 or gn > 1e-3
+    else:
+        bad = rel > 1e-5 or diff > 1e-4 or gn > 1e-5
+    bad = bad or got["losses"] != other["losses"] \
+        or got["drops"] != got["base_drops"]
+    if job["shape"][0] == 2:
+        bad = bad or st["fsdp_gather_bytes"] != got["model_gather"] \
+            or st["fsdp_scatter_bytes"] != got["model_scatter"]
+        if job["shape"] == [2, 1]:
+            bad = bad or 2 * got["state_bytes"] != got["base_state_bytes"]
+    if bad:
+        raise SystemExit(f"phase {job['what']}: {what} differs from the "
+                         f"one-process run or from its byte model")
+
+
+def _check_mesh_lib(card, got, other):
+    s = A2A_SHAPE
+    st = got["a2a_stats"]
+    log(f"[16e lib] moe_a2a_local at {s} on 2 ranks: max |err| against the "
+        f"dense per-token route {got['a2a_err']:.3g} (rank 1 "
+        f"{other['a2a_err']:.3g}), all-to-all {st['a2a_bytes']} B (two "
+        f"exchanges: {got['a2a_model']}), all-gather "
+        f"{st['gather_bytes'] + st['fsdp_gather_bytes']} B, "
+        f"{got['a2a_ms']:.1f} ms; compressed_psum against the mean: int8 "
+        f"{got['psum']['int8']:.3g}, bf16 {got['psum']['bf16']:.3g}; "
+        f"2-stage pipeline_apply against sequential {got['pipe_err']:.3g}, "
+        f"point to point {got['pipe_stats']['p2p_bytes']} B ({card})")
+    bad = (max(got["a2a_err"], other["a2a_err"]) > 1e-3
+           or st["a2a_bytes"] != got["a2a_model"]
+           or st["gather_bytes"] + st["fsdp_gather_bytes"] != 0
+           or got["psum"]["int8"] > 0.05 or got["psum"]["bf16"] > 0.02
+           or max(got["pipe_err"], other["pipe_err"]) > 1e-5)
+    if bad:
+        raise SystemExit("phase 16e: a library collective differs from its "
+                         "plain version or its byte model")
+
+
+def phase_mesh_resume(torch, card, ck):
+    """16d: resume the (2, 1) checkpoint in one process for 2 more steps
+    against an uninterrupted run, then compress it and serve it through
+    the graphed paged fused engine against greedy ``forward``."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.core.layers import SparseLinear
+    from repro_torch.models import convert_to_compressed
+    from repro_torch.serve import ServeEngine, synthetic_trace
+    free_card(torch)
+    cfg = _mesh_cfg(TRAIN_ARCH, "float32")
+    kw = (MESH_F32_BATCH, MESH_F32_SEQ)
+    whole = _mesh_loop(cfg, 4, *kw)
+    free_card(torch)
+    resumed = _mesh_loop(cfg, 4, *kw, ckpt=ck)
+    worst = max(abs(a - b) for a, b in zip(resumed.losses, whole.losses[2:]))
+    log(f"[16d elastic] {card}: {cfg.name} f32 {MESH_LAYERS}L, 2 steps under "
+        f"(2, 1) then resumed in one process: losses {resumed.losses} "
+        f"against the uninterrupted run's {whole.losses[2:]} (largest |diff| "
+        f"{worst:.3g})")
+    if len(resumed.losses) != 2 or worst > 1e-4:
+        raise SystemExit(f"phase 16d: resumed losses {resumed.losses} != "
+                         f"{whole.losses[2:]}")
+    del whole
+    ccfg = cfg.replace(sparsity=dataclasses.replace(cfg.sparsity,
+                                                    mode="compressed"))
+    served = convert_to_compressed(resumed.model, ccfg)
+    if not all(m.compressed for m in served.modules()
+               if isinstance(m, SparseLinear)):
+        raise SystemExit("phase 16d: a linear stayed dense")
+    reqs = synthetic_trace(cfg, n_requests=8, prompt_len=64, gen_lens=[8, 16],
+                           seed=0)
+    eng = ServeEngine(served, ccfg, **graphed(dict(
+        n_slots=8, max_len=64 + 16, kv="paged", attn="fused", block_size=16,
+        device="cuda")))
+    kernels.reset_launch_counts()
+    res = eng.run(reqs)
+    launches = {k.name: k.launches for k in kernels.all_kernels()}
+    ref = forward_greedy(torch, resumed.model, cfg, reqs)
+    bad = [r.rid for r in reqs if not np.array_equal(res[r.rid].tokens,
+                                                     ref[r.rid])]
+    lin = cfg.n_layers * LINEARS_PER_LAYER
+    want = dict(nm_spmv=eng.decode_steps * lin,
+                paged_gqa_decode=eng.decode_steps * cfg.n_layers,
+                nm_xwt=eng.prefill_calls * lin)
+    log(f"[16d serve] {card}: the resumed checkpoint compressed, graphed "
+        f"paged fused: {len(reqs) - len(bad)}/{len(reqs)} requests equal "
+        f"greedy forward; launches {launches} (expected {want})")
+    if bad or not eng.graphs:
+        raise SystemExit(f"phase 16d: served tokens differ from greedy "
+                         f"forward in requests {bad}")
+    check_path(launches, MESH_SERVE_PATH, "phase 16d", **want)
+    del eng, served, resumed
+    free_card(torch)
+    return launches
+
+
+def phase_mesh(torch, card, base=None):
+    """Phase 16; ``base``: 13a's losses and step ms, for 16a.  The rank-1
+    process of 16b-e starts first: its cold start (and its baselines) run
+    while this process runs 16a."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.dist.api import free_port
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mesh_16_") as tmp:
+        ck = os.path.join(tmp, "ck")
+        jobs, out, port = _mesh_jobs(ck), os.path.join(tmp, "mesh"), \
+            free_port()
+        child = mp.get_context("spawn").Process(
+            target=_mesh_rank, args=(1, 2, port, out, jobs))
+        child.start()
+        try:
+            phase_mesh_nccl(torch, card, base)
+            log(f"[time] phase 16a {time.perf_counter() - t0:.1f}s")
+            launches = phase_mesh_gloo(torch, card, jobs, child, port, out,
+                                       ck)
+        finally:
+            if child.is_alive():
+                child.terminate()
+                child.join()
+    log(f"[time] phase 16 {time.perf_counter() - t0:.1f}s")
+    return {"train_mesh_serve": launches}
+
+
 # ------------------------------------------------------------------ main
 
 KERNEL_META = {
@@ -5600,9 +6133,11 @@ def main() -> int:
     log(f"[time] other configs {time.perf_counter() - t0:.1f}s")
     by_path.update(phase_ssm(torch, card))
     by_path.update(phase_encdec_vlm(torch, card))
-    by_path.update(phase_train(torch, card))
+    train_13a = {}
+    by_path.update(phase_train(torch, card, train_13a))
     by_path.update(phase_train_families(torch, card))
     by_path.update(phase_tp(torch, card, llama_tokens))
+    by_path.update(phase_mesh(torch, card, train_13a))
     # the packed variant serves no path of its own: its launches are those
     # of the CNN phase, where it runs on every layer the reference can pack
     kernels_line = []

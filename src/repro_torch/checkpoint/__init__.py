@@ -1,3 +1,4 @@
-from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.checkpoint.manager import (CheckpointManager, gather_state,
+                                           shard_state)
 
-__all__ = ["CheckpointManager"]
+__all__ = ["CheckpointManager", "gather_state", "shard_state"]

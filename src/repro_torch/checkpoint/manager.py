@@ -13,6 +13,12 @@
     below 4 bytes upcast to f32: numpy has no portable bf16), ``meta.json``
     and ``COMMIT``.
 
+Under a training mesh the checkpoint is "unsharded-logical", as the
+reference's: ``gather_state`` gathers the parameters and the AdamW state
+to whole tensors on every rank and rank 0 writes them, the same tree an
+unsharded run writes; ``shard_state`` cuts a whole (restored) tree to the
+current mesh's shards, which may be a smaller mesh than the writer's.
+
 A tree is an ``nn.Module`` (its ``state_dict`` names), a mapping, a tuple or
 list, or a tensor; keys join the path with ``/`` (``0/layers.3.attn.wq.w``,
 ``1/mu/embed.emb``, ``1/step``).  ``restore`` writes into the template's own
@@ -138,3 +144,27 @@ class CheckpointManager:
                                      f"!= template {tuple(leaf.shape)}")
                 leaf.copy_(torch.from_numpy(arr))
         return template, meta
+
+
+_OPT_LEAVES = ("mu", "nu", "master")
+
+
+def gather_state(skeleton: nn.Module, layouts, opt_state: Dict, mesh
+                 ) -> Tuple[nn.Module, Dict]:
+    """(the whole model, the whole AdamW state) from this rank's training
+    shards (``models.shard_for_training``), on every rank: collectives,
+    so every rank calls it."""
+    from repro_torch.models.transformer import gather_leaf, gather_model
+    whole = {k: v if k not in _OPT_LEAVES else {
+        name: gather_leaf(t, layouts[name].spec, mesh)
+        for name, t in v.items()} for k, v in opt_state.items()}
+    return gather_model(skeleton, layouts, mesh), whole
+
+
+def shard_state(layouts, opt_state: Dict, mesh) -> Dict:
+    """The whole AdamW state cut to this rank's shards under ``layouts``
+    (the model's own cut is ``models.shard_for_training``)."""
+    from repro_torch.dist.api import Sharding
+    return {k: v if k not in _OPT_LEAVES else {
+        name: Sharding(layouts[name].spec, mesh)(t)
+        for name, t in v.items()} for k, v in opt_state.items()}

@@ -29,7 +29,10 @@ output is whole; otherwise the rank multiplies its own rows, with the
 whole shape's launch plan, and all-gathers the feature axis.  Either
 way the output is whole on every rank unless the caller asks for its
 ``local`` part (the attention's per-head projections).  No contraction is
-split, so every output element sums in the one-device order.
+split, so every output element sums in the one-device order.  Training
+over a mesh's "model" axis runs the same rows: the input passes
+``reduce_grad`` (each rank's dX is its rows' part of the sum) and the
+all-gather's backward keeps the rank's slice of the cotangent.
 """
 
 from __future__ import annotations
@@ -146,9 +149,8 @@ def linear_apply(p: SparseLinear, x: torch.Tensor, cfg: SparsityConfig,
         y = y + p.b
     if local:
         from repro_torch.dist.api import require_mesh
-        mesh = require_mesh("a local output")
-        part = y.shape[-1] // mesh.size
-        return y.narrow(-1, mesh.rank * part, part)
+        from repro_torch.dist.collectives import split_last
+        return split_last(y, require_mesh("a local output"))
     return y
 
 
@@ -169,7 +171,7 @@ def _tp_linear_apply(p: SparseLinear, x: torch.Tensor, cfg: SparsityConfig,
     every rank), or the local rows under the whole shape's plan, then an
     all-gather of the feature axis unless ``local``."""
     from repro_torch.dist.api import require_mesh
-    from repro_torch.dist.collectives import all_gather_last
+    from repro_torch.dist.collectives import all_gather_last, reduce_grad
     mesh = require_mesh("this linear")
     o = p.tp_rows
     if p.compressed:
@@ -186,7 +188,7 @@ def _tp_linear_apply(p: SparseLinear, x: torch.Tensor, cfg: SparsityConfig,
             return y.narrow(-1, mesh.rank * o_loc, o_loc) if local else y
         y = nm_matmul(x.contiguous(), sp, impl=impl, plan_o=o)
     else:
-        y = _dense_product(p, x, cfg, in_dim, o)
+        y = _dense_product(p, reduce_grad(x, mesh), cfg, in_dim, o)
     if p.has("b"):
         y = y + p.b
     return y if local else all_gather_last(y, mesh)

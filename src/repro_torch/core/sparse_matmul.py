@@ -155,12 +155,10 @@ def is_decode_shape(x_shape: Tuple[int, ...], batch_max: int = 8) -> bool:
 
 
 def ring_mesh():
-    """The active serving mesh when it has more than one rank, else None."""
-    from repro_torch.dist.api import current_mesh
-    mesh = current_mesh()
-    if mesh is not None and mesh.shape.get("model", 1) > 1:
-        return mesh
-    return None
+    """The active mesh's "model" axis when it has more than one rank, else
+    None."""
+    from repro_torch.dist.api import model_axis
+    return model_axis()
 
 
 def select_impl(cfg: SparsityConfig, x: torch.Tensor) -> Impl:
@@ -229,13 +227,17 @@ class _SteSparsify(torch.autograd.Function):
     """Forward ``w * mask``; backward the straight-through dense gradient
     plus the SR-STE decay ``lam * (1 - mask) * w`` on the pruned entries,
     cast to w's dtype (the reference's ``custom_vjp``).  The mask is kept
-    for the backward as booleans."""
+    for the backward as booleans.  Under a training mesh that splits the
+    batch, the ranks' gradients are summed, so the decay, which no batch
+    row contributes, is added by the first batch rank only."""
 
     @staticmethod
     def forward(ctx, w, n, m, lam):
+        from repro_torch.dist.api import batch_axis
         mask = nm_mask(w, n, m)
         ctx.save_for_backward(w, mask)
-        ctx.lam = lam
+        group = batch_axis()
+        ctx.lam = lam if group is None or group.rank == 0 else 0.0
         return w * mask.to(w.dtype)
 
     @staticmethod

@@ -26,11 +26,24 @@ rank, its device, the backend and the transport's byte counters
 tensors, so on a card the transport stages through host buffers and counts
 those bytes too.  The backend is the caller's choice and is never switched
 in silence.
+
+The training mesh (``make_train_mesh``, ``TrainMesh``) has the axes
+("data", "model"), or ("pod", "data", "model"), over the whole group in
+row-major rank order (the last axis fastest).  It carries one process
+group per row, column and (for three axes) slab of the mesh, created in
+one fixed order on every rank (gloo deadlocks otherwise); ``axis(*names)``
+is the ``AxisGroup`` of this rank over a subset of the axes, which the
+collectives take.  Model code reads only the "model" axis
+(``require_mesh`` / ``local_part``); the trainer reads the batch axes
+(``batch_axis``: the axes the rules map ``act_batch`` to).  A serving
+mesh is its own "model" axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 import os
 import socket
 import threading
@@ -85,6 +98,20 @@ def default_rules_for(mesh) -> Dict[str, Optional[Tuple[str, ...]]]:
     return MULTIPOD_RULES if "pod" in mesh.shape else DEFAULT_RULES
 
 
+def train_rules_for(cfg, mesh) -> Dict[str, Optional[Tuple[str, ...]]]:
+    """The training rules of ``cfg`` on ``mesh``: ``default_rules_for``,
+    or under ``cfg.train_layout == "fulldp"`` the reference dry-run's
+    full data parallelism (weights replicated, the batch over every axis
+    of the mesh)."""
+    rules = dict(default_rules_for(mesh))
+    if cfg.train_layout == "fulldp":
+        rules.update(act_batch=(("pod", "data", "model") if "pod" in
+                                mesh.shape else ("data", "model")),
+                     fsdp=None, tp=None, act_heads=None, act_vocab=None,
+                     act_seq_sp=None, act_ep=None)
+    return rules
+
+
 # ---------------------------------------------------------------- the mesh
 
 @dataclasses.dataclass
@@ -112,6 +139,99 @@ class ServeMesh:
     def staged(self) -> bool:
         """Whether collectives stage device tensors through the host."""
         return self.backend == "gloo" and self.device.type == "cuda"
+
+    def reset_stats(self) -> None:
+        for key in self.stats:
+            self.stats[key] = 0
+
+    def coord(self, axis: str) -> int:
+        if axis != "model":
+            raise ValueError(f"the serving mesh has one 'model' axis, not "
+                             f"{axis!r}")
+        return self.rank
+
+    def axis(self, *names: str):
+        """This mesh over ``names``: itself for "model", a group of one
+        for no axis."""
+        names = tuple(n for n in names if n in self.shape)
+        if names == ("model",):
+            return self
+        return AxisGroup(1, 0, self.device, self.backend, None, self.stats)
+
+
+# The transport's counters of a training mesh (``dist.collectives``):
+# the serving ones, the FSDP gathers and reduce-scatters, all-reduces,
+# all-to-alls and point-to-point sends, in bytes this rank puts on the
+# wire (a ring collective's sends).
+TRAIN_STATS = ("ring_bytes", "gather_bytes", "staged_bytes",
+               "fsdp_gather_bytes", "fsdp_scatter_bytes", "reduce_bytes",
+               "a2a_bytes", "p2p_bytes")
+
+
+@dataclasses.dataclass
+class AxisGroup:
+    """This rank over some axes of a mesh: ``size`` ranks, this one at
+    ``rank`` (row-major over the axes), ``group`` their process group
+    (None for a group of one, whose collectives are the identity); the
+    counters are the mesh's own."""
+    size: int
+    rank: int
+    device: torch.device
+    backend: str
+    group: Any
+    stats: Dict[str, int]
+
+    @property
+    def staged(self) -> bool:
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+
+@dataclasses.dataclass
+class TrainMesh:
+    """The training mesh (module docstring): ``names`` and ``sizes`` of its
+    axes, this process's ``rank`` in the group, its device and backend,
+    ``groups`` {axis subset: this rank's process group over it} and the
+    transport's counters."""
+    names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    rank: int
+    device: torch.device
+    backend: str
+    groups: Dict[Tuple[str, ...], Any]
+    stats: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(TRAIN_STATS, 0))
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return self.names
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+    @property
+    def staged(self) -> bool:
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    def coord(self, axis: str) -> int:
+        i = self.names.index(axis)
+        return (self.rank // math.prod(self.sizes[i + 1:])) % self.sizes[i]
+
+    def axis(self, *names: str) -> AxisGroup:
+        """This rank's ``AxisGroup`` over ``names`` (in the mesh's order;
+        axes the mesh lacks are left out)."""
+        names = tuple(n for n in self.names if n in names)
+        size, index = 1, 0
+        for n in names:
+            size, index = size * self.shape[n], index * self.shape[n] \
+                + self.coord(n)
+        return AxisGroup(size, index, self.device, self.backend,
+                         self.groups.get(names) if size > 1 else None,
+                         self.stats)
 
     def reset_stats(self) -> None:
         for key in self.stats:
@@ -187,6 +307,72 @@ def make_serve_mesh(tp: Optional[int] = None, backend: Optional[str] = None,
         dist.all_reduce(probe)
         torch.cuda.synchronize(local)
     return mesh
+
+
+def make_train_mesh(shape: Sequence[int], backend: Optional[str] = None,
+                    device="cuda", names: Optional[Sequence[str]] = None
+                    ) -> TrainMesh:
+    """The training mesh of ``shape`` (data, model), or (pod, data, model),
+    over this process group, whose world size must be the mesh's.  Without
+    a group, a mesh of one starts one, as ``make_serve_mesh`` does.  Every
+    rank builds the sub-groups here in one order.  Rank r drives
+    ``cuda:{r % device_count}`` (the CPU under ``device="cpu"``)."""
+    import torch.distributed as dist
+    shape = tuple(int(n) for n in shape)
+    names = tuple(names) if names is not None else (
+        ("data", "model") if len(shape) == 2 else ("pod", "data", "model"))
+    if len(names) != len(shape) or min(shape) < 1:
+        raise ValueError(f"mesh shape {shape} over axes {names}")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_train_mesh: a CUDA mesh was asked for but "
+                           "torch.cuda.is_available() is False; pass "
+                           "device='cpu' for the plain path over gloo")
+    world = math.prod(shape)
+    if not dist.is_initialized():
+        if world != 1:
+            raise ValueError(
+                f"a {shape} mesh needs {world} processes in one "
+                f"torch.distributed group; start them with `python -m "
+                f"repro_torch.launch.train --mesh --ranks {world}`, or "
+                f"torchrun and --distributed")
+        backend = backend or _default_backend(dev)
+        _check_nccl(backend, 1, dev)
+        dist.init_process_group(
+            backend, init_method=f"tcp://127.0.0.1:{free_port()}",
+            world_size=1, rank=0)
+    if dist.get_world_size() != world:
+        raise ValueError(f"mesh {dict(zip(names, shape))} has {world} ranks "
+                         f"but the process group {dist.get_world_size()}")
+    rank, actual = dist.get_rank(), dist.get_backend()
+    if backend is not None and backend != actual:
+        raise ValueError(f"backend {backend!r} asked for, but the process "
+                         f"group runs {actual!r}")
+    if dev.type == "cuda":
+        local = torch.device("cuda", rank % torch.cuda.device_count())
+    else:
+        local = dev
+    _check_nccl(actual, world, local)
+    if local.type == "cuda":
+        torch.cuda.set_device(local)
+    coords = list(itertools.product(*(range(n) for n in shape)))
+    groups: Dict[Tuple[str, ...], Any] = {}
+    for k in range(1, len(names) + 1):
+        for sub in itertools.combinations(range(len(names)), k):
+            if math.prod(shape[i] for i in sub) == 1:
+                continue
+            key = tuple(names[i] for i in sub)
+            if math.prod(shape[i] for i in sub) == world:
+                groups[key] = dist.group.WORLD
+                continue
+            rest = [i for i in range(len(names)) if i not in sub]
+            for fixed in itertools.product(*(range(shape[i]) for i in rest)):
+                ranks = [r for r, c in enumerate(coords)
+                         if all(c[i] == f for i, f in zip(rest, fixed))]
+                g = dist.new_group(ranks)     # every rank, in this order
+                if rank in ranks:
+                    groups[key] = g
+    return TrainMesh(names, shape, rank, local, actual, groups)
 
 
 def _check_nccl(backend: str, world: int, device: torch.device) -> None:
@@ -310,14 +496,42 @@ def current_rules():
     return _active.rules
 
 
-def require_mesh(what: str) -> ServeMesh:
-    """The active mesh, or a ``RuntimeError`` naming ``what``: a sharded
-    tensor used outside its mesh never runs as if it were whole."""
+def require_mesh(what: str):
+    """The active mesh's "model" axis (a serving mesh is its own), or a
+    ``RuntimeError`` naming ``what``: a sharded tensor used outside its
+    mesh never runs as if it were whole."""
     mesh = _active.mesh
     if mesh is None:
-        raise RuntimeError(f"{what} is sharded over a serving mesh; run it "
+        raise RuntimeError(f"{what} is sharded over a mesh; run it "
                            f"inside that mesh's axis_rules context")
-    return mesh
+    return mesh.axis("model")
+
+
+def model_axis():
+    """The active mesh's "model" axis when it has more than one rank, else
+    None."""
+    mesh = _active.mesh
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return None
+    return mesh.axis("model")
+
+
+def batch_axes() -> Tuple[str, ...]:
+    """The mesh axes of more than one rank that the active rules split the
+    batch over (``act_batch``), in the mesh's order; () without a mesh."""
+    mesh = _active.mesh
+    if mesh is None:
+        return ()
+    axes = _rule_axes("act_batch", _active.rules)
+    return tuple(a for a in mesh.axis_names
+                 if a in axes and mesh.shape[a] > 1)
+
+
+def batch_axis() -> Optional["AxisGroup"]:
+    """This rank's group over ``batch_axes()``, None when the batch is
+    whole: the group whose ranks hold the parts of one global batch."""
+    axes = batch_axes()
+    return _active.mesh.axis(*axes) if axes else None
 
 
 def local_part(name: str, size: int) -> Optional[Tuple[int, int]]:
@@ -329,9 +543,9 @@ def local_part(name: str, size: int) -> Optional[Tuple[int, int]]:
     if mesh is None:
         return None
     spec = logical_to_pspec((name,), _active.rules, mesh=mesh, shape=(size,))
-    if not spec:
+    if spec != ("model",):
         return None
-    return mesh.shape["model"], mesh.rank
+    return mesh.shape["model"], mesh.coord("model")
 
 
 # ------------------------------------------------------------------ shardings
@@ -340,34 +554,42 @@ def local_part(name: str, size: int) -> Optional[Tuple[int, int]]:
 class Sharding:
     """A resolved spec on a mesh: ``spec`` the reference's entries, and
     calling it on a whole tensor returns this rank's shard (a contiguous
-    copy; a replicated tensor comes back as it is)."""
+    copy; a replicated tensor comes back as it is).  A dimension split
+    over several axes is cut row-major over them (the first axis
+    slowest), the order the all-gathers over ``mesh.axis(*names)`` undo."""
     spec: Tuple
     mesh: Any
 
-    def _axes(self):
+    def axes(self):
+        """(dim, axis names) of every split dimension."""
         for dim, entry in enumerate(self.spec):
             if entry is None:
                 continue
             names = entry if isinstance(entry, tuple) else (entry,)
-            if names != ("model",):
-                raise ValueError(f"the serving mesh has one 'model' axis; "
-                                 f"spec {self.spec} names {names}")
-            yield dim
+            for name in names:
+                if name not in self.mesh.shape:
+                    raise ValueError(f"spec {self.spec} names {name!r}, "
+                                     f"which the mesh "
+                                     f"{tuple(self.mesh.shape)} lacks")
+            yield dim, names
 
     def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
         out = list(shape)
-        for dim in self._axes():
-            out[dim] //= self.mesh.shape["model"]
+        for dim, names in self.axes():
+            out[dim] //= math.prod(self.mesh.shape[n] for n in names)
         return tuple(out)
 
     def __call__(self, t: torch.Tensor) -> torch.Tensor:
-        dims = list(self._axes())
-        if not dims:
+        cuts = list(self.axes())
+        if not cuts:
             return t
-        n, r = self.mesh.shape["model"], self.mesh.rank
-        for dim in dims:
-            part = t.shape[dim] // n
-            t = t.narrow(dim, r * part, part)
+        for dim, names in cuts:
+            parts, index = 1, 0
+            for n in names:
+                parts *= self.mesh.shape[n]
+                index = index * self.mesh.shape[n] + self.mesh.coord(n)
+            part = t.shape[dim] // parts
+            t = t.narrow(dim, index * part, part)
         return t.contiguous().clone()
 
 

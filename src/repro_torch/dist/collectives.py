@@ -22,10 +22,36 @@ gloo on a card, ``staged_bytes`` (device bytes copied through host
 buffers, both ways).  Every tensor moves as its bytes (a flat uint8
 view: every backend takes uint8, and no backend rounds a float it
 carries).  A failed collective raises.
+
+Training adds collectives with backward passes (module ``Function``s),
+over a ``dist.api.AxisGroup`` of the training mesh:
+
+  * ``all_gather`` / ``all_gather_last``: the backward keeps this rank's
+    slice of the cotangent (every rank's downstream is the same, so the
+    cotangent is whole on every rank);
+  * ``reduce_grad``: the identity forward, an all-reduce (sum) of the
+    cotangent backward, on the input of a product over this rank's rows
+    (each rank's dX is its rows' part of the sum);
+  * ``split_last``: this rank's part of a whole feature axis, the
+    cotangent all-gathered backward;
+  * ``fsdp_gather``: a parameter's shard all-gathered along its FSDP
+    dimension; backward the gradient reduce-scattered (sum, in f32) back
+    to the shard and all-reduced over the batch axes the leaf is
+    replicated on (``fsdp_reduce``, the same, without autograd).
+
+Plus ``all_reduce`` (floats sum in f32 on the wire: gloo carries no bf16
+on some builds), ``all_to_all`` and the point-to-point ``send_recv``.
+Their counters are ``fsdp_gather_bytes`` / ``fsdp_scatter_bytes``,
+``reduce_bytes``, ``a2a_bytes`` and ``p2p_bytes``: the bytes this rank
+puts on the wire under the ring algorithms, all-gather and reduce-scatter
+(n - 1) shards, all-reduce 2 (n - 1) / n of the tensor, all-to-all
+(n - 1) / n of its buffer.  A group of one (``group`` None) moves
+nothing and counts nothing.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -50,11 +76,20 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _host_empty(shape, dtype: torch.dtype, mesh) -> torch.Tensor:
+    """An uninitialised host buffer, pinned when the mesh stages: the
+    caching host allocator reuses it, and the copies to and from the card
+    run as DMA (a fresh pageable buffer faults in every page)."""
+    return torch.empty(shape, dtype=dtype, pin_memory=mesh.staged)
+
+
 def _to_host(t: torch.Tensor, mesh) -> torch.Tensor:
     if not mesh.staged:
         return t
     mesh.stats["staged_bytes"] += _nbytes(t)
-    return t.cpu()
+    out = _host_empty(t.shape, t.dtype, mesh)
+    out.copy_(t)
+    return out
 
 
 def _to_device(t: torch.Tensor, mesh) -> torch.Tensor:
@@ -64,9 +99,38 @@ def _to_device(t: torch.Tensor, mesh) -> torch.Tensor:
     return t.to(mesh.device)
 
 
+def _count(mesh, key: str, nbytes: int) -> None:
+    mesh.stats[key] = mesh.stats.get(key, 0) + int(nbytes)
+
+
+def _grad_needed(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 def all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Every rank's ``x`` stacked in rank order: [n, *x.shape]."""
+    """Every rank's ``x`` stacked in rank order: [n, *x.shape]; the
+    backward keeps this rank's slice of the cotangent."""
+    if _grad_needed(x):
+        return _AllGather.apply(x, mesh)
+    return _all_gather(x, mesh)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.rank = mesh.rank
+        return _all_gather(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rank], None
+
+
+def _all_gather(x: torch.Tensor, mesh, key: str = "gather_bytes"
+                ) -> torch.Tensor:
     import torch.distributed as dist
+    if mesh.group is None:
+        return x.unsqueeze(0)
     n = mesh.size
     w = _wire(_to_host(x.contiguous(), mesh))
     if mesh.backend == "nccl":
@@ -74,10 +138,9 @@ def all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
                           device=w.device)
         dist.all_gather_into_tensor(out, w, group=mesh.group)
     else:
-        parts = [torch.empty_like(w) for _ in range(n)]
-        dist.all_gather(parts, w, group=mesh.group)
-        out = torch.stack(parts)
-    mesh.stats["gather_bytes"] += _nbytes(w) * (n - 1)
+        out = _host_empty((n,) + tuple(w.shape), w.dtype, mesh)
+        dist.all_gather(list(out.unbind(0)), w, group=mesh.group)
+    _count(mesh, key, _nbytes(w) * (n - 1))
     return _to_device(_unwire(out, x.dtype, x.shape), mesh)
 
 
@@ -88,13 +151,190 @@ def all_gather_last(x: torch.Tensor, mesh) -> torch.Tensor:
     return g.movedim(0, -2).reshape(*x.shape[:-1], mesh.size * x.shape[-1])
 
 
+def all_reduce(x: torch.Tensor, mesh, op: str = "sum") -> torch.Tensor:
+    """The elementwise sum (``op="max"``: maximum) of every rank's ``x``,
+    in ``x``'s dtype; a float travels and sums as f32, an integer as
+    itself.  No autograd."""
+    import torch.distributed as dist
+    if mesh.group is None:
+        return x
+    w = x.float() if x.is_floating_point() else x
+    w = _to_host(w, mesh) if mesh.staged else w.contiguous().clone()
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+    dist.all_reduce(w, op=ops[op], group=mesh.group)
+    _count(mesh, "reduce_bytes", 2 * (mesh.size - 1) * _nbytes(w) // mesh.size)
+    return _to_device(w, mesh).to(x.dtype)
+
+
+class _ReduceGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh), None
+
+
+def reduce_grad(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` itself; in the backward its cotangent summed over ``mesh``."""
+    if mesh.group is None or not _grad_needed(x):
+        return x
+    return _ReduceGrad.apply(x, mesh)
+
+
+class _SplitLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, mesh):
+        ctx.mesh = mesh
+        part = y.shape[-1] // mesh.size
+        return y.narrow(-1, mesh.rank * part, part)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_last(g, ctx.mesh), None
+
+
+def split_last(y: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's 1/n of ``y``'s last axis, whose cotangent is
+    all-gathered back to the whole axis."""
+    if _grad_needed(y):
+        return _SplitLast.apply(y, mesh)
+    part = y.shape[-1] // mesh.size
+    return y.narrow(-1, mesh.rank * part, part)
+
+
+def _gather_last(x, mesh):
+    g = _all_gather(x, mesh)
+    return g.movedim(0, -2).reshape(*x.shape[:-1], mesh.size * x.shape[-1])
+
+
+def gather_dim(x: torch.Tensor, mesh, dim: int,
+               key: str = "fsdp_gather_bytes") -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order (no
+    autograd)."""
+    if mesh is None or mesh.group is None:
+        return x
+    return torch.cat(list(_all_gather(x, mesh, key)), dim=dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """The sum over ``mesh`` of every rank's ``x``, of which this rank
+    keeps its 1/n along ``dim`` (the part ``gather_dim`` takes from it),
+    summed in f32, in f32."""
+    import torch.distributed as dist
+    if mesh is None or mesh.group is None:
+        return x
+    n = mesh.size
+    part = x.shape[dim] // n
+    chunks = x.float().reshape(*x.shape[:dim], n, part, *x.shape[dim + 1:]) \
+        .movedim(dim, 0).contiguous()
+    w = _to_host(chunks, mesh)
+    out = _host_empty(w.shape[1:], w.dtype, mesh) if mesh.staged else \
+        torch.empty(w.shape[1:], dtype=w.dtype, device=w.device)
+    if not _NO_RS.get(mesh.backend):
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", FutureWarning)
+                dist.reduce_scatter_tensor(out.view(-1), w.view(-1),
+                                           group=mesh.group)
+        except (RuntimeError, NotImplementedError):
+            # a build without it raises before it sends anything, on every
+            # rank alike; the all-reduce below computes the same sum
+            _NO_RS[mesh.backend] = True
+    if _NO_RS.get(mesh.backend):
+        dist.all_reduce(w, group=mesh.group)
+        out = w[mesh.rank].clone()
+    _count(mesh, "fsdp_scatter_bytes", _nbytes(out) * (n - 1))
+    return _to_device(out, mesh)
+
+
+_NO_RS: Dict[str, bool] = {}     # backends found without reduce-scatter
+
+
+def fsdp_reduce(g: torch.Tensor, split, dim: Optional[int], rest
+                ) -> torch.Tensor:
+    """A whole-leaf gradient ``g`` -> this rank's shard of its sum over the
+    batch ranks: reduce-scattered over ``split`` along ``dim`` (f32), then
+    all-reduced over ``rest``, the batch axes the leaf is replicated on.
+    Identity (``g`` itself) when both are groups of one."""
+    if split is not None and split.group is not None:
+        g = reduce_scatter_dim(g, split, dim)
+    if rest is not None and rest.group is not None:
+        g = all_reduce(g, rest)
+    return g
+
+
+class _FSDPGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, split, dim, rest):
+        ctx.args = (split, dim, rest)
+        return gather_dim(shard, split, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split, dim, rest = ctx.args
+        out = fsdp_reduce(g, split, dim, rest)
+        return out.to(g.dtype), None, None, None
+
+
+def fsdp_gather(shard: torch.Tensor, split, dim: Optional[int], rest
+                ) -> torch.Tensor:
+    """A parameter's whole leaf (over the data axes) from this rank's
+    shard: all-gathered over ``split`` along ``dim``; its gradient comes
+    back through ``fsdp_reduce``."""
+    idle = ((split is None or split.group is None)
+            and (rest is None or rest.group is None))
+    if idle or not _grad_needed(shard):
+        return shard if idle else gather_dim(shard, split, dim)
+    return _FSDPGather.apply(shard, split, dim, rest)
+
+
+def all_to_all(tensors: Sequence[torch.Tensor], mesh
+               ) -> List[torch.Tensor]:
+    """Each of ``tensors`` [n, ...]: slot d goes to rank d; returns the
+    same shapes, whose slot s came from rank s (the reference's
+    ``lax.all_to_all(x, axis, 0, 0)``), all in one exchange: each
+    destination's slots of every tensor travel as one run of bytes.  No
+    autograd."""
+    import torch.distributed as dist
+    if mesh.group is None:
+        return list(tensors)
+    n = mesh.size
+    rows = [_wire(_to_host(t.contiguous(), mesh)).reshape(n, -1)
+            for t in tensors]
+    w = torch.cat(rows, dim=1)
+    out = _host_empty(w.shape, w.dtype, mesh) if mesh.staged else \
+        torch.empty_like(w)
+    dist.all_to_all_single(out, w, group=mesh.group)
+    _count(mesh, "a2a_bytes", _nbytes(w) * (n - 1) // n)
+    got, at = [], 0
+    for t, r in zip(tensors, rows):
+        part = out[:, at:at + r.shape[1]].contiguous()
+        got.append(_to_device(_unwire(part, t.dtype, t.shape[1:]), mesh))
+        at += r.shape[1]
+    return got
+
+
+def send_recv(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Point to point: send ``x`` to rank + 1 while receiving the same
+    shape from rank - 1 (the reference's ``ppermute`` over a ring);
+    counted in ``p2p_bytes``.  No autograd."""
+    if mesh.group is None:
+        return x
+    (y,) = RingShift([x], mesh, key="p2p_bytes").wait()
+    return y
+
+
 class RingShift:
     """One ring step started: ``tensors`` go to rank + 1 while the same
     number arrive from rank - 1; ``wait()`` returns what arrived.  Started
     before the step's product and waited on after it, so the transfer
     overlaps the compute (under NCCL; gloo's sends complete on the host)."""
 
-    def __init__(self, tensors: Sequence[torch.Tensor], mesh):
+    def __init__(self, tensors: Sequence[torch.Tensor], mesh,
+                 key: str = "ring_bytes"):
         import torch.distributed as dist
         self.mesh = mesh
         self.kinds = [(t.dtype, t.shape) for t in tensors]
@@ -102,12 +342,13 @@ class RingShift:
         dst = dist.get_global_rank(mesh.group, (r + 1) % n)
         src = dist.get_global_rank(mesh.group, (r - 1) % n)
         sends = [_wire(_to_host(t.contiguous(), mesh)) for t in tensors]
-        self.recvs = [torch.empty_like(s) for s in sends]
+        self.recvs = [_host_empty(s.shape, s.dtype, mesh) if mesh.staged
+                      else torch.empty_like(s) for s in sends]
         ops = ([dist.P2POp(dist.isend, s, dst, mesh.group) for s in sends]
                + [dist.P2POp(dist.irecv, v, src, mesh.group)
                   for v in self.recvs])
         self.reqs = dist.batch_isend_irecv(ops)
-        mesh.stats["ring_bytes"] += sum(_nbytes(s) for s in sends)
+        _count(mesh, key, sum(_nbytes(s) for s in sends))
 
     def wait(self) -> List[torch.Tensor]:
         for req in self.reqs:

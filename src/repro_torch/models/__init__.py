@@ -8,19 +8,23 @@ GEMM)."""
 
 from repro_torch.models.config import ArchConfig, param_count
 from repro_torch.models.transformer import (DenseLM, EncDecLM, HybridLM,
-                                            MoELM, SSMLM,
+                                            MoELM, SSMLM, bind_params,
                                             convert_to_compressed,
+                                            gather_model,
                                             decode_step, forward, init_caches,
                                             init_model, loss_fn, make_draft,
                                             param_shard_specs, prefill,
                                             serve_ring_traffic_bytes,
-                                            shard_model, verify_step,
+                                            shard_for_training,
+                                            shard_model, train_shard_specs,
+                                            verify_step,
                                             weight_stream_bytes)
 
 __all__ = ["ArchConfig", "param_count", "DenseLM", "EncDecLM", "HybridLM",
            "MoELM",
            "SSMLM",
-           "convert_to_compressed", "decode_step", "forward", "init_caches",
-           "init_model", "loss_fn", "make_draft", "param_shard_specs",
-           "prefill", "serve_ring_traffic_bytes", "shard_model",
-           "verify_step", "weight_stream_bytes"]
+           "bind_params", "convert_to_compressed", "decode_step", "forward",
+           "gather_model", "init_caches", "init_model", "loss_fn",
+           "make_draft", "param_shard_specs", "prefill",
+           "serve_ring_traffic_bytes", "shard_for_training", "shard_model",
+           "train_shard_specs", "verify_step", "weight_stream_bytes"]

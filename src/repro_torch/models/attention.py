@@ -34,7 +34,9 @@ over its own shard of the pool's head axis, then all-gathers the heads
 before the output projection.  MLA's latent ``ckv`` / ``kpe`` have no
 head axis and stay whole on every rank; its absorbed ``wuk`` / ``wuv``
 are decompressed for the local heads only.  Heads the mesh does not
-divide are computed whole on every rank.
+divide are computed whole on every rank.  Training over the "model" axis
+runs the same layout; the shared rope key ``kpe``, which meets only the
+rank's heads, passes ``reduce_grad``.
 
 Cross-attention (the audio family's decoder) projects its queries and
 reads the encoder's K/V [B, Se, kv, hd] through ``chunked_attention``
@@ -56,7 +58,8 @@ from torch import nn
 from repro_torch.core.layers import (SparseLinear, dense_view, linear_apply,
                                      linear_init, whole_rows)
 from repro_torch.dist.api import local_part, require_mesh
-from repro_torch.dist.collectives import all_gather, all_gather_last
+from repro_torch.dist.collectives import (all_gather, all_gather_last,
+                                          reduce_grad)
 from repro_torch.kernels.flash_attention import (paged_gqa_decode,
                                                  paged_gqa_verify,
                                                  paged_mla_decode,
@@ -535,7 +538,11 @@ def mla_apply(p: MLA, x: torch.Tensor, cfg: ArchConfig, *,
         kn = linear_apply(p.wuk, ckv, sp, local=loc).reshape(b, s, h, nd)
         vv = linear_apply(p.wuv, ckv, sp, local=loc).reshape(b, s, h, vd)
         q = torch.cat([qn, qpe], dim=-1)
-        k = torch.cat([kn, kpe[:, :, None, :].expand(b, s, h, rd)], dim=-1)
+        # the shared rope key meets only this rank's heads: its cotangent
+        # is this rank's part of the sum over the heads
+        kpe_h = reduce_grad(kpe, require_mesh("split MLA heads")) \
+            if loc else kpe
+        k = torch.cat([kn, kpe_h[:, :, None, :].expand(b, s, h, rd)], dim=-1)
         o = chunked_attention(q, k, vv, causal=True, scale=scale,
                               q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
                               chain_bf16=cfg.attn_chain_bf16)

@@ -130,6 +130,11 @@ def lm_head_apply(p: Embedding, x: torch.Tensor,
     emb = p.emb
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
+    split = getattr(p, "tp_rows", None)
+    if split:
+        from repro_torch.dist.api import require_mesh
+        from repro_torch.dist.collectives import reduce_grad
+        x2 = reduce_grad(x2, require_mesh("a vocab-split head"))
     if x2.dtype == torch.float32 and emb.dtype == torch.float32:
         logits = x2 @ emb.t()
     elif x2.is_cuda:
@@ -137,7 +142,7 @@ def lm_head_apply(p: Embedding, x: torch.Tensor,
     else:
         logits = x2.float() @ emb.float().t()
     logits = logits.reshape(*lead, emb.shape[0])
-    if getattr(p, "tp_rows", None):
+    if split:
         from repro_torch.dist.api import require_mesh
         from repro_torch.dist.collectives import all_gather_last
         logits = all_gather_last(logits, require_mesh("a vocab-split head"))
@@ -188,12 +193,22 @@ ACTIVATIONS = {"silu": F.silu, "gelu": _gelu}
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ignore_id: int = -1) -> torch.Tensor:
-    """Mean token NLL in f32; labels == ignore_id are masked out."""
+    """Mean token NLL in f32; labels == ignore_id are masked out.  Under a
+    training mesh that splits the batch (``dist.api.batch_axis``) it is
+    this rank's share of the global mean: its tokens' NLL summed, over
+    the masked token count summed over the batch ranks, so the shares
+    add up to the unsharded loss and each rank differentiates its own."""
+    from repro_torch.dist.api import batch_axis
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.long().clamp_min(0)[..., None])[..., 0]
     mask = (labels != ignore_id).float()
-    return torch.sum((lse - gold) * mask) / torch.clamp_min(mask.sum(), 1.0)
+    count = mask.sum()
+    group = batch_axis()
+    if group is not None:
+        from repro_torch.dist.collectives import all_reduce
+        count = all_reduce(count.detach(), group)
+    return torch.sum((lse - gold) * mask) / torch.clamp_min(count, 1.0)
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:

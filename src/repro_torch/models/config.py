@@ -87,6 +87,9 @@ class ArchConfig:
     remat: bool = True
     remat_group: int = 0
     grad_accum: int = 1                      # microbatches per step
+    # the training mesh's layout: '2d' (weights tp x fsdp) | 'fulldp'
+    # (weights replicated, the batch over the whole mesh: sub-1B models)
+    train_layout: str = "2d"
 
     def hd(self) -> int:
         if self.head_dim:

@@ -19,6 +19,16 @@ replicated activations through the one-device computation to the same
 experts; each stack's local product is all-gathered along its feature
 axis before anything contracts over it.
 
+Training over a mesh (``dist.api.batch_axis``: the batch split over
+ranks) routes as the reference's one-program step does, over the
+**global** batch: each rank's assignments take their expert-queue
+positions after those of the ranks before it (the ranks' per-expert
+counts are all-gathered, a few hundred bytes), the capacity is the global
+batch's, and the load-balance aux uses the global counts; each rank adds
+its own tokens' share of E * sum_e f_e P_e (linear in the probabilities),
+so the shares sum to the unsharded aux.  Under a "model" split the
+expert inputs pass ``reduce_grad`` before the row-sharded products.
+
 Routing reproduces the reference bit for bit where it can: ``torch.topk``
 promises no order among tied probabilities, so the top-k is a stable
 descending sort (ties to the lower expert id, the order of
@@ -36,8 +46,9 @@ from repro_torch.core.layers import (SparseLinear, StackedLinear, dense_view,
                                      linear_apply, linear_init)
 from repro_torch.core.sparse_matmul import SparsityConfig, bmm_f32acc
 from repro_torch.core.sparsity import compress
-from repro_torch.dist.api import require_mesh
-from repro_torch.dist.collectives import all_gather, all_gather_last
+from repro_torch.dist.api import batch_axis, require_mesh
+from repro_torch.dist.collectives import (all_gather, all_gather_last,
+                                          reduce_grad)
 from repro_torch.models.common import ACTIVATIONS
 from repro_torch.models.config import ArchConfig
 
@@ -135,6 +146,12 @@ def _whole(y: torch.Tensor, split) -> torch.Tensor:
         if split else y
 
 
+def _rows_input(x: torch.Tensor, split) -> torch.Tensor:
+    """The input of a product over split rows (``reduce_grad``)."""
+    return reduce_grad(x, require_mesh("a split MoE weight")) \
+        if split else x
+
+
 def moe_route(router: torch.Tensor, xt: torch.Tensor, k: int
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """f32 router: xt [T, d] -> (probs [T, E], normalized gates [T, k],
@@ -166,7 +183,9 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ArchConfig
     e, k = cfg.n_experts, cfg.top_k
     sp = cfg.sparsity
     act = ACTIVATIONS[cfg.act]
-    cap = _capacity(t, e, k, cfg.capacity_factor)
+    group = batch_axis()            # the global batch's ranks, if split
+    t_all = t * (group.size if group is not None else 1)
+    cap = _capacity(t_all, e, k, cfg.capacity_factor)
     dev = x.device
 
     xt = x.reshape(t, d)
@@ -185,6 +204,11 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ArchConfig
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(t * k, device=dev) - starts[s_eid]
     keep = pos < cap
+    if group is not None:
+        # global queue positions: the ranks before this one go first
+        every = all_gather(counts, group)                     # [n, e]
+        keep = pos + every[:group.rank].sum(0)[s_eid] < cap
+        counts = every.sum(0)
     sentinel = e * cap
     slot = torch.where(keep, s_eid * cap + pos, torch.full_like(pos, sentinel))
 
@@ -198,9 +222,11 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ArchConfig
     wg = _stacked_dense_view(p.wg, sp)
     wu = _stacked_dense_view(p.wu, sp)
     wd = _stacked_dense_view(p.wd, sp)
-    h = _whole(act(bmm_f32acc(xbuf, wg)) * bmm_f32acc(xbuf, wu),
-               getattr(p.wg, "tp_rows", None))
-    ybuf = _whole(bmm_f32acc(h, wd), getattr(p.wd, "tp_rows", None))
+    split_gu = getattr(p.wg, "tp_rows", None)
+    split_d = getattr(p.wd, "tp_rows", None)
+    xin = _rows_input(xbuf, split_gu)
+    h = _whole(act(bmm_f32acc(xin, wg)) * bmm_f32acc(xin, wu), split_gu)
+    ybuf = _whole(bmm_f32acc(_rows_input(h, split_d), wd), split_d)
     ybuf_pad = torch.cat([ybuf.reshape(sentinel, d), ybuf.new_zeros(1, d)])
 
     # ---- gather-based combine (unsort; dropped -> sentinel zero row) ----
@@ -213,7 +239,10 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ArchConfig
     if p.shared is not None:
         y = y + mlp_apply(p.shared, x, cfg)
 
-    # GShard/Switch load-balance aux: E * sum_e f_e * P_e
-    f = counts.float() / max(t * k, 1)
-    aux = e * torch.sum(f * probs.mean(0))
+    # GShard/Switch load-balance aux: E * sum_e f_e * P_e (a rank's share
+    # of it under a batch split: its tokens' probabilities over the global
+    # token count)
+    f = counts.float() / max(t_all * k, 1)
+    share = probs.mean(0) if group is None else probs.sum(0) / t_all
+    aux = e * torch.sum(f * share)
     return y, aux

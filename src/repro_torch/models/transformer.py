@@ -76,6 +76,11 @@ Public API (family-dispatched):
   shard_model(model, mesh, rules)                -> the same model class,
                                                     each leaf its local shard
   serve_ring_traffic_bytes(model, cfg, ndev)     -> dict
+  train_shard_specs(model)                       -> {name: logical spec}
+  shard_for_training(model, mesh, rules)         -> (skeleton, {name:
+                                                    LeafLayout})
+  bind_params(skeleton, leaves)                  -> the skeleton's class
+  gather_model(skeleton, layouts, mesh)          -> the whole model
   cache_specs(caches)                            -> {leaf: logical spec}
 """
 
@@ -788,6 +793,17 @@ def _records_grad(p: nn.Module) -> bool:
 
 
 def _checkpoint(fn, *args):
+    """An activation checkpoint of ``fn``, whose recompute runs under the
+    mesh and rules its forward ran under (on the card the backward runs
+    on autograd's own thread, which the thread's rules do not reach)."""
+    from repro_torch.dist.api import axis_rules, current_mesh, current_rules
+    mesh = current_mesh()
+    if mesh is not None:
+        rules, inner = current_rules(), fn
+
+        def fn(*a):
+            with axis_rules(mesh, rules):
+                return inner(*a)
     return torch.utils.checkpoint.checkpoint(
         fn, *args, use_reentrant=False, preserve_rng_state=False)
 
@@ -1108,6 +1124,192 @@ def shard_model(p: LM, mesh, rules=None, device=None) -> LM:
         return new
 
     return cut(p, "")
+
+
+def train_shard_specs(p: nn.Module) -> Dict[str, Optional[tuple]]:
+    """Logical training specs of a model, {parameter or buffer name:
+    spec}.  Output-feature axes get "tp" (the row layout of serving: an
+    N:M block never straddles a shard), the contraction axis "fsdp"
+    (embedding: its d axis), an expert stack's expert axis "ep", the MoE
+    router (None, "fsdp") as the reference's; a bias is ("tp",) and any
+    other leaf (norm scales, the mixers' tensors) "fsdp" on its first
+    axis.  The reference splits the contraction of ``wo`` / ``wd`` over
+    "tp" instead (ROADMAP C); every other linear's spec is the
+    reference's."""
+    stacks = {name for name, m in p.named_modules()
+              if isinstance(m, sparse_layers.StackedLinear)}
+    out: Dict[str, Optional[tuple]] = {}
+    for name, t in list(p.named_parameters()) + list(p.named_buffers()):
+        owner, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+        nd = t.dim()
+        if owner in stacks and leaf in _LINEAR_LEAF_KEYS and nd == 3:
+            out[name] = ("ep", "tp", "fsdp")
+        elif leaf == "emb" and nd == 2:
+            out[name] = ("tp", "fsdp")
+        elif leaf == "router" and nd == 2:
+            out[name] = (None, "fsdp")
+        elif leaf in _LINEAR_LEAF_KEYS and nd >= 2:
+            out[name] = (None,) * (nd - 2) + ("tp", "fsdp")
+        elif leaf == "b" and nd >= 1:
+            out[name] = (None,) * (nd - 1) + ("tp",)
+        elif nd >= 1:
+            out[name] = ("fsdp",) + (None,) * (nd - 1)
+        else:
+            out[name] = None
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafLayout:
+    """How one leaf lies on a training mesh: ``spec`` its resolved entries
+    (``dist.api.Sharding``); ``dim`` the dimension its data-side split
+    (FSDP / EP) cuts, over the axes ``split`` (None / (): whole over
+    them); ``rest`` the batch axes it is replicated on, over which its
+    gradient is all-reduced; ``rep`` how many ranks hold each of its
+    elements (the gradient norm counts each once)."""
+    spec: tuple
+    dim: Optional[int]
+    split: tuple
+    rest: tuple
+    rep: int
+
+
+def _layout(spec: tuple, mesh, batch: Sequence[str]) -> LeafLayout:
+    dim, split, used = None, (), set()
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        names = entry if isinstance(entry, tuple) else (entry,)
+        used.update(names)
+        if "model" not in names:
+            dim, split = i, names
+    rest = tuple(a for a in batch if a not in used)
+    rep = int(np.prod([n for a, n in mesh.shape.items() if a not in used]))
+    return LeafLayout(spec, dim, split, rest, rep)
+
+
+def _model_only(spec: tuple) -> tuple:
+    return tuple(e if e is not None and "model" in (
+        e if isinstance(e, tuple) else (e,)) else None for e in spec)
+
+
+def shard_for_training(p: LM, mesh, rules=None):
+    """(skeleton, {parameter or buffer name: LeafLayout}) of ``p`` on a
+    training mesh under ``rules`` (default: the active ones).  The
+    skeleton is a copy of ``p`` whose parameters are this rank's shards over every axis
+    (the leaves the trainer updates: the memory the mesh saves) and whose
+    buffers are cut over "model" only; a linear whose rows "model" splits
+    records their whole count (``tp_rows``), as ``shard_model`` does.  It
+    is never called as it is: ``bind_params`` puts the gathered leaves in
+    place for a forward.  ``p`` is left whole."""
+    from repro_torch.dist.api import (Sharding, batch_axes, current_rules,
+                                      logical_to_pspec)
+    rules = current_rules() if rules is None else rules
+    specs = train_shard_specs(p)
+    batch = batch_axes()
+    layouts: Dict[str, LeafLayout] = {}
+    names = {id(t): name for name, t in p.named_parameters()}
+    names.update({id(t): name for name, t in p.named_buffers()})
+    memo: Dict[int, torch.Tensor] = {}
+
+    def cut(module: nn.Module, prefix: str) -> nn.Module:
+        new = copy.copy(module)
+        new._modules = {name: cut(child, f"{prefix}{name}.")
+                        for name, child in module._modules.items()}
+        new._parameters = dict(module._parameters)
+        new._buffers = dict(module._buffers)
+        for store in (new._parameters, new._buffers):
+            for name, t in store.items():
+                if t is None:
+                    continue
+                if id(t) in memo:
+                    store[name] = memo[id(t)]
+                    continue
+                spec = specs.get(prefix + name)
+                pspec = () if spec is None else logical_to_pspec(
+                    spec, rules, mesh=mesh, shape=tuple(t.shape))
+                if isinstance(t, nn.Parameter):
+                    layouts[names[id(t)]] = _layout(pspec, mesh, batch)
+                    local = nn.Parameter(Sharding(pspec, mesh)(t.detach()),
+                                         requires_grad=False)
+                else:
+                    layouts[names[id(t)]] = _layout(_model_only(pspec),
+                                                    mesh, batch)
+                    local = Sharding(_model_only(pspec), mesh)(t)
+                memo[id(t)] = store[name] = local
+                model_dims = [d for d, names in Sharding(pspec, mesh).axes()
+                              if "model" in names]
+                if name in _ROW_KEYS and model_dims:
+                    if model_dims != [0 if name == "emb" else t.dim() - 2]:
+                        raise ValueError(f"{prefix}{name}: 'model' splits "
+                                         f"dims {model_dims}, not its rows")
+                    rows = t.shape[0] if name == "emb" else t.shape[-2]
+                    setattr(new, "tp_router" if name == "router"
+                            else "tp_rows", rows)
+        return new
+
+    return cut(p, ""), layouts
+
+
+def bind_params(skeleton: nn.Module, leaves: Dict[str, torch.Tensor]
+                ) -> nn.Module:
+    """A shallow copy of ``skeleton`` whose parameters are ``leaves``
+    ({parameter name: tensor}, as ``named_parameters`` names them; a
+    parameter shared by two modules is replaced in both), for a forward
+    and its backward: activation checkpoints recompute from these same
+    tensors."""
+    by_id = {id(t): leaves[name] for name, t in skeleton.named_parameters()}
+
+    def walk(module: nn.Module) -> nn.Module:
+        new = copy.copy(module)
+        new._modules = {k: walk(m) for k, m in module._modules.items()}
+        new._parameters = {k: (by_id[id(t)] if t is not None else None)
+                           for k, t in module._parameters.items()}
+        return new
+
+    return walk(skeleton)
+
+
+def gather_leaf(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """A leaf's whole tensor from this rank's shard ``t`` under the
+    resolved ``spec``, every rank getting it (no autograd)."""
+    from repro_torch.dist.api import Sharding
+    from repro_torch.dist.collectives import gather_dim
+    for dim, names in Sharding(spec, mesh).axes():
+        t = gather_dim(t, mesh.axis(*names), dim, key="gather_bytes")
+    return t
+
+
+def gather_model(skeleton: nn.Module, layouts: Dict[str, LeafLayout],
+                 mesh) -> nn.Module:
+    """The whole model from a training skeleton's shards: every leaf
+    gathered over every axis of the mesh, on every rank, its ``tp_rows``
+    / ``tp_router`` marks dropped: the model an unsharded run would hold,
+    for saving and serving."""
+    names = {id(t): n for n, t in skeleton.named_parameters()}
+    names.update({id(t): n for n, t in skeleton.named_buffers()})
+    memo: Dict[int, torch.Tensor] = {}
+
+    def whole(t: torch.Tensor) -> torch.Tensor:
+        if id(t) not in memo:
+            full = gather_leaf(t.detach(), layouts[names[id(t)]].spec, mesh)
+            memo[id(t)] = (nn.Parameter(full, requires_grad=False)
+                           if isinstance(t, nn.Parameter) else full)
+        return memo[id(t)]
+
+    def walk(module: nn.Module) -> nn.Module:
+        new = copy.copy(module)
+        new.__dict__ = dict(module.__dict__)
+        new.__dict__.pop("tp_rows", None)
+        new.__dict__.pop("tp_router", None)
+        new._modules = {k: walk(m) for k, m in module._modules.items()}
+        new._parameters = {k: None if t is None else whole(t)
+                           for k, t in module._parameters.items()}
+        new._buffers = {k: None if t is None else whole(t)
+                        for k, t in module._buffers.items()}
+        return new
+
+    return walk(skeleton)
 
 
 def _moved(t: torch.Tensor, device: torch.device) -> torch.Tensor:

@@ -5,14 +5,16 @@ keyed by the model's parameter names (``model.named_parameters()``), so
 each state tensor has a counterpart leaf in the reference's tree
 (``convert.from_reference_opt_state`` maps one onto the other).  The
 update writes the parameters and the state in place; the parameters stay
-the model's own tensors.  State sharding (``opt_state_specs``) comes with
-tensor-parallel training.
+the model's own tensors.  On a training mesh the parameters, gradients
+and state are this rank's shards (``launch.steps``): the update is
+elementwise, and ``sharded_global_norm`` gives the one global norm the
+clip needs.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -50,6 +52,20 @@ def _global_norm(grads: Named) -> torch.Tensor:
                           for g in grads.values()))
 
 
+def sharded_global_norm(grads: Named, reps: Mapping[str, int], mesh
+                        ) -> torch.Tensor:
+    """The global L2 norm of gradients held as shards over ``mesh``: each
+    leaf's sum of squares over ``reps[name]``, the ranks holding each of
+    its elements (so a replicated leaf counts once), summed over the
+    leaves, then over every rank in one all-reduce."""
+    from repro_torch.dist.collectives import all_reduce
+    sq = sum(s if reps[k] == 1 else s / reps[k] for k, s in (
+        (k, torch.sum(torch.square(g.float()))) for k, g in grads.items()))
+    if mesh.size > 1:
+        sq = all_reduce(sq, mesh.axis(*mesh.axis_names))
+    return torch.sqrt(sq)
+
+
 def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
 
@@ -69,14 +85,15 @@ def clip_by_global_norm(grads: Named, max_norm: float
 
 @torch.no_grad()
 def adamw_update(grads: Named, state: Dict[str, object], params: Named, lr,
-                 cfg: AdamWConfig):
+                 cfg: AdamWConfig, gnorm: Optional[torch.Tensor] = None):
     """One clipped AdamW step, in place -> (params, state, gnorm).
 
     ``lr`` is a float or a 0-d tensor (``warmup_cosine``'s).  The moments
     and the decoupled weight decay act on the f32 master (or on the
     parameter itself without one); a bf16 parameter is the master rounded
-    to its dtype."""
-    gn = _global_norm(grads)
+    to its dtype.  ``gnorm``: the global norm when the gradients are
+    shards (``sharded_global_norm``), else computed here."""
+    gn = _global_norm(grads) if gnorm is None else gnorm
     scale = _clip_scale(gn, cfg.clip_norm)
     state["step"].add_(1)
     t = state["step"].float()

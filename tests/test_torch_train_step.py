@@ -10,6 +10,7 @@ wrappers, train -> compress -> serve against the trained model's greedy
 ``forward``, and serving that records no autograd graph."""
 
 import dataclasses
+import os
 import pathlib
 
 import pytest
@@ -225,14 +226,50 @@ def test_cli_on_the_cpu(tmp_path, capsys):
 
 def test_cli_refusals():
     """Without ``--device`` the CLI asks for the card (no silent CPU
-    fallback); ``--mesh`` names ROADMAP A4.  (Every family trains:
+    fallback); the mesh's flags need ``--mesh``.  (Every family trains:
     ``tests/test_torch_train_families_serve.py`` runs the CLI for each.)"""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train_mod.main(["--arch", ARCH, "--smoke", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="A4"):
-        train_mod.main(["--arch", ARCH, "--smoke", "--steps", "1", "--mesh",
-                        "--device", "cpu"])
+    with pytest.raises(SystemExit, match="need --mesh"):
+        train_mod.main(["--arch", ARCH, "--smoke", "--steps", "1", "--ranks",
+                        "4", "--device", "cpu"])
+
+
+def test_cli_mesh_saves_and_resumes_on_fewer_ranks(tmp_path):
+    """``--mesh --ranks 4`` trains on a (2, 2) mesh of gloo ranks on the
+    CPU and writes one checkpoint; ``--ranks 2`` resumes it on (1, 2) and
+    continues the one-process run's losses."""
+    import subprocess
+    import sys
+
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    # src on the path from inside: with it in PYTHONPATH every spawned
+    # rank would start with the repo's sitecustomize, which imports JAX
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+
+    def cli(*extra):
+        argv = ["--arch", ARCH, "--smoke", "--batch", "4", "--seq", "8",
+                "--device", "cpu", "--ckpt-dir", str(tmp_path), "--mesh",
+                *extra]
+        res = subprocess.run(
+            [sys.executable, "-c", f"import sys; sys.path.insert(0, {src!r});"
+             f" from repro_torch.launch.train import main; main({argv!r})"],
+            capture_output=True, text=True, timeout=300, env=env)
+        assert res.returncode == 0, res.stderr[-3000:]
+        return res.stdout
+    out = cli("--steps", "1", "--ranks", "4")
+    assert "on mesh {'data': 2, 'model': 2}" in out
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_0000000001"]
+    out = cli("--steps", "2", "--ranks", "2")
+    assert "resumed from step 1" in out
+    assert "on mesh {'data': 1, 'model': 2}" in out
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "step_0000000001", "step_0000000002"]
+    whole = train_loop(ARCH, smoke=True, steps=2, batch=4, seq=8,
+                       ckpt_dir="", log_every=100, device="cpu")
+    final = float(out.split("final loss ")[1].split()[0])
+    assert final == pytest.approx(whole.losses[-1], abs=1e-4)
 
 
 def test_greedy_step_wrappers_match_reference():
