@@ -310,14 +310,33 @@ steady tick and the graph pool's bytes.
    --tp`` does): its peak card allocation over engine init and serve
    stays below the whole model's bytes; the tick's ms (one card, two
    processes, gloo through host memory: not a multi-card figure); the
-   ``tp_ring`` / ``tp_gspmd`` paths.  15c, f32 at world size 2 over gloo, ring: llama at 4 layers
-   and deepseek-v2-lite-16b at 2 (its dense layer and an MoE layer):
-   tokens equal the single-rank engine's; the ``tp_f32`` path.
+   ``tp_ring`` / ``tp_gspmd`` paths.  15c, f32 at world size 2 over
+   gloo, ring: llama at 4 layers and deepseek-v2-lite-16b at 2 (its
+   dense layer and an MoE layer): tokens equal the single-rank engine's;
+   the ``tp_f32`` path.  15d, the same two ranks: gemma2-9b (2 layers),
+   falcon-mamba-7b (2), zamba2-7b (6: one group and its shared block),
+   whisper-small (2 + 2) and qwen2-vl-7b (2), bf16 at full width,
+   compressed, paged, fused, ring and gspmd, 15b's trace: tokens equal
+   the single-rank engine's; the ring's counted bytes a tick, over both
+   ranks, equal ``decode_ring_bytes`` (each compressed linear the tick
+   runs, once per application; whisper's encoder and cross ``wk`` /
+   ``wv`` run in prefill only, the hybrid's shared block once per group;
+   15b's and 15c's are held to it too), and that equals the reference's
+   model, ``serve_ring_traffic_bytes`` of the compressed linears, with
+   the shared block added once per further group and whisper's encoder
+   and cross ``wk`` / ``wv`` taken out (``_ref_tick_bytes``; MLA's below
+   it: its absorbed ``wuk`` / ``wuv`` and expert stacks do not rotate);
+   launches on each rank nm_spmv =
+   ticks x the tick's linears x 2 (ring) or x 1 (gspmd), nm_xwt =
+   prefills x the prefill's linears, paged_gqa_decode = ticks x the
+   tick's attentions; the ``tp_families_ring`` / ``tp_families_gspmd``
+   paths.  15e, the five in f32, ring, at 15d's depths, prompts of 32:
+   tokens equal the single-rank engine's; the ``tp_families_f32`` path.
 16. Sharded SR-STE training (``train_loop(use_mesh=True)``; no new
    kernel).  16a, NCCL at world size 1 in this process: llama3.2-1b at
    full width and depth with 13a's settings, 4 steps: the losses
    bit-equal 13a's first 4, no byte moved; the step ms beside 13a's.
-   16b-e run in two child processes on cuda:0 over gloo (staged through
+   16b-f run in two child processes on cuda:0 over gloo (staged through
    host memory; step ms are not multi-card figures), rank 0 running each
    config's one-process baseline first.  16b, llama bf16 full width, 2
    layers, 8 x 128, accum 2, 1 step on (2, 1), (2, 1) pregather and
@@ -338,6 +357,15 @@ steady tick and the graph pool's bytes.
    its two exchanges' bytes the model and nothing all-gathered;
    ``compressed_psum`` int8 / bf16 against the mean (0.05 / 0.02); a
    2-stage ``pipeline_apply`` against the sequential composition (1e-5).
+   16f, a (1, 2) f32 step at 2 x 64 of gemma2-9b (2 layers),
+   falcon-mamba-7b (2), zamba2-7b (6), whisper-small (2 + 2, under the
+   default rules) and qwen2-vl-7b (2) at full width, against the
+   one-process step: loss within 1e-5 relative; the step runs at lr 0
+   (the warmup's first), so no parameter moves and the gradient is held
+   instead, from AdamW's first moment with each run's clip undone: each
+   leaf's largest difference within 1e-4 x (its largest element + 1e-2
+   of the largest element of any leaf), zamba2's within 1e-2 x the same
+   sum (``MESH_GRAD_TOL``); the worst 4 leaves and the median are printed.
 17. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
    device line last.  The total time is printed on the ``[done]`` line.
 """
@@ -5226,17 +5254,40 @@ TP_KW = dict(n_slots=4, max_len=72, compressed=True, kv="paged",
              attn="fused", block_size=16)
 TP_PATH = ("nm_spmv", "nm_xwt", "paged_gqa_decode")
 TP_F32_LAYERS = {"llama3.2-1b": 4, "deepseek-v2-lite-16b": 2}
+# 15d (bf16, ring and gspmd) and 15e (f32, ring): the other families at
+# full width, cut in depth (gemma2 one local / global pair, zamba2 one
+# whole group of its shared attention, the least it has; falcon and
+# qwen2-vl cut 4 -> 2 in 15d for the run's time)
+TP_FAMILY_LAYERS = {"gemma2-9b": 2, "falcon-mamba-7b": 2, "zamba2-7b": 6,
+                    "whisper-small": 2, "qwen2-vl-7b": 2}
+ENC_CUT = {"whisper-small": 2}   # whisper's encoder, cut with its decoder
 TP_LABEL = ("one card, two processes, gloo through host memory: not a "
             "multi-card figure")
+TP_KERNELS = ("nm_spmv", "nm_xwt", "paged_gqa_decode")    # B1, B2, B3
 
 
 def _tp_cfg(arch, dtype, layers=None):
-    """``arch`` at full width (``layers``: cut depth), compressed."""
+    """``arch`` at full width (``layers``: cut depth, whisper's encoder
+    to ``ENC_CUT``), compressed."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     cfg = cfg.replace(dtype=dtype, sparsity=dataclasses.replace(
         cfg.sparsity, mode="compressed"))
-    return cfg if layers is None else cfg.replace(n_layers=layers)
+    if layers is None:
+        return cfg
+    cfg = cfg.replace(n_layers=layers)
+    return cfg.replace(enc_layers=ENC_CUT[arch]) if arch in ENC_CUT else cfg
+
+
+def attn_per_tick(cfg) -> int:
+    """Paged attention launches of one decode tick: one per self-attention
+    the tick runs (the hybrid's shared block once per group; none in the
+    SSM family)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_period
+    return cfg.n_layers
 
 
 def _tp_model(torch, arch, dtype, layers=None, store=None):
@@ -5266,8 +5317,36 @@ def _tp_margin(torch, model, cfg, req, base, got) -> str:
             f"margin {float(top[0] - top[1]):.4g}")
 
 
+def _ref_tick_bytes(model, cfg, ndev):
+    """The bytes one decode tick's ring sends by the reference's model
+    (``serve_ring_traffic_bytes`` of the compressed linears, which counts
+    each stored linear once; a dense linear all-gathers its local rows):
+    the hybrid's shared block once more for each further group, less the
+    audio family's encoder and cross ``wk`` / ``wv`` (run in prefill
+    only).  None under MLA, whose absorbed ``wuk`` / ``wuv`` and expert
+    stacks the model counts but a tick does not rotate."""
+    import torch.nn as nn
+    from repro_torch.core.layers import SparseLinear
+    from repro_torch.models import serve_ring_traffic_bytes
+    if cfg.mla:
+        return None
+
+    def ring(*mods):
+        lins = [m for mod in mods for m in mod.modules()
+                if isinstance(m, SparseLinear) and m.compressed]
+        return serve_ring_traffic_bytes(nn.ModuleList(lins), cfg,
+                                        ndev)["ring_bytes"]
+    tick = ring(model)
+    if cfg.family == "hybrid":
+        tick += (cfg.n_layers // cfg.attn_period - 1) * ring(model.shared)
+    if cfg.family == "audio":
+        tick -= ring(model.enc_layers, *(m for lp in model.layers
+                                         for m in (lp.cross.wk, lp.cross.wv)))
+    return tick
+
+
 def _tp_rank(rank: int, n: int, port: int, out: str, jobs) -> None:
-    """One rank of 15b / 15c (a child process on cuda:0, gloo): each job
+    """One rank of 15b-15e (a child process on cuda:0, gloo): each job
     serves its trace over the mesh under each of its collectives from a
     model kept on the host (only the rank's shard goes to the card; the
     card's peak allocation over engine init and serve is recorded), counts
@@ -5329,10 +5408,13 @@ def _tp_jobs(torch, mesh, jobs):
                     "tokens", "decode_steps", "prefill_calls",
                     "steady_tick_s", "first_tick_s", "ring_bytes_per_step",
                     "ring_dense_bytes_per_step", "ring_traffic_ratio",
-                    "ring_linears", "local_linears", "ring_sent_bytes",
+                    "ring_linears", "local_linears", "ring_tick_bytes",
+                    "ring_sent_bytes",
                     "gather_sent_bytes", "staged_bytes",
                     "weight_stream_bytes")})
             del eng
+        linears, ref_tick = serve_linears(host, cfg), _ref_tick_bytes(
+            host, cfg, mesh.size)
         del host
         one = {}
         if rank == 0:
@@ -5351,7 +5433,8 @@ def _tp_jobs(torch, mesh, jobs):
                 if not np.array_equal(one["tokens"][str(r.rid)],
                                       run["tokens"][str(r.rid)])]
             del eng, model
-        res.append(dict(job=job, runs=runs, single=one))
+        res.append(dict(job=job, runs=runs, single=one, linears=linears,
+                        ref_tick=ref_tick))
         torch.cuda.empty_cache()
     return res
 
@@ -5415,18 +5498,34 @@ def phase_tp_nccl(torch, card, base=None):
     return {"tp_nccl": launches}
 
 
-def phase_tp_gloo(torch, card):
-    """15b and 15c: two child processes on the one card, gloo."""
-    import tempfile
-    import torch.multiprocessing as mp
-    from repro_torch.dist.api import free_port
-    jobs = [dict(arch="llama3.2-1b", dtype="bfloat16", trace=TP_TRACE,
-                 collectives=["ring", "gspmd"])]
+def _tp_gloo_jobs():
+    """15b-15e's jobs: llama bf16 (15b), llama / deepseek f32 (15c), the
+    other five families bf16 (15d) and f32 (15e)."""
+    jobs = [dict(what="15b", arch="llama3.2-1b", dtype="bfloat16",
+                 trace=TP_TRACE, collectives=["ring", "gspmd"])]
     for arch, layers in TP_F32_LAYERS.items():
-        jobs.append(dict(arch=arch, dtype="float32", layers=layers,
+        jobs.append(dict(what="15c", arch=arch, dtype="float32",
+                         layers=layers,
                          trace=dict(TP_TRACE, prompt_len=4 if "deepseek"
                                     in arch else 32),
                          collectives=["ring"]))
+    for arch, layers in TP_FAMILY_LAYERS.items():
+        jobs.append(dict(what="15d", arch=arch, dtype="bfloat16",
+                         layers=layers, trace=TP_TRACE,
+                         collectives=["ring", "gspmd"]))
+    for arch, layers in TP_FAMILY_LAYERS.items():
+        jobs.append(dict(what="15e", arch=arch, dtype="float32",
+                         layers=layers, trace=dict(TP_TRACE, prompt_len=32),
+                         collectives=["ring"]))
+    return jobs
+
+
+def phase_tp_gloo(torch, card):
+    """15b-15e: two child processes on the one card, gloo."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.dist.api import free_port
+    jobs = _tp_gloo_jobs()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -5437,34 +5536,50 @@ def phase_tp_gloo(torch, card):
         for r in range(2):
             with open(f"{out}.{r}") as f:
                 ranks.append(json.load(f))
-    log(f"[time] phase 15b/c children {time.perf_counter() - t0:.1f}s")
+    log(f"[time] phase 15b-e children {time.perf_counter() - t0:.1f}s")
     paths = {}
     for j, res in enumerate(ranks[0]):
         job, single = res["job"], res["single"]
         cfg = _tp_cfg(job["arch"], job["dtype"], job.get("layers"))
         what = (f"{job['arch']} {job['dtype']}"
                 + (f" {job['layers']}L" if job.get("layers") else ""))
+        tag = job["what"]
         for coll, run in res["runs"].items():
             other = ranks[1][j]["runs"][coll]
             st = run["stats"]
             ticks, prefills = int(st["decode_steps"]), int(st["prefill_calls"])
-            lin = cfg.n_layers * LINEARS_PER_LAYER if cfg.n_experts == 0 \
-                else None
             same = sum(single["tokens"][rid] == toks
                        for rid, toks in run["tokens"].items())
             ranks_agree = run["tokens"] == other["tokens"]
             sent = st["ring_sent_bytes"] + other["stats"]["ring_sent_bytes"]
-            log(f"[15 tp] {what} {coll}: {same}/{len(run['tokens'])} requests "
-                f"equal the single-rank engine's, ranks agree {ranks_agree}; "
-                f"{ticks} ticks, {prefills} prefills; ring sent "
-                f"{sent / max(ticks, 1):.0f} B a tick over both ranks against the model's "
-                f"{st['ring_bytes_per_step']:.0f} (ratio to the dense ring "
+            want = {}
+            if cfg.n_experts == 0:
+                # every linear is compressed at full width: the ring runs
+                # each decode linear's product once a ring step (2 at TP
+                # 2), gspmd the rank's rows once; prefill its rows once
+                tick, pre = res["linears"]
+                want = dict(nm_spmv=ticks * tick * (2 if coll == "ring"
+                                                    else 1),
+                            nm_xwt=prefills * pre,
+                            paged_gqa_decode=ticks * attn_per_tick(cfg))
+            per_rank = [[r["launches"][k] for k in TP_KERNELS]
+                        for r in (run, other)]
+            log(f"[{tag} tp] {what} {coll}: {same}/{len(run['tokens'])} "
+                f"requests equal the single-rank engine's, ranks agree "
+                f"{ranks_agree}; {ticks} ticks, {prefills} prefills; ring "
+                f"sent {sent / max(ticks, 1):.0f} B a tick over both ranks "
+                f"against the tick's model {st['ring_tick_bytes']:.0f} "
+                f"(the reference's model of a tick {res['ref_tick']}; each "
+                f"stored linear once: "
+                f"{st['ring_bytes_per_step']:.0f}; ratio to the dense ring "
                 f"{st['ring_traffic_ratio']:.4f}, {int(st['ring_linears'])} "
                 f"ring / {int(st['local_linears'])} local linears); gathers "
                 f"sent {int(st['gather_sent_bytes'])} B, staged through the "
-                f"host {int(st['staged_bytes'])} B (rank 0); weight stream "
-                f"{st['weight_stream_bytes'] / 1e9:.3f} GB a rank; tick steady "
-                f"{st['steady_tick_s'] * 1e3:.1f} ms, first "
+                f"host {int(st['staged_bytes'])} B (rank 0); launches per "
+                f"rank of B1 / B2 / B3 {list(TP_KERNELS)}: {per_rank} "
+                f"(expected {[want.get(k) for k in TP_KERNELS]}); weight "
+                f"stream {st['weight_stream_bytes'] / 1e9:.3f} GB a rank; "
+                f"tick steady {st['steady_tick_s'] * 1e3:.1f} ms, first "
                 f"{st['first_tick_s'] * 1e3:.1f} ms, "
                 f"{st['tokens'] / run['wall']:.1f} tokens/s ({TP_LABEL}); "
                 f"card memory rank 0: whole model {run['whole_bytes']} B "
@@ -5472,36 +5587,41 @@ def phase_tp_gloo(torch, card):
                 f"allocated over init and serve {run['peak_bytes']} B; "
                 f"launches rank 0 {run['launches']}")
             for m in single["margins"]:
-                log(f"[15 tp]   {m}")
+                log(f"[{tag} tp]   {m}")
             if same != len(run["tokens"]) or not ranks_agree or run["graphs"]:
-                raise SystemExit(f"phase 15: {what} {coll}: TP tokens differ "
-                                 f"from the single-rank engine's "
+                raise SystemExit(f"phase {tag}: {what} {coll}: TP tokens "
+                                 f"differ from the single-rank engine's "
                                  f"({same}/{len(run['tokens'])}) or between "
                                  f"ranks, or the gloo engine captured graphs")
-            want = {"nm_xwt": prefills * lin,
-                    "paged_gqa_decode": ticks * cfg.n_layers} if lin else {}
-            if lin:
-                want["nm_spmv"] = ticks * lin * (2 if coll == "ring" else 1)
-            path = TP_PATH if lin else DEEPSEEK_PATH
-            check_path(run["launches"], path, f"phase 15 {what} {coll}",
-                       **want)
-            if job["dtype"] == "bfloat16":
+            want_sent = st["ring_tick_bytes"] * ticks
+            if sent != want_sent or (sent > 0) != (coll == "ring"):
+                raise SystemExit(f"phase {tag}: {what} {coll}: the ring sent "
+                                 f"{sent} B over {ticks} ticks, the model "
+                                 f"says {want_sent}")
+            ref = res["ref_tick"] if coll == "ring" else 0
+            if (st["ring_tick_bytes"] != ref if ref is not None else
+                    not 0 < st["ring_tick_bytes"] < st["ring_bytes_per_step"]):
+                raise SystemExit(f"phase {tag}: {what}: the tick's model "
+                                 f"{st['ring_tick_bytes']} B is not the "
+                                 f"reference model's {ref} B (MLA: below "
+                                 f"{st['ring_bytes_per_step']} B)")
+            path = (DEEPSEEK_PATH if cfg.mla else
+                    SSM_PATH if cfg.family == "ssm" else TP_PATH)
+            for r, counts in enumerate((run["launches"], other["launches"])):
+                check_path(counts, path, f"phase {tag} {what} {coll} rank "
+                           f"{r}", **want)
+            if tag == "15b":
                 peaks = (run["peak_bytes"], other["peak_bytes"])
                 if max(peaks) >= run["whole_bytes"]:
                     raise SystemExit(f"phase 15b {coll}: a rank's card peak "
                                      f"{peaks} B reaches the whole model's "
                                      f"{run['whole_bytes']} B")
-                want_sent = st["ring_bytes_per_step"] * ticks \
-                    if coll == "ring" else 0
-                if sent != want_sent:
-                    raise SystemExit(f"phase 15b {coll}: the ring sent {sent}"
-                                     f" B over {ticks} ticks, the model "
-                                     f"says {want_sent}")
-                paths[f"tp_{coll}"] = run["launches"]
-            else:
-                prev = paths.get("tp_f32")
-                paths["tp_f32"] = run["launches"] if prev is None else {
-                    k: prev[k] + v for k, v in run["launches"].items()}
+            key = {"15b": f"tp_{coll}", "15c": "tp_f32",
+                   "15d": f"tp_families_{coll}",
+                   "15e": "tp_families_f32"}[tag]
+            prev = paths.get(key)
+            paths[key] = run["launches"] if prev is None else {
+                k: prev[k] + v for k, v in run["launches"].items()}
     return paths
 
 
@@ -5528,12 +5648,32 @@ MESH_LABEL = ("one card, two processes, gloo through host memory: not a "
               "multi-card figure")
 MESH_SERVE_PATH = ("nm_spmv", "nm_xwt", "paged_gqa_decode")
 A2A_SHAPE = dict(experts=64, top_k=6, d=2048, dff=1408, tokens=256)
+# 16f: a (1, 2) f32 step of each other family at full width, cut in depth
+# as 16c (zamba2: one whole group of its shared attention; whisper's
+# encoder cut too, and trained under the default rules, its own
+# "fulldp" splitting no weight over "model")
+MESH_FAMILY_LAYERS = {"gemma2-9b": 2, "falcon-mamba-7b": 2, "zamba2-7b": 6,
+                      "whisper-small": 2, "qwen2-vl-7b": 2}
+# 16f's gradient gate per arch (``_check_mesh_train``; 1e-4 if not
+# listed).  zamba2's f32 gradient at init is ill-conditioned: in f64 a
+# 2^-24 relative change of the embeddings moves its leaves' gradients by
+# up to 3.2e-5, the earlier the block the more (``python
+# tools/grad_conditioning.py``, d 448, 6 layers), so its one-process and
+# sharded f32 gradients both lie ~1e-4 from the f64 one there, and ~1e-3
+# apart at full width.  A sharded step that drops the B / C cotangent
+# sum misses by 0.5-1.1.
+MESH_GRAD_TOL = {"zamba2-7b": 1e-2}
 
 
-def _mesh_cfg(arch, dtype, accum=1):
+def _mesh_cfg(arch, dtype, accum=1, layers=MESH_LAYERS):
+    """``arch`` at full width and ``layers`` blocks (whisper also its
+    encoder; its weights split over "model" as every family's)."""
     from repro_torch.configs import get_config
-    return get_config(arch).replace(dtype=dtype, n_layers=MESH_LAYERS,
-                                    grad_accum=accum)
+    cfg = get_config(arch).replace(dtype=dtype, n_layers=layers,
+                                   grad_accum=accum)
+    if arch in ENC_CUT:
+        cfg = cfg.replace(enc_layers=layers, train_layout="2d")
+    return cfg
 
 
 def _mesh_loop(cfg, steps, batch, seq, shape=None, ckpt="", pregather=False,
@@ -5587,29 +5727,47 @@ def _byte_model(run):
     return gather, scatter
 
 
+def _mu_scale(gnorm) -> float:
+    """AdamW's first moment after one step over the gradient: (1 - b1)
+    times the clip to the global norm ``gnorm``."""
+    from repro_torch.optim import AdamWConfig
+    oc = AdamWConfig()
+    return (1 - oc.b1) * min(1.0, oc.clip_norm / gnorm)
+
+
 def _mesh_base(torch, job):
     """The one-process run of a job's config on this rank (every rank runs
     it, the ranks at once: the first steps of a fresh process warm the
     card up), kept as the numbers and parameters the sharded run is held
     to."""
     from repro_torch.models import ffn
-    cfg = _mesh_cfg(job["arch"], job["dtype"], job["accum"])
+    cfg = _mesh_cfg(job["arch"], job["dtype"], job["accum"],
+                    job.get("layers", MESH_LAYERS))
     seen, restore = _global_drops(ffn, cfg) if cfg.n_experts else ([], None)
     try:
         run = _mesh_loop(cfg, job["steps"], job["batch"], job["seq"])
     finally:
         if restore:
             restore()
+    # 16f's one step runs at lr 0 (the warmup's first): no parameter
+    # moves, so its gradient (AdamW's first moment) is kept instead
+    grads = ({k: t.detach().cpu() / _mu_scale(run.gnorms[0])
+              for k, t in run.opt_state["mu"].items()}
+             if job["what"] == "16f" else None)
     base = dict(losses=run.losses, gnorms=run.gnorms,
                 ms=[1e3 * s for s in run.step_seconds], drops=sum(seen),
                 state_bytes=sum(t.numel() * t.element_size()
                                 for k in ("master", "mu", "nu")
                                 if k in run.opt_state
                                 for t in run.opt_state[k].values()),
-                params={k: p.detach() for k, p in
-                        run.model.named_parameters()})
+                # kept on the host: 16f's whole f32 models would crowd
+                # the card that both ranks share
+                params=None if grads is not None else {
+                    k: p.detach().cpu()
+                    for k, p in run.model.named_parameters()})
     del run
     free_card(torch)
+    base["grads"] = grads
     return base
 
 
@@ -5620,7 +5778,8 @@ def _mesh_train_job(torch, job, base):
     from repro_torch.dist import collectives
     from repro_torch.dist.api import Sharding
     from repro_torch.models import ffn
-    cfg = _mesh_cfg(job["arch"], job["dtype"], job["accum"])
+    cfg = _mesh_cfg(job["arch"], job["dtype"], job["accum"],
+                    job.get("layers", MESH_LAYERS))
     seen, restore = _global_drops(ffn, cfg) if cfg.n_experts else ([], None)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5635,9 +5794,20 @@ def _mesh_train_job(torch, job, base):
     opt = run.opt_state
     gather, scatter = _byte_model(run)
     per = 1 if job["pregather"] else run.accum
-    diff = max(float((p.detach().float() - Sharding(
-        run.layouts[k].spec, run.mesh)(base["params"][k]).float())
-        .abs().max()) for k, p in run.model.named_parameters())
+    diff = None if base["params"] is None else max(
+        float((p.detach().float() - Sharding(
+            run.layouts[k].spec, run.mesh)(base["params"][k]).to(p.device)
+            .float()).abs().max()) for k, p in run.model.named_parameters())
+    grad_err = None
+    if base["grads"] is not None:
+        # each leaf's gradient shard against the same cut of the one
+        # process's: [largest |difference|, largest |element|]
+        grad_err, scale = {}, _mu_scale(run.gnorms[0])
+        for k, mu in opt["mu"].items():
+            want = Sharding(run.layouts[k].spec, run.mesh)(
+                base["grads"][k]).to(mu.device)
+            grad_err[k] = [float((mu / scale - want).abs().max()),
+                           float(want.abs().max())]
     out = dict(job=job, losses=run.losses, gnorms=run.gnorms,
                step_ms=[1e3 * s for s in run.step_seconds], wall=wall,
                stats=dict(run.mesh.stats), drops=sum(seen), accum=run.accum,
@@ -5646,10 +5816,12 @@ def _mesh_train_job(torch, job, base):
                                for t in opt[k].values()),
                model_gather=gather * job["steps"] * per,
                model_scatter=scatter * job["steps"] * per, param_diff=diff,
+               grad_err=grad_err,
                reduce_scatter=("an all-reduce, sliced"
                                if collectives._NO_RS.get("gloo")
                                else "native"),
-               **{f"base_{k}": v for k, v in base.items() if k != "params"})
+               **{f"base_{k}": v for k, v in base.items()
+                  if k not in ("params", "grads")})
     del run
     free_card(torch)
     return out
@@ -5727,7 +5899,7 @@ def _mesh_lib_jobs(torch, mesh):
 
 
 def _mesh_rank(rank: int, n: int, port: int, out: str, jobs):
-    """One rank of 16b-e on cuda:0 over gloo: rank 0 is this process, the
+    """One rank of 16b-f on cuda:0 over gloo: rank 0 is this process, the
     others children.  Each rank first runs every config's one-process
     baseline, before it joins the group (the children's cold start
     overlaps 16a), then the jobs in order.  Returns the results (a child
@@ -5767,7 +5939,7 @@ def _base_key(job):
     if job["kind"] == "lib":
         return None
     return (job["arch"], job["dtype"], job["accum"], job["steps"],
-            job["batch"], job["seq"])
+            job["batch"], job["seq"], job.get("layers", MESH_LAYERS))
 
 
 def phase_mesh_nccl(torch, card, base=None):
@@ -5799,7 +5971,7 @@ def phase_mesh_nccl(torch, card, base=None):
         f"{mesh.shape} over NCCL: losses {run.losses} against the unsharded "
         f"loop's {base['losses'][:MESH_STEPS]}: bit-equal {same}; "
         f"{ms:.1f} ms/step after step 2 against 13a's {base['ms']:.1f} "
-        f"(16b-e's rank-1 process starts on the card meanwhile); "
+        f"(16b-f's rank-1 process starts on the card meanwhile); "
         f"transport {mesh.stats} (a group of one moves nothing)")
     if not same or any(mesh.stats.values()):
         raise SystemExit(f"phase 16a: the world-size-1 mesh's losses "
@@ -5827,11 +5999,14 @@ def _mesh_jobs(ck):
                              steps=2 if arch == TRAIN_ARCH else 1,
                              ckpt=ck if save else ""))
     jobs.append(dict(kind="lib", what="16e"))
+    for arch, layers in MESH_FAMILY_LAYERS.items():
+        jobs.append(dict(f32, arch=arch, shape=(1, 2), what="16f",
+                         layers=layers))
     return jobs
 
 
 def phase_mesh_gloo(torch, card, jobs, child, port, out, ck):
-    """16b-16e as rank 0 in this process beside the ``child`` (rank 1),
+    """16b-16f as rank 0 in this process beside the ``child`` (rank 1),
     then 16d's resume here.  Returns the launches of 16d's serve."""
     free_card(torch)
     t0 = time.perf_counter()
@@ -5849,35 +6024,58 @@ def phase_mesh_gloo(torch, card, jobs, child, port, out, ck):
                          f"({child.exitcode})")
     with open(f"{out}.1") as f:
         other = json.load(f)
-    log(f"[time] phase 16b-e ranks {time.perf_counter() - t0:.1f}s")
+    log(f"[time] phase 16b-f ranks {time.perf_counter() - t0:.1f}s")
     for job, got, theirs in zip(jobs, mine, other):
         if job["kind"] == "lib":
             _check_mesh_lib(card, got, theirs)
         else:
             _check_mesh_train(card, got, theirs)
     launches = phase_mesh_resume(torch, card, ck)
-    log(f"[time] phase 16b-e {time.perf_counter() - t0:.1f}s")
+    log(f"[time] phase 16b-f {time.perf_counter() - t0:.1f}s")
     return launches
 
 
 def _check_mesh_train(card, got, other):
     job = got["job"]
     what = (f"[{job['what']} mesh] {job['arch']} {job['dtype']} "
-            f"{MESH_LAYERS}L mesh {tuple(job['shape'])}"
+            f"{job.get('layers', MESH_LAYERS)}L mesh {tuple(job['shape'])}"
             + (" pregather" if job["pregather"] else "")
             + f", batch {job['batch']} x {job['seq']}, accum {got['accum']}")
     st = got["stats"]
-    diff = max(got["param_diff"], other["param_diff"])   # each rank's shards
+    # each rank's shards; 16f keeps no parameters (its step moves none)
+    diff = (None if got["param_diff"] is None
+            else max(got["param_diff"], other["param_diff"]))
     loss_d = max(abs(a - b) for a, b in zip(got["losses"],
                                             got["base_losses"]))
     rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
                                                   got["base_losses"]))
     gn = max(abs(a - b) / abs(b) for a, b in zip(got["gnorms"],
                                                  got["base_gnorms"]))
+    grad = None
+    if got["grad_err"] is not None:
+        # each leaf's largest difference over both ranks' shards, relative
+        # to its largest element plus 1e-2 of the largest of any leaf (a
+        # key bias's gradient is 0 but for rounding: softmax ignores a
+        # shift shared by a query's scores)
+        both = {k: [max(a, b) for a, b in zip(v, other["grad_err"][k])]
+                for k, v in got["grad_err"].items()}
+        floor = 1e-2 * max(top for _, top in both.values())
+        errs = {k: err / (top + floor) for k, (err, top) in both.items()}
+        worst = sorted(errs, key=errs.get, reverse=True)
+        grad = (errs[worst[0]], sorted(errs.values())[len(errs) // 2])
     log(f"{what}: losses {got['losses']} against one process "
         f"{got['base_losses']} (largest |diff| {loss_d:.3g}, rel "
-        f"{rel:.3g}); gnorm rel {gn:.3g}; largest parameter difference "
-        f"{diff:.3g}; ranks agree "
+        f"{rel:.3g}); gnorm rel {gn:.3g}"
+        + (f"; gradient (AdamW's mu, unclipped) against one process, "
+           f"each leaf relative to its largest element + 1e-2 of the "
+           f"largest of any: worst "
+           f"{grad[0]:.3g}, median {grad[1]:.3g} over {len(worst)} "
+           f"leaves; worst 4 "
+           + ", ".join(f"{k} {errs[k]:.3g}" for k in worst[:4])
+           if grad is not None else "")
+        + (f"; largest parameter difference {diff:.3g}"
+           if diff is not None else "")
+        + f"; ranks agree "
         f"{got['losses'] == other['losses']}; FSDP gather "
         f"{st['fsdp_gather_bytes']} B (model {got['model_gather']}), "
         f"reduce-scatter {st['fsdp_scatter_bytes']} B (model "
@@ -5892,8 +6090,12 @@ def _check_mesh_train(card, got, other):
         f"({MESH_LABEL}; {card})")
     if job["dtype"] == "bfloat16":
         bad = loss_d > 1e-3 or diff > 5e-2 or gn > 1e-3
-    else:
+    elif grad is None:
         bad = rel > 1e-5 or diff > 1e-4 or gn > 1e-5
+    else:
+        # 16f: one step at lr 0 (the warmup's first) moves no parameter;
+        # its gradient is held leaf by leaf instead of its norm
+        bad = rel > 1e-5 or grad[0] > MESH_GRAD_TOL.get(job["arch"], 1e-4)
     bad = bad or got["losses"] != other["losses"] \
         or got["drops"] != got["base_drops"]
     if job["shape"][0] == 2:
@@ -5987,7 +6189,7 @@ def phase_mesh_resume(torch, card, ck):
 
 def phase_mesh(torch, card, base=None):
     """Phase 16; ``base``: 13a's losses and step ms, for 16a.  The rank-1
-    process of 16b-e starts first: its cold start (and its baselines) run
+    process of 16b-f starts first: its cold start (and its baselines) run
     while this process runs 16a."""
     import tempfile
     import torch.multiprocessing as mp

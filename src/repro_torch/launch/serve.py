@@ -32,17 +32,15 @@ admission, and
 ``--compile-cache [DIR]`` builds and loads the kernels in DIR (default
 ``$REPRO_COMPILE_CACHE``, else the package's build directory), so a second
 bring-up skips nvcc.  The compile line reports the capture bill.  Weights
-are random, from ``--seed``.  Flags of features not ported yet are
-accepted and raise ``NotImplementedError`` naming the slice that brings
-them.
+are random, from ``--seed``.
 
-Tensor-parallel serving (the dense GQA and MoE / MLA families):
-``--tp N`` (or ``--mesh model=N``) serves over N ranks, one process each,
-every rank running the continuous engine on its shard in lockstep; rank 0
-prints.  On its own, ``--tp N`` starts the N processes itself (a
-localhost process group); ``--distributed`` joins a group started
-elsewhere, from ``--coordinator host:port --num-processes N --process-id
-R`` or the torchrun environment.  ``--backend`` is ``nccl`` (the default
+Tensor-parallel serving (every arch of the registry): ``--tp N`` (or
+``--mesh model=N``) serves over N ranks, one process each, every rank
+running the continuous engine on its shard in lockstep; rank 0 prints.
+On its own, ``--tp N`` starts the N processes itself (a localhost
+process group); ``--distributed`` joins a group started elsewhere, from
+``--coordinator host:port --num-processes N --process-id R`` or the
+torchrun environment.  ``--backend`` is ``nccl`` (the default
 on the card; one card per rank) or ``gloo`` (the default with ``--device
 cpu``; on the card it stages through host memory, so several ranks can
 share one card, eager).  ``--tp-collective ring`` (what ``auto`` means
@@ -363,7 +361,8 @@ def _serve(args, mesh) -> None:
             f"ring {int(st['ring_bytes_per_step'])} B/step modeled "
             f"({st['ring_traffic_ratio']:.2f}x the dense ring, "
             f"{int(st['ring_linears'])} ring / {int(st['local_linears'])} "
-            f"local linears); rank 0 sent {int(st['ring_sent_bytes'])} B "
+            f"local linears; a tick sends {int(st['ring_tick_bytes'])} B "
+            f"over all ranks); rank 0 sent {int(st['ring_sent_bytes'])} B "
             f"ring, {int(st['gather_sent_bytes'])} B gathers, staged "
             f"{int(st['staged_bytes'])} B through the host")
     rid0 = min(results)

@@ -81,21 +81,6 @@ def make_train_step(cfg: ArchConfig, ocfg: AdamWConfig, base_lr: float = 3e-4,
     return train_step
 
 
-def check_mesh_family(cfg: ArchConfig) -> None:
-    """Refuse a family whose model code has no "model"-axis path when the
-    active rules split weights over a "model" axis of more than one."""
-    from repro_torch.dist.api import current_mesh, current_rules
-    from repro_torch.serve.engine import MESH_FAMILIES, not_ported
-    mesh, rules = current_mesh(), current_rules()
-    if (mesh is None or mesh.shape.get("model", 1) == 1
-            or "model" not in (rules.get("tp") or ())):
-        return
-    if (cfg.family not in MESH_FAMILIES or cfg.local_global_period
-            or cfg.input_mode != "tokens"):
-        raise not_ported(f"training {cfg.name or cfg.family!r} (family "
-                         f"{cfg.family!r}) over a 'model' axis", "distribution")
-
-
 def _groups(layout, mesh):
     """(split group, dim, rest group) of a leaf's layout."""
     split = mesh.axis(*layout.split) if layout.split else None

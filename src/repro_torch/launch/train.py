@@ -16,8 +16,9 @@ checkpoint with the data cursor.
 ``--mesh`` trains on a (data, model) mesh over a ``torch.distributed``
 group, ``choose_mesh(prefer_model=2)`` over its ranks as the reference's
 launcher does (``launch.steps``: FSDP over "data", the row layout over
-"model" for the dense GQA and MoE / MLA families; whisper's ``"fulldp"``
-replicates the weights and spreads the batch).  The accumulation depth is
+"model" for every family, the attention's and the mixers' heads and
+channels split; whisper's ``"fulldp"`` replicates the weights and spreads
+the batch).  The accumulation depth is
 clamped so that each microbatch covers the batch ranks.  ``--ranks N``
 starts N local processes itself (a localhost group); ``--distributed``
 joins a group started elsewhere (``--coordinator host:port
@@ -50,8 +51,7 @@ from repro_torch.checkpoint import (CheckpointManager, gather_state,
 from repro_torch.configs import get_config
 from repro_torch.data import (SyntheticLMData, accum_for_mesh, local_batch,
                               to_device)
-from repro_torch.launch.steps import (check_mesh_family, make_train_step,
-                                      named_params)
+from repro_torch.launch.steps import make_train_step, named_params
 from repro_torch.models import init_model, shard_for_training
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import AdamWConfig, adamw_init
@@ -133,7 +133,6 @@ def train_loop(arch: str, smoke: bool, steps: int, batch: int, seq: int,
     if mesh is None:
         mesh = choose_mesh(prefer_model=2, backend=backend, device=device)
     with axis_rules(mesh, train_rules_for(cfg, mesh)):
-        check_mesh_family(cfg)
         return _train(cfg, steps, batch, seq, ckpt_dir, ckpt_every, seed,
                       log_every, base_lr, mesh.device, mesh, pregather_fsdp)
 

@@ -10,7 +10,7 @@ from repro_torch.models.config import ArchConfig, param_count
 from repro_torch.models.transformer import (DenseLM, EncDecLM, HybridLM,
                                             MoELM, SSMLM, bind_params,
                                             convert_to_compressed,
-                                            gather_model,
+                                            decode_ring_bytes, gather_model,
                                             decode_step, forward, init_caches,
                                             init_model, loss_fn, make_draft,
                                             param_shard_specs, prefill,
@@ -23,7 +23,8 @@ from repro_torch.models.transformer import (DenseLM, EncDecLM, HybridLM,
 __all__ = ["ArchConfig", "param_count", "DenseLM", "EncDecLM", "HybridLM",
            "MoELM",
            "SSMLM",
-           "bind_params", "convert_to_compressed", "decode_step", "forward",
+           "bind_params", "convert_to_compressed", "decode_ring_bytes",
+           "decode_step", "forward",
            "gather_model", "init_caches", "init_model", "loss_fn",
            "make_draft", "param_shard_specs", "prefill",
            "serve_ring_traffic_bytes", "shard_for_training", "shard_model",

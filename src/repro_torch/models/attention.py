@@ -38,10 +38,12 @@ divide are computed whole on every rank.  Training over the "model" axis
 runs the same layout; the shared rope key ``kpe``, which meets only the
 rank's heads, passes ``reduce_grad``.
 
-Cross-attention (the audio family's decoder) projects its queries and
-reads the encoder's K/V [B, Se, kv, hd] through ``chunked_attention``
-without a mask, plain torch as in the reference; ``cross_kv`` projects
-the encoder output once per request.  The decode caches keep those K/V
+Cross-attention (the audio family's decoder, and its encoder's unmasked
+self-attention) projects its queries and reads the encoder's K/V [B, Se,
+kv, hd] through ``chunked_attention`` without a mask, plain torch as in
+the reference; ``cross_kv`` projects the encoder output once per request.
+Under a mesh both are head-local as GQA is, and the slots' cross K/V
+rows hold the rank's kv heads.  The decode caches keep those K/V
 one row per slot (slot-indexed state beside the paged self-attention
 pool), and decode reads them, never writes them.
 """
@@ -607,25 +609,36 @@ def cross_attn_apply(p: GQA, x: torch.Tensor,
                      enc_kv: Tuple[torch.Tensor, torch.Tensor],
                      cfg: ArchConfig) -> torch.Tensor:
     """Decoder cross-attention of x [B, S, d] over precomputed encoder K/V
-    [B, Se, kv, hd]: no RoPE, no mask."""
+    [B, Se, kv, hd]: no RoPE, no mask.  Under a mesh that splits the kv
+    heads, ``enc_kv`` holds this rank's (``cross_kv``) and so do the
+    queries; the heads are gathered before ``wo``."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd()
     sp = cfg.sparsity
-    q = linear_apply(p.wq, x, sp).reshape(b, s, h, hd)
+    heads = local_part("act_heads", cfg.n_kv)
+    if heads:
+        h //= heads[0]
+    q = linear_apply(p.wq, x, sp, local=bool(heads)).reshape(b, s, h, hd)
     k, v = enc_kv
     o = chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
                           kv_chunk=cfg.kv_chunk,
                           chain_bf16=cfg.attn_chain_bf16)
-    return linear_apply(p.wo, o.reshape(b, s, h * hd), sp)
+    return linear_apply(p.wo, _whole_heads(o.reshape(b, s, h * hd), heads),
+                        sp)
 
 
 def cross_kv(p: GQA, enc_out: torch.Tensor, cfg: ArchConfig
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention K/V [B, Se, kv, hd] from the encoder output (once
-    per request)."""
+    per request); under a mesh that splits the kv heads, this rank's."""
     b, se, _ = enc_out.shape
     kv, hd = cfg.n_kv, cfg.hd()
     sp = cfg.sparsity
-    k = linear_apply(p.wk, enc_out, sp).reshape(b, se, kv, hd)
-    v = linear_apply(p.wv, enc_out, sp).reshape(b, se, kv, hd)
+    heads = local_part("act_heads", kv)
+    if heads:
+        kv //= heads[0]
+    k = linear_apply(p.wk, enc_out, sp, local=bool(heads)).reshape(b, se, kv,
+                                                                    hd)
+    v = linear_apply(p.wv, enc_out, sp, local=bool(heads)).reshape(b, se, kv,
+                                                                    hd)
     return k, v

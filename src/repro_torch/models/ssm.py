@@ -19,6 +19,18 @@ model dtype before the SiLU, and the recurrence runs in f32.  All
 projections are SparseLinears (the paper's technique); the recurrence is
 not a GEMM and stays plain torch, as the reference's is plain jnp.
 
+Tensor-parallel serving and training over a mesh's "model" axis (the
+reference's specs split the state's channel or head axis and the conv
+tail's channels, "act_heads"): every projection keeps whole rows
+(``linear_apply`` returns the whole output), and each rank takes its
+contiguous part of the channels (Mamba1) or heads (Mamba2) of ``in_proj``'s
+x, z (and dt) sections, of the conv and of the f32 leaves, which stay
+replicated and are cut at use.  The conv, the scan and the state are the
+rank's own; ``x_proj`` reads the whole conv output (an all-gather), and
+Mamba2's gated norm the whole gated output (another), so no contraction is
+split and each element sums in the one-device order.  B and C, read by
+every channel, sum their cotangent over the ranks in training.
+
 A prompt shorter than the conv's ``K - 1`` leaves a conv tail padded with
 zeros on the left (the positions before the prompt), the state that
 decode from an empty cache would hold; the reference slices the prompt's
@@ -34,6 +46,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.layers import SparseLinear, linear_apply, linear_init
+from repro_torch.dist.api import local_part, require_mesh
+from repro_torch.dist.collectives import (all_gather_last, reduce_grad,
+                                          split_last)
 from repro_torch.models.common import RMSNorm, rms_norm, rms_norm_init
 from repro_torch.models.config import ArchConfig
 
@@ -207,26 +222,57 @@ def mamba1_step(h: torch.Tensor, dt: torch.Tensor, x: torch.Tensor,
     return torch.einsum("bds,bs->bd", h, cvec)
 
 
+def _mine(t: torch.Tensor, heads, dim: int = -1) -> torch.Tensor:
+    """This rank's contiguous part of ``t``'s axis ``dim`` when ``heads``
+    split the mixer's channels (its cotangent all-gathered back to the
+    whole axis), else ``t``."""
+    if not heads:
+        return t
+    mesh = require_mesh("split SSM channels")
+    return split_last(t.movedim(dim, -1), mesh).movedim(-1, dim)
+
+
+def _whole(t: torch.Tensor, heads) -> torch.Tensor:
+    """Every rank's channels of ``t`` [..., local], in rank order, when
+    ``heads`` split them, else ``t``."""
+    if not heads:
+        return t
+    return all_gather_last(t, require_mesh("split SSM channels"))
+
+
+def _shared(t: torch.Tensor, heads) -> torch.Tensor:
+    """``t``, read by this rank's channels only: its cotangent is summed
+    over the ranks when ``heads`` split them."""
+    if not heads:
+        return t
+    return reduce_grad(t, require_mesh("split SSM channels"))
+
+
 def mamba1_apply(p: Mamba1, x: torch.Tensor, cfg: ArchConfig, *,
                  cache: Optional[Cache] = None, return_state: bool = False
                  ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """x [B, S, d] -> (y, state).  Decode when ``cache`` ({"h", "conv"}
     views, S == 1) is given: the cache is updated in place and returned;
     prefill otherwise, ``return_state`` returning the final {"h", "conv"}
-    for decode."""
+    for decode.  Under a mesh that splits the channels the state, the conv
+    tail and the scan are this rank's (module docstring)."""
     b, s, _ = x.shape
     di, st, dtr = cfg.dinner(), cfg.ssm_state, cfg.dtrank()
     sp = cfg.sparsity
+    heads = local_part("act_heads", di)     # this rank's channels, if split
     xz = linear_apply(p.in_proj, x, sp)
-    xin, z = xz[..., :di], xz[..., di:]
-    a = -torch.exp(p.A_log)                                     # [di, st]
-    xc, tail = causal_conv(xin, p.conv_w, p.conv_b,
+    xin, z = _mine(xz[..., :di], heads), _mine(xz[..., di:], heads)
+    a = -torch.exp(_mine(p.A_log, heads, 0))                    # [di, st]
+    xc, tail = causal_conv(xin, _mine(p.conv_w, heads, 0),
+                           _mine(p.conv_b, heads),
                            None if cache is None else cache["conv"])
     xc = F.silu(xc.float())
-    proj = linear_apply(p.x_proj, xc.to(x.dtype), sp)
-    dt_r, bm, cm = (proj[..., :dtr], proj[..., dtr:dtr + st],
-                    proj[..., dtr + st:])
-    dt = F.softplus(linear_apply(p.dt_proj, dt_r, sp).float())
+    proj = linear_apply(p.x_proj, _whole(xc.to(x.dtype), heads), sp)
+    dt_r = proj[..., :dtr]
+    bm = _shared(proj[..., dtr:dtr + st], heads)
+    cm = _shared(proj[..., dtr + st:], heads)
+    dt = F.softplus(linear_apply(p.dt_proj, dt_r, sp,
+                                 local=bool(heads)).float())
     if cache is None:
         y, h_last = mamba1_scan(dt, bm.float(), cm.float(), xc, a,
                                 cfg.ssm_chunk)
@@ -235,9 +281,9 @@ def mamba1_apply(p: Mamba1, x: torch.Tensor, cfg: ArchConfig, *,
         y = mamba1_step(cache["h"], dt[:, 0], xc[:, 0], bm[:, 0].float(),
                         cm[:, 0].float(), a)[:, None]
         new_cache = cache
-    y = y + p.D * xc
+    y = y + _mine(p.D, heads) * xc
     y = (y * F.silu(z.float())).to(x.dtype)
-    return linear_apply(p.out_proj, y, sp), new_cache
+    return linear_apply(p.out_proj, _whole(y, heads), sp), new_cache
 
 
 def _segsum_decay(ld: torch.Tensor) -> torch.Tensor:
@@ -304,21 +350,29 @@ def mamba2_step(h: torch.Tensor, dt: torch.Tensor, x: torch.Tensor,
 def mamba2_apply(p: Mamba2, x: torch.Tensor, cfg: ArchConfig, *,
                  cache: Optional[Cache] = None, return_state: bool = False
                  ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """As ``mamba1_apply``, for the Mamba2 mixer (state [B, nh, hd, st])."""
+    """As ``mamba1_apply``, for the Mamba2 mixer (state [B, nh, hd, st]);
+    under a mesh its heads are split, B and C are every head's."""
     b, s, _ = x.shape
     di, st, nh = cfg.dinner(), cfg.ssm_state, cfg.nheads_ssm()
     hd = di // nh
     sp = cfg.sparsity
+    heads = local_part("act_heads", nh)     # this rank's heads, if split
+    if bool(heads) != bool(local_part("act_heads", di)):
+        raise ValueError(f"Mamba2: the mesh splits the conv tail's {di} "
+                         f"channels and the state's {nh} heads differently")
+    parts = heads[0] if heads else 1
     zxbcdt = linear_apply(p.in_proj, x, sp)
-    xin = zxbcdt[..., :di]
-    z = zxbcdt[..., di:2 * di]
-    bmat = zxbcdt[..., 2 * di:2 * di + st].float()
-    cmat = zxbcdt[..., 2 * di + st:2 * di + 2 * st].float()
-    dt = F.softplus(zxbcdt[..., 2 * di + 2 * st:].float() + p.dt_bias)
-    a = -torch.exp(p.A_log)                                     # [nh]
-    xc, tail = causal_conv(xin, p.conv_w, p.conv_b,
+    xin = _mine(zxbcdt[..., :di], heads)
+    z = _mine(zxbcdt[..., di:2 * di], heads)
+    bmat = _shared(zxbcdt[..., 2 * di:2 * di + st].float(), heads)
+    cmat = _shared(zxbcdt[..., 2 * di + st:2 * di + 2 * st].float(), heads)
+    dt = F.softplus(_mine(zxbcdt[..., 2 * di + 2 * st:], heads).float()
+                    + _mine(p.dt_bias, heads))
+    a = -torch.exp(_mine(p.A_log, heads))                       # [nh]
+    xc, tail = causal_conv(xin, _mine(p.conv_w, heads, 0),
+                           _mine(p.conv_b, heads),
                            None if cache is None else cache["conv"])
-    xc = F.silu(xc.float()).reshape(b, s, nh, hd)
+    xc = F.silu(xc.float()).reshape(b, s, nh // parts, hd)
     if cache is None:
         y, h_last = mamba2_ssd(xc, dt, bmat, cmat, a, cfg.ssm_chunk)
         new_cache = {"h": h_last, "conv": tail} if return_state else None
@@ -326,7 +380,7 @@ def mamba2_apply(p: Mamba2, x: torch.Tensor, cfg: ArchConfig, *,
         y = mamba2_step(cache["h"], dt[:, 0], xc[:, 0], bmat[:, 0],
                         cmat[:, 0], a)[:, None]
         new_cache = cache
-    y = y + p.D[:, None] * xc
-    y = y.reshape(b, s, di) * F.silu(z.float())
-    y = rms_norm(p.norm, y.to(x.dtype), cfg.norm_eps)
+    y = y + _mine(p.D, heads)[:, None] * xc
+    y = y.reshape(b, s, di // parts) * F.silu(z.float())
+    y = rms_norm(p.norm, _whole(y.to(x.dtype), heads), cfg.norm_eps)
     return linear_apply(p.out_proj, y, sp), new_cache

@@ -76,6 +76,7 @@ Public API (family-dispatched):
   shard_model(model, mesh, rules)                -> the same model class,
                                                     each leaf its local shard
   serve_ring_traffic_bytes(model, cfg, ndev)     -> dict
+  decode_ring_bytes(model, cfg, ndev)            -> int
   train_shard_specs(model)                       -> {name: logical spec}
   shard_for_training(model, mesh, rules)         -> (skeleton, {name:
                                                     LeafLayout})
@@ -1357,20 +1358,84 @@ def serve_ring_traffic_bytes(p: LM, cfg: ArchConfig, ndev: int
     return tot
 
 
-def cache_specs(caches) -> Dict:
-    """Logical shard specs of a dense / MoE family's decode caches (the
-    tree of ``init_caches`` or of the paged pool), the reference's: GQA's
-    {"k", "v"} [L, batch, seq, kv, hd] split their kv-head axis
-    ("act_heads"); MLA's latent {"ckv", "kpe"} have no head axis and
-    replicate.  A leaf of another rank raises: the other families are not
-    served over a mesh."""
-    def one(name, t):
-        if name in ("k", "v") and t.dim() == 5:
-            return (None, "act_batch", "act_seq_sp", "act_heads", None)
-        if name in ("ckv", "kpe") and t.dim() == 4:
-            return (None, "act_batch", "act_seq_sp", None)
-        raise ValueError(f"no tensor-parallel layout for cache leaf {name!r} "
-                         f"{tuple(t.shape)}")
+def _decode_linears(p: LM) -> List[SparseLinear]:
+    """The linears one decode tick multiplies through ``linear_apply``,
+    once per application: the hybrid's shared block once per group; not
+    the audio family's encoder or cross-attention ``wk`` / ``wv`` (its
+    cross K/V are cached), MLA's absorbed ``wuk`` / ``wuv`` (decompressed
+    into the query and the context) or an expert stack (one batched
+    product of its dense view)."""
+    if isinstance(p, HybridLM):
+        mods = ([lp for group in p.groups for lp in group]
+                + [p.shared] * len(p.groups) + list(p.tail))
+    elif isinstance(p, SSMLM):
+        mods = list(p.layers)
+    else:
+        mods = p.blocks()
+    skip = set()
+    for m in mods:
+        if isinstance(m, DecBlock):
+            skip |= {id(m.cross.wk), id(m.cross.wv)}
+        if isinstance(getattr(m, "attn", None), attn.MLA):
+            skip |= {id(m.attn.wuk), id(m.attn.wuv)}
+    return [lin for m in mods for lin in _linears(m)
+            if id(lin) not in skip
+            and not isinstance(lin, sparse_layers.StackedLinear)]
 
-    return {name: (cache_specs(t) if isinstance(t, dict) else one(name, t))
+
+def decode_ring_bytes(p: LM, cfg: ArchConfig, ndev: int) -> int:
+    """Bytes the compressed ring sends over every rank in one decode tick
+    at TP = ``ndev``, of the whole (unsharded) model: each compressed
+    linear the tick runs (``_decode_linears``) whose rows divide over the
+    mesh, once per application.  ``serve_ring_traffic_bytes`` counts each
+    stored linear once instead, as the reference's model does."""
+    from repro_torch.dist.collectives import ring_matmul_bytes
+    if ndev <= 1:
+        return 0
+    sp = cfg.sparsity
+    return sum(ring_matmul_bytes(lin.w_vals.shape[-2],
+                                 lin.w_vals.shape[-1] * sp.m // sp.n, ndev,
+                                 sp.n, sp.m,
+                                 dtype_bytes=lin.w_vals.element_size())
+               for lin in _decode_linears(p)
+               if lin.compressed and lin.w_vals.shape[-2] % ndev == 0)
+
+
+# a cache leaf's logical spec behind its stacked layer axes (the paged
+# pool's block axes take the batch / sequence names, which the serving
+# rules leave whole)
+_CACHE_SPECS = {
+    "k": ("act_batch", "act_seq_sp", "act_heads", None),
+    "v": ("act_batch", "act_seq_sp", "act_heads", None),
+    "ckv": ("act_batch", "act_seq_sp", None),
+    "kpe": ("act_batch", "act_seq_sp", None),
+    "cross_k": ("act_batch", None, "act_heads", None),
+    "cross_v": ("act_batch", None, "act_heads", None),
+    "conv": ("act_batch", None, "act_heads"),
+}
+
+
+def cache_specs(caches, stack: int = 1) -> Dict:
+    """Logical shard specs of any family's decode caches (the tree of
+    ``init_caches`` or of the paged pool), the reference's: GQA's and the
+    hybrid's {"k", "v"} [L, batch, seq, kv, hd] and the audio family's
+    cross K/V [L, batch, Se, kv, hd] split their kv-head axis
+    ("act_heads"); MLA's latent {"ckv", "kpe"} have no head axis and
+    replicate; the SSM state ``h`` splits its channel (Mamba1, [L, batch,
+    d_inner, state]) or head (Mamba2, [L, batch, nh, hd, state]) axis and
+    the conv tail [L, batch, K - 1, d_inner] its channels.  The hybrid's
+    "groups" stack two layer axes.  A leaf of another name or rank
+    raises."""
+    def one(name, t):
+        if name == "h":
+            body = ("act_batch", "act_heads") + (None,) * (t.dim() - stack - 2)
+        else:
+            body = _CACHE_SPECS.get(name)
+        if body is None or stack + len(body) != t.dim():
+            raise ValueError(f"no tensor-parallel layout for cache leaf "
+                             f"{name!r} {tuple(t.shape)}")
+        return (None,) * stack + body
+
+    return {name: (cache_specs(t, 2 if name == "groups" else stack)
+                   if isinstance(t, dict) else one(name, t))
             for name, t in caches.items()}

@@ -93,16 +93,21 @@ of the reference under ``jax.disable_jit()``); the CPU always does.
 (``serve.prewarm.enable_compile_cache``).
 
 ``mesh=`` (a ``dist.api.ServeMesh``, ``make_serve_mesh``) turns on
-tensor-parallel serving for the dense GQA and MoE / MLA families: every
-rank of the mesh runs one engine, in lockstep, on the same trace (the
-same deterministic scheduler; the results of every rank are the same).
-The model is converted, then cut to this rank's shard under
-``dist.api.SERVE_TP_RULES`` (``models.transformer.shard_model``: every
-linear's output rows, the embedding's vocab, the router's experts) and
-the pool to its shard of the kv heads (``BlockPool(mesh=)``,
-``cache.init_local_caches``); every entry point runs inside the mesh's
+tensor-parallel serving for every family: every rank of the mesh runs one
+engine, in lockstep, on the same trace (the same deterministic scheduler
+and admission plans: a replayed SSM prompt, whisper's encoder pass and
+qwen2-vl's bucket-up prefill run on every rank alike; the results of
+every rank are the same).  The model is converted, then cut to this
+rank's shard under ``dist.api.SERVE_TP_RULES``
+(``models.transformer.shard_model``: every linear's output rows, the
+embedding's vocab, the router's experts) and the pool to its shard of
+the reference's cache specs (``BlockPool(mesh=)``,
+``cache.init_local_caches``: the kv heads of every KV and cross K/V
+leaf, the SSM state's channels or heads and the conv tails' channels;
+MLA's latent leaves whole); every entry point runs inside the mesh's
 ``axis_rules`` context.  Only output axes are split, and activations are
-whole between ops, so each element sums in the one-device order and the
+whole between ops except inside an attention's or a mixer's own heads
+and channels, so each element sums in the one-device order and the
 single-device engine stays the token-equality oracle.
 ``tp_collective``: 'ring' (what 'auto' means for compressed weights)
 routes every decode-shaped compressed linear through the sparse ring
@@ -110,12 +115,14 @@ routes every decode-shaped compressed linear through the sparse ring
 each rank multiplies each); 'gspmd' (the reference's name; here: the
 local rows, then an all-gather) is what dense weights take.  ``stats()``
 adds the modeled ring bytes of a decode step
-(``models.serve_ring_traffic_bytes``) and this rank's transport counters.
+(``models.serve_ring_traffic_bytes``, each stored linear once, the
+reference's model; ``models.decode_ring_bytes``, what a tick sends: the
+hybrid's shared block once per group, none of whisper's encoder) and this
+rank's transport counters.
 With the NCCL backend the graphs capture the collectives; gloo moves host
 tensors, so on a card its collectives stage through host memory, which a
 graph cannot capture: the engine runs eager there, and ``graphs=True``
-raises.  ``spec=`` under a mesh raises, as in the reference; the other
-families raise ``NotImplementedError``.
+raises.  ``spec=`` under a mesh raises, as in the reference.
 """
 
 from __future__ import annotations
@@ -129,8 +136,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.dist.api import SERVE_TP_RULES, axis_rules
-from repro_torch.models import (convert_to_compressed, decode_step,
-                                init_caches, make_draft, prefill,
+from repro_torch.models import (convert_to_compressed, decode_ring_bytes,
+                                decode_step, init_caches, make_draft, prefill,
                                 serve_ring_traffic_bytes, shard_model,
                                 verify_step, weight_stream_bytes)
 from repro_torch.models.common import greedy_sample
@@ -166,15 +173,6 @@ class _Suspended:
     swap: SwapState
     pos: int
     tok: int
-
-
-def not_ported(feature: str, slice_: str) -> NotImplementedError:
-    """The error for a reference feature a later slice of the port brings."""
-    return NotImplementedError(f"{feature} is not ported yet; it comes with "
-                               f"the {slice_} slice of the port")
-
-
-MESH_FAMILIES = ("dense", "moe")    # served over a mesh (plain token LMs)
 
 
 class ServeEngine:
@@ -283,6 +281,8 @@ class ServeEngine:
                 cfg.sparsity, decode_ring=ring))
             self.ring_traffic = serve_ring_traffic_bytes(model, cfg,
                                                          mesh.size)
+            self.ring_traffic["tick_bytes"] = (decode_ring_bytes(
+                model, cfg, mesh.size) if ring else 0)
             # shard after conversion: the spec walk is structural, so it
             # sees the compressed leaves
             model = shard_model(model, mesh, self.rules, device=self.device)
@@ -369,10 +369,6 @@ class ServeEngine:
             raise ValueError("spec= over a mesh is not supported yet (the "
                              "draft/verify entry points are untested under "
                              "tensor-parallel layouts)")
-        if (cfg.family not in MESH_FAMILIES or cfg.local_global_period
-                or cfg.input_mode != "tokens"):
-            raise not_ported(f"mesh= for {cfg.name or cfg.family!r} (family "
-                             f"{cfg.family!r})", "distribution")
         if torch.device(device).type != mesh.device.type:
             raise ValueError(f"device {device!r} but the mesh's rank runs on "
                              f"{mesh.device}")
@@ -1015,13 +1011,17 @@ class ServeEngine:
             rt = self.ring_traffic
             # modeled per decode step (models.serve_ring_traffic_bytes):
             # what the ring ships compressed against the same ring shipping
-            # dense weights; then what this rank's transport sent
+            # dense weights, each stored linear once; what the ring sends
+            # in a tick of this engine over all ranks
+            # (models.decode_ring_bytes); then what this rank's transport
+            # sent
             out.update({
                 "ring_bytes_per_step": float(rt["ring_bytes"]),
                 "ring_dense_bytes_per_step": float(rt["dense_ring_bytes"]),
                 "ring_traffic_ratio": float(rt["ratio"]),
                 "ring_linears": float(rt["ring_linears"]),
                 "local_linears": float(rt["local_linears"]),
+                "ring_tick_bytes": float(rt["tick_bytes"]),
                 "ring_sent_bytes": float(self.mesh.stats["ring_bytes"]),
                 "gather_sent_bytes": float(self.mesh.stats["gather_bytes"]),
                 "staged_bytes": float(self.mesh.stats["staged_bytes"]),

@@ -5,7 +5,9 @@ pytest collects nothing here).
 per job on n gloo ranks (``_torch_tp.run_ranks``, one child for all the
 jobs) from the smoke model of ``pair(job["arch"])`` (the reference's
 weights, f32) on the global batch ``batch(cfg)``; each job names its
-arch, mesh shape, accumulation depth and ``pregather_fsdp``.  A rank returns its loss, gradient norm,
+arch, mesh shape, accumulation depth and ``pregather_fsdp``, and may
+name ``rules="default"`` (``DEFAULT_RULES`` in place of the config's
+``train_rules_for``).  A rank returns its loss, gradient norm,
 transport counters and optimizer-state bytes; rank 0 also writes the
 gathered whole model and AdamW state to ``<tmp>/job<i>.pt``.
 ``ref_step`` is the reference's unsharded ``make_train_step`` on the same
@@ -36,8 +38,8 @@ def body(mesh, jobs_path, out):
     import math
     from repro_torch.checkpoint import gather_state
     from repro_torch.data import local_batch, to_device
-    from repro_torch.dist.api import (axis_rules, make_train_mesh,
-                                      train_rules_for)
+    from repro_torch.dist.api import (DEFAULT_RULES, axis_rules,
+                                      make_train_mesh, train_rules_for)
     from repro_torch.launch.steps import make_train_step, named_params
     from repro_torch.models import shard_for_training
     from repro_torch.optim import AdamWConfig, adamw_init
@@ -47,7 +49,9 @@ def body(mesh, jobs_path, out):
     for i, job in enumerate(jobs):
         model, cfg = job["model"]
         tmesh = make_train_mesh(job["shape"], device="cpu")
-        with axis_rules(tmesh, train_rules_for(cfg, tmesh)):
+        rules = (DEFAULT_RULES if job.get("rules") == "default"
+                 else train_rules_for(cfg, tmesh))
+        with axis_rules(tmesh, rules):
             skel, lay = shard_for_training(model, tmesh)
             opt = adamw_init(named_params(skel), ocfg)
             step = make_train_step(cfg, ocfg, base_lr=%r, warmup=%r,

@@ -8,8 +8,9 @@ saves under (2, 2) on 4 ranks and resumes under (1, 2) on 2 ranks: the
 resumed losses within 1e-4 of an uninterrupted one-process run, and the
 checkpoint, written whole by rank 0, equal to an unsharded run's leaf
 for leaf.  whisper trains under its ``"fulldp"`` layout (weights
-replicated, the batch over the whole mesh) as in one process; a family
-without a "model"-axis path is refused at model > 1."""
+replicated, the batch over the whole mesh) as in one process; every
+family's model is cut for a "model" axis of 1 and 2 along its rows
+only."""
 
 import os
 
@@ -25,7 +26,7 @@ from repro.dist import elastic as jelastic  # noqa: E402
 from repro_torch.dist import api  # noqa: E402
 from repro_torch.dist import elastic  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.launch.steps import check_mesh_family  # noqa: E402
+from repro_torch.models import init_model, shard_for_training  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
 
 LOOP = dict(smoke=True, batch=8, seq=16, n_layers=2, log_every=100,
@@ -152,6 +153,13 @@ class _Mesh:
         self.shape = shape
         self.axis_names = tuple(shape)
 
+    def coord(self, axis):
+        return 0
+
+
+# the leaves a "model" axis may split, and the dimension it splits
+_ROWS = {"w": -2, "w_vals": -2, "w_idx": -2, "mask": -2, "emb": 0, "b": -1}
+
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "deepseek-v2-lite-16b",
                                   "gemma2-9b", "falcon-mamba-7b",
@@ -159,20 +167,27 @@ class _Mesh:
                                   "qwen2-vl-7b"])
 @pytest.mark.parametrize("model", [1, 2])
 def test_model_axis_refusal(arch, model):
-    """At model > 1 only the dense GQA and MoE / MLA families train
-    (whisper too under its "fulldp" rules, which split no weight); at
-    model = 1 every family does."""
+    """No family is refused a "model" axis: at model 1 and 2, under
+    ``DEFAULT_RULES`` and the config's own rules, ``shard_for_training``
+    cuts every family's model with "model" splitting a linear's rows,
+    a bias or the embedding's vocab and nothing else (the mixers' f32
+    leaves, norms, the router stay whole over it); every rule set but
+    whisper's ``"fulldp"`` puts the rows on it."""
     cfg = get_config(arch, smoke=True)
+    whole = init_model(cfg, device="meta")
+    ndim = {name: t.dim() for name, t in list(whole.named_parameters())
+            + list(whole.named_buffers())}
     mesh = _Mesh(data=2, model=model)
     for rules in (api.DEFAULT_RULES, api.train_rules_for(cfg, mesh)):
         with api.axis_rules(mesh, rules):
-            refused = (model > 1 and "model" in (rules["tp"] or ())
-                       and arch not in ("llama3.2-1b",
-                                        "deepseek-v2-lite-16b"))
-            if refused:
-                with pytest.raises(NotImplementedError,
-                                   match="distribution"):
-                    check_mesh_family(cfg)
-            else:
-                check_mesh_family(cfg)
-
+            _, layouts = shard_for_training(whole, mesh)
+        split = {name: [d for d, e in enumerate(lay.spec)
+                        if e is not None and "model" in
+                        (e if isinstance(e, tuple) else (e,))]
+                 for name, lay in layouts.items()}
+        split = {name: dims for name, dims in split.items() if dims}
+        for name, dims in split.items():
+            leaf = name.rsplit(".", 1)[-1]
+            assert leaf in _ROWS, (name, dims)
+            assert dims == [_ROWS[leaf] % ndim[name]], (name, dims)
+        assert bool(split) == (rules["tp"] is not None), (rules, split)

@@ -3,7 +3,7 @@ serving: the slotted engine at TP 2 (its cache rows' kv heads split)
 against the reference's single-device one, the last of the reference's
 cases (``_torch_tp.check_tp_engine``); ``--tp 2 --device cpu`` gives the
 tokens of ``--tp 0``; a mesh of one rank serves the plain engine's
-tokens; the other families, ``spec=``, an unknown collective, CUDA
+tokens; ``spec=``, an unknown collective, CUDA
 graphs over gloo's host staging, a wider mesh without its processes,
 NCCL on the CPU, a sharded linear outside its mesh, and the CLI's
 ``--tp`` with the sequential scheduler, with ``--spec`` or with a mesh of
@@ -60,16 +60,6 @@ def test_cli_tp_gives_the_single_device_tokens():
 def _mesh(device="cpu", size=2):
     return ServeMesh(size=size, rank=0, device=torch.device(device),
                      backend="gloo")
-
-
-@pytest.mark.parametrize("arch", ["gemma2-9b", "falcon-mamba-7b",
-                                  "zamba2-7b", "whisper-small",
-                                  "qwen2-vl-7b"])
-def test_other_families_raise_under_a_mesh(arch):
-    from repro_torch.configs import get_config
-    with pytest.raises(NotImplementedError, match="distribution"):
-        ServeEngine(None, get_config(arch, smoke=True), 2, 16, kv="paged",
-                    mesh=_mesh(), device="cpu")
 
 
 def test_engine_refusals_under_a_mesh():
