@@ -243,7 +243,7 @@ steady tick and the graph pool's bytes.
 13. Training (SR-STE, the dense family; no new kernel: the step is plain
    PyTorch).  13a, the reference CLI's defaults at full width and depth:
    llama3.2-1b bf16, srste 2:4, batch 8 x 128, grad_accum 4, remat on,
-   AdamW with f32 masters, base_lr 3e-4, warmup 100, 6 steps of
+   AdamW with f32 masters, base_lr 3e-4, warmup 100, 4 steps of
    ``train_loop`` checkpointing into a temp dir: median ms a step after
    step 2, tokens/s, peak memory, first and last loss, the model-FLOP
    share of the dense bf16 peak (6 x parameters x tokens), a ``[profile]``
@@ -273,7 +273,7 @@ steady tick and the graph pool's bytes.
    experts, gemma2 one local / global pair, falcon 4, zamba2 one group of
    6 and the shared block, whisper 4 + 4, qwen2-vl 2): bf16,
    srste 2:4, batch 8 x 128, each config's grad_accum / remat /
-   remat_group, AdamW with f32 masters, 4 ``make_train_step`` steps (cut from 6):
+   remat_group, AdamW with f32 masters, 3 ``make_train_step`` steps (cut from 6):
    median ms a step after step 2, tokens/s, the model-FLOP share (MoE:
    active parameters; whisper's encoder over its frames), the byte floor
    as 13a's, peak memory, the losses; hard: finite losses and every
@@ -366,7 +366,34 @@ steady tick and the graph pool's bytes.
    leaf's largest difference within 1e-4 x (its largest element + 1e-2
    of the largest element of any leaf), zamba2's within 1e-2 x the same
    sum (``MESH_GRAD_TOL``); the worst 4 leaves and the median are printed.
-17. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
+17. The dry-run and roofline tooling, and the examples (no new kernel).
+   17a, llama3.2-1b at full width and depth on the card, world 1: a
+   decode step (8 slots, slotted cache of 144), a prefill step (8 x 128)
+   and a train step (13a's 8 x 128, the dry-run's accumulation and
+   AdamW with f32 masters), each built on ``meta`` and on the card and run
+   under ``launch.op_cost``.  Gates: the card step's FLOPs and bytes equal
+   the ``meta`` step's exactly (the kernel regions count each launch by
+   its model); the launches are the prediction (decode: nm_spmv 16 x 7,
+   prefill: nm_xwt 16 x 7, train: none); the predicted
+   ``argument_size_in_bytes`` within 1% of the growth of
+   ``memory_allocated`` once that state is on the card.  Printed: the
+   predicted ``temp_size_in_bytes`` beside the growth of
+   ``max_memory_allocated`` over one step, device ms (``device_events``)
+   and wall ms against the roofline's bound and ``roofline_fraction``,
+   and for decode the tick's byte floor beside the memory term
+   (``[17a dryrun]`` lines; paths ``dryrun_decode`` / ``dryrun_prefill``).
+   17b, ``python -m repro_torch.launch.dryrun`` in a subprocess on
+   ``DRYRUN_CLI_CELLS`` of both meshes (on the host: ``meta``), then
+   ``repro_torch.launch.report`` (run as ``-m``) on its records; gates:
+   no FAIL, the SKIPs those of ``cell_supported`` (``[17b dryrun
+   cli]``).  The host work of 17a (the ``meta`` steps) and 17b runs in
+   two processes on one CPU thread each, started after the build, beside
+   phases 2-16 (``start_background``).  17c, each of the five ported
+   examples (``repro_torch.examples``) once at its smoke defaults with its
+   own asserts (train_sparse_lm at ``EXAMPLE_TRAIN_STEPS`` of its 60
+   steps), each kernel its path names launched (``[17c examples]``;
+   paths ``example_<name>``).
+18. Summary: a ``{"kernels": [...]}`` line for all ten launchers, then the
    device line last.  The total time is printed on the ``[done]`` line.
 """
 
@@ -4485,9 +4512,9 @@ def phase_encdec_vlm(torch, card):
 # ----------------------------------------------------------------- phase 13
 
 TRAIN_ARCH = "llama3.2-1b"
-# 13a: 6 steps (cut from 20 for the run's time, to 10 when phase 14
-# came and to 6 when phase 16 came)
-TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 8, 128
+# 13a: 4 steps (cut from 20 for the run's time, to 10 when phase 14
+# came, to 6 when phase 16 came and to 4, 16a's count, when phase 17 came)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 8, 128
 # 13b draws its tokens from the first 32 ids, 13a's batch of 1024 tokens
 # a step (each id about 32 times), for 60 steps: 16 layers at full width
 # learn the mapping there, and the gate below can tell it from the label
@@ -4927,7 +4954,7 @@ FAMILY_TRAIN_LAYERS = {"deepseek-v2-lite-16b": 2, "gemma2-9b": 2,
                        "falcon-mamba-7b": 4, "zamba2-7b": 6,
                        "whisper-small": 4, "qwen2-vl-7b": 2}
 FAMILY_TRAIN_ENC = {"whisper-small": 4}     # 4 + 4 of 12 + 12 (phase 16)
-FAMILY_STEPS = 4                 # cut from 6 when phase 16 came
+FAMILY_STEPS = 3                 # cut from 6 (phase 16), from 4 (phase 17)
 FAMILY_PROFILE = ("deepseek-v2-lite-16b", "falcon-mamba-7b")
 # 14c: f32 at full width; zamba2 needs a whole group (6) for its shared
 # block, whisper keeps 2 encoder and 2 decoder blocks
@@ -6215,6 +6242,305 @@ def phase_mesh(torch, card, base=None):
     return {"train_mesh_serve": launches}
 
 
+# ------------------------------------------------------------------ phase 17
+
+DRYRUN_ARCH = "llama3.2-1b"
+DRYRUN_SLOTS, DRYRUN_CACHE = 8, 144        # 17a decode: 8 slots, cache 144
+DRYRUN_PREFILL = (8, 128)                  # 17a prefill: 8 x 128
+DRYRUN_CLI_CELLS = dict(arch="llama3.2-1b,falcon-mamba-7b,"
+                        "deepseek-v2-lite-16b", shape="decode_32k,long_500k")
+# 17c: the kernels each example's path launches on the card
+EXAMPLE_PATHS = {"quickstart": ("nm_spmv", "nm_spmv_onehot", "nm_xwt"),
+                 "serve_continuous": ("nm_spmv", "nm_xwt"),
+                 "serve_decode": ("nm_spmv", "nm_xwt"),
+                 "sparse_cnn_inference": ("nm_xwt",),
+                 "train_sparse_lm": ()}
+# 17c: train_sparse_lm's steps (its default 60 cut for the run's time)
+EXAMPLE_TRAIN_STEPS = 6
+
+
+def _dryrun_state(torch, cfg, kind, device):
+    """(step function, its arguments) of 17a's ``kind`` on ``device``."""
+    from repro_torch.data import SyntheticLMData, to_device
+    from repro_torch.launch import steps
+    from repro_torch.models import init_caches, init_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    if kind == "train":
+        model = init_model(cfg, device=device)
+        ocfg = AdamWConfig()
+        opt = adamw_init(steps.named_params(model), ocfg)
+        batch = to_device(SyntheticLMData(cfg, TRAIN_BATCH, TRAIN_SEQ)
+                          .batch_at(0), device)
+        accum = max(1, min(cfg.grad_accum, TRAIN_BATCH))
+        return (steps.make_train_step(cfg, ocfg, accum=accum),
+                (model, opt, batch, 0))
+    serve = steps.serve_config(cfg)
+    model = init_model(serve, device=device)
+    if kind == "prefill":
+        b, s = DRYRUN_PREFILL
+        tokens = torch.zeros((b, s), dtype=torch.int32, device=device)
+        return steps.make_prefill_step(serve), (model, {"tokens": tokens})
+    caches = init_caches(serve, DRYRUN_SLOTS, DRYRUN_CACHE, device=device)
+    tokens = torch.zeros(DRYRUN_SLOTS, dtype=torch.int32, device=device)
+    pos = torch.tensor(DRYRUN_CACHE - 8, dtype=torch.int32, device=device)
+    return steps.make_decode_step(serve), (model, caches, tokens, pos)
+
+
+DRYRUN_KINDS = ("decode", "prefill", "train")
+
+
+def write_meta_counts(path: str) -> None:
+    """17a's host side: each cell's step on ``meta`` under ``op_cost``
+    -> ``path`` (JSON: FLOPs, bytes, argument and temp bytes, the counted
+    ops; ``n_active``).  Run by ``start_background`` in a process of its
+    own while the card runs phases 2-16."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import tensor_bytes
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.launch.roofline import param_counts_exact
+    torch.set_num_threads(1)
+    cfg = get_config(DRYRUN_ARCH)
+    out = {"n_active": param_counts_exact(
+        _dryrun_state(torch, cfg, "train", "meta")[1][0], cfg)[1]}
+    for kind in DRYRUN_KINDS:
+        step, args = _dryrun_state(torch, cfg, kind, "meta")
+        with OpCost(record_ops=True) as cost:
+            step(*args)
+        out[kind] = dict(flops=cost.flops, bytes=cost.bytes,
+                         args=tensor_bytes(args), temp=cost.peak,
+                         ops=cost.ops)
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def start_background(tmp: str) -> dict:
+    """Phase 17's host work, started after the build so that it runs
+    beside the card's phases 2-16: 17a's ``meta`` counts and 17b's dry-run
+    CLI, each a process on one CPU thread with no card -> {name: (Popen,
+    output path, log path)}."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    env["PYTHONPATH"] = os.path.join(ROOT, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    meta = os.path.join(tmp, "meta.json")
+    cli = os.path.join(tmp, "dryrun.json")
+    cmds = {
+        "meta": ([sys.executable, "-c",
+                  f"import sys; sys.path.insert(0, {ROOT!r}); import "
+                  f"chip_smoke; chip_smoke.write_meta_counts({meta!r})"],
+                 meta),
+        "cli": ([sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", DRYRUN_CLI_CELLS["arch"], "--shape",
+                 DRYRUN_CLI_CELLS["shape"], "--mesh", "both", "--out", cli],
+                cli)}
+    out = {}
+    for name, (cmd, path) in cmds.items():
+        log_path = os.path.join(tmp, f"{name}.log")
+        with open(log_path, "w") as log_f:
+            out[name] = (subprocess.Popen(cmd, stdout=log_f,
+                                          stderr=subprocess.STDOUT, env=env),
+                         path, log_path)
+    return out
+
+
+def finish_background(job, what: str, timeout: float = 600):
+    """Wait for one of ``start_background``'s processes -> its output
+    path; a failure raises with the end of its log."""
+    proc, path, log_path = job
+    proc.wait(timeout=timeout)
+    if proc.returncode:
+        raise SystemExit(f"{what}: the host process failed "
+                         f"({proc.returncode}):\n"
+                         f"{open(log_path).read()[-3000:]}")
+    return path
+
+
+def phase_dryrun_card(torch, card, meta_path):
+    """17a (docstring of the module) -> {path: launches}."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import tensor_bytes
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.launch.roofline import RooflineTerms, model_flops_for
+    from repro_torch.launch.steps import serve_config
+    from repro_torch.models import weight_stream_bytes
+    cfg = get_config(DRYRUN_ARCH)
+    metas = json.load(open(meta_path))
+    per_layer = cfg.n_layers * LINEARS_PER_LAYER
+    want = {"decode": {"nm_spmv": per_layer}, "prefill": {"nm_xwt": per_layer},
+            "train": {}}
+    shapes = {"decode": (DRYRUN_SLOTS, DRYRUN_CACHE),
+              "prefill": DRYRUN_PREFILL, "train": (TRAIN_BATCH, TRAIN_SEQ)}
+    paths = {}
+    for kind in DRYRUN_KINDS:
+        meta = metas[kind]
+        free_card(torch)
+        before = torch.cuda.memory_allocated()
+        step, args = _dryrun_state(torch, cfg, kind, "cuda")
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - before
+        held = torch.cuda.memory_allocated()
+        if tensor_bytes(args) != meta["args"]:
+            raise SystemExit(f"17a {kind}: the card's state holds "
+                             f"{tensor_bytes(args)} bytes, meta's "
+                             f"{meta['args']}")
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with OpCost(record_ops=True) as cost:
+            step(*args)
+        torch.cuda.synchronize()
+        temp_peak = torch.cuda.max_memory_allocated() - held
+        launches = {k.name: k.launches for k in kernels.all_kernels()}
+        if (cost.flops, cost.bytes) != (meta["flops"], meta["bytes"]):
+            ops = [tuple(o) for o in meta["ops"]]
+            first = next((i, a, b) for i, (a, b) in enumerate(
+                zip(cost.ops + [None], ops + [None])) if a != b)
+            raise SystemExit(f"17a {kind}: the card step counts "
+                             f"{cost.flops} FLOPs / {cost.bytes} bytes, the "
+                             f"meta step {meta['flops']} / {meta['bytes']};"
+                             f" first differing op (index, card, meta): "
+                             f"{first}")
+        off = {k: n for k, n in launches.items() if n != want[kind].get(k, 0)}
+        if off:
+            raise SystemExit(f"17a {kind}: launches {launches}, predicted "
+                             f"{want[kind]}")
+        if abs(grown - meta["args"]) > 0.01 * meta["args"]:
+            raise SystemExit(f"17a {kind}: argument bytes predicted "
+                             f"{meta['args']}, memory_allocated grew "
+                             f"{grown}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(*args)
+            torch.cuda.synchronize()
+        dev = sum(us for us, _, _ in device_events(prof)) / 1e3
+        b, s = shapes[kind]
+        terms = RooflineTerms(cost.flops, cost.bytes, 0.0, 1,
+                              model_flops_for(cfg, kind, b, s,
+                                              metas["n_active"]))
+        extra = ""
+        if kind == "decode":
+            head = cfg.vocab * cfg.d_model * 2
+            kv = (DRYRUN_SLOTS * DRYRUN_CACHE * cfg.n_layers * cfg.n_kv
+                  * cfg.hd() * 2 * 2)
+            stream = weight_stream_bytes(args[0], serve_config(cfg))[
+                "stream_bytes"]
+            floor = (stream + head + kv) / HBM_BYTES_PER_S * 1e3
+            extra = (f"; the tick's byte floor {floor:.3f} ms (weights "
+                     f"{mib(stream)}, head {mib(head)}, K/V {mib(kv)}) "
+                     f"beside the memory term {terms.memory_s() * 1e3:.3f}"
+                     f" ms")
+        log(f"[17a dryrun] {card}: {cfg.name} {kind} {b} x {s}: "
+            f"{cost.flops / 1e9:.2f} GFLOP, {cost.bytes / 1e9:.3f} GB counted"
+            f" (card = meta); launches {want[kind] or 'none'}; arguments "
+            f"{gib(meta['args'])} predicted, memory_allocated grew "
+            f"{gib(grown)}; temp {gib(meta['temp'])} predicted, "
+            f"max_memory_allocated grew {gib(temp_peak)} (not gated); "
+            f"device {dev:.3f} ms, wall {wall:.3f} ms; bound "
+            f"{terms.bound_s() * 1e3:.3f} ms ({terms.dominant()}: compute "
+            f"{terms.compute_s() * 1e3:.3f}, memory "
+            f"{terms.memory_s() * 1e3:.3f} ms), device/bound "
+            f"{dev / (terms.bound_s() * 1e3):.2f}x, roofline_fraction "
+            f"{terms.roofline_fraction():.4f}{extra}")
+        if kind != "train":
+            paths[f"dryrun_{kind}"] = launches
+        del step, args
+    free_card(torch)
+    return paths
+
+
+def phase_dryrun_cli(card, out_path):
+    """17b (docstring of the module): the dry-run's records (its process
+    ran beside phases 2-16), then the report module on them."""
+    import contextlib
+    import io
+    import runpy
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import cell_supported
+    recs = json.load(open(out_path))
+    for r in recs:
+        ok, _ = cell_supported(get_config(r["arch"]), r["shape"])
+        if r["status"] != ("OK" if ok else "SKIP"):
+            raise SystemExit(f"17b: {r['arch']} x {r['shape']} x "
+                             f"{r['mesh']} is {r['status']}, expected "
+                             f"{'OK' if ok else 'SKIP'}: "
+                             f"{r.get('error', '')}")
+        if r["status"] == "OK":
+            rr, m = r["roofline"], r["memory"]
+            log(f"[17b dryrun cli] {card}: {r['arch']} x {r['shape']} x "
+                f"{r['mesh']}: computed on meta, not measured: compute "
+                f"{rr['compute_s'] * 1e3:.3f} ms, memory "
+                f"{rr['memory_s'] * 1e3:.3f} ms, collective "
+                f"{rr['collective_s'] * 1e3:.3f} ms, {rr['dominant']}, "
+                f"roofline_fraction {rr['roofline_fraction']:.4f}, "
+                f"arguments {gib(m['argument_size_in_bytes'])} + temp "
+                f"{gib(m['temp_size_in_bytes'])}")
+    text, argv = io.StringIO(), sys.argv
+    try:
+        sys.argv = ["report", out_path]
+        with contextlib.redirect_stdout(text):
+            runpy.run_module("repro_torch.launch.report",
+                             run_name="__main__")
+    finally:
+        sys.argv = argv
+    cells = sum(r.get("lower_s", 0) + r.get("compile_s", 0) for r in recs)
+    log(f"[17b dryrun cli] {card}: {len(recs)} cells, {cells:.1f}s of "
+        f"build and step on the host (beside phases 2-16); report: "
+        f"{text.getvalue().splitlines()[0]}")
+
+
+def phase_examples(torch, card):
+    """17c (docstring of the module) -> {path: launches}."""
+    import contextlib
+    import importlib
+    import io
+    import tempfile
+    from repro_torch import kernels
+    paths = {}
+    for name, path in EXAMPLE_PATHS.items():
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        text = io.StringIO()
+        with tempfile.TemporaryDirectory(prefix="example_") as tmp, \
+                contextlib.redirect_stdout(text):
+            mod.main(["--ckpt-dir", tmp, "--steps", str(EXAMPLE_TRAIN_STEPS)]
+                     if name == "train_sparse_lm" else [])
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in kernels.all_kernels()}
+        check_path(launches, path, f"17c {name}")
+        if not path and any(launches.values()):
+            raise SystemExit(f"17c {name}: launched {launches}, its path "
+                             f"names no kernel")
+        lines = text.getvalue().strip().splitlines()
+        log(f"[17c examples] {card}: {name} {time.perf_counter() - t0:.1f}s,"
+            f" launches { {k: n for k, n in launches.items() if n} }; "
+            f"last line: {lines[-1] if lines else ''}")
+        paths[f"example_{name}"] = launches
+        free_card(torch)
+    return paths
+
+
+def phase_tooling(torch, card, background):
+    """Phase 17; ``background``: ``start_background``'s processes."""
+    t0 = time.perf_counter()
+    paths = phase_dryrun_card(torch, card, finish_background(
+        background["meta"], "17a"))
+    log(f"[time] phase 17a {time.perf_counter() - t0:.1f}s")
+    t1 = time.perf_counter()
+    phase_dryrun_cli(card, finish_background(background["cli"], "17b"))
+    log(f"[time] phase 17b {time.perf_counter() - t1:.1f}s")
+    t1 = time.perf_counter()
+    paths.update(phase_examples(torch, card))
+    log(f"[time] phase 17c {time.perf_counter() - t1:.1f}s; phase 17 "
+        f"{time.perf_counter() - t0:.1f}s")
+    return paths
+
+
 # ------------------------------------------------------------------ main
 
 KERNEL_META = {
@@ -6251,8 +6577,27 @@ def main() -> int:
     import torch.nn.functional as F
     torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 plain products
     torch.backends.cudnn.allow_tf32 = False
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_17_")
+    background = {}
+    try:
+        return run_phases(torch, F, background, tmp)
+    finally:
+        for proc, _, _ in background.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_phases(torch, F, background, tmp) -> int:
+    """Phases 1-18 (the module docstring); phase 17's host processes start
+    after the build (its nvcc runs use the cores), into ``background``,
+    writing under ``tmp``."""
     t_start = time.perf_counter()
     card = phase_build(torch)
+    background.update(start_background(tmp))
     rows = phase_matmuls(torch, F, "llama3.2-1b", CHECK_SHAPES, LAYER_SHAPES,
                          LAYER_SHAPES, seed=0)
     ds_rows = phase_matmuls(torch, F, "deepseek-v2-lite MoE", DS_CHECK_SHAPES,
@@ -6340,6 +6685,7 @@ def main() -> int:
     by_path.update(phase_train_families(torch, card))
     by_path.update(phase_tp(torch, card, llama_tokens))
     by_path.update(phase_mesh(torch, card, train_13a))
+    by_path.update(phase_tooling(torch, card, background))
     # the packed variant serves no path of its own: its launches are those
     # of the CNN phase, where it runs on every layer the reference can pack
     kernels_line = []

@@ -18,4 +18,5 @@ def config() -> ArchConfig:
         first_dense_layers=1, capacity_factor=1.25,
         sparsity=SparsityConfig(n=2, m=4, mode="srste"),
         grad_accum=4,
+        serve_layout="tp",
     )

@@ -18,4 +18,5 @@ def config() -> ArchConfig:
         mamba_version=1, ssm_chunk=32,
         sparsity=SparsityConfig(n=2, m=4, mode="srste"),
         grad_accum=8,
+        serve_layout="tp",
     )

@@ -18,4 +18,5 @@ def config() -> ArchConfig:
         scale_embeds=True, post_norms=True, gemma_norm=True,
         sparsity=SparsityConfig(n=2, m=4, mode="srste"),
         grad_accum=8,
+        serve_layout="tp",
     )

@@ -12,4 +12,5 @@ def config() -> ArchConfig:
         vocab=128256, head_dim=64, rope_theta=500000.0, tie_embeddings=True,
         sparsity=SparsityConfig(n=2, m=4, mode="srste"),
         grad_accum=4,
+        serve_layout="tp",
     )

@@ -19,5 +19,6 @@ def config() -> ArchConfig:
         input_mode="embeds",
         sparsity=SparsityConfig(n=2, m=4, mode="srste"),
         grad_accum=8,
+        serve_layout="tp",
         remat_group=7,
     )

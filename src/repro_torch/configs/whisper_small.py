@@ -18,6 +18,7 @@ def config() -> ArchConfig:
         d_ff=3072, vocab=51865, head_dim=64, act="gelu", qkv_bias=True,
         enc_seq=1500, n_mels=80,
         sparsity=SparsityConfig(n=2, m=4, mode="srste"),
-        grad_accum=2, train_layout="fulldp",
+        grad_accum=2,
+        serve_layout="tp", train_layout="fulldp",
         remat_group=4,
     )

@@ -20,4 +20,5 @@ def config() -> ArchConfig:
         conv_kernel=4, attn_period=6, window=4096, ssm_chunk=64,
         sparsity=SparsityConfig(n=2, m=4, mode="srste"),
         grad_accum=8,
+        serve_layout="tp",
     )

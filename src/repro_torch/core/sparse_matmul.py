@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from repro_torch.core.sparsity import NMSparse, decompress_parts, nm_mask
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.launch.op_cost import counted, operand_bytes
 
 Impl = str  # 'auto' | 'ref' | 'plain' | 'xwt' | 'spmv' | 'spmv_onehot'
             # | 'ring' (tensor-parallel serving: the compressed ring)
@@ -73,7 +74,15 @@ class SparsityConfig:
 
     ``decode_ring`` routes decode-shaped compressed products through the
     sparse ring while a serving mesh of more than one rank is active (the
-    reference's field)."""
+    reference's field).
+
+    ``gather_compressed``: the FSDP gather of a compressed leaf under a
+    serving step on a training mesh (``launch.steps``) moves its values
+    and indices, the compressed stream, instead of the dense view of the
+    rank's shard.  The reference's verdict on its own experiment: neutral
+    for decode (XLA already gathers the compressed operands) and a large
+    regression for prefill (the pinned dense view replicates decompress
+    traffic across the data axis), so the default is False."""
     n: int = 2
     m: int = 4
     enabled: bool = True
@@ -84,6 +93,7 @@ class SparsityConfig:
     decode_impl: Impl = "auto"
     decode_batch_max: int = 8
     spmv_mode: str = "gather"
+    gather_compressed: bool = False
     decode_ring: bool = False
 
     def applies(self, in_dim: int, out_dim: int) -> bool:
@@ -94,10 +104,12 @@ class SparsityConfig:
 
 def matmul_f32acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ w[O, K].T with f32 accumulation, result in x.dtype (the
-    reference's ``preferred_element_type=float32`` einsum)."""
+    reference's ``preferred_element_type=float32`` einsum).  A ``meta``
+    tensor takes the card's branch, so an abstract step dispatches the
+    card's ops (``launch.op_cost``)."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return x @ w.t()
-    if x.is_cuda:                   # cuBLAS accumulates bf16 products in f32
+    if x.is_cuda or x.is_meta:      # cuBLAS accumulates bf16 products in f32
         return F.linear(x, w.to(x.dtype))
     return (x.float() @ w.float().t()).to(x.dtype)
 
@@ -108,7 +120,7 @@ def bmm_f32acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     preferred_element_type=float32)``)."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return torch.bmm(x, w.transpose(1, 2))
-    if x.is_cuda:                   # cuBLAS accumulates bf16 products in f32
+    if x.is_cuda or x.is_meta:      # cuBLAS accumulates bf16 products in f32
         return torch.bmm(x, w.to(x.dtype).transpose(1, 2))
     return torch.bmm(x.float(), w.float().transpose(1, 2)).to(x.dtype)
 
@@ -182,6 +194,14 @@ def select_impl(cfg: SparsityConfig, x: torch.Tensor) -> Impl:
     return "xwt"
 
 
+def _nm_matmul_cost(y, x, sp, *args, **kwargs):
+    """The N:M product's work: dense-equivalent 2 * rows * K * O, and x,
+    the stored operands (this rank's shard) and y once each."""
+    return (2.0 * y.numel() * x.shape[-1],
+            operand_bytes(x, sp.values, sp.indices, y))
+
+
+@counted("nm_matmul", _nm_matmul_cost)
 def nm_matmul(x: torch.Tensor, sp: NMSparse, impl: Impl = "auto",
               plan_o: Optional[int] = None, ring_impl: Impl = "auto"
               ) -> torch.Tensor:

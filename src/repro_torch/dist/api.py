@@ -37,6 +37,14 @@ collectives take.  Model code reads only the "model" axis
 (``require_mesh`` / ``local_part``); the trainer reads the batch axes
 (``batch_axis``: the axes the rules map ``act_batch`` to).  A serving
 mesh is its own "model" axis.
+
+The abstract mesh (``make_abstract_mesh``) is a ``TrainMesh`` of any
+axis sizes whose groups are the ``ABSTRACT`` marker, not process groups:
+this process is its rank 0 and its device is ``meta``.  Under it each
+collective of ``dist.collectives`` counts the bytes the real one would
+put on the wire and returns a ``meta`` result of the right shape, with
+no ``torch.distributed`` call: the dry-run's stand-in for a 256- or
+512-card mesh.
 """
 
 from __future__ import annotations
@@ -236,6 +244,35 @@ class TrainMesh:
     def reset_stats(self) -> None:
         for key in self.stats:
             self.stats[key] = 0
+
+
+class _Abstract:
+    """The process group of every axis of an abstract mesh."""
+
+    def __repr__(self) -> str:
+        return "ABSTRACT"
+
+
+ABSTRACT = _Abstract()
+
+
+def make_abstract_mesh(shape: Sequence[int],
+                       names: Optional[Sequence[str]] = None) -> TrainMesh:
+    """A ``TrainMesh`` of ``shape`` over the axes ``names`` (default
+    ("data", "model"), or ("pod", "data", "model") for three) with no
+    process group: rank 0, device ``meta``, every group ``ABSTRACT``
+    (module docstring).  Nothing is started or allocated."""
+    shape = tuple(int(n) for n in shape)
+    names = tuple(names) if names is not None else (
+        ("data", "model") if len(shape) == 2 else ("pod", "data", "model"))
+    if len(names) != len(shape) or min(shape) < 1:
+        raise ValueError(f"mesh shape {shape} over axes {names}")
+    groups = {tuple(names[i] for i in sub): ABSTRACT
+              for k in range(1, len(names) + 1)
+              for sub in itertools.combinations(range(len(names)), k)
+              if math.prod(shape[i] for i in sub) > 1}
+    return TrainMesh(names, shape, 0, torch.device("meta"), "abstract",
+                     groups)
 
 
 def free_port() -> int:

@@ -41,6 +41,9 @@ over a ``dist.api.AxisGroup`` of the training mesh:
 
 Plus ``all_reduce`` (floats sum in f32 on the wire: gloo carries no bf16
 on some builds), ``all_to_all`` and the point-to-point ``send_recv``.
+On an abstract mesh (``dist.api.make_abstract_mesh``, whose groups are
+``dist.api.ABSTRACT``) each of them counts what it would send and returns
+an uninitialised result of the right shape, with no transport call.
 Their counters are ``fsdp_gather_bytes`` / ``fsdp_scatter_bytes``,
 ``reduce_bytes``, ``a2a_bytes`` and ``p2p_bytes``: the bytes this rank
 puts on the wire under the ring algorithms, all-gather and reduce-scatter
@@ -59,6 +62,7 @@ import torch
 
 from repro_torch.core.sparsity import (index_bits, pack_indices_i32,
                                        unpack_indices)
+from repro_torch.launch.op_cost import uncounted
 
 
 def _wire(t: torch.Tensor) -> torch.Tensor:
@@ -103,6 +107,11 @@ def _count(mesh, key: str, nbytes: int) -> None:
     mesh.stats[key] = mesh.stats.get(key, 0) + int(nbytes)
 
 
+def _abstract(mesh) -> bool:
+    from repro_torch.dist.api import ABSTRACT
+    return mesh.group is ABSTRACT
+
+
 def _grad_needed(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -126,12 +135,16 @@ class _AllGather(torch.autograd.Function):
         return g[ctx.rank], None
 
 
+@uncounted
 def _all_gather(x: torch.Tensor, mesh, key: str = "gather_bytes"
                 ) -> torch.Tensor:
     import torch.distributed as dist
     if mesh.group is None:
         return x.unsqueeze(0)
     n = mesh.size
+    if _abstract(mesh):
+        _count(mesh, key, _nbytes(x) * (n - 1))
+        return x.new_empty((n,) + tuple(x.shape))
     w = _wire(_to_host(x.contiguous(), mesh))
     if mesh.backend == "nccl":
         out = torch.empty((n,) + tuple(w.shape), dtype=w.dtype,
@@ -151,6 +164,7 @@ def all_gather_last(x: torch.Tensor, mesh) -> torch.Tensor:
     return g.movedim(0, -2).reshape(*x.shape[:-1], mesh.size * x.shape[-1])
 
 
+@uncounted
 def all_reduce(x: torch.Tensor, mesh, op: str = "sum") -> torch.Tensor:
     """The elementwise sum (``op="max"``: maximum) of every rank's ``x``,
     in ``x``'s dtype; a float travels and sums as f32, an integer as
@@ -159,6 +173,10 @@ def all_reduce(x: torch.Tensor, mesh, op: str = "sum") -> torch.Tensor:
     if mesh.group is None:
         return x
     w = x.float() if x.is_floating_point() else x
+    if _abstract(mesh):
+        _count(mesh, "reduce_bytes",
+               2 * (mesh.size - 1) * _nbytes(w) // mesh.size)
+        return torch.empty_like(x)
     w = _to_host(w, mesh) if mesh.staged else w.contiguous().clone()
     ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
     dist.all_reduce(w, op=ops[op], group=mesh.group)
@@ -219,6 +237,7 @@ def gather_dim(x: torch.Tensor, mesh, dim: int,
     return torch.cat(list(_all_gather(x, mesh, key)), dim=dim)
 
 
+@uncounted
 def reduce_scatter_dim(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
     """The sum over ``mesh`` of every rank's ``x``, of which this rank
     keeps its 1/n along ``dim`` (the part ``gather_dim`` takes from it),
@@ -228,6 +247,11 @@ def reduce_scatter_dim(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
         return x
     n = mesh.size
     part = x.shape[dim] // n
+    if _abstract(mesh):
+        out = x.new_empty((*x.shape[:dim], part, *x.shape[dim + 1:]),
+                          dtype=torch.float32)
+        _count(mesh, "fsdp_scatter_bytes", _nbytes(out) * (n - 1))
+        return out
     chunks = x.float().reshape(*x.shape[:dim], n, part, *x.shape[dim + 1:]) \
         .movedim(dim, 0).contiguous()
     w = _to_host(chunks, mesh)
@@ -291,6 +315,7 @@ def fsdp_gather(shard: torch.Tensor, split, dim: Optional[int], rest
     return _FSDPGather.apply(shard, split, dim, rest)
 
 
+@uncounted
 def all_to_all(tensors: Sequence[torch.Tensor], mesh
                ) -> List[torch.Tensor]:
     """Each of ``tensors`` [n, ...]: slot d goes to rank d; returns the
@@ -302,6 +327,10 @@ def all_to_all(tensors: Sequence[torch.Tensor], mesh
     if mesh.group is None:
         return list(tensors)
     n = mesh.size
+    if _abstract(mesh):
+        _count(mesh, "a2a_bytes",
+               sum(_nbytes(t) for t in tensors) * (n - 1) // n)
+        return [torch.empty_like(t) for t in tensors]
     rows = [_wire(_to_host(t.contiguous(), mesh)).reshape(n, -1)
             for t in tensors]
     w = torch.cat(rows, dim=1)
@@ -333,11 +362,16 @@ class RingShift:
     before the step's product and waited on after it, so the transfer
     overlaps the compute (under NCCL; gloo's sends complete on the host)."""
 
+    @uncounted
     def __init__(self, tensors: Sequence[torch.Tensor], mesh,
                  key: str = "ring_bytes"):
         import torch.distributed as dist
         self.mesh = mesh
         self.kinds = [(t.dtype, t.shape) for t in tensors]
+        if _abstract(mesh):
+            self.like = [torch.empty_like(t) for t in tensors]
+            _count(mesh, key, sum(_nbytes(t) for t in tensors))
+            return
         n, r = mesh.size, mesh.rank
         dst = dist.get_global_rank(mesh.group, (r + 1) % n)
         src = dist.get_global_rank(mesh.group, (r - 1) % n)
@@ -350,7 +384,10 @@ class RingShift:
         self.reqs = dist.batch_isend_irecv(ops)
         _count(mesh, key, sum(_nbytes(s) for s in sends))
 
+    @uncounted
     def wait(self) -> List[torch.Tensor]:
+        if _abstract(self.mesh):
+            return self.like
         for req in self.reqs:
             req.wait()
         return [_to_device(_unwire(v, dt, shape), self.mesh)

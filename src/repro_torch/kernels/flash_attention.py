@@ -76,6 +76,7 @@ import torch
 from repro_torch.kernels.build import (DTYPE_CODES, CudaKernel,
                                        check_cuda_operand)
 from repro_torch.kernels.nm_spmv import _arrivals
+from repro_torch.launch.op_cost import counted, operand_bytes
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # + the plan: body, chunk, rows, threads, smem, grid x / y / z, workspace,
@@ -242,6 +243,34 @@ def _launch_planned(kernel: CudaKernel, plan: PagedPlan, device, *args
                   None if cnt is None else cnt.data_ptr())
 
 
+def _gqa_cost(out, q, k_pool, v_pool, block_table, kv_len, *args, **kw):
+    """Paged GQA's work over every position its table names (the same on
+    the kernel and the plain path; kv_len is data, not read): 2 * query
+    heads * positions * (d + dv) FLOPs, and q, the named K/V rows, the
+    table, kv_len and the output once each."""
+    b, length = block_table.shape[0], block_table.numel() * k_pool.shape[1]
+    kv_row = (k_pool[0, 0].numel() * k_pool.element_size()
+              + v_pool[0, 0].numel() * v_pool.element_size())
+    d, dv = k_pool.shape[-1], v_pool.shape[-1]
+    heads = q.numel() // d                  # every slot's query heads
+    return (2.0 * heads * (length // b) * (d + dv),
+            operand_bytes(q, block_table, kv_len, out) + length * kv_row)
+
+
+def _mla_cost(out, q_lat, q_pe, ckv_pool, kpe_pool, block_table, kv_len,
+              *args, **kw):
+    """Paged absorbed MLA's work over every position its table names:
+    2 * query heads * positions * (r + rd + r) FLOPs, and the queries, the
+    named latent rows, the table, kv_len and the output once each."""
+    b, length = block_table.shape[0], block_table.numel() * ckv_pool.shape[1]
+    r, rd = ckv_pool.shape[-1], kpe_pool.shape[-1]
+    row = (r * ckv_pool.element_size() + rd * kpe_pool.element_size())
+    heads = q_lat.numel() // r
+    return (2.0 * heads * (length // b) * (2 * r + rd),
+            operand_bytes(q_lat, q_pe, block_table, kv_len, out)
+            + length * row)
+
+
 def paged_gqa_decode_plain(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_table: torch.Tensor,
                            kv_len: torch.Tensor, *, scale: float,
@@ -268,6 +297,7 @@ def paged_gqa_decode_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return torch.einsum("bhgl,blhd->bhgd", p, vr)
 
 
+@counted("paged_gqa_decode", _gqa_cost)
 def paged_gqa_decode(q: torch.Tensor, k_pool: torch.Tensor,
                      v_pool: torch.Tensor, block_table: torch.Tensor,
                      kv_len: torch.Tensor, *, scale: Optional[float] = None,
@@ -307,6 +337,7 @@ def paged_mla_decode_plain(q_lat: torch.Tensor, q_pe: torch.Tensor,
     return torch.einsum("bhl,blr->bhr", torch.softmax(s, dim=-1), cr)
 
 
+@counted("paged_mla_decode", _mla_cost)
 def paged_mla_decode(q_lat: torch.Tensor, q_pe: torch.Tensor,
                      ckv_pool: torch.Tensor, kpe_pool: torch.Tensor,
                      block_table: torch.Tensor, kv_len: torch.Tensor, *,
@@ -357,6 +388,7 @@ def paged_gqa_verify_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return torch.einsum("bshgl,blhd->bshgd", torch.softmax(sc, dim=-1), vr)
 
 
+@counted("paged_gqa_verify", _gqa_cost)
 def paged_gqa_verify(q: torch.Tensor, k_pool: torch.Tensor,
                      v_pool: torch.Tensor, block_table: torch.Tensor,
                      kv_len: torch.Tensor, *, scale: Optional[float] = None,
@@ -437,6 +469,7 @@ def paged_mla_verify_plain(q_lat: torch.Tensor, q_pe: torch.Tensor,
     return torch.einsum("bshl,blr->bshr", torch.softmax(sc, dim=-1), cr)
 
 
+@counted("paged_mla_verify", _mla_cost)
 def paged_mla_verify(q_lat: torch.Tensor, q_pe: torch.Tensor,
                      ckv_pool: torch.Tensor, kpe_pool: torch.Tensor,
                      block_table: torch.Tensor, kv_len: torch.Tensor, *,
@@ -541,6 +574,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out / p.sum(-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
 
 
+def _flash_cost(out, q, k, v, *args, **kw):
+    """2 * BH * Sq * Sk * (D + Dv) FLOPs (every tile, as the reference's
+    ``flash_traffic``), q, k, v and the output once each."""
+    return (2.0 * q.shape[0] * q.shape[1] * k.shape[1]
+            * (q.shape[2] + v.shape[2]), operand_bytes(q, k, v, out))
+
+
+@counted("flash_attention", _flash_cost)
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool = True,
                            window: Optional[int] = None,

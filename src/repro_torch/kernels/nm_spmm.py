@@ -66,6 +66,7 @@ from repro_torch.core.sparsity import (decompress_parts, index_bits,
 from repro_torch.kernels.ref import nm_spmm_ref
 from repro_torch.kernels.build import (DTYPE_CODES, CudaKernel,
                                        check_cuda_operand)
+from repro_torch.launch.op_cost import counted, operand_bytes
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
@@ -542,6 +543,13 @@ def launch_planned(kernel: CudaKernel, x: torch.Tensor, values: torch.Tensor,
     return y
 
 
+def _nm_spmm_cost(c, values, indices, b, *args, **kwargs):
+    """Dense-equivalent 2 * R * K * C, each operand once."""
+    return (2.0 * c.numel() * b.shape[0],
+            operand_bytes(values, indices, b, c))
+
+
+@counted("nm_spmm", _nm_spmm_cost)
 def nm_spmm(values: torch.Tensor, indices: torch.Tensor, b: torch.Tensor,
             n: int, m: int) -> torch.Tensor:
     """C = A_sp @ B, the paper's orientation: A compressed [R, K/M*N] with

@@ -59,14 +59,39 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.dist.api import free_port, init_from_env, make_serve_mesh
 from repro_torch.models import convert_to_compressed, init_model
-from repro_torch.serve import (ServeEngine, SpecConfig, serve_sequential,
-                               shared_prefix_trace, synthetic_trace)
+from repro_torch.serve import (ServeEngine, SpecConfig, serve_fixed_batch,
+                               serve_sequential, shared_prefix_trace,
+                               synthetic_trace)
 from repro_torch.serve.prewarm import enable_compile_cache
+
+
+def _load(arch: str, smoke: bool, impl: str, seed: int = 0,
+          mode: str = "compressed", device="cuda"):
+    cfg = get_config(arch, smoke=smoke)
+    cfg = cfg.replace(sparsity=dataclasses.replace(
+        cfg.sparsity, mode=mode, impl=impl))
+    return cfg, init_model(cfg, seed=seed, device=device)
+
+
+def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen: int,
+          seed: int = 0, impl: str = "auto", device="cuda"):
+    """Fixed-batch serve (the reference's ``serve``): returns (tokens
+    [B, gen] numpy, t_prefill_seconds, t_decode_seconds_per_token),
+    through ``serve_fixed_batch`` on a compressed model drawn from
+    ``seed``; ``impl`` pins the N:M product ('auto': the kernels on the
+    card, the plain path on the CPU)."""
+    cfg, model = _load(arch, smoke, impl, seed, device=device)
+    reqs = synthetic_trace(cfg, n_requests=batch, prompt_len=prompt_len,
+                           gen_lens=[gen], seed=seed)
+    results, stats = serve_fixed_batch(model, cfg, reqs, device=device)
+    toks = np.stack([results[r.rid].tokens for r in reqs])
+    return toks, stats["t_prefill"], stats["t_per_decode"]
 
 
 def main(argv=None) -> None:

@@ -19,12 +19,32 @@ accumulation loop, sums the whole-leaf gradients in f32 unreduced and
 reduce-scatters once after it (the reference's semantics): the gather
 and reduce-scatter bytes no longer grow with the accumulation depth.
 The global norm is one all-reduce (``optim.sharded_global_norm``), and
-AdamW updates the shards.  The abstract state of the dry-run is not
-ported.
+AdamW updates the shards.
+
+The serving steps run under any ``TrainMesh``, real or abstract
+(``dist.api.make_abstract_mesh``), with the layouts of
+``models.shard_for_training(..., serve=True)``: the batch split over the
+rules' ``act_batch`` axes, weights split over "fsdp" (unless the rules
+leave them whole, as the dry-run does under ``serve_layout == "tp"``)
+and rows over "model".  Each step gathers the FSDP shards
+(``serve_view``), binds them, and runs the model's ``prefill`` /
+``decode_step`` on this rank's rows of the batch and caches.  A
+compressed leaf is gathered as ``SparsityConfig.gather_compressed``
+says: its values and indices (the compressed stream), or the dense view
+of the rank's shard, compressed again once whole (``core.sparsity
+.compress`` gives back the stored values), so the product takes the same
+kernel either way.
+
+The abstract state (``abstract_params``, ``abstract_caches``,
+``abstract_opt_state``, ``train_input_specs``, ``decode_input_specs``)
+is ``meta`` tensors with their logical specs: nothing is allocated, so
+the dry-run runs a 480B model's step on one host.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 from typing import Dict, Optional
 
 import torch
@@ -33,7 +53,8 @@ from torch import nn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.transformer import bind_params
 from repro_torch.models.config import ArchConfig
-from repro_torch.optim import AdamWConfig, adamw_update, warmup_cosine
+from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                               warmup_cosine)
 from repro_torch.optim.adamw import sharded_global_norm
 
 
@@ -156,17 +177,151 @@ def loss_and_grads(model: nn.Module, cfg: ArchConfig,
     return loss, grads
 
 
-def make_prefill_step(cfg: ArchConfig):
+def serve_view(model: nn.Module, cfg: ArchConfig, layouts=None
+               ) -> nn.Module:
+    """``model`` with every leaf its layout splits over the data axes
+    gathered (module docstring), for a serving forward under the active
+    mesh; ``model`` itself without layouts or a mesh."""
+    from repro_torch.core.layers import SparseLinear
+    from repro_torch.core.sparsity import compress, decompress_parts
+    from repro_torch.dist.api import current_mesh
+    from repro_torch.dist.collectives import gather_dim
+    mesh = current_mesh()
+    if layouts is None or mesh is None:
+        return model
+    sp = cfg.sparsity
+    names = {id(t): n for n, t in model.named_parameters()}
+    names.update({id(t): n for n, t in model.named_buffers()})
+    memo: Dict[int, torch.Tensor] = {}
+
+    def whole(t: torch.Tensor) -> torch.Tensor:
+        lay = layouts[names[id(t)]]
+        if not lay.split:
+            return t
+        if id(t) not in memo:
+            memo[id(t)] = gather_dim(t, mesh.axis(*lay.split), lay.dim)
+        return memo[id(t)]
+
+    def gathered_pair(lin: SparseLinear) -> Dict[str, torch.Tensor]:
+        lay = layouts[names[id(lin.w_vals)]]
+        if sp.gather_compressed or not lay.split:
+            return {"w_vals": whole(lin.w_vals), "w_idx": whole(lin.w_idx)}
+        k = lin.w_vals.shape[-1] * sp.m // sp.n
+        dense = decompress_parts(lin.w_vals, lin.w_idx, sp.n, sp.m, k)
+        full = compress(gather_dim(dense, mesh.axis(*lay.split), lay.dim),
+                        sp.n, sp.m)
+        return {"w_vals": full.values, "w_idx": full.indices}
+
+    def walk(module: nn.Module) -> nn.Module:
+        new = copy.copy(module)
+        new._modules = {k: walk(m) for k, m in module._modules.items()}
+        new._parameters = {k: None if t is None else whole(t)
+                           for k, t in module._parameters.items()}
+        packed = isinstance(module, SparseLinear) and module.compressed
+        new._buffers = {k: None if t is None else whole(t)
+                        for k, t in module._buffers.items()
+                        if not (packed and k in ("w_vals", "w_idx"))}
+        if packed:
+            new._buffers.update(gathered_pair(module))
+        return new
+
+    return walk(model)
+
+
+def make_prefill_step(cfg: ArchConfig, param_specs=None):
+    """(model, batch) -> (greedy tokens [B] int32, caches).  Under a mesh
+    ``model`` is a ``shard_for_training(..., serve=True)`` skeleton,
+    ``param_specs`` its layouts and ``batch`` this rank's rows (module
+    docstring)."""
     @torch.no_grad()
     def prefill_step(model, batch):
-        logits, caches = tfm.prefill(model, cfg, batch)
+        view = serve_view(model, cfg, param_specs)
+        logits, caches = tfm.prefill(view, cfg, batch)
         return logits.argmax(-1).to(torch.int32), caches
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig):
+def make_decode_step(cfg: ArchConfig, param_specs=None):
+    """(model, caches, tokens [B], pos) -> (greedy tokens [B] int32,
+    caches), the caches written in place; under a mesh as
+    ``make_prefill_step``, the caches this rank's (``local_caches``)."""
     @torch.no_grad()
     def decode_step(model, caches, tokens, pos):
-        logits, new_caches = tfm.decode_step(model, cfg, caches, tokens, pos)
+        view = serve_view(model, cfg, param_specs)
+        logits, new_caches = tfm.decode_step(view, cfg, caches, tokens, pos)
         return logits.argmax(-1).to(torch.int32), new_caches
     return decode_step
+
+
+# -------------------------------------------------- abstract state + specs
+
+def serve_config(cfg: ArchConfig) -> ArchConfig:
+    """The serving model's config: compressed weights (the impl stays the
+    policy's, so a step on the card takes the kernels)."""
+    return cfg.replace(sparsity=dataclasses.replace(cfg.sparsity,
+                                                    mode="compressed"))
+
+
+def abstract_params(cfg: ArchConfig, serve: bool = False):
+    """(``meta`` model, its logical specs, the config it was built with):
+    ``serve`` builds the compressed serving model."""
+    c = serve_config(cfg) if serve else cfg
+    model = tfm.init_model(c, device="meta")
+    return model, tfm.train_shard_specs(model), c
+
+
+def abstract_caches(cfg: ArchConfig, batch: int, max_len: int):
+    """(``meta`` slotted decode caches, their logical specs)."""
+    caches = tfm.init_caches(cfg, batch, max_len, device="meta")
+    return caches, tfm.cache_specs(caches)
+
+
+def abstract_opt_state(model: nn.Module, ocfg: AdamWConfig, param_specs):
+    """(AdamW state of ``model``'s parameters, on their device, its
+    specs): the moments and masters take their parameter's spec."""
+    state = adamw_init(named_params(model), ocfg)
+    specs = {part: dict(param_specs) for part in state if part != "step"}
+    specs["step"] = None
+    return state, specs
+
+
+def train_input_specs(cfg: ArchConfig, batch: int, seq: int):
+    """``meta`` tensors + logical specs of one global training batch."""
+    from repro_torch.data.pipeline import batch_specs
+    meta = torch.device("meta")
+    shapes: Dict[str, torch.Tensor] = {}
+    if cfg.input_mode == "embeds":
+        shapes["embeds"] = torch.empty((batch, seq, cfg.d_model),
+                                       dtype=torch.float32, device=meta)
+    else:
+        shapes["tokens"] = torch.empty((batch, seq), dtype=torch.int32,
+                                       device=meta)
+    shapes["labels"] = torch.empty((batch, seq), dtype=torch.int32,
+                                   device=meta)
+    if cfg.family == "audio":
+        shapes["enc_embeds"] = torch.empty((batch, cfg.enc_seq, cfg.d_model),
+                                           dtype=torch.float32, device=meta)
+    return shapes, batch_specs(cfg, batch, seq)
+
+
+def decode_input_specs(cfg: ArchConfig, batch: int):
+    meta = torch.device("meta")
+    return ({"tokens": torch.empty((batch,), dtype=torch.int32, device=meta),
+             "pos": torch.empty((), dtype=torch.int32, device=meta)},
+            {"tokens": ("act_batch",), "pos": None})
+
+
+def local_caches(caches, mesh, rules):
+    """This rank's part of whole decode caches under ``rules``: the batch
+    over ``act_batch``, the heads / channels over "model".  The sequence
+    stays whole (``act_seq_sp`` is dropped): the port's attention reads
+    whole sequences of its heads, where the reference's partitioner may
+    split the cache's sequence over "model" (ROADMAP C)."""
+    from repro_torch.dist.api import make_shardings
+    sh = make_shardings(tfm.cache_specs(caches), mesh,
+                        dict(rules, act_seq_sp=None), caches)
+
+    def cut(c, s):
+        return {k: cut(v, s[k]) if isinstance(v, dict) else s[k](v)
+                for k, v in c.items()}
+    return cut(caches, sh)

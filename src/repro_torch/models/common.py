@@ -137,7 +137,7 @@ def lm_head_apply(p: Embedding, x: torch.Tensor,
         x2 = reduce_grad(x2, require_mesh("a vocab-split head"))
     if x2.dtype == torch.float32 and emb.dtype == torch.float32:
         logits = x2 @ emb.t()
-    elif x2.is_cuda:
+    elif x2.is_cuda or x2.is_meta:      # meta: the card's ops
         logits = _HeadMM.apply(x2, emb)
     else:
         logits = x2.float() @ emb.float().t()

@@ -87,8 +87,13 @@ class ArchConfig:
     remat: bool = True
     remat_group: int = 0
     grad_accum: int = 1                      # microbatches per step
-    # the training mesh's layout: '2d' (weights tp x fsdp) | 'fulldp'
-    # (weights replicated, the batch over the whole mesh: sub-1B models)
+    # parallel layout policies (the reference's, read by the dry-run):
+    #   serve_layout: '2d' (weights tp x fsdp) | 'tp' (replicate over data:
+    #     zero weight collectives per token; for models whose compressed
+    #     weights fit per tp shard, i.e. everything below ~20B)
+    #   train_layout: '2d' | 'fulldp' (replicate weights, batch over the
+    #     whole mesh: the right shape for sub-1B models like whisper)
+    serve_layout: str = "2d"
     train_layout: str = "2d"
 
     def hd(self) -> int:

@@ -1194,12 +1194,15 @@ def _model_only(spec: tuple) -> tuple:
         e if isinstance(e, tuple) else (e,)) else None for e in spec)
 
 
-def shard_for_training(p: LM, mesh, rules=None):
+def shard_for_training(p: LM, mesh, rules=None, serve: bool = False):
     """(skeleton, {parameter or buffer name: LeafLayout}) of ``p`` on a
     training mesh under ``rules`` (default: the active ones).  The
     skeleton is a copy of ``p`` whose parameters are this rank's shards over every axis
     (the leaves the trainer updates: the memory the mesh saves) and whose
-    buffers are cut over "model" only; a linear whose rows "model" splits
+    buffers are cut over "model" only (with ``serve``, over every axis as
+    the parameters: a compressed serving model's ``w_vals`` / ``w_idx``
+    are its weights, ``launch.steps``' serving steps gather them); a
+    linear whose rows "model" splits
     records their whole count (``tp_rows``), as ``shard_model`` does.  It
     is never called as it is: ``bind_params`` puts the gathered leaves in
     place for a forward.  ``p`` is left whole."""
@@ -1233,6 +1236,9 @@ def shard_for_training(p: LM, mesh, rules=None):
                     layouts[names[id(t)]] = _layout(pspec, mesh, batch)
                     local = nn.Parameter(Sharding(pspec, mesh)(t.detach()),
                                          requires_grad=False)
+                elif serve:
+                    layouts[names[id(t)]] = _layout(pspec, mesh, batch)
+                    local = Sharding(pspec, mesh)(t)
                 else:
                     layouts[names[id(t)]] = _layout(_model_only(pspec),
                                                     mesh, batch)
